@@ -1,0 +1,246 @@
+"""Flagship decoder-only Transformer LM.
+
+Counterpart of ``horovod_tpu/models/transformer.py`` for the data-parallel
+path: the same config, parameter tree and numerics. Parameters are fp32
+and cast to ``cfg.dtype`` at each use, so gradients land in fp32 on fp32
+masters. Weights keep the JAX ``x @ W`` layout (``wq`` is ``[d, d]``,
+``wi`` is ``[d, f]``, ``embed`` is ``[vocab, d]`` and tied to the output
+projection). GELU is the tanh approximation, as ``jax.nn.gelu``'s
+default is; layernorm has no bias, eps 1e-5, and runs in fp32.
+
+Tensor, sequence and expert parallelism (``tp_axis``/``sp_axis``/
+``ep_axis``/``num_experts``) and ``remat_policy="dots"`` are later
+slices of the port and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.flash_attention import flash_attention
+from ..parallel.ring_attention import full_attention
+from ..topology import resolve_device
+
+# Attended length from which ``use_flash=None`` picks the flash kernels.
+FLASH_MIN_SEQ = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab: int = 32000
+    d_model: int = 512
+    # None derives the largest head count dividing d_model with
+    # head_dim >= 128, exactly as the JAX config does.
+    n_heads: Optional[int] = None
+    n_layers: int = 4
+    d_ff: int = 2048
+    max_seq: int = 2048
+    dtype: Any = torch.bfloat16
+    tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
+    ep_axis: Optional[str] = None
+    sp_impl: str = "ring"
+    # None: flash kernels on CUDA from FLASH_MIN_SEQ attended tokens in
+    # bf16, full attention otherwise. True forces flash_attention (its
+    # plain version on the CPU).
+    use_flash: Optional[bool] = None
+    flash_block: Optional[int] = None
+    num_experts: int = 0
+    capacity_factor: float = 2.0
+    remat: bool = True
+    remat_policy: str = "full"
+    logits_bf16: bool = False
+    loss_chunk: int = 0
+
+    def __post_init__(self):
+        if self.n_heads is None:
+            n = max(1, self.d_model // 128)
+            while self.d_model % n:
+                n -= 1
+            object.__setattr__(self, "n_heads", n)
+        if self.num_experts and not self.ep_axis:
+            raise ValueError(
+                "num_experts > 0 requires ep_axis (the expert-parallel mesh "
+                "axis the MoE all_to_all routes over)")
+        if self.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(
+                f"remat_policy must be 'full' or 'dots', got "
+                f"{self.remat_policy!r}")
+        if self.loss_chunk < 0:
+            raise ValueError(
+                f"loss_chunk must be >= 0, got {self.loss_chunk}")
+        if self.d_model % self.n_heads:
+            raise ValueError(f"d_model ({self.d_model}) must be divisible "
+                             f"by n_heads ({self.n_heads})")
+        for field in ("tp_axis", "sp_axis", "ep_axis"):
+            if getattr(self, field):
+                raise NotImplementedError(
+                    f"{field} is not ported yet: this slice is data "
+                    "parallel only")
+        if self.num_experts:
+            raise NotImplementedError("MoE layers are not ported yet")
+        if self.flash_block is not None:
+            raise NotImplementedError(
+                "flash_block is not ported: the CUDA kernels use fixed "
+                "64x64 tiles")
+        if self.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' is not ported yet; use 'full'")
+
+
+def init_params(cfg: TransformerConfig,
+                generator: Optional[torch.Generator] = None) -> Dict:
+    """The parameter tree of the JAX ``init_params`` (same names, shapes
+    and scales), fp32 on the CPU, drawn from ``generator``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    d, f = cfg.d_model, cfg.d_ff
+    scale = d ** -0.5
+
+    def dense(shape, s):
+        return torch.randn(shape, generator=generator,
+                           dtype=torch.float32) * s
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "ln1": torch.ones(d), "ln2": torch.ones(d),
+            "wq": dense((d, d), scale), "wk": dense((d, d), scale),
+            "wv": dense((d, d), scale), "wo": dense((d, d), scale),
+            "wi": dense((d, f), scale), "wo_mlp": dense((f, d), f ** -0.5),
+        })
+    return {"embed": dense((cfg.vocab, d), 1.0),
+            "pos": dense((cfg.max_seq, d), 0.02),
+            "ln_f": torch.ones(d), "layers": layers}
+
+
+def _layernorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + 1e-5) * g).to(x.dtype)
+
+
+def _use_flash(cfg: TransformerConfig, x: torch.Tensor, s: int) -> bool:
+    if cfg.use_flash is not None:
+        return cfg.use_flash
+    return (x.is_cuda and s >= FLASH_MIN_SEQ
+            and cfg.dtype == torch.bfloat16)
+
+
+def _block(p: Dict[str, torch.Tensor], x: torch.Tensor,
+           cfg: TransformerConfig) -> torch.Tensor:
+    """One pre-norm decoder block; x is [B, S, d] in cfg.dtype."""
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    dt = cfg.dtype
+    y = _layernorm(x, p["ln1"])
+    b, s, _ = y.shape
+    q = (y @ p["wq"].to(dt)).reshape(b, s, h, hd)
+    k = (y @ p["wk"].to(dt)).reshape(b, s, h, hd)
+    v = (y @ p["wv"].to(dt)).reshape(b, s, h, hd)
+    if _use_flash(cfg, x, s):
+        attn = flash_attention(q, k, v, True)
+    else:
+        attn = full_attention(q, k, v, causal=True)
+    x = x + attn.reshape(b, s, d) @ p["wo"].to(dt)
+    y = _layernorm(x, p["ln2"])
+    hmid = F.gelu(y @ p["wi"].to(dt), approximate="tanh")
+    return x + hmid @ p["wo_mlp"].to(dt)
+
+
+class _Layer(nn.Module):
+    def __init__(self, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in params.items():
+            self.register_parameter(name, nn.Parameter(t.clone()))
+
+
+class Transformer(nn.Module):
+    """The flagship LM as an ``nn.Module``. It runs on CUDA unless
+    ``device="cpu"`` is passed; ``params`` (a tree as from
+    :func:`init_params`) defaults to one drawn from ``generator``."""
+
+    def __init__(self, cfg: TransformerConfig, *,
+                 params: Optional[Dict] = None,
+                 generator: Optional[torch.Generator] = None,
+                 device: Union[str, torch.device, None] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        if params is None:
+            params = init_params(cfg, generator)
+        self.embed = nn.Parameter(params["embed"].clone())
+        self.pos = nn.Parameter(params["pos"].clone())
+        self.ln_f = nn.Parameter(params["ln_f"].clone())
+        self.layers = nn.ModuleList(_Layer(lp) for lp in params["layers"])
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def apply_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] int -> hidden [B, S, d] after the final norm."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        s = tokens.shape[1]
+        x = self.embed.to(dt)[tokens] + self.pos[:s].to(dt)
+        for layer in self.layers:
+            p = dict(layer.named_parameters())
+            if cfg.remat:
+                x = checkpoint(_block, p, x, cfg, use_reentrant=False)
+            else:
+                x = _block(p, x, cfg)
+        return _layernorm(x, self.ln_f)
+
+    def _project_logits(self, h: torch.Tensor) -> torch.Tensor:
+        if self.cfg.logits_bf16:
+            return (h @ self.embed.to(self.cfg.dtype).T).float()
+        return h.float() @ self.embed.T
+
+    def apply(self, tokens: torch.Tensor) -> torch.Tensor:  # noqa: A003
+        """Logits [B, S, vocab] in fp32. (Shadows ``nn.Module.apply(fn)``
+        to keep the JAX package's name for the forward pass.)"""
+        return self._project_logits(self.apply_hidden(tokens))
+
+    forward = apply
+
+    def loss_fn(self, tokens: torch.Tensor,
+                targets: torch.Tensor) -> torch.Tensor:
+        """Next-token cross-entropy, mean over this rank's tokens. With
+        ``cfg.loss_chunk`` the projection and log-softmax run over
+        sequence chunks under checkpointing, so the fp32 [B, S, V]
+        logits never exist at once."""
+        cfg = self.cfg
+        if not cfg.loss_chunk:
+            logits = self.apply(tokens)
+            return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   targets.reshape(-1))
+        h = self.apply_hidden(tokens)
+        b, s, _ = h.shape
+        chunk = min(cfg.loss_chunk, s)
+        if s % chunk:
+            raise ValueError(
+                f"loss_chunk ({chunk}) must divide the local sequence ({s})")
+
+        def chunk_nll(hs, tg):
+            logits = self._project_logits(hs)
+            return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   tg.reshape(-1), reduction="sum")
+
+        total = sum(
+            checkpoint(chunk_nll, h[:, c * chunk:(c + 1) * chunk],
+                       targets[:, c * chunk:(c + 1) * chunk],
+                       use_reentrant=False)
+            for c in range(s // chunk))
+        return total / (b * s)

@@ -1,0 +1,252 @@
+"""Flash attention for the port: three hand-written CUDA kernels for
+Hopper (``csrc/flash_attention.cu``) behind a ``torch.autograd.Function``,
+and their plain PyTorch versions.
+
+Counterpart of ``horovod_tpu/ops/flash_attention.py``. The public
+function takes and returns ``[batch, seq, heads, head_dim]``; inside,
+the operands are ``[batch*heads, seq, head_dim]``. The numerics follow
+the JAX kernels: q is scaled in its own dtype before ``q k^T`` (the scale
+itself rounded to that dtype, as JAX's weak-typed scalar is), masked
+scores are ``-1e30``, P and dS are cast to the operand dtype before their
+products, every product accumulates in fp32, ``lse = m + log(max(l,
+1e-30))`` and dQ is multiplied by the fp32 scale once at the end.
+
+Dispatch is by device: CPU tensors take the plain version, CUDA tensors
+launch the kernel or raise. Each kernel wrapper counts its launches in
+``flash_fwd_launches`` / ``flash_dkv_launches`` / ``flash_dq_launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+flash_fwd_launches = 0
+flash_dkv_launches = 0
+flash_dq_launches = 0
+
+_HEAD_DIMS = (64, 128)
+
+
+def launch_counts() -> dict:
+    return {"flash_fwd": flash_fwd_launches, "flash_dkv": flash_dkv_launches,
+            "flash_dq": flash_dq_launches}
+
+
+def reset_launch_counts() -> None:
+    global flash_fwd_launches, flash_dkv_launches, flash_dq_launches
+    flash_fwd_launches = flash_dkv_launches = flash_dq_launches = 0
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions: the full [S, S] score matrix, same casts/constants
+# --------------------------------------------------------------------------
+
+def _scaled_q(qb: torch.Tensor, scale: float) -> torch.Tensor:
+    """q * scale in q's dtype, the scale rounded to that dtype first."""
+    return qb * torch.tensor(scale, dtype=qb.dtype, device=qb.device)
+
+
+def _valid(sq: int, sk: int, causal: bool, device) -> torch.Tensor:
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    return ok & (qpos >= kpos) if causal else ok
+
+
+def flash_fwd_reference(qb, kb, vb, scale: float, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [BH,S,D] in q's dtype, lse [BH,S,1] fp32)."""
+    sq, sk = qb.shape[1], kb.shape[1]
+    s = _scaled_q(qb, scale).float() @ kb.float().transpose(1, 2)
+    valid = _valid(sq, sk, causal, qb.device)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = (p.to(vb.dtype).float() @ vb.float()) / l
+    return o.to(qb.dtype), m + torch.log(l)
+
+
+def flash_bwd_reference(qb, kb, vb, do, lse, delta, scale: float,
+                        causal: bool):
+    """(dq, dk, dv), each [BH,S,D] in its operand's dtype."""
+    sq, sk = qb.shape[1], kb.shape[1]
+    qs = _scaled_q(qb, scale)
+    s = qs.float() @ kb.float().transpose(1, 2)
+    valid = _valid(sq, sk, causal, qb.device)
+    p = torch.where(valid, torch.exp(s - lse), 0.0)
+    dv = p.to(do.dtype).float().transpose(1, 2) @ do.float()
+    dp = do.float() @ vb.float().transpose(1, 2)
+    ds = torch.where(valid, p * (dp - delta), 0.0)
+    dk = ds.to(qb.dtype).float().transpose(1, 2) @ qs.float()
+    dq = (ds.to(kb.dtype).float() @ kb.float()) * scale
+    return dq.to(qb.dtype), dk.to(kb.dtype), dv.to(vb.dtype)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers (one per launch site)
+# --------------------------------------------------------------------------
+
+def _check(name, *tensors):
+    d = tensors[0].shape[-1]
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every operand must be on {dev} "
+                             f"(CUDA), got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bfloat16, got "
+                            f"{t.dtype}")
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous "
+                             f"[BH, S, D], got shape {tuple(t.shape)}")
+        if t.shape[-1] != d:
+            raise ValueError(f"{name}: head dims differ")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim must be one of {_HEAD_DIMS}, "
+                         f"got {d}")
+
+
+def _check_stats(name, bh, sq, *stats):
+    for t in stats:
+        if (t.dtype != torch.float32 or tuple(t.shape) != (bh, sq, 1)
+                or not t.is_contiguous() or t.device.type != "cuda"):
+            raise ValueError(f"{name}: lse/delta must be contiguous fp32 "
+                             f"[{bh}, {sq}, 1] on CUDA")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _qscale(scale: float) -> float:
+    return float(torch.tensor(scale, dtype=torch.bfloat16))
+
+
+def flash_fwd_cuda(qb, kb, vb, scale: float, causal: bool):
+    """K1: (o, lse) from the forward kernel."""
+    global flash_fwd_launches
+    _check("flash_fwd", qb, kb, vb)
+    from ._build import library
+    bh, sq, d = qb.shape
+    sk = kb.shape[1]
+    o = torch.empty_like(qb)
+    lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=qb.device)
+    err = library().hvd_flash_fwd(
+        _ptr(qb), _ptr(kb), _ptr(vb), _ptr(o), _ptr(lse), bh, sq, sk, d,
+        _qscale(scale), int(causal), _stream(qb))
+    _raise_on(err, "flash_fwd")
+    flash_fwd_launches += 1
+    return o, lse
+
+
+def flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool):
+    """K2: (dk, dv) from the key-block backward kernel."""
+    global flash_dkv_launches
+    _check("flash_dkv", qb, kb, vb, do)
+    bh, sq, d = qb.shape
+    _check_stats("flash_dkv", bh, sq, lse, delta)
+    from ._build import library
+    sk = kb.shape[1]
+    dk = torch.empty_like(kb)
+    dv = torch.empty_like(vb)
+    err = library().hvd_flash_dkv(
+        _ptr(qb), _ptr(kb), _ptr(vb), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(dk), _ptr(dv), bh, sq, sk, d, _qscale(scale), int(causal),
+        _stream(qb))
+    _raise_on(err, "flash_dkv")
+    flash_dkv_launches += 1
+    return dk, dv
+
+
+def flash_dq_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool):
+    """K3: dq from the query-block backward kernel."""
+    global flash_dq_launches
+    _check("flash_dq", qb, kb, vb, do)
+    bh, sq, d = qb.shape
+    _check_stats("flash_dq", bh, sq, lse, delta)
+    from ._build import library
+    sk = kb.shape[1]
+    dq = torch.empty_like(qb)
+    err = library().hvd_flash_dq(
+        _ptr(qb), _ptr(kb), _ptr(vb), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(dq), bh, sq, sk, d, _qscale(scale), float(scale), int(causal),
+        _stream(qb))
+    _raise_on(err, "flash_dq")
+    flash_dq_launches += 1
+    return dq
+
+
+def _flash_fwd(qb, kb, vb, scale, causal):
+    if qb.device.type == "cpu":
+        return flash_fwd_reference(qb, kb, vb, scale, causal)
+    return flash_fwd_cuda(qb, kb, vb, scale, causal)
+
+
+def _flash_bwd(qb, kb, vb, do, lse, delta, scale, causal):
+    if qb.device.type == "cpu":
+        return flash_bwd_reference(qb, kb, vb, do, lse, delta, scale,
+                                   causal)
+    dk, dv = flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale, causal)
+    dq = flash_dq_cuda(qb, kb, vb, do, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+# --------------------------------------------------------------------------
+# Autograd
+# --------------------------------------------------------------------------
+
+def _to_bh(x: torch.Tensor) -> torch.Tensor:
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def _from_bh(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    bh, s, d = x.shape
+    return x.reshape(b, h, s, d).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        b, _, h, _ = q.shape
+        qb, kb, vb = _to_bh(q), _to_bh(k), _to_bh(v)
+        ob, lse = _flash_fwd(qb, kb, vb, scale, causal)
+        ctx.save_for_backward(qb, kb, vb, ob, lse)
+        ctx.causal, ctx.scale, ctx.bh = causal, scale, (b, h)
+        return _from_bh(ob, b, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        qb, kb, vb, ob, lse = ctx.saved_tensors
+        b, h = ctx.bh
+        gb = _to_bh(g.to(qb.dtype))
+        # delta = rowsum(dO * O), the softmax-jacobian diagonal term.
+        delta = (gb.float() * ob.float()).sum(-1, keepdim=True)
+        dq, dk, dv = _flash_bwd(qb, kb, vb, gb, lse, delta, ctx.scale,
+                                ctx.causal)
+        return (_from_bh(dq, b, h), _from_bh(dk, b, h), _from_bh(dv, b, h),
+                None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention over ``[batch, seq, heads, head_dim]`` inputs."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, float(scale))

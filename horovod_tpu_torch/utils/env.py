@@ -1,0 +1,39 @@
+"""Environment-variable configuration of the port.
+
+The same ``HOROVOD_*`` names as the JAX package, with ``HOROVOD_TPU_*``
+overrides taking precedence, and the same defaults. Only the variables
+this package reads are here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+# Horovod's fusion threshold default (64 MiB).
+DEFAULT_FUSION_THRESHOLD_MB = 64
+
+
+def _get(name: str) -> Optional[str]:
+    v = os.environ.get("HOROVOD_TPU_" + name)
+    if v is None:
+        v = os.environ.get("HOROVOD_" + name)
+    return v
+
+
+def fusion_threshold_bytes() -> int:
+    """Byte cap of one fused gradient buffer (HOROVOD_FUSION_THRESHOLD)."""
+    v = _get("FUSION_THRESHOLD")
+    if v is not None:
+        return int(v)
+    return DEFAULT_FUSION_THRESHOLD_MB * 1024 * 1024
+
+
+def log_level() -> str:
+    return (_get("LOG_LEVEL") or "warning").lower()
+
+
+def torch_build_dir() -> Optional[str]:
+    """Directory the CUDA kernels are built into
+    (HOROVOD_TPU_TORCH_BUILD_DIR); None keeps ``ops/_kernels``."""
+    return _get("TORCH_BUILD_DIR") or None

@@ -41,6 +41,8 @@ import horovod_tpu as hvd  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running subprocess integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
 
 
 @pytest.fixture(scope="session", autouse=True)

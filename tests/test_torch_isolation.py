@@ -1,0 +1,85 @@
+"""The port stands alone: no module of ``horovod_tpu_torch`` and not
+``chip_smoke.py`` imports ``jax`` or anything of ``horovod_tpu``, and its
+entry points refuse to fall back to the CPU when CUDA is absent."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.parallel.train import build_train_step
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scan_sees_the_package():
+    names = {p.name for p in FILES}
+    assert {"flash_attention.py", "transformer.py", "train.py",
+            "chip_smoke.py"} <= names
+
+
+def test_scan_catches_forbidden_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom horovod_tpu.ops import x\n"
+                 "from horovod_tpu_torch import y\n")
+    assert [m for m in _imports(f) if _forbidden(m)] == [
+        "jax.numpy", "horovod_tpu.ops"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hvd.shutdown()
+    yield
+    hvd.shutdown()
+
+
+def test_init_without_cuda_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hvd.init()
+    assert not hvd.is_initialized()
+
+
+def test_model_and_step_without_cuda_raise(no_cuda):
+    cfg = tfm.TransformerConfig(vocab=16, d_model=16, n_layers=1, d_ff=16,
+                                max_seq=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfm.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_train_step(cfg, lambda p: torch.optim.SGD(p, lr=0.1))
+
+
+def test_rank_before_init_raises(no_cuda):
+    with pytest.raises(hvd.NotInitializedError):
+        hvd.rank()
