@@ -7,28 +7,47 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: the card's name and ``nvidia-smi`` power limit;
-2. build: nvcc builds the flash-attention kernels from
-   ``horovod_tpu_torch/ops/csrc`` (first use);
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the flagship shape (B=8, H=6, S=2048, D=128, causal), a ragged causal
-   shape (S=1000) and a non-causal D=64 shape, with timings of the
-   kernel, the plain version and, as a yardstick only, PyTorch's
+2. build: nvcc builds every kernel in ``horovod_tpu_torch/ops/csrc``
+   (first use; one nvcc per source, all started together);
+3. flash kernels K1-K3 against their plain PyTorch versions on the card
+   at the flagship shape (B=8, H=6, S=2048, D=128, causal), a ragged
+   causal shape (S=1000) and a non-causal D=64 shape, with timings of
+   the kernel, the plain version and, as a yardstick only, PyTorch's
    ``scaled_dot_product_attention``;
-4. parity: a 2-layer model with the flash kernels against the same model
-   on plain attention, loss and gradients;
-5. main path: ``init`` (NCCL, world 1), the 111M flagship LM,
+4. parity: a 2-layer LM with the flash kernels against the same model on
+   plain attention, loss and gradients;
+5. LM main path: ``init`` (NCCL, world 1), the 111M flagship LM,
    ``broadcast_parameters``, ``DistributedOptimizer(AdamW)`` and 5 train
    steps of 8 x 2048 tokens; the loss must be finite and fall, and each
-   kernel must launch exactly 12 times per step.
+   flash kernel must launch exactly 12 times per step;
+6. batch-norm kernels K4-K7 against their plain versions at (M, C) =
+   (802816, 256), (3211264, 64) and (12544, 2048), each in the three
+   variants ResNet-50 uses (ReLU, ReLU + residual, neither); repeated
+   reductions must agree bit for bit. Each kernel is timed at (802816,
+   256) beside its plain version and, as a yardstick only, PyTorch's
+   unfused BN primitive, and at every BN layer of a ResNet-50 step;
+7. parity: a small bf16 ResNet on the BN kernels against the same
+   weights on the plain fused op: loss and running stats; gradients
+   against the fp32 model, no farther from it than the plain bf16
+   model's;
+8. ResNet main path: ``ResNet50(bn_impl="pallas")``,
+   ``broadcast_parameters``, ``DistributedOptimizer(SGD(0.01,
+   momentum=0.9))`` and 5 train steps of 256 x 224 x 224 x 3 images; the
+   loss must be finite and fall, and each BN kernel must launch exactly
+   53 times per step. Then 5 steps of the same model on
+   ``bn_impl="flax"`` (the JAX default, plain PyTorch) for comparison.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. ``--profile PATH`` also writes the
-device time of each kernel over 2 more train steps to PATH.
+The card's ``nvidia-smi`` name and power limit are printed on a line of
+their own after phase 1. The line before the last is ``{"kernels":
+[...]}``; the last is ``{"ok": true, "device": {...}}``. ``--profile
+PATH`` also writes the device time of each kernel over 2 more steps of
+each main path to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -39,16 +58,29 @@ import time
 import torch
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32, outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
-KERNEL_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
+BN_SOURCE = "horovod_tpu_torch/ops/csrc/fused_bn.cu"
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:123",
     "flash_dkv": "horovod_tpu/ops/flash_attention.py:178",
     "flash_dq": "horovod_tpu/ops/flash_attention.py:246",
+    "bn_stats": "horovod_tpu/ops/fused_bn.py:99",
+    "bn_norm": "horovod_tpu/ops/fused_bn.py:110",
+    "bn_bwd_reduce": "horovod_tpu/ops/fused_bn.py:119",
+    "bn_bwd_dx": "horovod_tpu/ops/fused_bn.py:138",
 }
+BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
 STEPS = 5
 REL_TOL = 2e-2    # max |kernel - plain| / max |plain| on O, dQ, dK, dV
 LSE_TOL = 1e-3    # max |kernel - plain| on lse
+BN_REL_TOL = 1e-2  # max |kernel - plain| / max |plain| on y, dx, dr
+BN_SUM_TOL = 1e-4  # |kernel - plain| / sum |terms| on s1, s2, mean, var
+BN_TIMED = (802816, 256, True, True)    # (M, C, relu, residual)
+BN_CHECKED = [(802816, 256), (3211264, 64), (12544, 2048)]
+BN_VARIANTS = [(True, True), (True, False), (False, False)]
+RESNET_BATCH, RESNET_IMAGE = 256, 224
 
 
 def log(*a):
@@ -77,8 +109,8 @@ def pairs(sq, sk, causal):
     return sum(min(q + 1, sk) for q in range(sq))
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -91,6 +123,12 @@ def relerr(got, want):
 
 def abserr(got, want):
     return float((got.float() - want.float()).abs().max())
+
+
+def sumerr(got, want, mag):
+    """max over channels of |got - want| / sum |terms|."""
+    return float(((got.float() - want.float()).abs()
+                  / mag.clamp_min(1e-30)).max())
 
 
 def check_kernels(fa, b, h, s, d, causal, timed):
@@ -210,15 +248,353 @@ def parity(hvd_tfm, fa):
                              f"(loss {loss_err}, grads {grad_err})")
 
 
-def profile_steps(step, model, opt, tokens, targets, path, n=2):
-    """Device time by kernel over ``n`` train steps (torch.profiler)."""
+# ------------------------------------------------------------ batch norm
+
+def bn_inputs(m, c, seed):
+    """x, da, r [M, C] bf16 ~ N(0, 1); mean/rstd of x; scale/shift from a
+    gamma in [0.5, 1.5] and a beta in [-0.1, 0.1]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, da, r = (torch.randn(m, c, generator=gen, device="cuda").bfloat16()
+                for _ in range(3))
+    gamma = 0.5 + torch.rand(c, generator=gen, device="cuda")
+    beta = 0.2 * torch.rand(c, generator=gen, device="cuda") - 0.1
+    mean = x.float().mean(0)
+    var = x.float().var(0, unbiased=False)
+    rstd = torch.rsqrt(var + 1e-5)
+    scale = gamma * rstd
+    shift = beta - mean * scale
+    return dict(x=x, da=da, r=r, gamma=gamma, beta=beta, mean=mean, var=var,
+                rstd=rstd, scale=scale, shift=shift)
+
+
+def bn_work(name, m, c, relu, residual):
+    """(fp32 operations, bytes) of one call: each input read once, each
+    output written once."""
+    mat, vec = m * c * 2, c * 4
+    res = int(residual)
+    masked = int(relu and residual)     # r enters the backward mask only
+    if name == "bn_stats":
+        return 3 * m * c, mat + 2 * vec
+    if name == "bn_norm":
+        return (2 + res + relu) * m * c, (2 + res) * mat + 2 * vec
+    mask_ops = (3 + masked) * relu
+    if name == "bn_bwd_reduce":
+        return (5 + mask_ops) * m * c, (2 + masked) * mat + 6 * vec
+    return (6 + mask_ops) * m * c, (3 + masked + res) * mat + 8 * vec
+
+
+def bn_calls(fbn, t, relu, residual):
+    """The four kernel calls and their plain versions on ``t``."""
+    r = t["r"] if residual else None
+    x, da = t["x"], t["da"]
+    vecs = (t["mean"], t["rstd"], t["scale"], t["shift"])
+    m = x.shape[0]
+    s1, s2 = fbn.bwd_reduce_reference(x, da, r, *vecs, relu)
+    return {
+        "bn_stats": (lambda: fbn.stats_cuda(x),
+                     lambda: fbn.stats_reference(x)),
+        "bn_norm": (lambda: fbn.norm_cuda(x, r, t["scale"], t["shift"], relu),
+                    lambda: fbn.norm_reference(x, r, t["scale"], t["shift"],
+                                               relu)),
+        "bn_bwd_reduce": (
+            lambda: fbn.bwd_reduce_cuda(x, da, r, *vecs, relu),
+            lambda: fbn.bwd_reduce_reference(x, da, r, *vecs, relu)),
+        "bn_bwd_dx": (
+            lambda: fbn.bwd_dx_cuda(x, da, r, *vecs, s1, s2, 1.0 / m, relu),
+            lambda: fbn.bwd_dx_reference(x, da, r, *vecs, s1, s2, 1.0 / m,
+                                         relu)),
+    }
+
+
+def check_bn(fbn, m, c, relu, residual):
+    """Hold K4-K7 against their plain versions at one shape and variant;
+    returns the max abs error of each."""
+    t = bn_inputs(m, c, seed=m + c + 2 * relu + residual)
+    calls = bn_calls(fbn, t, relu, residual)
+    got = {name: kern() for name, (kern, _) in calls.items()}
+    again = {name: calls[name][0]() for name in ("bn_stats",
+                                                 "bn_bwd_reduce")}
+    want = {name: plain() for name, (_, plain) in calls.items()}
+    torch.cuda.synchronize()
+
+    xf = t["x"].float()
+    dy = fbn._masked_grad(xf, t["da"], t["r"] if residual else None,
+                          t["scale"], t["shift"], relu)
+    xhat = (xf - t["mean"]) * t["rstd"]
+    mag_x, mag_x2 = xf.abs().sum(0), (xf * xf).sum(0)
+    (s1, s2), (p1, p2) = got["bn_stats"], want["bn_stats"]
+    mean, pmean = s1 / m, p1 / m
+    var, pvar = s2 / m - mean * mean, p2 / m - pmean * pmean
+    errs = {
+        "bn_stats": {"s1": sumerr(s1, p1, mag_x), "s2": sumerr(s2, p2, mag_x2),
+                     "mean": sumerr(mean, pmean, mag_x / m),
+                     "var": sumerr(var, pvar, mag_x2 / m + pmean * pmean)},
+        "bn_norm": {"y": relerr(got["bn_norm"], want["bn_norm"])},
+        "bn_bwd_reduce": {
+            "s1": sumerr(got["bn_bwd_reduce"][0], want["bn_bwd_reduce"][0],
+                         dy.abs().sum(0)),
+            "s2": sumerr(got["bn_bwd_reduce"][1], want["bn_bwd_reduce"][1],
+                         (dy * xhat).abs().sum(0))},
+        "bn_bwd_dx": {"dx": relerr(got["bn_bwd_dx"][0],
+                                   want["bn_bwd_dx"][0])},
+    }
+    if residual:
+        errs["bn_bwd_dx"]["dr"] = relerr(got["bn_bwd_dx"][1],
+                                         want["bn_bwd_dx"][1])
+    log(f"  M={m} C={c} relu={relu} residual={residual}: {json.dumps(errs)}")
+    for name, e in errs.items():
+        for out, val in e.items():
+            tol = BN_SUM_TOL if name in ("bn_stats", "bn_bwd_reduce") \
+                else BN_REL_TOL
+            if not (val <= tol):
+                raise AssertionError(
+                    f"{name}.{out} disagrees with its plain version at "
+                    f"M={m} C={c} relu={relu} residual={residual}: "
+                    f"{val} > {tol}")
+    for name, repeat in again.items():
+        if not all(torch.equal(a, b) for a, b in zip(got[name], repeat)):
+            raise AssertionError(f"{name}: two calls on the same input "
+                                 "gave different bits")
+
+    def outs(v):
+        return [u for u in (v if isinstance(v, tuple) else (v,))
+                if u is not None]
+    return {name: max(abserr(a, b) for a, b in zip(outs(got[name]),
+                                                     outs(want[name])))
+            for name in got}
+
+
+def bn_library_calls(t):
+    """Yardsticks only, never called by the port: PyTorch's unfused BN
+    primitives on the same tensors (no residual, no ReLU)."""
+    x, da = t["x"], t["da"]
+    m = x.shape[0]
+    mean, invstd, gamma, beta = t["mean"], t["rstd"], t["gamma"], t["beta"]
+    sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+        da, x, mean, invstd, gamma, True, True, True)
+    count = torch.full((1,), m, dtype=torch.int32, device="cuda")
+    return {
+        "bn_stats": lambda: torch.batch_norm_stats(x, 1e-5),
+        "bn_norm": lambda: torch.batch_norm_elemt(x, gamma, beta, mean,
+                                                  invstd, 1e-5),
+        "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+            da, x, mean, invstd, gamma, True, True, True),
+        "bn_bwd_dx": lambda: torch.batch_norm_backward_elemt(
+            da, x, mean, invstd, gamma, sum_dy, sum_dy_xmu, count),
+    }
+
+
+def bn_layers_and_macs(model, batch, image):
+    """The (M, C, relu, residual) of every BN layer of ``model`` and its
+    conv + dense multiply-adds per step, from one eval-mode forward of a
+    single image (no kernel runs in eval mode)."""
+    from horovod_tpu_torch.models import resnet as tres
+    layers, macs = [], [0]
+
+    def on_bn(mod, args, kwargs, out):
+        _, _, h, w = args[0].shape
+        layers.append((batch * h * w, args[0].shape[1], mod.relu,
+                       kwargs.get("residual") is not None))
+
+    def on_conv(mod, args, out):
+        _, cin, k, _ = mod.weight.shape
+        macs[0] += batch * out.numel() * cin * k * k
+
+    def on_dense(mod, args, out):
+        macs[0] += batch * mod.in_features * mod.out_features
+
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, tres.FusedBNAct):
+            hooks.append(mod.register_forward_hook(on_bn, with_kwargs=True))
+        elif isinstance(mod, tres.Conv):
+            hooks.append(mod.register_forward_hook(on_conv))
+    hooks.append(model.head.register_forward_hook(on_dense))
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, image, image, 3, device=model.device))
+    model.train()
+    for h in hooks:
+        h.remove()
+    return layers, macs[0]
+
+
+def bn_phase(fbn, layers):
+    """Phase 6: check, time at the headline shape and per ResNet-50 step."""
+    log(f"BN kernels vs plain (tolerance: rel {BN_REL_TOL} on y/dx/dr, "
+        f"{BN_SUM_TOL} of sum |terms| on s1/s2/mean/var):")
+    absmax = {}
+    for m, c in BN_CHECKED:
+        for relu, residual in BN_VARIANTS:
+            errs = check_bn(fbn, m, c, relu, residual)
+            if (m, c, relu, residual) == BN_TIMED:
+                absmax = errs
+
+    m, c, relu, residual = BN_TIMED
+    t = bn_inputs(m, c, seed=99)
+    calls = bn_calls(fbn, t, relu, residual)
+    lib = bn_library_calls(t)
+    rows = {}
+    for name in BN_KERNELS:
+        kern, plain = calls[name]
+        ops, nbytes = bn_work(name, m, c, relu, residual)
+        b_ms, b_by = bound(ops, nbytes, PEAK_FP32_FLOPS)
+        rows[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": time_ms(lib[name]),
+                      "max_abs_err": absmax[name],
+                      "mbytes": nbytes / 1e6}
+        log(f"  {name} at M={m} C={c} relu+residual: "
+            f"{json.dumps(rows[name])}")
+    del t, calls, lib
+
+    # Every BN layer of one ResNet-50 step, timed at its own shape.
+    per_step = {name: 0.0 for name in BN_KERNELS}
+    bound_step = {name: 0.0 for name in BN_KERNELS}
+    shapes = {}
+    for layer in layers:
+        shapes[layer] = shapes.get(layer, 0) + 1
+    for (m, c, relu, residual), count in sorted(shapes.items()):
+        t = bn_inputs(m, c, seed=m + c)
+        calls = bn_calls(fbn, t, relu, residual)
+        for name in BN_KERNELS:
+            per_step[name] += count * time_ms(calls[name][0], iters=5,
+                                              warmup=1)
+            ops, nbytes = bn_work(name, m, c, relu, residual)
+            bound_step[name] += count * bound(ops, nbytes,
+                                              PEAK_FP32_FLOPS)[0]
+        del t, calls
+    torch.cuda.empty_cache()
+    log(f"  per ResNet-50 step ({len(layers)} layers, batch "
+        f"{RESNET_BATCH}): kernel ms {json.dumps(per_step)}, total "
+        f"{sum(per_step.values()):.3f} ms; bound ms "
+        f"{json.dumps(bound_step)}, total {sum(bound_step.values()):.3f} ms")
+    return rows
+
+
+def grad_errors(got, want):
+    """(whole-model relative L2 error, worst per-tensor relative L2 error)
+    of the gradients ``got`` against ``want``."""
+    num = sum(float((got[n].float() - want[n].float()).norm()) ** 2
+              for n in want)
+    den = sum(float(want[n].float().norm()) ** 2 for n in want)
+    worst = max(float((got[n].float() - want[n].float()).norm()
+                      / want[n].float().norm().clamp_min(1e-30))
+                for n in want)
+    return math.sqrt(num / den), worst
+
+
+def resnet_parity(tres):
+    """Phase 7: a small bf16 ResNet on the BN kernels vs the same weights
+    on the plain fused op.
+
+    Loss and running stats are held to the plain bf16 model directly. In
+    bf16 the gradients are not: one bf16 rounding that a 1e-7 change of
+    a BN sum flips changes ReLU masks downstream and moves single
+    gradient elements by tens of percent (the plain model fed the same
+    batch in reverse order moves them by up to 25%). So both bf16 models
+    are held to the fp32 plain model, and the kernels' gradients must be
+    no farther from it than the plain bf16 model's."""
+    kw = dict(stage_sizes=[1, 1, 1, 1], num_classes=10, num_filters=16)
+    gen = torch.Generator().manual_seed(11)
+    ref = tres.ResNet(bn_impl="jnp", generator=gen, device="cuda", **kw)
+    with torch.no_grad():
+        for mod in ref.modules():
+            if isinstance(mod, tres._Norm):
+                mod.scale.copy_(0.5 + torch.rand(mod.scale.shape,
+                                                 generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape,
+                                                 generator=gen))
+    state = {k: v.clone() for k, v in ref.state_dict().items()}
+    dgen = torch.Generator(device="cuda").manual_seed(12)
+    images = torch.randn(8, 64, 64, 3, generator=dgen, device="cuda")
+    labels = torch.randint(0, 10, (8,), generator=dgen, device="cuda")
+    out = {}
+    for name, impl, dtype in (("kernels", "pallas", torch.bfloat16),
+                              ("plain", "jnp", torch.bfloat16),
+                              ("fp32", "jnp", torch.float32)):
+        model = tres.ResNet(bn_impl=impl, dtype=dtype, device="cuda", **kw)
+        model.load_state_dict(state)
+        model.train()
+        loss = torch.nn.functional.cross_entropy(model(images), labels)
+        loss.backward()
+        out[name] = (float(loss.detach()),
+                     {n: p.grad for n, p in model.named_parameters()},
+                     {n: b for n, b in model.named_buffers()})
+    (lk, gk, bk), (lp, gp, bp), (_, g32, _) = (out["kernels"], out["plain"],
+                                               out["fp32"])
+    loss_err = abs(lk - lp) / abs(lp)
+    stat_err = max(relerr(bk[n], bp[n]) for n in bp)
+    direct = max(relerr(gk[n], gp[n]) for n in gp)
+    k32, p32 = grad_errors(gk, g32), grad_errors(gp, g32)
+    log(f"  parity: loss kernels {lk:.6f} plain {lp:.6f} rel "
+        f"{loss_err:.3e}; max running-stat rel err {stat_err:.3e}; max "
+        f"grad rel err kernels vs plain {direct:.3e} (not held); grads "
+        f"vs the fp32 model (whole-model L2, worst tensor L2): kernels "
+        f"{k32[0]:.3e}, {k32[1]:.3e}; plain bf16 {p32[0]:.3e}, "
+        f"{p32[1]:.3e}")
+    if not (math.isfinite(lk) and loss_err <= 1e-2 and stat_err <= 1e-2
+            and k32[0] <= 1.1 * p32[0] and k32[1] <= 1.25 * p32[1]):
+        raise AssertionError(
+            "the ResNet on the BN kernels disagrees with the plain op "
+            f"(loss {loss_err}, running stats {stat_err}, grads vs fp32 "
+            f"{k32} against the plain bf16 model's {p32})")
+
+
+def train_steps(step, model, opt, *batch):
+    """STEPS steps; (losses, seconds per step)."""
+    losses, times = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        loss = step(model, opt, *batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return losses, times
+
+
+def check_launches(launches, per_step):
+    for name, n in launches.items():
+        if n != per_step * STEPS:
+            raise AssertionError(
+                f"{name} launched {n} times in {STEPS} steps, expected "
+                f"{per_step * STEPS}")
+
+
+def kind_of(key):
+    """Coarse kind of a kernel name, for the profile's summary."""
+    k = key.lower()
+    if any(f"bn_{n}_kernel" in k for n in ("stats", "finalize", "norm",
+                                           "bwd_reduce", "bwd_dx")):
+        return "bn kernels K4-K7"
+    if any(f"flash_{n}_kernel" in k for n in ("fwd", "dkv", "dq")):
+        return "flash kernels K1-K3"
+    if any(s in k for s in ("conv", "cudnn", "dgrad", "wgrad", "fprop",
+                            "implicit", "winograd")):
+        return "cuDNN convolutions"
+    if any(s in k for s in ("gemm", "cutlass", "nvjet", "sm90_")):
+        return "GEMMs"
+    if "multi_tensor" in k or "foreach" in k:
+        return "optimizer (foreach)"
+    if "memcpy" in k or "memset" in k:
+        return "memcpy/memset"
+    return "elementwise/reductions/other"
+
+
+def profile_steps(run, path, label, n=2):
+    """Device time by kernel over ``n`` calls of ``run`` (torch.profiler),
+    appended to ``path``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(model, opt, tokens, targets)
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
     avgs = prof.key_averages()
@@ -231,67 +607,25 @@ def profile_steps(step, model, opt, tokens, targets, path, n=2):
            and not a.key.startswith("Optimizer.")]
     dev.sort(key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in dev)
-    with open(path, "w") as f:
-        f.write(f"per step: wall {wall * 1e3:.3f} ms, device kernels "
-                f"{busy:.3f} ms\n")
+    kinds = {}
+    for key, ms, cnt in dev:
+        ms0, cnt0 = kinds.get(kind_of(key), (0.0, 0))
+        kinds[kind_of(key)] = (ms0 + ms, cnt0 + cnt)
+    with open(path, "a") as f:
+        f.write(f"== {label}\nper step: wall {wall * 1e3:.3f} ms, device "
+                f"kernels {busy:.3f} ms\n")
+        for kind, (ms, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+            f.write(f"  kind {ms:10.3f} ms  {cnt:6d}x  {kind}\n")
         for key, ms, cnt in dev:
             f.write(f"{ms:10.3f} ms  {cnt:6d}x  {key}\n")
-    flash = sum(ms for key, ms, _ in dev if "flash_" in key)
-    log(f"  profile: wall {wall * 1e3:.2f} ms/step, device busy "
-        f"{busy:.2f} ms ({busy / (wall * 1e3):.1%}), flash kernels "
-        f"{flash:.2f} ms; top: " + "; ".join(
-            f"{key[:60]} {ms:.2f} ms" for key, ms, _ in dev[:6]))
+    log(f"  profile {label}: wall {wall * 1e3:.2f} ms/step, device busy "
+        f"{busy:.2f} ms ({busy / (wall * 1e3):.1%}); by kind: " + "; ".join(
+            f"{kind} {ms:.2f} ms/{cnt}x" for kind, (ms, cnt) in
+            sorted(kinds.items(), key=lambda r: -r[1][0])))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", metavar="PATH",
-                    help="after the main path, profile 2 more steps and "
-                         "write the kernel table to PATH")
-    args = ap.parse_args(argv)
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models import transformer as tfm
-    from horovod_tpu_torch.ops import _build
-    from horovod_tpu_torch.ops import flash_attention as fa
-    from horovod_tpu_torch.parallel.train import build_train_step
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. device
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
-
-    # 2. build
-    t0 = time.perf_counter()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-        f"{_build.build_seconds if _build.build_seconds is not None else 0:.2f} s)")
-
-    # 3. kernels vs plain
-    log("kernels vs plain (tolerance: rel "
-        f"{REL_TOL} on O/dQ/dK/dV, abs {LSE_TOL} on lse):")
-    rows = check_kernels(fa, 8, 6, 2048, 128, True, timed=True)
-    check_kernels(fa, 2, 6, 1000, 128, True, timed=False)
-    check_kernels(fa, 2, 4, 512, 64, False, timed=False)
-
-    # 4. parity of the model on the kernels
-    parity(tfm, fa)
-
-    # 5. main path
-    hvd.init()
-    if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
-        raise AssertionError(f"expected NCCL at world size 1, got "
-                             f"{hvd.get_topology()}")
+def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
+    """Phase 5; returns the launch counts of its 5 steps."""
     cfg = tfm.TransformerConfig(vocab=32000, d_model=768, n_layers=12,
                                 d_ff=3072, max_seq=2048,
                                 dtype=torch.bfloat16, remat=False)
@@ -312,46 +646,170 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    losses, times = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        loss = step(model, opt, tokens, targets)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    fbn.reset_launch_counts()
+    losses, times = train_steps(step, model, opt, tokens, targets)
     launches = fa.launch_counts()
-    per_step = cfg.n_layers * STEPS
-    log(f"main path: {n_params} params, losses {losses}")
+    log(f"LM main path: {n_params} params, losses {losses}")
     log(f"  step seconds {times}")
     steady = statistics.median(times[1:])
     log(f"  {b * s / steady:.1f} tok/s (median of steps 2-{STEPS}, "
-        f"{steady * 1e3:.2f} ms/step) on {smi}; peak memory "
+        f"{steady * 1e3:.2f} ms/step); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  model FLOPs 6*N*tokens = {6 * n_params * b * s / 1e12:.3f} "
         f"TFLOP/step: {6 * n_params * b * s / steady / 1e12:.1f} TFLOP/s, "
         f"{6 * n_params * b * s / steady / PEAK_BF16_FLOPS:.2%} of the "
         "bf16 peak (attention not counted)")
     log(f"  launches {launches}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-    for name, n in launches.items():
-        if n != per_step:
-            raise AssertionError(
-                f"{name} launched {n} times in {STEPS} steps, "
-                f"expected {per_step}")
+    check_launches(launches, cfg.n_layers)
+    if sum(fbn.launch_counts().values()):
+        raise AssertionError("the LM step launched batch-norm kernels")
+    if profile:
+        profile_steps(lambda: step(model, opt, tokens, targets), profile,
+                      "LM flagship train step")
+    return launches
+
+
+def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
+                     bn_bound_ms, profile):
+    """Phase 8; returns the BN kernels' launch counts of the 5 steps."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3,
+                         generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                           device="cuda")
+    flops = 3 * 2 * macs
+    img_s, launches = {}, None
+    for bn_impl in ("pallas", "flax"):
+        step = build_image_train_step(
+            functools.partial(tres.ResNet50, num_classes=1000,
+                              bn_impl=bn_impl),
+            lambda p: torch.optim.SGD(p, lr=0.01 * hvd.size(),
+                                      momentum=0.9))
+        model = step.make_model(generator=torch.Generator().manual_seed(0))
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = step.make_optimizer(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        fbn.reset_launch_counts()
+        losses, times = train_steps(step, model, opt, images, labels)
+        counts = fbn.launch_counts()
+        steady = statistics.median(times[1:])
+        img_s[bn_impl] = RESNET_BATCH / steady
+        log(f"ResNet-50 main path, bn_impl={bn_impl}: "
+            f"{sum(p.numel() for p in model.parameters())} params, "
+            f"losses {losses}")
+        log(f"  step seconds {times}")
+        log(f"  {img_s[bn_impl]:.1f} img/s (median of steps 2-{STEPS}, "
+            f"{steady * 1e3:.2f} ms/step); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"  model FLOPs (conv + dense, 2*MAC x 3) {flops / 1e12:.3f} "
+            f"TFLOP/step: {flops / steady / 1e12:.1f} TFLOP/s, "
+            f"{flops / steady / PEAK_BF16_FLOPS:.2%} of the bf16 peak; "
+            f"BN kernels' bytes bound {bn_bound_ms:.3f} ms/step")
+        log(f"  launches {counts} (flash {fa.launch_counts()})")
+        if sum(fa.launch_counts().values()):
+            raise AssertionError("the ResNet step launched flash kernels")
+        if bn_impl == "pallas":
+            check_launches(counts, 53)
+            launches = counts
+        elif sum(counts.values()):
+            raise AssertionError("bn_impl='flax' launched BN kernels")
+        if profile:
+            profile_steps(lambda: step(model, opt, images, labels), profile,
+                          f"ResNet-50 train step, bn_impl={bn_impl}")
+        del step, model, opt
+        torch.cuda.empty_cache()
+    log(f"ResNet-50 img/s: pallas {img_s['pallas']:.1f}, flax "
+        f"{img_s['flax']:.1f} (ratio {img_s['pallas'] / img_s['flax']:.3f})")
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="PATH",
+                    help="after each main path, profile 2 more steps and "
+                         "append the kernel table to PATH")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet as tres
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_bn as fbn
+    from horovod_tpu_torch.parallel.train import (build_image_train_step,
+                                                  build_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.profile:
-        profile_steps(step, model, opt, tokens, targets, args.profile)
+        open(args.profile, "w").close()
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"device: {kind} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+    log(smi)
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
+        f"{_build.build_seconds if _build.build_seconds is not None else 0:.2f} s)")
+
+    # 3. flash kernels vs plain
+    log("flash kernels vs plain (tolerance: rel "
+        f"{REL_TOL} on O/dQ/dK/dV, abs {LSE_TOL} on lse):")
+    rows = check_kernels(fa, 8, 6, 2048, 128, True, timed=True)
+    check_kernels(fa, 2, 6, 1000, 128, True, timed=False)
+    check_kernels(fa, 2, 4, 512, 64, False, timed=False)
+
+    # 4. parity of the LM on the flash kernels
+    parity(tfm, fa)
+
+    # 5. LM main path
+    hvd.init()
+    if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
+        raise AssertionError(f"expected NCCL at world size 1, got "
+                             f"{hvd.get_topology()}")
+    launches = lm_main_path(hvd, tfm, fa, fbn, build_train_step,
+                            args.profile)
+    torch.cuda.empty_cache()
+
+    # 6. BN kernels vs plain, per-call and per-step times
+    probe = tres.ResNet50(num_classes=1000, bn_impl="pallas", device="cuda")
+    layers, macs = bn_layers_and_macs(probe, RESNET_BATCH, RESNET_IMAGE)
+    del probe
+    if len(layers) != 53:
+        raise AssertionError(f"ResNet-50 has {len(layers)} BN layers, not 53")
+    rows.update(bn_phase(fbn, layers))
+    bn_bound_ms = sum(bound(*bn_work(name, *layer), PEAK_FP32_FLOPS)[0]
+                      for layer in layers for name in BN_KERNELS)
+
+    # 7. parity of a small ResNet on the BN kernels
+    resnet_parity(tres)
+
+    # 8. ResNet-50 main path
+    launches.update(resnet_main_path(hvd, tres, fa, fbn,
+                                     build_image_train_step, macs,
+                                     bn_bound_ms, args.profile))
     hvd.shutdown()
 
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+    kernels = [dict(name=name, route="cuda",
+                    source=BN_SOURCE if name in BN_KERNELS else FLASH_SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for name, r in rows.items()]
-    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

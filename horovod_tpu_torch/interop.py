@@ -1,12 +1,20 @@
-"""Carry flagship-transformer weights between the JAX package and the port.
+"""Carry weights between the JAX package and the port.
 
-The port keeps the JAX ``x @ W`` layout, so each leaf is a copy, never a
-transpose. The JAX side is a tree of numpy arrays (``jax.device_get`` of
-``init_params``'s output): ``{"embed", "pos", "ln_f", "layers": [...]}``.
+The flagship transformer keeps the JAX ``x @ W`` layout, so each leaf is
+a copy, never a transpose. The JAX side is a tree of numpy arrays
+(``jax.device_get`` of ``init_params``'s output): ``{"embed", "pos",
+"ln_f", "layers": [...]}``.
+
+The ResNet takes PyTorch's layouts: a conv kernel goes from HWIO to
+OIHW, the head's Dense kernel from ``[in, out]`` to ``[out, in]``; BN
+``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats) are
+copied as they are. The nested flax names join with dots
+(``stage1_block1/conv1/kernel`` is ``stage1_block1.conv1.weight``).
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict
 from typing import Dict
 
@@ -44,3 +52,41 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
             layers.setdefault(int(idx), {})[name] = arr(t)
     tree["layers"] = [layers[i] for i in sorted(layers)]
     return tree
+
+
+def _flat(tree: Dict, prefix: str = ""):
+    for key, val in tree.items():
+        if hasattr(val, "items"):
+            yield from _flat(val, f"{prefix}{key}.")
+        else:
+            yield prefix + key, np.asarray(val, dtype=np.float32)
+
+
+def resnet_variables_from_jax(params: Dict, batch_stats: Dict
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """A ``ResNet`` state_dict from the JAX model's ``params`` and
+    ``batch_stats`` trees."""
+    sd = OrderedDict()
+    for key, arr in itertools.chain(_flat(params), _flat(batch_stats)):
+        if key.endswith(".kernel"):
+            key = key[:-len("kernel")] + "weight"
+            arr = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
+        sd[key] = torch.from_numpy(np.array(arr, order="C"))
+    return sd
+
+
+def resnet_variables_to_jax(state_dict: Dict[str, torch.Tensor]):
+    """The inverse: ``(params, batch_stats)`` trees of fp32 numpy arrays."""
+    params: Dict = {}
+    batch_stats: Dict = {}
+    for key, t in state_dict.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        *path, leaf = key.split(".")
+        tree = batch_stats if leaf in ("mean", "var") else params
+        if leaf == "weight":
+            leaf = "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        for name in path:
+            tree = tree.setdefault(name, {})
+        tree[leaf] = np.ascontiguousarray(arr)
+    return params, batch_stats

@@ -1,10 +1,12 @@
 """Build the CUDA sources under ``ops/csrc`` and load them with ctypes.
 
 The kernels have a plain C interface, so ``nvcc`` compiles them in
-seconds without PyTorch's headers::
+seconds without PyTorch's headers. Every source compiles in its own
+``nvcc`` process, all started together, and one more links them::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <build dir>/libhvd_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      # one per source
+    nvcc -shared -o <build dir>/libhvd_kernels_<hash>.so *.o
 
 The build runs at first use, into ``ops/_kernels/`` beside this file (or
 ``HOROVOD_TPU_TORCH_BUILD_DIR``), and is named by a hash of the sources
@@ -26,11 +28,13 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 from ..utils import env as _env
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -63,6 +67,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device pointer as a kernel argument; NULL for None."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device: kernels launch there."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise when a C entry point returns a CUDA error: a refused launch
+    never runs, and no later synchronize reports it."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
 def build_dir() -> Path:
     return Path(_env.torch_build_dir() or
                 Path(__file__).resolve().parent / "_kernels")
@@ -74,7 +95,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hvd_flash_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i,
                                   p]
     lib.hvd_flash_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
-    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dkv, lib.hvd_flash_dq):
+    lib.hvd_bn_stats.argtypes = [p, p, p, i, i, i, i, p]
+    lib.hvd_bn_norm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.hvd_bn_bwd_reduce.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                      i, p]
+    lib.hvd_bn_bwd_dx.argtypes = [p, p, p, p, p, p, p, p, p, f, p, p, i, i,
+                                  i, i, i, p]
+    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dkv, lib.hvd_flash_dq,
+               lib.hvd_bn_stats, lib.hvd_bn_norm, lib.hvd_bn_bwd_reduce,
+               lib.hvd_bn_bwd_dx):
         fn.restype = ctypes.c_int
     return lib
 
@@ -90,17 +119,33 @@ def library() -> ctypes.CDLL:
         target = out_dir / f"libhvd_kernels_{_digest()}.so"
         if not target.exists():
             t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[str(s) for s in sources()]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, target)
+            with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+                _compile(Path(tmp), target)
             build_seconds = time.perf_counter() - t0
         _lib = _declare(ctypes.CDLL(str(target)))
         return _lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+
+
+def _compile(tmp: Path, target: Path) -> None:
+    """One nvcc per source, all at once, then the link; the library is
+    renamed into place only when complete."""
+    nvcc = _nvcc()
+    objs = [tmp / f"{src.stem}.o" for src in sources()]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for src, o in zip(sources(), objs)])
+    lib = tmp / target.name
+    _run_all([[nvcc, "-shared", "-o", str(lib), *map(str, objs)]])
+    os.replace(lib, target)

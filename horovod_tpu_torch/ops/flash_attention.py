@@ -18,10 +18,11 @@ launch the kernel or raise. Each kernel wrapper counts its launches in
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from ._build import library, ptr, raise_on, stream
 
 NEG_INF = -1e30
 
@@ -120,19 +121,6 @@ def _check_stats(name, bh, sq, *stats):
                              f"[{bh}, {sq}, 1] on CUDA")
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def _qscale(scale: float) -> float:
     return float(torch.tensor(scale, dtype=torch.bfloat16))
 
@@ -141,15 +129,14 @@ def flash_fwd_cuda(qb, kb, vb, scale: float, causal: bool):
     """K1: (o, lse) from the forward kernel."""
     global flash_fwd_launches
     _check("flash_fwd", qb, kb, vb)
-    from ._build import library
     bh, sq, d = qb.shape
     sk = kb.shape[1]
     o = torch.empty_like(qb)
     lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=qb.device)
     err = library().hvd_flash_fwd(
-        _ptr(qb), _ptr(kb), _ptr(vb), _ptr(o), _ptr(lse), bh, sq, sk, d,
-        _qscale(scale), int(causal), _stream(qb))
-    _raise_on(err, "flash_fwd")
+        ptr(qb), ptr(kb), ptr(vb), ptr(o), ptr(lse), bh, sq, sk, d,
+        _qscale(scale), int(causal), stream(qb))
+    raise_on(err, "flash_fwd")
     flash_fwd_launches += 1
     return o, lse
 
@@ -160,15 +147,14 @@ def flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool):
     _check("flash_dkv", qb, kb, vb, do)
     bh, sq, d = qb.shape
     _check_stats("flash_dkv", bh, sq, lse, delta)
-    from ._build import library
     sk = kb.shape[1]
     dk = torch.empty_like(kb)
     dv = torch.empty_like(vb)
     err = library().hvd_flash_dkv(
-        _ptr(qb), _ptr(kb), _ptr(vb), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dk), _ptr(dv), bh, sq, sk, d, _qscale(scale), int(causal),
-        _stream(qb))
-    _raise_on(err, "flash_dkv")
+        ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
+        ptr(dk), ptr(dv), bh, sq, sk, d, _qscale(scale), int(causal),
+        stream(qb))
+    raise_on(err, "flash_dkv")
     flash_dkv_launches += 1
     return dk, dv
 
@@ -179,14 +165,13 @@ def flash_dq_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool):
     _check("flash_dq", qb, kb, vb, do)
     bh, sq, d = qb.shape
     _check_stats("flash_dq", bh, sq, lse, delta)
-    from ._build import library
     sk = kb.shape[1]
     dq = torch.empty_like(qb)
     err = library().hvd_flash_dq(
-        _ptr(qb), _ptr(kb), _ptr(vb), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dq), bh, sq, sk, d, _qscale(scale), float(scale), int(causal),
-        _stream(qb))
-    _raise_on(err, "flash_dq")
+        ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
+        ptr(dq), bh, sq, sk, d, _qscale(scale), float(scale), int(causal),
+        stream(qb))
+    raise_on(err, "flash_dq")
     flash_dq_launches += 1
     return dq
 

@@ -9,8 +9,10 @@ import pytest
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import resnet as tres
 from horovod_tpu_torch.models import transformer as tfm
-from horovod_tpu_torch.parallel.train import build_train_step
+from horovod_tpu_torch.parallel.train import (build_image_train_step,
+                                              build_train_step)
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + [
@@ -46,7 +48,7 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"flash_attention.py", "transformer.py", "train.py",
-            "chip_smoke.py"} <= names
+            "fused_bn.py", "resnet.py", "chip_smoke.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
@@ -78,6 +80,13 @@ def test_model_and_step_without_cuda_raise(no_cuda):
         tfm.Transformer(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_train_step(cfg, lambda p: torch.optim.SGD(p, lr=0.1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tres.ResNet([1], num_classes=4, num_filters=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tres.ResNet50(num_classes=1000, bn_impl="pallas")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_image_train_step(tres.ResNet50,
+                               lambda p: torch.optim.SGD(p, lr=0.1))
 
 
 def test_rank_before_init_raises(no_cuda):
