@@ -35,7 +35,14 @@ and prints no result line):
    momentum=0.9))`` and 5 train steps of 256 x 224 x 224 x 3 images; the
    loss must be finite and fall, and each BN kernel must launch exactly
    53 times per step. Then 5 steps of the same model on
-   ``bn_impl="flax"`` (the JAX default, plain PyTorch) for comparison.
+   ``bn_impl="flax"`` (the JAX default, plain PyTorch) for comparison;
+9. probes P1-P3: every probe kernel (copy, +1 map, stats-like reduce,
+   the flash ablation's stream / matmul / nosoft) against its plain
+   version at small shapes; then the three probe scripts'
+   measurements at full size (P1's copy sweep over 411 MB, P2's sweep
+   at [802816, 256], P3's four variants at the flagship shape, causal,
+   64-row tiles), with every probe kernel launched at least once in
+   them; then the timed configurations against their plain versions.
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1. The line before the last is ``{"kernels":
@@ -51,17 +58,19 @@ import functools
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16
-PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32, outside the tensor cores
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+from horovod_tpu_torch import experiments as px
+from horovod_tpu_torch.experiments import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
+                                           bound_ms, device_line)
+
 FLASH_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
 BN_SOURCE = "horovod_tpu_torch/ops/csrc/fused_bn.cu"
+PROBE_SOURCE = "horovod_tpu_torch/ops/csrc/probes.cu"
+ABLATE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_ablate.cu"
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:123",
     "flash_dkv": "horovod_tpu/ops/flash_attention.py:178",
@@ -70,6 +79,12 @@ REPLACES = {
     "bn_norm": "horovod_tpu/ops/fused_bn.py:110",
     "bn_bwd_reduce": "horovod_tpu/ops/fused_bn.py:119",
     "bn_bwd_dx": "horovod_tpu/ops/fused_bn.py:138",
+    "probe_copy": "experiments/pallas_shape_probe.py:42",
+    "probe_addone": "experiments/pallas_mem_probe.py:48",
+    "probe_stats_like": "experiments/pallas_mem_probe.py:52",
+    "flash_ablate_stream": "experiments/flash_ablate_probe.py:24",
+    "flash_ablate_matmul": "experiments/flash_ablate_probe.py:24",
+    "flash_ablate_nosoft": "experiments/flash_ablate_probe.py:24",
 }
 BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
 STEPS = 5
@@ -81,6 +96,7 @@ BN_TIMED = (802816, 256, True, True)    # (M, C, relu, residual)
 BN_CHECKED = [(802816, 256), (3211264, 64), (12544, 2048)]
 BN_VARIANTS = [(True, True), (True, False), (False, False)]
 RESNET_BATCH, RESNET_IMAGE = 256, 224
+PROBE_STATS_BM = 1024   # the timed row tile of P2's stats-like and +1 map
 
 
 def log(*a):
@@ -107,13 +123,6 @@ def pairs(sq, sk, causal):
     if not causal:
         return sq * sk
     return sum(min(q + 1, sk) for q in range(sq))
-
-
-def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
 
 
 def relerr(got, want):
@@ -211,7 +220,7 @@ def check_kernels(fa, b, h, s, d, causal, timed):
     rows = {}
     for name in ("flash_fwd", "flash_dkv", "flash_dq"):
         ops, nbytes = work[name]
-        b_ms, b_by = bound(ops, nbytes)
+        b_ms, b_by = bound_ms(ops, nbytes)
         rows[name] = {"ms": ms[name], "plain_ms": plain[name],
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library[name],
@@ -438,7 +447,7 @@ def bn_phase(fbn, layers):
     for name in BN_KERNELS:
         kern, plain = calls[name]
         ops, nbytes = bn_work(name, m, c, relu, residual)
-        b_ms, b_by = bound(ops, nbytes, PEAK_FP32_FLOPS)
+        b_ms, b_by = bound_ms(ops, nbytes, PEAK_FP32_FLOPS)
         rows[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": time_ms(lib[name]),
@@ -461,7 +470,7 @@ def bn_phase(fbn, layers):
             per_step[name] += count * time_ms(calls[name][0], iters=5,
                                               warmup=1)
             ops, nbytes = bn_work(name, m, c, relu, residual)
-            bound_step[name] += count * bound(ops, nbytes,
+            bound_step[name] += count * bound_ms(ops, nbytes,
                                               PEAK_FP32_FLOPS)[0]
         del t, calls
     torch.cuda.empty_cache()
@@ -725,6 +734,115 @@ def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
     return launches
 
 
+# ---------------------------------------------------------------- probes
+
+def randn_bf16(seed, *shape):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def probe_phase(pr, shape_probe, mem_probe, ablate_probe, k1_ms):
+    """Phase 9; returns (rows, launches of the probe scripts' run)."""
+    log("probe kernels P1-P3 vs plain (tolerance: copy and +1 exact; "
+        f"stats-like {px.SUM_TOL} of sum |terms|, repeats bit-identical; "
+        f"ablation stream 1 bf16 ulp, matmul/nosoft rel {px.REL_TOL}):")
+    for seed, (m, c, bm) in enumerate(((4096, 256, 512), (1024, 2048, 8),
+                                       (128, 512, 32))):
+        x = randn_bf16(seed, m, c) * 8
+        px.check_copy(x, bm)
+        px.check_addone(x, bm)
+    for seed, (m, c, bm) in enumerate(((512, 256, 16), (512, 256, 64),
+                                       (8192, 264, 1024))):
+        px.check_stats_like(randn_bf16(10 + seed, m, c) + 0.5, bm)
+    worst = {}
+    for mode in pr.MODES:
+        for causal in (True, False):
+            for d in (64, 128):
+                for tile in pr.CUDA_TILES:
+                    q, k, v = (randn_bf16(20 + d + i, 2, 256, d)
+                               for i in range(3))
+                    unit = px.check_ablate(q, k, v, mode, causal, tile)[1]
+                    worst[mode] = max(worst.get(mode, 0.0), unit)
+    log(f"  small shapes: copy and +1 exact at 3 shapes, stats-like at 3; "
+        f"ablation over causal x D {{64, 128}} x tiles {pr.CUDA_TILES}: "
+        f"worst stream {worst['stream']:.3f} ulp, matmul rel "
+        f"{worst['matmul']:.2e}, nosoft rel {worst['nosoft']:.2e}")
+
+    # The probes' own path: the three probe scripts' measurements at full
+    # size.
+    pr.reset_launch_counts()
+    p1 = shape_probe.run(check=False)
+    p2 = mem_probe.run(check=False)
+    p3 = ablate_probe.run(shapes=[ablate_probe.FLAGSHIP], causals=(True,),
+                          tiles=(64,), check=False)
+    launches = pr.launch_counts()
+    log(f"  probe scripts' launches {launches}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"probe kernels never launched by the probe "
+                             f"scripts: {idle}")
+    for r in p1 + p2 + p3:
+        log(f"  {json.dumps(r)}")
+    best = min((r for r in p1 if r["bm"]), key=lambda r: r["ms"])
+    lib = {r["name"]: r["ms"] for r in p1 + p2 if r["bm"] is None}
+    p2_at = {r["kind"]: r for r in p2 if r["bm"] == PROBE_STATS_BM}
+    p3_at = {r["mode"]: r for r in p3}
+    split = ablate_probe.split(p3)[(*ablate_probe.FLAGSHIP, True, 64)]
+    log(f"  P1 best: c2={best['c2']} bm={best['bm']} {best['ms']:.4f} ms "
+        f"= {best['gbps']:.1f} GB/s; P3 split of K1 at the flagship "
+        f"(causal, tile 64), ms: {json.dumps(split)}; K1 in phase 3 "
+        f"{k1_ms:.4f} ms (single calls)")
+
+    # The timed configurations against their plain versions (launches
+    # not counted).
+    def row(r, err, plain_ms, library_ms):
+        return {"ms": r["ms"], "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": library_ms,
+                "max_abs_err": err}
+
+    rows = {}
+    x = randn_bf16(0, shape_probe.TOTAL).view(-1, best["c2"])
+    rows["probe_copy"] = row(best, px.check_copy(x, best["bm"]),
+                             time_ms(lambda: pr.copy_reference(x), iters=5,
+                                     warmup=1),
+                             lib["y.copy_(x)"])
+    x = randn_bf16(1, mem_probe.M, mem_probe.C)
+    rows["probe_addone"] = row(
+        p2_at["addone"], px.check_addone(x, PROBE_STATS_BM),
+        time_ms(lambda: pr.addone_reference(x), iters=5, warmup=1),
+        lib["torch.add(x, 1)"])
+    rows["probe_stats_like"] = row(
+        p2_at["stats_like"], px.check_stats_like(x, PROBE_STATS_BM),
+        time_ms(lambda: pr.stats_like_reference(x, PROBE_STATS_BM), iters=5,
+                warmup=1),
+        lib["torch.batch_norm_stats"])
+    del x
+    b, h, s = ablate_probe.FLAGSHIP
+    q, k, v = ablate_probe.inputs(b * h, s, ablate_probe.D, seed=3)
+    for mode in pr.MODES:
+        err = px.check_ablate(q, k, v, mode, True, 64)[0]
+        rows[f"flash_ablate_{mode}"] = row(
+            p3_at[mode], err,
+            time_ms(lambda: pr.ablate_reference(q, k, v, mode, True, 64, 64),
+                    iters=5, warmup=1),
+            p3_at[mode]["library_ms"])
+    for name, r in rows.items():
+        log(f"  {name}: {json.dumps(r)}")
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def source_of(name):
+    if name in BN_KERNELS:
+        return BN_SOURCE
+    if name.startswith("flash_ablate"):
+        return ABLATE_SOURCE
+    if name.startswith("probe_"):
+        return PROBE_SOURCE
+    return FLASH_SOURCE
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -741,6 +859,9 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_bn as fbn
+    from horovod_tpu_torch.ops import probes as pr
+    from horovod_tpu_torch.experiments import (flash_ablate_probe,
+                                               mem_probe, shape_probe)
     from horovod_tpu_torch.parallel.train import (build_image_train_step,
                                                   build_train_step)
 
@@ -751,10 +872,7 @@ def main(argv=None) -> int:
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = device_line()
     log(f"device: {kind} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     log(smi)
@@ -791,7 +909,7 @@ def main(argv=None) -> int:
     if len(layers) != 53:
         raise AssertionError(f"ResNet-50 has {len(layers)} BN layers, not 53")
     rows.update(bn_phase(fbn, layers))
-    bn_bound_ms = sum(bound(*bn_work(name, *layer), PEAK_FP32_FLOPS)[0]
+    bn_bound_ms = sum(bound_ms(*bn_work(name, *layer), PEAK_FP32_FLOPS)[0]
                       for layer in layers for name in BN_KERNELS)
 
     # 7. parity of a small ResNet on the BN kernels
@@ -803,8 +921,14 @@ def main(argv=None) -> int:
                                      bn_bound_ms, args.profile))
     hvd.shutdown()
 
-    kernels = [dict(name=name, route="cuda",
-                    source=BN_SOURCE if name in BN_KERNELS else FLASH_SOURCE,
+    # 9. the probes P1-P3
+    probe_rows, probe_launches = probe_phase(
+        pr, shape_probe, mem_probe, flash_ablate_probe,
+        rows["flash_fwd"]["ms"])
+    rows.update(probe_rows)
+    launches.update(probe_launches)
+
+    kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -21,16 +21,16 @@
 //   registers; writes O and lse = m + log(max(l, 1e-30)).
 //   Bound on an H100 SXM at the flagship shape (BH=48, S=2048, D=128,
 //   causal): 2 causal products = 51.6 GFLOP / 989 TFLOP/s = 52 us against
-//   25 MB / 3.35 TB/s = 7.5 us, so compute-bound.
+//   101 MB / 3.35 TB/s = 30 us, so compute-bound.
 // flash_dkv_kernel  replaces horovod_tpu/ops/flash_attention.py::_dkv_kernel
 //   One CTA per (bh, 64 key rows); loops over q tiles from the diagonal
 //   on, recomputing P^T = exp(K Qs^T - lse), accumulating dV += P^T dO and
 //   dK += dS^T Qs in fp32 registers. 4 causal products = 103 GFLOP =
-//   104 us at peak against 38 MB = 11 us: compute-bound.
+//   104 us at peak against 152 MB = 45 us: compute-bound.
 // flash_dq_kernel   replaces horovod_tpu/ops/flash_attention.py::_dq_kernel
 //   One CTA per (bh, 64 q rows); loops over key tiles up to the diagonal,
 //   dQ += dS K, times the fp32 scale once at the end. 3 causal products =
-//   77 GFLOP = 78 us at peak against 32 MB = 10 us: compute-bound.
+//   77 GFLOP = 78 us at peak against 127 MB = 38 us: compute-bound.
 //
 // What this simple design leaves on the table: mma.sync runs at a
 // fraction of the wgmma rate; tiles are loaded synchronously with plain
@@ -40,9 +40,7 @@
 // scalar stores with bank conflicts; dK/dV and dQ recompute P twice
 // where a fused backward would do it once.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_tile.cuh"
 
 namespace {
 
@@ -50,82 +48,10 @@ constexpr int kRows = 64;      // rows of the tile a CTA owns
 constexpr int kCols = 64;      // rows of the tile the inner loop streams
 constexpr int kThreads = 128;  // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment (16 rows x 16 k) of a row-major bf16 tile in shared memory.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* base,
-                                       int ld, int g, int t) {
-  a[0] = ld32(base + g * ld + t * 2);
-  a[1] = ld32(base + (g + 8) * ld + t * 2);
-  a[2] = ld32(base + g * ld + 8 + t * 2);
-  a[3] = ld32(base + (g + 8) * ld + 8 + t * 2);
-}
-
-// A fragment for a 16-wide k chunk taken from two accumulator n-tiles
-// (the C layout of tiles 2c and 2c+1 is the A layout of chunk c).
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
-                                         const float c1[4]) {
-  a[0] = pack2(c0[0], c0[1]);
-  a[1] = pack2(c0[2], c0[3]);
-  a[2] = pack2(c1[0], c1[1]);
-  a[3] = pack2(c1[2], c1[3]);
-}
-
-// Load `kRows` rows starting at `row0` of a [seq, D] matrix into shared
-// memory: row-major into `dst` (leading dim `ld`) and/or transposed into
-// `dstT` ([D][kRows], leading dim `ldT`). Rows past `seq` become zeros.
-// With `scale` != 0 each element is multiplied by it in bf16 arithmetic.
-template <int D>
-__device__ void load_tile(bf16* dst, int ld, bf16* dstT, int ldT,
-                          const bf16* src, int row0, int seq, float scale) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = D / kVec;
-  for (int idx = threadIdx.x; idx < kRows * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow;
-    const int c = (idx % kPerRow) * kVec;
-    const int gr = row0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < seq) {
-      raw = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c);
-    }
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-    if (scale != 0.f) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-      }
-    }
-    if (dst) *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
-    if (dstT) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) dstT[(c + j) * ldT + r] = e[j];
-    }
-  }
-}
-
-__device__ __forceinline__ bool valid_pair(int qrow, int kcol, int sq,
-                                           int sk, int causal) {
-  return qrow < sq && kcol < sk && (!causal || qrow >= kcol);
-}
+// load_tile's default tile is this CTA's.
+static_assert(kRows == 64 && kCols == 64 && kThreads == 128,
+              "flash_tile.cuh's load_tile defaults assume a 64-row CTA of "
+              "128 threads");
 
 // ---------------------------------------------------------------------------
 // Forward

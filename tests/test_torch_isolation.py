@@ -48,7 +48,8 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"flash_attention.py", "transformer.py", "train.py",
-            "fused_bn.py", "resnet.py", "chip_smoke.py"} <= names
+            "fused_bn.py", "resnet.py", "probes.py", "shape_probe.py",
+            "mem_probe.py", "flash_ablate_probe.py", "chip_smoke.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
