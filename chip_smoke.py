@@ -11,9 +11,12 @@ and prints no result line):
    (first use; one nvcc per source, all started together);
 3. flash kernels K1-K3 against their plain PyTorch versions on the card
    at the flagship shape (B=8, H=6, S=2048, D=128, causal), a ragged
-   causal shape (S=1000) and a non-causal D=64 shape, with timings of
-   the kernel, the plain version and, as a yardstick only, PyTorch's
-   ``scaled_dot_product_attention``;
+   causal shape (S=1000), K1's tile edges (S=384: the diagonal across
+   two key tiles of a 128-row q tile; S=129) and a non-causal D=64
+   shape; K1 and K2 must repeat bit for bit. At the flagship the
+   kernels, their plain versions and, as a yardstick only, PyTorch's
+   ``scaled_dot_product_attention`` are timed back-to-back, and the
+   kernels and SDPA as single calls too (logged only);
 4. parity: a 2-layer LM with the flash kernels against the same model on
    plain attention, loss and gradients;
 5. LM main path: ``init`` (NCCL, world 1), the 111M flagship LM,
@@ -25,7 +28,8 @@ and prints no result line):
    variants ResNet-50 uses (ReLU, ReLU + residual, neither); repeated
    reductions must agree bit for bit. Each kernel is timed at (802816,
    256) beside its plain version and, as a yardstick only, PyTorch's
-   unfused BN primitive, and at every BN layer of a ResNet-50 step;
+   unfused BN primitive, and in single calls at every BN layer of a
+   ResNet-50 step (logged only);
 7. parity: a small bf16 ResNet on the BN kernels against the same
    weights on the plain fused op: loss and running stats; gradients
    against the fp32 model, no farther from it than the plain bf16
@@ -46,7 +50,10 @@ and prints no result line):
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1. The line before the last is ``{"kernels":
-[...]}``; the last is ``{"ok": true, "device": {...}}``. ``--profile
+[...]}``: every ``ms``, ``plain_ms`` and ``library_ms`` in it is a mean
+over back-to-back launches between two CUDA events
+(``experiments.time_ms``). The last line is ``{"ok": true, "device":
+{...}}``. ``--profile
 PATH`` also writes the device time of each kernel over 2 more steps of
 each main path to PATH.
 """
@@ -65,7 +72,8 @@ import torch
 
 from horovod_tpu_torch import experiments as px
 from horovod_tpu_torch.experiments import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
-                                           bound_ms, device_line)
+                                           bound_ms, device_line,
+                                           flash_times, single_ms)
 
 FLASH_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
 BN_SOURCE = "horovod_tpu_torch/ops/csrc/fused_bn.cu"
@@ -103,22 +111,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, iters=10, warmup=2):
-    """Median over ``iters`` single-call CUDA-event timings."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def pairs(sq, sk, causal):
     if not causal:
         return sq * sk
@@ -141,8 +133,10 @@ def sumerr(got, want, mag):
 
 
 def check_kernels(fa, b, h, s, d, causal, timed):
-    """Hold K1-K3 against their plain versions at one shape; with
-    ``timed`` also time kernel, plain version and SDPA."""
+    """Hold K1-K3 against their plain versions at one shape, and K1 and
+    K2 to bit-identical repeats; with ``timed`` also time the kernels,
+    the plain versions and SDPA back-to-back, and the kernels and SDPA
+    as single calls."""
     gen = torch.Generator(device="cuda").manual_seed(1234 + s + d)
     bh = b * h
     shape = (bh, s, d)
@@ -157,7 +151,12 @@ def check_kernels(fa, b, h, s, d, causal, timed):
                                                     delta, scale, causal)
     dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal)
     dq = fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal)
+    again = (*fa.flash_fwd_cuda(q, k, v, scale, causal),
+             *fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal))
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip((o, lse, dk, dv), again)):
+        raise AssertionError(f"K1/K2: two calls on the same input gave "
+                             f"different bits at S={s} D={d} causal={causal}")
 
     errs = {
         "flash_fwd": {"o": relerr(o, o_ref), "lse": abserr(lse, lse_ref)},
@@ -170,7 +169,7 @@ def check_kernels(fa, b, h, s, d, causal, timed):
         "flash_dq": abserr(dq, dq_ref),
     }
     log(f"  shape B={b} H={h} S={s} D={d} causal={causal}: "
-        f"{json.dumps(errs)}")
+        f"{json.dumps(errs)}; K1/K2 repeats bit-identical")
     for name, e in errs.items():
         for out, val in e.items():
             tol = LSE_TOL if out == "lse" else REL_TOL
@@ -188,40 +187,28 @@ def check_kernels(fa, b, h, s, d, causal, timed):
         "flash_dkv": (8 * d * n_pairs, 6 * elem * 2 + 2 * bh * s * 4),
         "flash_dq": (6 * d * n_pairs, 5 * elem * 2 + 2 * bh * s * 4),
     }
-    ms = {
-        "flash_fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, scale,
-                                                       causal)),
-        "flash_dkv": time_ms(lambda: fa.flash_dkv_cuda(
-            q, k, v, do, lse_ref, delta, scale, causal)),
-        "flash_dq": time_ms(lambda: fa.flash_dq_cuda(
-            q, k, v, do, lse_ref, delta, scale, causal)),
-    }
-    plain_fwd = time_ms(lambda: fa.flash_fwd_reference(q, k, v, scale,
-                                                       causal))
-    plain_bwd = time_ms(lambda: fa.flash_bwd_reference(
+    # The kernels and, as yardsticks only, PyTorch's fused attention on
+    # the same inputs; its backward is one call computing dQ, dK and dV
+    # together, so it stands beside both backward kernels.
+    thunks = flash_times.calls(q, k, v, do, b, h, causal)
+    b2b = {name: px.time_ms(fn) for name, fn in thunks.items()}
+    single = {name: single_ms(fn) for name, fn in thunks.items()}
+    log(f"  back-to-back ms {json.dumps(b2b)}")
+    log(f"  single-call ms {json.dumps(single)}")
+    plain_fwd = px.time_ms(lambda: fa.flash_fwd_reference(q, k, v, scale,
+                                                          causal))
+    plain_bwd = px.time_ms(lambda: fa.flash_bwd_reference(
         q, k, v, do, lse_ref, delta, scale, causal))
     plain = {"flash_fwd": plain_fwd, "flash_dkv": plain_bwd,
              "flash_dq": plain_bwd}
-
-    # Yardstick only: PyTorch's fused attention on the same inputs. Its
-    # backward is one call computing dQ, dK and dV together, so it stands
-    # beside both backward kernels.
-    q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal))
-    qg, kg, vg = (x.detach().clone().requires_grad_(True)
-                  for x in (q4, k4, v4))
-    out = sdpa(qg, kg, vg, is_causal=causal)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (qg, kg, vg), do4, retain_graph=True))
-    library = {"flash_fwd": lib_fwd, "flash_dkv": lib_bwd,
-               "flash_dq": lib_bwd}
+    library = {"flash_fwd": b2b["sdpa_fwd"], "flash_dkv": b2b["sdpa_bwd"],
+               "flash_dq": b2b["sdpa_bwd"]}
 
     rows = {}
     for name in ("flash_fwd", "flash_dkv", "flash_dq"):
         ops, nbytes = work[name]
         b_ms, b_by = bound_ms(ops, nbytes)
-        rows[name] = {"ms": ms[name], "plain_ms": plain[name],
+        rows[name] = {"ms": b2b[name], "plain_ms": plain[name],
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library[name],
                       "max_abs_err": absmax[name],
@@ -448,9 +435,9 @@ def bn_phase(fbn, layers):
         kern, plain = calls[name]
         ops, nbytes = bn_work(name, m, c, relu, residual)
         b_ms, b_by = bound_ms(ops, nbytes, PEAK_FP32_FLOPS)
-        rows[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+        rows[name] = {"ms": px.time_ms(kern), "plain_ms": px.time_ms(plain),
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": time_ms(lib[name]),
+                      "library_ms": px.time_ms(lib[name]),
                       "max_abs_err": absmax[name],
                       "mbytes": nbytes / 1e6}
         log(f"  {name} at M={m} C={c} relu+residual: "
@@ -467,8 +454,8 @@ def bn_phase(fbn, layers):
         t = bn_inputs(m, c, seed=m + c)
         calls = bn_calls(fbn, t, relu, residual)
         for name in BN_KERNELS:
-            per_step[name] += count * time_ms(calls[name][0], iters=5,
-                                              warmup=1)
+            per_step[name] += count * single_ms(calls[name][0], iters=5,
+                                                warmup=1)
             ops, nbytes = bn_work(name, m, c, relu, residual)
             bound_step[name] += count * bound_ms(ops, nbytes,
                                               PEAK_FP32_FLOPS)[0]
@@ -790,9 +777,9 @@ def probe_phase(pr, shape_probe, mem_probe, ablate_probe, k1_ms):
     p3_at = {r["mode"]: r for r in p3}
     split = ablate_probe.split(p3)[(*ablate_probe.FLAGSHIP, True, 64)]
     log(f"  P1 best: c2={best['c2']} bm={best['bm']} {best['ms']:.4f} ms "
-        f"= {best['gbps']:.1f} GB/s; P3 split of K1 at the flagship "
-        f"(causal, tile 64), ms: {json.dumps(split)}; K1 in phase 3 "
-        f"{k1_ms:.4f} ms (single calls)")
+        f"= {best['gbps']:.1f} GB/s; P3 split of the mma.sync body at the "
+        f"flagship (causal, tile 64) beside K1, ms: {json.dumps(split)}; "
+        f"K1 in phase 3 {k1_ms:.4f} ms (back-to-back)")
 
     # The timed configurations against their plain versions (launches
     # not counted).
@@ -804,18 +791,16 @@ def probe_phase(pr, shape_probe, mem_probe, ablate_probe, k1_ms):
     rows = {}
     x = randn_bf16(0, shape_probe.TOTAL).view(-1, best["c2"])
     rows["probe_copy"] = row(best, px.check_copy(x, best["bm"]),
-                             time_ms(lambda: pr.copy_reference(x), iters=5,
-                                     warmup=1),
+                             px.time_ms(lambda: pr.copy_reference(x)),
                              lib["y.copy_(x)"])
     x = randn_bf16(1, mem_probe.M, mem_probe.C)
     rows["probe_addone"] = row(
         p2_at["addone"], px.check_addone(x, PROBE_STATS_BM),
-        time_ms(lambda: pr.addone_reference(x), iters=5, warmup=1),
+        px.time_ms(lambda: pr.addone_reference(x)),
         lib["torch.add(x, 1)"])
     rows["probe_stats_like"] = row(
         p2_at["stats_like"], px.check_stats_like(x, PROBE_STATS_BM),
-        time_ms(lambda: pr.stats_like_reference(x, PROBE_STATS_BM), iters=5,
-                warmup=1),
+        px.time_ms(lambda: pr.stats_like_reference(x, PROBE_STATS_BM)),
         lib["torch.batch_norm_stats"])
     del x
     b, h, s = ablate_probe.FLAGSHIP
@@ -824,8 +809,8 @@ def probe_phase(pr, shape_probe, mem_probe, ablate_probe, k1_ms):
         err = px.check_ablate(q, k, v, mode, True, 64)[0]
         rows[f"flash_ablate_{mode}"] = row(
             p3_at[mode], err,
-            time_ms(lambda: pr.ablate_reference(q, k, v, mode, True, 64, 64),
-                    iters=5, warmup=1),
+            px.time_ms(lambda: pr.ablate_reference(q, k, v, mode, True, 64,
+                                                   64)),
             p3_at[mode]["library_ms"])
     for name, r in rows.items():
         log(f"  {name}: {json.dumps(r)}")
@@ -888,6 +873,8 @@ def main(argv=None) -> int:
         f"{REL_TOL} on O/dQ/dK/dV, abs {LSE_TOL} on lse):")
     rows = check_kernels(fa, 8, 6, 2048, 128, True, timed=True)
     check_kernels(fa, 2, 6, 1000, 128, True, timed=False)
+    check_kernels(fa, 1, 2, 384, 128, True, timed=False)
+    check_kernels(fa, 1, 3, 129, 128, True, timed=False)
     check_kernels(fa, 2, 4, 512, 64, False, timed=False)
 
     # 4. parity of the LM on the flash kernels

@@ -6,7 +6,8 @@
 
 They are the counterparts of the Pallas probes under ``experiments/`` and
 run the probe kernels of ``horovod_tpu_torch.ops.probes``. Times are
-CUDA events around many back-to-back launches after a warm-up; bounds
+CUDA events around many back-to-back launches after a warm-up
+(``time_ms``; ``single_ms`` times single calls instead); bounds
 use the published peaks of an H100 SXM below, and each script prints the
 card's ``nvidia-smi`` name and power limit first. Without a card they
 exit with an error: a measurement never falls back to the CPU.
@@ -21,6 +22,7 @@ another order, then one bf16 rounding).
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 
@@ -69,6 +71,23 @@ def time_ms(fn) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def single_ms(fn, iters=10, warmup=2) -> float:
+    """Median over ``iters`` single calls of ``fn``, each between two
+    CUDA events (so each carries its launch gap), after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def bound_ms(flops: float, nbytes: float,

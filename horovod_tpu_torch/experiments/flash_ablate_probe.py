@@ -1,22 +1,27 @@
-"""P3: split the flash forward kernel's time into loading, matrix
-products and softmax by ablating its body.
+"""P3: split the mma.sync flash forward body's time into loading, matrix
+products and row max by ablating it, with K1 timed beside.
 
     python -m horovod_tpu_torch.experiments.flash_ablate_probe
 
 Counterpart of ``experiments/flash_ablate_probe.py``. At D = 128, for
 (B, H, S) in the probe's (8, 16, 2048), (8, 16, 8192), (16, 16, 2048)
 and the flagship LM's (8, 6, 2048), causal and not, it times the
-ablation kernel's variants at square tiles of 64 (the flash forward's
-own CTA, 4 warps) and 128 (8 warps):
+ablation kernel's variants at square tiles of 64 (the mma.sync
+body's CTA, 4 warps) and 128 (8 warps):
 
 - ``stream``: the kernel's tile loads, acc += (q + k) + v, no product;
 - ``matmul``: acc += bf16(q k^T) v;
 - ``nosoft``: the products plus a per-tile row max and a 0.5 decay;
-- ``full``: the flash forward kernel itself (tile 64 only).
+- ``full``: the flash forward kernel K1 itself (tile 64 only), a
+  different design (128-row CTA, wgmma, cp.async ring).
 
-So ``stream`` is the load time, ``matmul - stream`` the products',
-``nosoft - matmul`` the row max's and ``full - nosoft`` the rest of the
-online softmax (exp, row sums, running max and rescale). Yardsticks:
+The three ablations keep the mma.sync body that K1 had before its
+redesign (synchronous loads, V transposed into shared memory), so they
+split that body:
+``stream`` is its load time, ``matmul - stream`` its products' and
+``nosoft - matmul`` its row max's; they sum to ``nosoft``. K1 no longer
+shares that body, so ``full - nosoft`` is no part of it: ``split``
+prints K1 beside the sum as its own row. Yardsticks:
 ``scaled_dot_product_attention`` beside ``full`` and, non-causal, the
 chain ``bmm(bmm(q, k^T), v)`` beside ``matmul`` (the same function up to
 the fp32 summation order). Each row's bound counts the tile pairs the
@@ -110,15 +115,16 @@ def run(shapes=SHAPES, causals=(True, False), tiles=TILES, check=True):
 
 
 def split(rows):
-    """Per (shape, causal, tile) with all four variants: load, products,
-    row max and the rest of the softmax, in ms."""
+    """Per (shape, causal, tile) with all four variants, in ms: the
+    mma.sync body's load, products and row max, their sum (= nosoft),
+    and K1."""
     out = {}
     for r in rows:
         key = (r["B"], r["H"], r["S"], r["causal"], r["tile"])
         out.setdefault(key, {})[r["mode"]] = r["ms"]
     return {key: {"load": t["stream"], "products": t["matmul"] - t["stream"],
-                  "row_max": t["nosoft"] - t["matmul"],
-                  "softmax_rest": t["full"] - t["nosoft"], "full": t["full"]}
+                  "row_max": t["nosoft"] - t["matmul"], "sum": t["nosoft"],
+                  "k1": t["full"]}
             for key, t in out.items() if set(t) == set(VARIANTS)}
 
 
@@ -141,9 +147,9 @@ def main(argv=None) -> int:
               f"TFLOP/s{lib}{err}", flush=True)
     for (b, h, s, causal, tile), t in split(rows).items():
         print(f"split B{b} H{h} S{s} causal={int(causal)} tile={tile}: "
-              f"load {t['load']:.4f} + products {t['products']:.4f} + row "
-              f"max {t['row_max']:.4f} + rest of softmax "
-              f"{t['softmax_rest']:.4f} = full {t['full']:.4f} ms")
+              f"mma.sync body: load {t['load']:.4f} + products "
+              f"{t['products']:.4f} + row max {t['row_max']:.4f} = "
+              f"{t['sum']:.4f} ms; K1 {t['k1']:.4f} ms")
     return 0
 
 

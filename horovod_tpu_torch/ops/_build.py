@@ -104,10 +104,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hvd_flash_ablate.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.hvd_probe_map.argtypes = [p, p, i, i, i, i, p]
     lib.hvd_probe_stats_like.argtypes = [p, p, p, i, i, i, p]
+    lib.hvd_wgmma_rate.argtypes = [i, p, i, i, p]
     for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dkv, lib.hvd_flash_dq,
                lib.hvd_bn_stats, lib.hvd_bn_norm, lib.hvd_bn_bwd_reduce,
                lib.hvd_bn_bwd_dx, lib.hvd_flash_ablate, lib.hvd_probe_map,
-               lib.hvd_probe_stats_like):
+               lib.hvd_probe_stats_like, lib.hvd_wgmma_rate):
         fn.restype = ctypes.c_int
     return lib
 

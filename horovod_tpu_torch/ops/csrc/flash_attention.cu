@@ -2,95 +2,148 @@
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] bf16, contiguous;
 // lse and delta are [BH, S] fp32 (the [BH, S, 1] tensors of the Python
-// side). D is 64 or 128. All three kernels share one convention with the
-// JAX package (horovod_tpu/ops/flash_attention.py):
+// side). D is 64 or 128; sq and sk take any length >= 1, causal or not.
+// All three kernels share one convention with the JAX package
+// (horovod_tpu/ops/flash_attention.py):
 //   - q is multiplied by the scale in bf16 before the QK^T product
 //     (`qscale` is the scale already rounded to bf16 by the caller);
 //   - masked scores are -1e30, not -inf;
-//   - rows past the sequence are loaded as zeros before any product;
+//   - rows past the sequence are loaded as zeros before any product, and
+//     nothing beyond the sequence is read;
 //   - P is cast to bf16 before P.V, dS to bf16 before dS.Q and dS.K;
-//   - every product accumulates in fp32 (mma.sync m16n8k16 bf16->f32).
+//   - every product accumulates in fp32.
+// Each output has exactly one owner CTA: the TPU grid's sequential
+// innermost axis becomes a loop inside the CTA, so there are no atomics
+// and repeats are bit-identical. Kernels launch on the caller's stream,
+// allocate nothing and return cudaGetLastError().
 //
-// One CTA of 4 warps owns a 64-row output tile; each warp owns 16 rows.
-// The TPU grid's sequential innermost axis becomes a loop inside the CTA,
-// so each output has exactly one owner and no atomics are needed.
-//
-// flash_fwd_kernel  replaces horovod_tpu/ops/flash_attention.py::_fwd_kernel
-//   One CTA per (bh, 64 q rows); loops over 64-key tiles up to the
-//   diagonal, online softmax with m, l and the fp32 O accumulator in
-//   registers; writes O and lse = m + log(max(l, 1e-30)).
-//   Bound on an H100 SXM at the flagship shape (BH=48, S=2048, D=128,
-//   causal): 2 causal products = 51.6 GFLOP / 989 TFLOP/s = 52 us against
-//   101 MB / 3.35 TB/s = 30 us, so compute-bound.
-// flash_dkv_kernel  replaces horovod_tpu/ops/flash_attention.py::_dkv_kernel
-//   One CTA per (bh, 64 key rows); loops over q tiles from the diagonal
-//   on, recomputing P^T = exp(K Qs^T - lse), accumulating dV += P^T dO and
-//   dK += dS^T Qs in fp32 registers. 4 causal products = 103 GFLOP =
-//   104 us at peak against 152 MB = 45 us: compute-bound.
-// flash_dq_kernel   replaces horovod_tpu/ops/flash_attention.py::_dq_kernel
+// flash_fwd_kernel (K1)  replaces horovod_tpu/ops/flash_attention.py::_fwd_kernel
+//   One CTA of two warpgroups owns 128 q rows (64 each) and loops over
+//   64-key tiles up to the diagonal, heaviest causal tiles first. Bound on
+//   an H100 SXM at the flagship shape (BH=48, S=2048, D=128, causal): 2
+//   causal products = 51.6 GFLOP / 989 TFLOP/s = 0.0521 ms against 101 MB
+//   / 3.35 TB/s = 0.030 ms, so compute-bound. The design, for that bound:
+//   the products are wgmma (S = Qs K^T from shared memory, K K-major;
+//   O += P V with P in registers and V read MN-major through the
+//   transpose bit, so V is stored row-major as it lands); K and V stream
+//   through a four-stage cp.async ring, the next three tiles in flight
+//   while this one's products and softmax run; Q lands once and is
+//   scaled in shared memory; the online softmax uses exp2f with log2 e
+//   folded into one FMA, and the valid_pair mask runs only on tiles that
+//   cross the diagonal (two per CTA) or the sq/sk tail. A warpgroup skips
+//   the key tiles wholly above its own rows.
+// flash_dkv_kernel (K2)  replaces horovod_tpu/ops/flash_attention.py::_dkv_kernel
+//   One CTA of two warpgroups owns 128 key rows (64 each); K and V land
+//   once, and 64-row Qs and dO tiles with their lse/delta slices stream
+//   through the same kind of ring from the diagonal on. Four wgmma
+//   products per tile: S^T = K Qs^T and dP^T = V dO^T from shared memory
+//   (Qs, dO K-major), dV += P^T dO and dK += dS^T Qs with P^T and dS^T in
+//   registers (dO, Qs MN-major): each Qs and dO tile is stored once,
+//   row-major, and read in both majors. 4 causal products = 103 GFLOP =
+//   0.1043 ms at peak against 152 MB = 0.045 ms: compute-bound.
+// flash_dq_kernel (K3)   replaces horovod_tpu/ops/flash_attention.py::_dq_kernel
 //   One CTA per (bh, 64 q rows); loops over key tiles up to the diagonal,
 //   dQ += dS K, times the fp32 scale once at the end. 3 causal products =
 //   77 GFLOP = 78 us at peak against 127 MB = 38 us: compute-bound.
+//   mma.sync m16n8k16 on flash_tile.cuh's tiles, one CTA of 4 warps.
 //
-// What this simple design leaves on the table: mma.sync runs at a
-// fraction of the wgmma rate; tiles are loaded synchronously with plain
-// 16-byte loads (no TMA, no cp.async pipeline, no overlap of loads with
-// math); fragments are read from shared memory with 32-bit loads instead
-// of ldmatrix; the transposed operands are written to shared memory by
-// scalar stores with bank conflicts; dK/dV and dQ recompute P twice
-// where a fused backward would do it once.
+// What these designs leave on the table. K1 and K2: a warpgroup runs its
+// products and its softmax one after the other and waits for each
+// product, and the two warpgroups meet at a barrier every tile, so the
+// tensor cores idle while both run the softmax (no overlap of one tile's
+// softmax with the next tile's QK^T, no ping-pong between warpgroups, one
+// CTA per SM at 173 and 246 registers); every thread both loads and
+// computes (no producer warp, no TMA); O, dK and dV leave the registers
+// as 4-byte stores. K3:
+// mma.sync runs at a fraction of the wgmma rate; tiles are loaded
+// synchronously with plain 16-byte loads; fragments are read from shared
+// memory with 32-bit loads instead of ldmatrix; K is written to shared
+// memory transposed by scalar stores with bank conflicts; dK/dV and dQ
+// recompute P twice where a fused backward would do it once.
 
-#include "flash_tile.cuh"
+#include "hopper_tile.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // rows of the tile a CTA owns
-constexpr int kCols = 64;      // rows of the tile the inner loop streams
-constexpr int kThreads = 128;  // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;
-// load_tile's default tile is this CTA's.
-static_assert(kRows == 64 && kCols == 64 && kThreads == 128,
-              "flash_tile.cuh's load_tile defaults assume a 64-row CTA of "
-              "128 threads");
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 1024-byte aligned start of dynamic shared memory (the 128-byte swizzle
+// is a function of address bits 4-9).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
 
 // ---------------------------------------------------------------------------
-// Forward
+// Forward (K1)
 // ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;     // q rows a CTA owns: two warpgroups
+constexpr int kFwdCols = 64;      // keys per streamed tile
+constexpr int kFwdStages = 4;     // K/V tiles in the ring
+constexpr int kFwdThreads = 256;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct FwdSmem {                               // byte offsets
+  static constexpr int kTile = kFwdCols * D * 2;  // one K or V tile
+  static constexpr int kRing = kFwdRows * D * 2;  // Q [128, D] first
+  // stage s: K at kRing + 2 s kTile, V right after it
+  static constexpr int kBytes = kRing + kFwdStages * 2 * kTile + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, float qscale,
                  int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = kCols + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);   // [kRows][LD]
-  bf16* sK = sQ + kRows * LD;                 // [kCols][LD]
-  bf16* sVt = sK + kCols * LD;                // [D][LDT]
+  using L = FwdSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sRing = sQ + L::kRing;
 
   const int bh = blockIdx.x;
   // Heaviest (last) causal tiles first: they start while the grid fills.
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qt * kRows;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
   q += (size_t)bh * sq * D;
   o += (size_t)bh * sq * D;
   lse += (size_t)bh * sq;
   k += (size_t)bh * sk * D;
   v += (size_t)bh * sk * D;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int r0 = q0 + wg * 64;  // this warpgroup's first q row
+  const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
 
-  load_tile<D>(sQ, LD, nullptr, 0, q, q0, sq, qscale);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    load_a(qf[kc], sQ + warp * 16 * LD + kc * 16, LD, g, t);
+  // Key tiles the CTA loads, and those that reach this warpgroup's rows.
+  int n_kt = (sk + kFwdCols - 1) / kFwdCols;
+  int n_mine = r0 < sq ? n_kt : 0;
+  if (causal) {
+    n_kt = min(n_kt, (min(q0 + kFwdRows, sq) - 1) / kFwdCols + 1);
+    if (r0 < sq) n_mine = min(n_kt, (min(r0 + 64, sq) - 1) / kFwdCols + 1);
   }
+
+  // K and V of key tile kt into ring stage kt % kFwdStages; one commit
+  // group per tile, empty past the last.
+  auto issue = [&](int kt) {
+    if (kt < n_kt) {
+      const uint32_t tile = sRing + (kt % kFwdStages) * 2 * L::kTile;
+      load_tile_async<D, kFwdCols, kFwdThreads>(tile, k, kt * kFwdCols, sk);
+      load_tile_async<D, kFwdCols, kFwdThreads>(tile + L::kTile, v,
+                                                kt * kFwdCols, sk);
+    }
+    cp_async_commit();
+  };
+
+  load_tile_async<D, kFwdRows, kFwdThreads>(sQ, q, q0, sq);
+  cp_async_commit();
+  for (int kt = 0; kt < kFwdStages - 1; ++kt) issue(kt);
+  cp_async_wait<kFwdStages - 1>();  // this thread's Q chunks have landed
+  scale_tile<D, kFwdRows, kFwdThreads>(smem, qscale);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -98,61 +151,78 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
-  int n_kt = (sk + kCols - 1) / kCols;
-  if (causal) {
-    const int last = min(q0 + kRows, sq) - 1;
-    n_kt = min(n_kt, last / kCols + 1);
-  }
-
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kCols;
+    // Tile kt has landed (and Q is scaled) for every thread; the stage
+    // tile kt-1 used is free, so tile kt+kFwdStages-1 goes into it now.
+    cp_async_wait<kFwdStages - 2>();
+    fence_proxy_async();
     __syncthreads();
-    load_tile<D>(sK, LD, nullptr, 0, k, k0, sk, 0.f);
-    load_tile<D>(nullptr, 0, sVt, LDT, v, k0, sk, 0.f);
-    __syncthreads();
+    issue(kt + kFwdStages - 1);
+    if (kt >= n_mine) continue;  // wholly above this warpgroup's rows
 
-    float s[kCols / 8][4];
+    const uint32_t sK = sRing + (kt % kFwdStages) * 2 * L::kTile;
+    const uint32_t sV = sK + L::kTile;
+    const int k0 = kt * kFwdCols;
+
+    // S = Qs K^T (64 rows x kFwdCols keys per warpgroup).
+    float s[kFwdCols / 8][4];
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < kFwdCols / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    fence_acc(s);
+    wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kFwdCols>(s, desc_kmajor<kFwdRows>(sQ, wg * 64, kk),
+                         desc_kmajor<kFwdCols>(sK, 0, kk), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+
+    // Online softmax in base 2; masks only on diagonal and tail tiles.
+    const bool edge = k0 + kFwdCols > sk || (causal && k0 + kFwdCols - 1 > r0);
+    if (edge) {
 #pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        const bf16* kb = sK + (j * 8 + g) * LD + kc * 16 + t * 2;
-        mma16816(s[j], qf[kc], ld32(kb), ld32(kb + 8));
+      for (int j = 0; j < kFwdCols / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + t * 2 + (e & 1);
+          if (!valid_pair(row[e >> 1], col, sq, sk, causal)) s[j][e] = kNegInf;
+        }
       }
     }
-
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
+    for (int j = 0; j < kFwdCols / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t * 2 + (e & 1);
-        if (!valid_pair(row[e >> 1], col, sq, sk, causal)) s[j][e] = kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     }
-    float corr[2];
+    float corr[2], mb[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = expf(m[r] - mx[r]);
+      corr[r] = exp2f((m[r] - mx[r]) * kLog2e);
       m[r] = mx[r];
       l[r] *= corr[r];
+      mb[r] = mx[r] * kLog2e;
     }
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
+    for (int j = 0; j < kFwdCols / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t * 2 + (e & 1);
-        const float p = valid_pair(row[e >> 1], col, sq, sk, causal)
-                            ? expf(s[j][e] - m[e >> 1]) : 0.f;
+        float p = exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
+        if (edge && !valid_pair(row[e >> 1], k0 + j * 8 + t * 2 + (e & 1),
+                                sq, sk, causal)) {
+          p = 0.f;
+        }
         s[j][e] = p;
         l[e >> 1] += p;
       }
     }
+    uint32_t pa[kFwdCols / 16][4];
+#pragma unroll
+    for (int c = 0; c < kFwdCols / 16; ++c) acc_to_a(pa[c], s[2 * c], s[2 * c + 1]);
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       acc[i][0] *= corr[0];
@@ -160,16 +230,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[i][2] *= corr[1];
       acc[i][3] *= corr[1];
     }
+
+    // O += P V: P from registers, V MN-major.
+    fence_acc(acc);
+    fence_frag(pa);
+    wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kCols / 16; ++c) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * c], s[2 * c + 1]);
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const bf16* vb = sVt + (i * 8 + g) * LDT + c * 16 + t * 2;
-        mma16816(acc[i], a, ld32(vb), ld32(vb + 8));
-      }
+    for (int c = 0; c < kFwdCols / 16; ++c) {
+      wgmma_rs<D>(acc, pa[c], desc_mnmajor<kFwdCols>(sV, c));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frag(pa);
   }
 
 #pragma unroll
@@ -193,32 +266,43 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dK / dV
+// dK / dV (K2)
 // ---------------------------------------------------------------------------
 
+constexpr int kDkvRows = 128;     // key rows a CTA owns: two warpgroups
+constexpr int kDkvCols = 64;      // q rows per streamed tile
+constexpr int kDkvStages = 4;     // Qs/dO tiles in the ring
+constexpr int kDkvThreads = 256;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct DkvSmem {                                  // byte offsets
+  static constexpr int kKV = kDkvRows * D * 2;    // K at 0, V at kKV
+  static constexpr int kTile = kDkvCols * D * 2;  // one Qs or dO tile
+  // stage s: Qs at kRing + 2 s kTile, dO right after it
+  static constexpr int kRing = 2 * kKV;
+  // stage s: lse[64] then delta[64] at kStats + 512 s
+  static constexpr int kStats = kRing + kDkvStages * 2 * kTile;
+  static constexpr int kBytes = kStats + kDkvStages * 512 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, int sq, int sk, float qscale,
                  int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = kRows + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);   // [kRows][LD]  this CTA's keys
-  bf16* sV = sK + kRows * LD;                 // [kRows][LD]
-  bf16* sQ = sV + kRows * LD;                 // [kCols][LD]  scaled q tile
-  bf16* sQt = sQ + kCols * LD;                // [D][LDT]
-  bf16* sO = sQt + D * LDT;                   // [kCols][LD]  dO tile
-  bf16* sOt = sO + kCols * LD;                // [D][LDT]
-  float* sLse = reinterpret_cast<float*>(sOt + D * LDT);  // [kCols]
-  float* sDel = sLse + kCols;                              // [kCols]
+  using L = DkvSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sK = smem_u32(smem);
+  const uint32_t sV = sK + L::kKV;
+  const uint32_t sRing = sK + L::kRing;
+  const uint32_t sStats = sK + L::kStats;
 
   const int bh = blockIdx.x;
-  const int kt = blockIdx.y;  // low key tiles carry the most causal work
-  const int k0 = kt * kRows;
+  const int k0 = blockIdx.y * kDkvRows;  // low key tiles carry the most causal work
   q += (size_t)bh * sq * D;
   dout += (size_t)bh * sq * D;
   lse += (size_t)bh * sq;
@@ -228,14 +312,37 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   dk += (size_t)bh * sk * D;
   dv += (size_t)bh * sk * D;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const bf16* kw = sK + warp * 16 * LD;
-  const bf16* vw = sV + warp * 16 * LD;
+  const int kr0 = k0 + wg * 64;  // this warpgroup's first key row
+  const int krow[2] = {kr0 + warp * 16 + g, kr0 + warp * 16 + g + 8};
 
-  load_tile<D>(sK, LD, nullptr, 0, k, k0, sk, 0.f);
-  load_tile<D>(sV, LD, nullptr, 0, v, k0, sk, 0.f);
+  const int n_qt = (sq + kDkvCols - 1) / kDkvCols;
+  const int qt0 = causal ? k0 / kDkvCols : 0;
+
+  // Qs, dO, lse and delta of q tile qt into ring stage (qt - qt0) %
+  // kDkvStages; one commit group per tile, empty past the last.
+  auto issue = [&](int qt) {
+    if (qt < n_qt) {
+      const int stage = (qt - qt0) % kDkvStages;
+      const uint32_t tile = sRing + stage * 2 * L::kTile;
+      load_tile_async<D, kDkvCols, kDkvThreads>(tile, q, qt * kDkvCols, sq);
+      load_tile_async<D, kDkvCols, kDkvThreads>(tile + L::kTile, dout,
+                                                qt * kDkvCols, sq);
+      if (threadIdx.x < 2 * kDkvCols) {
+        const int qi = qt * kDkvCols + threadIdx.x % kDkvCols;
+        const float* src = threadIdx.x < kDkvCols ? lse : delta;
+        cp_async4(sStats + stage * 512 + threadIdx.x * 4,
+                  src + (qi < sq ? qi : 0), qi < sq);
+      }
+    }
+    cp_async_commit();
+  };
+
+  load_tile_async<D, kDkvRows, kDkvThreads>(sK, k, k0, sk);
+  load_tile_async<D, kDkvRows, kDkvThreads>(sV, v, k0, sk);
+  for (int i = 0; i < kDkvStages - 1; ++i) issue(qt0 + i);
 
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
@@ -244,91 +351,106 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
   }
 
-  const int n_qt = (sq + kCols - 1) / kCols;
-  const int qt0 = causal ? k0 / kCols : 0;
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kCols;
+    const int stage = (qt - qt0) % kDkvStages;
+    // Tile qt has landed; scale this thread's own Qs chunks, then publish
+    // the tile to wgmma. The stage tile qt-1 used is free for tile
+    // qt+kDkvStages-1.
+    cp_async_wait<kDkvStages - 2>();
+    scale_tile<D, kDkvCols, kDkvThreads>(
+        smem + L::kRing + stage * 2 * L::kTile, qscale);
+    fence_proxy_async();
     __syncthreads();
-    load_tile<D>(sQ, LD, sQt, LDT, q, q0, sq, qscale);
-    load_tile<D>(sO, LD, sOt, LDT, dout, q0, sq, 0.f);
-    for (int i = threadIdx.x; i < kCols; i += kThreads) {
-      const bool ok = q0 + i < sq;
-      sLse[i] = ok ? lse[q0 + i] : 0.f;
-      sDel[i] = ok ? delta[q0 + i] : 0.f;
-    }
-    __syncthreads();
+    issue(qt + kDkvStages - 1);
+    const int q0 = qt * kDkvCols;
+    if (causal && q0 + kDkvCols - 1 < kr0) continue;  // all q above these keys
 
-    // S^T = K Qs^T   (16 key rows x 64 q columns per warp)
-    float st[kCols / 8][4];
+    const uint32_t sQ = sRing + stage * 2 * L::kTile;
+    const uint32_t sO = sQ + L::kTile;
+    const float* sLse = reinterpret_cast<const float*>(smem + L::kStats + stage * 512);
+    const float* sDel = sLse + kDkvCols;
+    // Rows past sq, and pairs across the diagonal, are masked; keys past
+    // sk only reach their own (unstored) rows of dK and dV.
+    const bool edge = q0 + kDkvCols > sq || (causal && q0 < kr0 + 63);
+
+    // S^T = K Qs^T and dP^T = V dO^T (64 keys x 64 q per warpgroup).
+    float st[kDkvCols / 8][4], dpt[kDkvCols / 8][4];
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+    for (int j = 0; j < kDkvCols / 8; ++j) {
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4];
-      load_a(a, kw + kc * 16, LD, g, t);
-#pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        const bf16* qb = sQ + (j * 8 + g) * LD + kc * 16 + t * 2;
-        mma16816(st[j], a, ld32(qb), ld32(qb + 8));
-      }
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
     }
-    // P^T = exp(S^T - lse), masked to 0.
+    fence_acc(st);
+    fence_acc(dpt);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kDkvCols>(st, desc_kmajor<kDkvRows>(sK, wg * 64, kk),
+                         desc_kmajor<kDkvCols>(sQ, 0, kk), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kDkvCols>(dpt, desc_kmajor<kDkvRows>(sV, wg * 64, kk),
+                         desc_kmajor<kDkvCols>(sO, 0, kk), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+
+    // P^T = exp(S^T - lse), masked to 0 on the edge tiles.
+#pragma unroll
+    for (int j = 0; j < kDkvCols / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qc = j * 8 + t * 2 + (e & 1);
-        st[j][e] = valid_pair(q0 + qc, krow[e >> 1], sq, sk, causal)
-                       ? expf(st[j][e] - sLse[qc]) : 0.f;
+        float p = exp2f(fmaf(st[j][e], kLog2e, -sLse[qc] * kLog2e));
+        if (edge && !valid_pair(q0 + qc, krow[e >> 1], sq, sk, causal)) p = 0.f;
+        st[j][e] = p;
       }
     }
-    // dV += P^T dO
+    // dV += P^T dO, in flight while dS^T is formed.
+    uint32_t pa[kDkvCols / 16][4];
 #pragma unroll
-    for (int c = 0; c < kCols / 16; ++c) {
-      uint32_t a[4];
-      acc_to_a(a, st[2 * c], st[2 * c + 1]);
+    for (int c = 0; c < kDkvCols / 16; ++c) acc_to_a(pa[c], st[2 * c], st[2 * c + 1]);
+    fence_acc(dva);
+    fence_frag(pa);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const bf16* ob = sOt + (i * 8 + g) * LDT + c * 16 + t * 2;
-        mma16816(dva[i], a, ld32(ob), ld32(ob + 8));
-      }
+    for (int c = 0; c < kDkvCols / 16; ++c) {
+      wgmma_rs<D>(dva, pa[c], desc_mnmajor<kDkvCols>(sO, c));
     }
-    // dP^T = V dO^T
-    float dpt[kCols / 8][4];
+    wgmma_commit();
+
+    // dS^T = P^T (dP^T - delta): masked pairs have P^T = 0.
+    uint32_t dsa[kDkvCols / 16][4];
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4];
-      load_a(a, vw + kc * 16, LD, g, t);
-#pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        const bf16* ob = sO + (j * 8 + g) * LD + kc * 16 + t * 2;
-        mma16816(dpt[j], a, ld32(ob), ld32(ob + 8));
-      }
-    }
-    // dS^T = P^T * (dP^T - delta), masked to 0.
-#pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
+    for (int j = 0; j < kDkvCols / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t * 2 + (e & 1);
-        st[j][e] = valid_pair(q0 + qc, krow[e >> 1], sq, sk, causal)
-                       ? st[j][e] * (dpt[j][e] - sDel[qc]) : 0.f;
+        st[j][e] *= dpt[j][e] - sDel[j * 8 + t * 2 + (e & 1)];
       }
     }
-    // dK += dS^T Qs
 #pragma unroll
-    for (int c = 0; c < kCols / 16; ++c) {
-      uint32_t a[4];
-      acc_to_a(a, st[2 * c], st[2 * c + 1]);
+    for (int c = 0; c < kDkvCols / 16; ++c) acc_to_a(dsa[c], st[2 * c], st[2 * c + 1]);
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_frag(pa);
+
+    // dK += dS^T Qs.
+    fence_acc(dka);
+    fence_frag(dsa);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const bf16* qb = sQt + (i * 8 + g) * LDT + c * 16 + t * 2;
-        mma16816(dka[i], a, ld32(qb), ld32(qb + 8));
-      }
+    for (int c = 0; c < kDkvCols / 16; ++c) {
+      wgmma_rs<D>(dka, dsa[c], desc_mnmajor<kDkvCols>(sQ, c));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dka);
+    fence_frag(dsa);
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -346,8 +468,16 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dQ
+// dQ (K3): mma.sync on flash_tile.cuh's tiles
 // ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;      // rows of the tile a CTA owns
+constexpr int kCols = 64;      // rows of the tile the inner loop streams
+constexpr int kThreads = 128;  // 4 warps x 16 rows
+// load_tile's default tile is this CTA's.
+static_assert(kRows == 64 && kCols == 64 && kThreads == 128,
+              "flash_tile.cuh's load_tile defaults assume a 64-row CTA of "
+              "128 threads");
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -463,15 +593,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-constexpr int fwd_smem() {
-  return ((kRows + kCols) * (D + 8) + D * (kCols + 8)) * 2;
-}
-template <int D>
-constexpr int dkv_smem() {
-  return ((2 * kRows + 2 * kCols) * (D + 8) + 2 * D * (kCols + 8)) * 2 +
-         2 * kCols * 4;
-}
+
 template <int D>
 constexpr int dq_smem() {
   return ((2 * kRows + 2 * kCols) * (D + 8) + D * (kCols + 8)) * 2;
@@ -488,11 +610,11 @@ template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int sq, int sk, float qscale,
                        int causal, cudaStream_t stream) {
-  constexpr int smem = fwd_smem<D>();
+  constexpr int smem = FwdSmem<D>::kBytes;
   cudaError_t err = prepare(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (sq + kRows - 1) / kRows);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(bh, (sq + kFwdRows - 1) / kFwdRows);
+  flash_fwd_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
       sq, sk, qscale, causal);
   return cudaGetLastError();
@@ -503,11 +625,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int sq, int sk,
                        float qscale, int causal, cudaStream_t stream) {
-  constexpr int smem = dkv_smem<D>();
+  constexpr int smem = DkvSmem<D>::kBytes;
   cudaError_t err = prepare(flash_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (sk + kRows - 1) / kRows);
-  flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(bh, (sk + kDkvRows - 1) / kDkvRows);
+  flash_dkv_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, sq, sk,
       qscale, causal);

@@ -128,6 +128,48 @@ def test_bf16_grads_match_jax():
         assert _err(g.float().numpy(), w.astype(jnp.float32)) < 3e-2
 
 
+# The card tests' tile-edge shapes (K1's 128-row q tile with its diagonal
+# across two 64-key tiles, one row past a tile, ragged tails causal and
+# not, both head dims), with the heads cut to a few. The JAX side runs at
+# the CUDA kernels' tiling: 128 q rows by 64 keys.
+EDGE_CASES = {
+    # name: ([batch, seq, heads, head_dim], causal)
+    "diagonal_across_two_key_tiles": ((1, 384, 2, 128), True),
+    "one_row_past_a_tile": ((1, 129, 1, 128), True),
+    "ragged_causal": ((1, 1000, 2, 128), True),
+    "ragged_noncausal_d64": ((1, 130, 2, 64), False),
+    "ragged_causal_d64": ((1, 200, 3, 64), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_tile_edges_forward_and_lse_match_jax(case):
+    shape, causal = EDGE_CASES[case]
+    xs = _arrays(shape, 3, seed=shape[1] + shape[3])
+    want = jfa.flash_attention(*_jax(xs, jnp.float32), causal, None, 128,
+                               64, True)
+    got = tfa.flash_attention(*_torch(xs, torch.float32), causal)
+    assert _err(got.numpy(), want) < 2e-5
+    b, s, h, d = shape
+    flat = [np.ascontiguousarray(x.transpose(0, 2, 1, 3)).reshape(b * h, s, d)
+            for x in xs]
+    _, want_lse = jfa._flash_fwd(*_jax(flat, jnp.float32), d ** -0.5, causal,
+                                 128, 64, True)
+    _, got_lse = tfa.flash_fwd_reference(*_torch(flat, torch.float32),
+                                         d ** -0.5, causal)
+    assert _err(got_lse.numpy(), want_lse) < 2e-5
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_tile_edges_grads_match_jax(case):
+    shape, causal = EDGE_CASES[case]
+    xs = _arrays(shape, 3, seed=shape[1] + shape[3] + 1)
+    got, want = _grads(xs, causal, 128, 64, jnp.float32, torch.float32,
+                       False)
+    for g, w in zip(got, want):
+        assert _err(g.numpy(), w) < 1e-4
+
+
 def test_kernel_wrappers_reject_cpu_tensors():
     # The CUDA wrappers never compute on the CPU: only the device-based
     # dispatch in flash_attention picks the plain version there.

@@ -6,7 +6,12 @@ On a machine with one (the repo's conftest imports JAX, so leave it out):
     python -m pytest --noconftest -m cuda tests/test_torch_flash_cuda.py
 
 Tolerance: max |kernel - plain| <= 2e-2 * max |plain| on O, dQ, dK, dV
-(bf16 outputs, fp32 sums in another order), 1e-3 absolute on lse.
+(bf16 outputs, fp32 sums in another order), 1e-3 absolute on lse. The
+shapes cover the tilings' edges: K1's 128-row q tile with its diagonal
+across two 64-key tiles (S=384), one row past a tile (S=129), ragged
+tails causal and not, and both head dims. Repeats are bit-identical (no
+atomics), and operands that are views into larger NaN-filled buffers
+give what clean copies give (nothing past the sequence is read).
 """
 
 import pytest
@@ -21,6 +26,11 @@ SHAPES = [  # (bh, seq, head_dim, causal)
     (3, 200, 128, True),
     (2, 130, 64, False),
     (2, 64, 64, True),
+    (2, 384, 128, True),
+    (1, 129, 128, True),
+    (2, 1000, 128, True),
+    (3, 200, 64, True),
+    (2, 300, 128, False),
 ]
 
 
@@ -58,6 +68,53 @@ def test_kernels_match_plain(cuda_kernels, bh, s, d, causal):
     assert float((lse - lse_ref).abs().max()) <= 1e-3
     for got, ref in zip((dq, dk, dv), want):
         assert _rel(got, ref) <= 2e-2
+
+
+def _all_kernels(q, k, v, do, lse, delta, causal):
+    scale = q.shape[-1] ** -0.5
+    o, lse_k = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale, causal)
+    dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    return o, lse_k, dk, dv, dq
+
+
+def _stats(q, k, v, do, causal):
+    o, lse = fa.flash_fwd_reference(q, k, v, q.shape[-1] ** -0.5, causal)
+    return lse, (do.float() * o.float()).sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_repeats_are_bit_identical(cuda_kernels, d):
+    q, k, v, do = _inputs(3, 333, d, seed=5 + d)
+    lse, delta = _stats(q, k, v, do, True)
+    first = _all_kernels(q, k, v, do, lse, delta, True)
+    again = _all_kernels(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("s,d,causal", [(129, 128, True), (200, 64, False),
+                                        (64, 128, True), (1, 64, True)])
+def test_nothing_past_the_sequence_is_read(cuda_kernels, s, d, causal):
+    """bh = 1 operands that are views buf[:s] of buffers whose rows past
+    s are NaN give the results of clean copies, bit for bit."""
+    pad = 192
+    clean = [x.view(s, d) for x in _inputs(1, s, d, seed=s + d + 7)]
+    lse, delta = (x.view(s, 1) for x in _stats(*(x[None] for x in clean),
+                                                causal))
+    views = []
+    for x in clean + [lse, delta]:
+        buf = torch.full((s + pad, x.shape[1]), float("nan"), dtype=x.dtype,
+                         device="cuda")
+        buf[:s] = x
+        views.append(buf[:s][None])
+    got = _all_kernels(*views, causal)
+    want = _all_kernels(*(x[None] for x in clean + [lse, delta]), causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
 
 
 def test_autograd_counts_launches(cuda_kernels):

@@ -259,7 +259,8 @@ def test_every_c_entry_point_is_declared():
 # ------------------------------------------------------- probe scripts
 
 @pytest.mark.parametrize("name", ["shape_probe", "mem_probe",
-                                  "flash_ablate_probe"])
+                                  "flash_ablate_probe", "flash_times",
+                                  "flash_fwd_split"])
 def test_probe_scripts_refuse_to_run_without_a_card(monkeypatch, name):
     import importlib
     script = importlib.import_module(f"horovod_tpu_torch.experiments.{name}")
@@ -281,8 +282,59 @@ def test_p3_bound_counts_the_tiles_the_kernel_processes():
             for m, t in (("stream", 0.25), ("matmul", 0.5),
                          ("nosoft", 0.625), ("full", 1.0))]
     assert p3.split(rows) == {(8, 6, 2048, True, 64): {
-        "load": 0.25, "products": 0.25, "row_max": 0.125,
-        "softmax_rest": 0.375, "full": 1.0}}
+        "load": 0.25, "products": 0.25, "row_max": 0.125, "sum": 0.625,
+        "k1": 1.0}}
+
+
+_NS = "51_GLOBAL__N__fd5382a6_18_flash_attention_cu_6c7cf8a4"
+_FWD = f"_ZN{_NS}16flash_fwd_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifi"
+
+
+def test_kernel_sass_reads_the_ptxas_report():
+    from horovod_tpu_torch.experiments import kernel_sass
+    report = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{_FWD}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_FWD}",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 173 registers, used 1 barriers",
+    ])
+    key = "_ZN16flash_fwd_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifi"
+    assert kernel_sass.ptxas_info(report) == {key: {
+        "stack": 0, "spill_stores": 8, "spill_loads": 4, "registers": 173}}
+
+
+def test_kernel_sass_keys_kernels_without_the_file_namespace():
+    """The anonymous namespace is named after the file and differs from
+    one build to another; bodies are compared without it."""
+    from horovod_tpu_torch.experiments import kernel_sass
+    other = _FWD.replace("fd5382a6", "0badf00d").replace("6c7cf8a4",
+                                                         "12345678")
+    sass = (f"\t\tFunction : {_FWD}\n"
+            "        /*0000*/                   HGMMA.64x64x16.F32.BF16 ... ;\n"
+            "        /*0010*/                   EXIT ;\n"
+            f"\t\tFunction : {other}\n"
+            "        /*0000*/                   EXIT ;\n")
+    bodies = kernel_sass.sass_bodies(sass)
+    assert len(bodies) == 1
+    (body,) = bodies.values()
+    assert body == ["/*0000*/ EXIT ;"]
+
+
+@pytest.mark.parametrize("cut", ["no_qk", "no_pv", "no_exp2",
+                                 "no_ring_wait"])
+def test_k1_split_cut_applies_once_or_refuses(cut):
+    """A cut of the K1 split replaces its piece where the piece occurs
+    exactly once, and refuses a source where it does not (so a split of
+    a changed kernel stops instead of timing the uncut loop)."""
+    from horovod_tpu_torch.experiments import flash_fwd_split
+    ((old, new),) = flash_fwd_split.CUTS[cut]
+    text = f"head\n{old}\ntail\n"
+    assert flash_fwd_split.cut_source(text, cut) == f"head\n{new}\ntail\n"
+    assert flash_fwd_split.cut_source(text, "base") == text
+    for drifted in ("head\ntail\n", text + old):
+        with pytest.raises(ValueError, match="exactly once"):
+            flash_fwd_split.cut_source(drifted, cut)
 
 
 def test_p1_p2_cases_and_bytes():
