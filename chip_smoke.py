@@ -11,9 +11,11 @@ and prints no result line):
    (first use; one nvcc per source, all started together);
 3. flash kernels K1-K3 against their plain PyTorch versions on the card
    at the flagship shape (B=8, H=6, S=2048, D=128, causal), a ragged
-   causal shape (S=1000), K1's tile edges (S=384: the diagonal across
-   two key tiles of a 128-row q tile; S=129) and a non-causal D=64
-   shape; K1 and K2 must repeat bit for bit. At the flagship the
+   causal shape (S=1000), the 128-row q tiles' edges (S=384: the
+   diagonal across two key tiles; S=129; S=100: the second warpgroup's
+   rows partly past S; S=192: the second warpgroup of the last q tile
+   wholly past S) and a non-causal D=64 shape; K1-K3 must repeat bit
+   for bit. At the flagship the
    kernels, their plain versions and, as a yardstick only, PyTorch's
    ``scaled_dot_product_attention`` are timed back-to-back, and the
    kernels and SDPA as single calls too (logged only);
@@ -133,8 +135,8 @@ def sumerr(got, want, mag):
 
 
 def check_kernels(fa, b, h, s, d, causal, timed):
-    """Hold K1-K3 against their plain versions at one shape, and K1 and
-    K2 to bit-identical repeats; with ``timed`` also time the kernels,
+    """Hold K1-K3 against their plain versions at one shape, and to
+    bit-identical repeats; with ``timed`` also time the kernels,
     the plain versions and SDPA back-to-back, and the kernels and SDPA
     as single calls."""
     gen = torch.Generator(device="cuda").manual_seed(1234 + s + d)
@@ -152,10 +154,12 @@ def check_kernels(fa, b, h, s, d, causal, timed):
     dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal)
     dq = fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal)
     again = (*fa.flash_fwd_cuda(q, k, v, scale, causal),
-             *fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal))
+             *fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal),
+             fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal))
     torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip((o, lse, dk, dv), again)):
-        raise AssertionError(f"K1/K2: two calls on the same input gave "
+    if not all(torch.equal(x, y)
+               for x, y in zip((o, lse, dk, dv, dq), again)):
+        raise AssertionError(f"K1-K3: two calls on the same input gave "
                              f"different bits at S={s} D={d} causal={causal}")
 
     errs = {
@@ -169,7 +173,7 @@ def check_kernels(fa, b, h, s, d, causal, timed):
         "flash_dq": abserr(dq, dq_ref),
     }
     log(f"  shape B={b} H={h} S={s} D={d} causal={causal}: "
-        f"{json.dumps(errs)}; K1/K2 repeats bit-identical")
+        f"{json.dumps(errs)}; K1-K3 repeats bit-identical")
     for name, e in errs.items():
         for out, val in e.items():
             tol = LSE_TOL if out == "lse" else REL_TOL
@@ -875,6 +879,8 @@ def main(argv=None) -> int:
     check_kernels(fa, 2, 6, 1000, 128, True, timed=False)
     check_kernels(fa, 1, 2, 384, 128, True, timed=False)
     check_kernels(fa, 1, 3, 129, 128, True, timed=False)
+    check_kernels(fa, 2, 1, 100, 128, True, timed=False)
+    check_kernels(fa, 2, 1, 192, 128, True, timed=False)
     check_kernels(fa, 2, 4, 512, 64, False, timed=False)
 
     # 4. parity of the LM on the flash kernels

@@ -67,10 +67,10 @@ RATE_MODES = ("RS m64n128k16, B MN-major (P V)",
               "SS m64n128k16, B K-major")
 
 
-def cut_source(text: str, cut: str) -> str:
-    """flash_attention.cu with one of CUTS applied; each piece it cuts
-    must occur exactly once."""
-    for old, new in CUTS[cut]:
+def cut_source(text: str, cut: str, cuts=CUTS) -> str:
+    """flash_attention.cu with one of ``cuts`` applied; each piece it
+    cuts must occur exactly once."""
+    for old, new in cuts[cut]:
         if text.count(old) != 1:
             raise ValueError(f"{cut}: the piece to cut is not in the source "
                              "exactly once")
@@ -78,7 +78,7 @@ def cut_source(text: str, cut: str) -> str:
     return text
 
 
-def _nvcc_shared(pairs):
+def nvcc_shared(pairs):
     """Build each (source, library) pair as a shared library, all at
     once; returns ptxas's report of each."""
     procs = [subprocess.Popen(
@@ -95,17 +95,17 @@ def _nvcc_shared(pairs):
     return reports
 
 
-def _fwd_registers(report: str) -> int:
-    """ptxas's registers of flash_fwd_kernel<128>."""
+def registers(report: str, kernel: str = "flash_fwd_kernel") -> int:
+    """ptxas's registers of ``kernel``<128>."""
     lines = report.splitlines()
     for i, line in enumerate(lines):
         if ("Function properties for" in line
-                and "flash_fwd_kernelILi128" in line):
+                and f"{kernel}ILi128" in line):
             for nxt in lines[i + 1:i + 4]:
                 m = re.search(r"Used (\d+) registers", nxt)
                 if m:
                     return int(m.group(1))
-    raise ValueError("no register count for flash_fwd_kernel<128>")
+    raise ValueError(f"no register count for {kernel}<128>")
 
 
 def split(tmp: Path, rounds=2):
@@ -117,11 +117,11 @@ def split(tmp: Path, rounds=2):
         (tmp / f"{cut}.cu").write_text(cut_source(text, cut))
         pairs.append((tmp / f"{cut}.cu", tmp / f"{cut}.so"))
     libs, out = {}, {}
-    for cut, (_, so), report in zip(CUTS, pairs, _nvcc_shared(pairs)):
+    for cut, (_, so), report in zip(CUTS, pairs, nvcc_shared(pairs)):
         lib = ctypes.CDLL(str(so))
         lib.hvd_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, F, I, P]
         libs[cut] = lib
-        out[cut] = {"ms": [], "registers": _fwd_registers(report)}
+        out[cut] = {"ms": [], "registers": registers(report)}
     bh, s, d = 48, 2048, 128
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda",

@@ -8,7 +8,10 @@ Compiles each ``ops/csrc/*.cu`` with the build's own nvcc flags plus
 spill stores and loads in bytes, stack frame, the count of ``HGMMA``
 (wgmma) and ``HMMA`` (mma.sync) instructions and of wgmma waits
 (``WARPGROUP.DEPBAR``; one per batch unless ptxas serialized the
-pipeline), and the warnings ptxas printed for the kernel's source file. With
+pipeline), ptxas's notes on the kernel (``perf_notes``: its "Potential
+Performance Loss" lines, such as a wgmma pipeline it serialized, with
+the reason), and the warnings ptxas printed for the kernel's source
+file. With
 ``--compare TREE`` (the root of another checkout) the same sources of
 that tree are built too, and each kernel's line says whether its SASS is
 identical there (instruction text and encoding, the function's own
@@ -44,14 +47,22 @@ def _tool(name: str) -> str:
 
 
 def ptxas_info(stderr: str) -> dict:
-    """{kernel: {registers, spill_stores, spill_loads, stack}} from the
-    ``-Xptxas -v`` report."""
+    """{kernel: {registers, spill_stores, spill_loads, stack,
+    perf_notes}} from the ``-Xptxas -v`` report; a "Potential
+    Performance Loss" note belongs to the function it names."""
     out, fn = {}, None
     for line in stderr.splitlines():
+        m = re.search(r"Performance Loss: (.*) in the function '(\S+)'",
+                      line)
+        if m:
+            notes = out.setdefault(_key(m.group(2)), {}).setdefault(
+                "perf_notes", [])
+            notes.append(m.group(1))
+            continue
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             fn = _key(m.group(1))
-            out[fn] = {}
+            out.setdefault(fn, {})
             continue
         if fn is None:
             continue

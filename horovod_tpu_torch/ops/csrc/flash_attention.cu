@@ -42,24 +42,27 @@
 //   row-major, and read in both majors. 4 causal products = 103 GFLOP =
 //   0.1043 ms at peak against 152 MB = 0.045 ms: compute-bound.
 // flash_dq_kernel (K3)   replaces horovod_tpu/ops/flash_attention.py::_dq_kernel
-//   One CTA per (bh, 64 q rows); loops over key tiles up to the diagonal,
-//   dQ += dS K, times the fp32 scale once at the end. 3 causal products =
-//   77 GFLOP = 78 us at peak against 127 MB = 38 us: compute-bound.
-//   mma.sync m16n8k16 on flash_tile.cuh's tiles, one CTA of 4 warps.
+//   K2's layout with the roles swapped: one CTA of two warpgroups owns
+//   128 q rows (64 each); Qs and dO land once, and 64-key K and V tiles
+//   stream through the ring up to the diagonal. Three wgmma products per
+//   tile: S = Qs K^T and dP = dO V^T from shared memory in one batch (K, V
+//   K-major), then dQ += dS K with dS in registers and K read MN-major, so
+//   K is stored once, row-major, and never transposed. The dQ product is
+//   left running while the next tile's S and dP batch issues behind it,
+//   so the tensor cores go from one to the other without an exposed wait;
+//   the four-stage ring runs two tiles ahead, so a stage is refilled only
+//   after its dQ product has retired. dQ is multiplied by the fp32 scale
+//   once at the end. 3 causal products = 77 GFLOP = 78 us at peak against
+//   127 MB = 38 us: compute-bound.
 //
-// What these designs leave on the table. K1 and K2: a warpgroup runs its
-// products and its softmax one after the other and waits for each
-// product, and the two warpgroups meet at a barrier every tile, so the
-// tensor cores idle while both run the softmax (no overlap of one tile's
-// softmax with the next tile's QK^T, no ping-pong between warpgroups, one
-// CTA per SM at 173 and 246 registers); every thread both loads and
-// computes (no producer warp, no TMA); O, dK and dV leave the registers
-// as 4-byte stores. K3:
-// mma.sync runs at a fraction of the wgmma rate; tiles are loaded
-// synchronously with plain 16-byte loads; fragments are read from shared
-// memory with 32-bit loads instead of ldmatrix; K is written to shared
-// memory transposed by scalar stores with bank conflicts; dK/dV and dQ
-// recompute P twice where a fused backward would do it once.
+// What these designs leave on the table. A warpgroup runs its products
+// and its softmax one after the other, and the two warpgroups meet at a
+// barrier every tile, so the tensor cores idle while both run the
+// softmax (no overlap of one tile's softmax with the next tile's first
+// product, no ping-pong between warpgroups, one CTA per SM at ~170-250
+// registers); every thread both loads and computes (no producer warp, no
+// TMA); O, dQ, dK and dV leave the registers as 4-byte stores; dK/dV and
+// dQ recompute P twice where a fused backward would do it once.
 
 #include "hopper_tile.cuh"
 
@@ -468,36 +471,45 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dQ (K3): mma.sync on flash_tile.cuh's tiles
+// dQ (K3)
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;      // rows of the tile a CTA owns
-constexpr int kCols = 64;      // rows of the tile the inner loop streams
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-// load_tile's default tile is this CTA's.
-static_assert(kRows == 64 && kCols == 64 && kThreads == 128,
-              "flash_tile.cuh's load_tile defaults assume a 64-row CTA of "
-              "128 threads");
+constexpr int kDqRows = 128;     // q rows a CTA owns: two warpgroups
+constexpr int kDqCols = 64;      // keys per streamed tile
+constexpr int kDqStages = 4;     // K/V tiles in the ring
+constexpr int kDqLead = 2;       // tiles in flight ahead of the one in use
+// Tile kt's stage is refilled when tile kt + kDqStages - kDqLead = kt + 2
+// is published: by then tile kt's dQ product, which runs on while tile
+// kt+1's S and dP issue, has retired. Three tiles ahead (on five stages)
+// took 1.5 times as long (experiments/flash_dq_order.py times both).
+constexpr int kDqThreads = 256;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct DqSmem {                                  // byte offsets
+  static constexpr int kQ = kDqRows * D * 2;     // Qs at 0, dO at kQ
+  static constexpr int kTile = kDqCols * D * 2;  // one K or V tile
+  // stage s: K at kRing + 2 s kTile, V right after it
+  static constexpr int kRing = 2 * kQ;
+  static constexpr int kBytes = kRing + kDqStages * 2 * kTile + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
                 int sq, int sk, float qscale, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = kCols + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);   // [kRows][LD]  scaled q
-  bf16* sO = sQ + kRows * LD;                 // [kRows][LD]  dO
-  bf16* sK = sO + kRows * LD;                 // [kCols][LD]
-  bf16* sKt = sK + kCols * LD;                // [D][LDT]
-  bf16* sV = sKt + D * LDT;                   // [kCols][LD]
+  using L = DqSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sO = sQ + L::kQ;
+  const uint32_t sRing = sQ + L::kRing;
 
   const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qt * kRows;
+  // Heaviest (last) causal tiles first: they start while the grid fills.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
   q += (size_t)bh * sq * D;
   dout += (size_t)bh * sq * D;
   dq += (size_t)bh * sq * D;
@@ -506,80 +518,132 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   k += (size_t)bh * sk * D;
   v += (size_t)bh * sk * D;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse_r[2], del_r[2];
+  const int r0 = q0 + wg * 64;  // this warpgroup's first q row
+  const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+  float lse2[2], del[2];  // lse in base 2, and delta, of this thread's rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    lse_r[r] = row[r] < sq ? lse[row[r]] : 0.f;
-    del_r[r] = row[r] < sq ? delta[row[r]] : 0.f;
+    lse2[r] = row[r] < sq ? lse[row[r]] * kLog2e : 0.f;
+    del[r] = row[r] < sq ? delta[row[r]] : 0.f;
   }
-  const bf16* qw = sQ + warp * 16 * LD;
-  const bf16* ow = sO + warp * 16 * LD;
 
-  load_tile<D>(sQ, LD, nullptr, 0, q, q0, sq, qscale);
-  load_tile<D>(sO, LD, nullptr, 0, dout, q0, sq, 0.f);
+  // Key tiles the CTA loads, and those that reach this warpgroup's rows.
+  int n_kt = (sk + kDqCols - 1) / kDqCols;
+  int n_mine = r0 < sq ? n_kt : 0;
+  if (causal) {
+    n_kt = min(n_kt, (min(q0 + kDqRows, sq) - 1) / kDqCols + 1);
+    if (r0 < sq) n_mine = min(n_kt, (min(r0 + 64, sq) - 1) / kDqCols + 1);
+  }
+
+  // K and V of key tile kt into ring stage kt % kDqStages; one commit
+  // group per tile, empty past the last.
+  auto issue = [&](int kt) {
+    if (kt < n_kt) {
+      const uint32_t tile = sRing + (kt % kDqStages) * 2 * L::kTile;
+      load_tile_async<D, kDqCols, kDqThreads>(tile, k, kt * kDqCols, sk);
+      load_tile_async<D, kDqCols, kDqThreads>(tile + L::kTile, v,
+                                              kt * kDqCols, sk);
+    }
+    cp_async_commit();
+  };
+
+  load_tile_async<D, kDqRows, kDqThreads>(sQ, q, q0, sq);
+  load_tile_async<D, kDqRows, kDqThreads>(sO, dout, q0, sq);
+  cp_async_commit();
+  for (int kt = 0; kt < kDqLead; ++kt) issue(kt);
+  cp_async_wait<kDqLead>();  // this thread's Q and dO chunks have landed
+  scale_tile<D, kDqRows, kDqThreads>(smem, qscale);
 
   float dqa[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+  float s[kDqCols / 8][4], dp[kDqCols / 8][4];  // S and dP of the tile in hand
+  uint32_t dsa[kDqCols / 16][4];                // its dS: the dQ product's A
 
-  int n_kt = (sk + kCols - 1) / kCols;
-  if (causal) {
-    const int last = min(q0 + kRows, sq) - 1;
-    n_kt = min(n_kt, last / kCols + 1);
-  }
+  // Tile kt has landed (and Qs is scaled) for every thread; tile
+  // kt+kDqLead goes into the stage that tile kt+kDqLead-kDqStages used.
+  auto next_tile = [&](int kt) {
+    cp_async_wait<kDqLead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    issue(kt + kDqLead);
+  };
+  // S = Qs K^T and dP = dO V^T of key tile kt (64 rows x kDqCols keys
+  // per warpgroup), one batch; the first k-step overwrites S and dP.
+  auto s_dp = [&](int kt) {
+    const uint32_t sK = sRing + (kt % kDqStages) * 2 * L::kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kDqCols>(s, desc_kmajor<kDqRows>(sQ, wg * 64, kk),
+                        desc_kmajor<kDqCols>(sK, 0, kk), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kDqCols>(dp, desc_kmajor<kDqRows>(sO, wg * 64, kk),
+                        desc_kmajor<kDqCols>(sK + L::kTile, 0, kk), kk);
+    }
+    wgmma_commit();
+  };
+
+  // Each iteration forms tile kt's dS, issues its dQ product and, behind
+  // it, tile kt+1's S and dP, then waits for both: the tensor cores go
+  // from one batch to the next without an exposed wait. Every batch
+  // retires in the iteration that issued it: a dQ batch left running
+  // across the back edge made ptxas serialize every wgmma (note C7515,
+  // "non wgmma instructions defining accumulator registers"; the zero
+  // fill of dqa reaches the open batch through the loop header).
+  next_tile(0);
+  if (n_mine > 0) s_dp(0);
+  wgmma_wait<0>();
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kCols;
-    __syncthreads();
-    load_tile<D>(sK, LD, sKt, LDT, k, k0, sk, 0.f);
-    load_tile<D>(sV, LD, nullptr, 0, v, k0, sk, 0.f);
-    __syncthreads();
+    fence_acc(s);
+    fence_acc(dp);
+    fence_acc(dqa);
+    fence_frag(dsa);
+    if (kt < n_mine) {  // else above this warpgroup's rows, or past sq
+      // dS = P (dP - delta), P = exp(S - lse), masked to 0 on the tiles
+      // that cross the diagonal or the key tail. Rows past sq need no
+      // mask: each row of dQ takes only its own row of dS, and is not
+      // stored.
+      const int k0 = kt * kDqCols;
+      const bool edge = k0 + kDqCols > sk || (causal && k0 + kDqCols - 1 > r0);
+#pragma unroll
+      for (int j = 0; j < kDqCols / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[j][e], kLog2e, -lse2[e >> 1]));
+          if (edge && !valid_pair(row[e >> 1], k0 + j * 8 + t * 2 + (e & 1),
+                                  sq, sk, causal)) {
+            p = 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - del[e >> 1]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kDqCols / 16; ++c) acc_to_a(dsa[c], s[2 * c], s[2 * c + 1]);
 
-    float s[kCols / 8][4], dp[kCols / 8][4];
+      // dQ += dS K: dS from registers, K MN-major.
+      const uint32_t sK = sRing + (kt % kDqStages) * 2 * L::kTile;
+      fence_acc(dqa);
+      fence_frag(dsa);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4], b[4];
-      load_a(a, qw + kc * 16, LD, g, t);
-      load_a(b, ow + kc * 16, LD, g, t);
-#pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        const bf16* kb = sK + (j * 8 + g) * LD + kc * 16 + t * 2;
-        mma16816(s[j], a, ld32(kb), ld32(kb + 8));
-        const bf16* vb = sV + (j * 8 + g) * LD + kc * 16 + t * 2;
-        mma16816(dp[j], b, ld32(vb), ld32(vb + 8));
+      for (int c = 0; c < kDqCols / 16; ++c) {
+        wgmma_rs<D>(dqa, dsa[c], desc_mnmajor<kDqCols>(sK, c));
       }
+      wgmma_commit();
     }
-    // dS = P * (dP - delta), P = exp(S - lse), both masked to 0.
-#pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + j * 8 + t * 2 + (e & 1);
-        s[j][e] = valid_pair(row[r], col, sq, sk, causal)
-                      ? expf(s[j][e] - lse_r[r]) * (dp[j][e] - del_r[r])
-                      : 0.f;
-      }
+    if (kt + 1 < n_kt) {
+      next_tile(kt + 1);
+      if (kt + 1 < n_mine) s_dp(kt + 1);
     }
-    // dQ += dS K
-#pragma unroll
-    for (int c = 0; c < kCols / 16; ++c) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * c], s[2 * c + 1]);
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const bf16* kb = sKt + (i * 8 + g) * LDT + c * 16 + t * 2;
-        mma16816(dqa[i], a, ld32(kb), ld32(kb + 8));
-      }
-    }
+    wgmma_wait<0>();
   }
+  fence_acc(dqa);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -591,12 +655,6 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           pack2(dqa[i][2 * r] * scale, dqa[i][2 * r + 1] * scale);
     }
   }
-}
-
-
-template <int D>
-constexpr int dq_smem() {
-  return ((2 * kRows + 2 * kCols) * (D + 8) + D * (kCols + 8)) * 2;
 }
 
 template <typename K>
@@ -641,11 +699,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int sq, int sk, float qscale,
                       float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = dq_smem<D>();
+  constexpr int smem = DqSmem<D>::kBytes;
   cudaError_t err = prepare(flash_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (sq + kRows - 1) / kRows);
-  flash_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(bh, (sq + kDqRows - 1) / kDqRows);
+  flash_dq_kernel<D><<<grid, kDqThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dq, sq, sk, qscale,
       scale, causal);

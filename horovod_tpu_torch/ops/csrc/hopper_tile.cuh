@@ -1,4 +1,4 @@
-// Hopper building blocks of the flash kernels K1 and K2
+// Hopper building blocks of the flash kernels K1-K3
 // (flash_attention.cu): wgmma products on 128-byte-swizzled shared-memory
 // tiles, and an asynchronous cp.async tile ring that fills them.
 //

@@ -128,10 +128,11 @@ def test_bf16_grads_match_jax():
         assert _err(g.float().numpy(), w.astype(jnp.float32)) < 3e-2
 
 
-# The card tests' tile-edge shapes (K1's 128-row q tile with its diagonal
-# across two 64-key tiles, one row past a tile, ragged tails causal and
-# not, both head dims), with the heads cut to a few. The JAX side runs at
-# the CUDA kernels' tiling: 128 q rows by 64 keys.
+# The card tests' tile-edge shapes (a 128-row q tile with its diagonal
+# across two 64-key tiles, one row past a tile, the second 64-row
+# warpgroup of a q tile partly or wholly past the sequence, ragged tails
+# causal and not, both head dims), with the heads cut to a few. The JAX
+# side runs at the CUDA kernels' tiling: 128 q rows by 64 keys.
 EDGE_CASES = {
     # name: ([batch, seq, heads, head_dim], causal)
     "diagonal_across_two_key_tiles": ((1, 384, 2, 128), True),
@@ -139,6 +140,8 @@ EDGE_CASES = {
     "ragged_causal": ((1, 1000, 2, 128), True),
     "ragged_noncausal_d64": ((1, 130, 2, 64), False),
     "ragged_causal_d64": ((1, 200, 3, 64), True),
+    "second_warpgroup_past_seq": ((1, 100, 2, 128), True),
+    "one_and_a_half_tiles_noncausal": ((1, 192, 2, 128), False),
 }
 
 

@@ -7,9 +7,11 @@ On a machine with one (the repo's conftest imports JAX, so leave it out):
 
 Tolerance: max |kernel - plain| <= 2e-2 * max |plain| on O, dQ, dK, dV
 (bf16 outputs, fp32 sums in another order), 1e-3 absolute on lse. The
-shapes cover the tilings' edges: K1's 128-row q tile with its diagonal
-across two 64-key tiles (S=384), one row past a tile (S=129), ragged
-tails causal and not, and both head dims. Repeats are bit-identical (no
+shapes cover the tilings' edges: a 128-row q tile with its diagonal
+across two 64-key tiles (S=384), one row past a tile (S=129), the
+second 64-row warpgroup of a q tile partly past the sequence (S=100)
+and, in the last q tile, wholly past it (S=192), ragged tails causal
+and not, and both head dims. Repeats are bit-identical (no
 atomics), and operands that are views into larger NaN-filled buffers
 give what clean copies give (nothing past the sequence is read).
 """
@@ -31,6 +33,8 @@ SHAPES = [  # (bh, seq, head_dim, causal)
     (2, 1000, 128, True),
     (3, 200, 64, True),
     (2, 300, 128, False),
+    (2, 100, 128, True),
+    (2, 192, 128, False),
 ]
 
 

@@ -292,16 +292,22 @@ _FWD = f"_ZN{_NS}16flash_fwd_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifi"
 
 def test_kernel_sass_reads_the_ptxas_report():
     from horovod_tpu_torch.experiments import kernel_sass
+    loss = ("wgmma.mma_async instructions are serialized due to non wgmma "
+            "instructions defining accumulator registers of a wgmma "
+            "between start and end of the pipeline stage")
     report = "\n".join([
         "ptxas info    : 0 bytes gmem",
         f"ptxas info    : Compiling entry function '{_FWD}' for 'sm_90a'",
+        f"ptxas info    : (C7515) Potential Performance Loss: {loss} in the "
+        f"function '{_FWD}'",
         f"ptxas info    : Function properties for {_FWD}",
         "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
         "ptxas info    : Used 173 registers, used 1 barriers",
     ])
     key = "_ZN16flash_fwd_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifi"
     assert kernel_sass.ptxas_info(report) == {key: {
-        "stack": 0, "spill_stores": 8, "spill_loads": 4, "registers": 173}}
+        "stack": 0, "spill_stores": 8, "spill_loads": 4, "registers": 173,
+        "perf_notes": [loss]}}
 
 
 def test_kernel_sass_keys_kernels_without_the_file_namespace():
@@ -335,6 +341,41 @@ def test_k1_split_cut_applies_once_or_refuses(cut):
     for drifted in ("head\ntail\n", text + old):
         with pytest.raises(ValueError, match="exactly once"):
             flash_fwd_split.cut_source(drifted, cut)
+
+
+@pytest.mark.parametrize("variant", ["overlap", "overlap_lead3",
+                                     "wait_each_tile", "wait_lead2"])
+def test_k3_order_variants_apply_to_the_source(variant):
+    """Each K3 loop-order variant finds its pieces in the committed
+    source exactly once and changes only what it names."""
+    from horovod_tpu_torch.experiments import flash_dq_order as order
+    from horovod_tpu_torch.ops import _build
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    out = order.cut_source(text, variant, order.VARIANTS)
+    stages = "5" if variant == "overlap_lead3" else "4"
+    assert f"constexpr int kDqStages = {stages};" in out
+    lead = "3" if variant in ("overlap_lead3", "wait_each_tile") else "2"
+    assert f"constexpr int kDqLead = {lead};" in out
+    waits = variant.startswith("wait")
+    assert (order.DQ_WAIT in out) == waits
+    assert (order.DQ_COMMIT in out) == (not waits)
+
+
+def test_ptxas_registers_of_a_named_kernel():
+    from horovod_tpu_torch.experiments import flash_fwd_split
+    dq = _FWD.replace("16flash_fwd_kernel", "15flash_dq_kernel")
+    report = "\n".join([
+        f"ptxas info    : Function properties for {_FWD}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 173 registers, used 1 barriers",
+        f"ptxas info    : Function properties for {dq}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 201 registers, used 1 barriers",
+    ])
+    assert flash_fwd_split.registers(report) == 173
+    assert flash_fwd_split.registers(report, "flash_dq_kernel") == 201
+    with pytest.raises(ValueError, match="flash_dkv_kernel"):
+        flash_fwd_split.registers(report, "flash_dkv_kernel")
 
 
 def test_p1_p2_cases_and_bytes():
