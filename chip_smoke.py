@@ -14,17 +14,22 @@ and prints no result line):
    causal shape (S=1000), the 128-row q tiles' edges (S=384: the
    diagonal across two key tiles; S=129; S=100: the second warpgroup's
    rows partly past S; S=192: the second warpgroup of the last q tile
-   wholly past S) and a non-causal D=64 shape; K1-K3 must repeat bit
-   for bit. At the flagship the
-   kernels, their plain versions and, as a yardstick only, PyTorch's
-   ``scaled_dot_product_attention`` are timed back-to-back, and the
-   kernels and SDPA as single calls too (logged only);
+   wholly past S), a non-causal D=64 shape and the head dims stored
+   zero-padded to the next 64 columns (D=96 at the head_dim-96 LM's
+   shape B=4, H=8, S=1024, and ragged; D=80; D=32); K1-K3 must repeat
+   bit for bit. At the flagship, and at B=4, H=8, S=1024 with D=96 and
+   D=128, the kernels, their plain versions and, as a yardstick only,
+   PyTorch's ``scaled_dot_product_attention`` are timed back-to-back,
+   and the kernels and SDPA as single calls too (the S=1024 shapes are
+   logged only);
 4. parity: a 2-layer LM with the flash kernels against the same model on
    plain attention, loss and gradients;
 5. LM main path: ``init`` (NCCL, world 1), the 111M flagship LM,
    ``broadcast_parameters``, ``DistributedOptimizer(AdamW)`` and 5 train
    steps of 8 x 2048 tokens; the loss must be finite and fall, and each
-   flash kernel must launch exactly 12 times per step;
+   flash kernel must launch exactly 12 times per step. The gradients go
+   through the collective engine; each step logs the host ms of
+   ``optimizer.synchronize()`` and the number of fused groups;
 6. batch-norm kernels K4-K7 against their plain versions at (M, C) =
    (802816, 256), (3211264, 64) and (12544, 2048), each in the three
    variants ResNet-50 uses (ReLU, ReLU + residual, neither); repeated
@@ -48,7 +53,21 @@ and prints no result line):
    measurements at full size (P1's copy sweep over 411 MB, P2's sweep
    at [802816, 256], P3's four variants at the flagship shape, causal,
    64-row tiles), with every probe kernel launched at least once in
-   them; then the timed configurations against their plain versions.
+   them; then the timed configurations against their plain versions;
+10. the collective engine on the card (``init`` again, NCCL, world 1):
+   the dtype x dims sweep of ``tests/test_ops.py`` (uint8 ... bfloat16,
+   1-3 dims of 17) through allreduce (sum, average, pre/postscale
+   0.5/2.0), allgather and broadcast, each result bit for bit against
+   the executor's arithmetic on CPU copies with the identity in place of
+   the collective, and against what n = 1 gives in closed form (the
+   input itself); scaled allreduces that truncate, saturate and overflow
+   (int8, uint8, int64, fp16, bf16) bit for bit against the same
+   arithmetic done element by element in Python floats; a burst of 160
+   named allreduces of mixed dtypes whose fused groups must be the
+   planner's; a producer on a side stream whose output is enqueued
+   without a sync (the event fence); and the head_dim-96 LM (d_model
+   768, 8 heads): the flash kernels against full attention, then three
+   steps through the auto policy, which launches K1-K3 once per layer.
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1. The line before the last is ``{"kernels":
@@ -221,10 +240,11 @@ def check_kernels(fa, b, h, s, d, causal, timed):
     return rows
 
 
-def parity(hvd_tfm, fa):
+def parity(hvd_tfm, fa, d_model=256, n_heads=None):
     """Small model, flash kernels vs plain attention on the card."""
-    cfg_kw = dict(vocab=512, d_model=256, n_layers=2, d_ff=512,
-                  max_seq=1024, dtype=torch.bfloat16, remat=False)
+    cfg_kw = dict(vocab=512, d_model=d_model, n_heads=n_heads, n_layers=2,
+                  d_ff=512, max_seq=1024, dtype=torch.bfloat16,
+                  remat=False)
     gen = torch.Generator().manual_seed(7)
     params = hvd_tfm.init_params(hvd_tfm.TransformerConfig(**cfg_kw), gen)
     tok = torch.randint(0, 512, (2, 1025),
@@ -241,7 +261,9 @@ def parity(hvd_tfm, fa):
     (lf, gf), (lp, gp) = out[True], out[False]
     loss_err = abs(lf - lp) / abs(lp)
     grad_err = max(relerr(gf[n], gp[n]) for n in gp)
-    log(f"  parity: loss flash {lf:.6f} plain {lp:.6f} rel {loss_err:.3e}; "
+    log(f"  parity (d_model {d_model}, head_dim "
+        f"{d_model // hvd_tfm.TransformerConfig(**cfg_kw).n_heads}): loss "
+        f"flash {lf:.6f} plain {lp:.6f} rel {loss_err:.3e}; "
         f"max grad rel err {grad_err:.3e}")
     if not (math.isfinite(lf) and loss_err <= 1e-2 and grad_err <= 5e-2):
         raise AssertionError("flash model disagrees with plain attention "
@@ -624,6 +646,20 @@ def profile_steps(run, path, label, n=2):
             sorted(kinds.items(), key=lambda r: -r[1][0])))
 
 
+def timed_synchronize(opt, engine, sync_ms, groups):
+    """Wrap ``opt.synchronize`` to log its host ms and the engine's fused
+    groups per call into ``sync_ms`` and ``groups``."""
+    inner = opt.synchronize
+
+    def sync():
+        g0 = engine.groups_executed
+        t0 = time.perf_counter()
+        inner()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+        groups.append(engine.groups_executed - g0)
+    opt.synchronize = sync
+
+
 def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
     """Phase 5; returns the launch counts of its 5 steps."""
     cfg = tfm.TransformerConfig(vocab=32000, d_model=768, n_layers=12,
@@ -639,6 +675,9 @@ def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
     n_params = sum(p.numel() for p in model.parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = step.make_optimizer(model)
+    sync_ms, groups = [], []
+    timed_synchronize(opt, hvd.ops.collective.engine(), sync_ms, groups)
+    grad_mb = sum(p.numel() * p.element_size() for p in model.parameters())
     b, s = 8, 2048
     tok = torch.randint(0, cfg.vocab, (b, s + 1),
                         generator=torch.Generator().manual_seed(1))
@@ -660,9 +699,15 @@ def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
         f"{6 * n_params * b * s / steady / PEAK_BF16_FLOPS:.2%} of the "
         "bf16 peak (attention not counted)")
     log(f"  launches {launches}")
+    log(f"  gradient sync ({grad_mb / 1e6:.1f} MB of fp32 gradients, "
+        f"fusion threshold {hvd.utils.env.fusion_threshold_bytes() >> 20} "
+        f"MiB): optimizer.synchronize() host ms per step "
+        f"{[round(x, 3) for x in sync_ms]}, fused groups per step {groups}")
     check_launches(launches, cfg.n_layers)
     if sum(fbn.launch_counts().values()):
         raise AssertionError("the LM step launched batch-norm kernels")
+    if len(groups) != STEPS or not all(groups):
+        raise AssertionError(f"the engine ran no groups in a step: {groups}")
     if profile:
         profile_steps(lambda: step(model, opt, tokens, targets), profile,
                       "LM flagship train step")
@@ -822,6 +867,237 @@ def probe_phase(pr, shape_probe, mem_probe, ablate_probe, k1_ms):
     return rows, launches
 
 
+# ---------------------------------------------------- collective engine
+
+ENGINE_DTYPES = (torch.uint8, torch.int8, torch.int32, torch.int64,
+                 torch.float16, torch.float32, torch.float64, torch.bfloat16)
+ENGINE_CONFIGS = (("sum", False, 1.0, 1.0), ("average", True, 1.0, 1.0),
+                  ("scaled", True, 0.5, 2.0))
+BURST = 160
+BURST_THRESHOLD = 1 << 20     # bytes: cuts the burst into several groups
+
+
+def bits(t):
+    """``t`` as integers of its width, for bit-for-bit comparison."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def engine_input(dtype, shape, seed):
+    """As tests/test_ops.py draws them: floats in [-100, 100), integers
+    in [0, 100); on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    if dtype.is_floating_point:
+        return (torch.rand(shape, generator=gen, dtype=torch.float64)
+                * 200 - 100).to(dtype)
+    return torch.randint(0, 100, shape, generator=gen).to(dtype)
+
+
+def same_bits(got, want):
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(bits(got.cpu()), bits(want)))
+
+
+def engine_sweep(hvd, texec):
+    """Every dtype x dims x op through the engine on the card, against
+    the executor's arithmetic on CPU copies (identity collective) and
+    against the closed form at n = 1: every swept op returns its input
+    (the sweep's scale factors 0.5 and 2.0 are exact on its values)."""
+    ident = lambda b: b               # noqa: E731  the collective at n = 1
+    bad, count = [], 0
+    for cfg, avg, pre, post in ENGINE_CONFIGS:
+        cases = [(f"{cfg}.{str(dt)[6:]}.{dim}",
+                  engine_input(dt, (17,) * dim, 100 * i + dim))
+                 for i, dt in enumerate(ENGINE_DTYPES) for dim in (1, 2, 3)]
+        handles = [hvd.allreduce_async(x.cuda(), avg, name, pre, post)
+                   for name, x in cases]
+        for (name, x), h in zip(cases, handles):
+            want = texec.fused_allreduce(
+                [x], ident, pre, post / hvd.size() if avg else post)[0]
+            count += 1
+            got = h.wait()
+            if not (same_bits(got, want) and same_bits(got, x)):
+                bad.append(f"allreduce {name}")
+    cases = [(f"{str(dt)[6:]}.{dim}", engine_input(dt, (17,) * dim, dim))
+             for dt in ENGINE_DTYPES for dim in (1, 2, 3)]
+    gathers = [hvd.allgather_async(x.cuda(), name=f"gather.{name}")
+               for name, x in cases]
+    bcasts = [hvd.broadcast_async(x.cuda(), 0, name=f"bcast.{name}")
+              for name, x in cases]
+    for (name, x), g, b in zip(cases, gathers, bcasts):
+        want_g = texec.fused_allgather([x], [[x.shape[0]]],
+                                       lambda buf: buf[None])[0]
+        want_b = texec.fused_broadcast([x], ident)[0]
+        count += 2
+        got_g, got_b = g.wait(), b.wait()
+        if not (same_bits(got_g, want_g) and same_bits(got_g, x)):
+            bad.append(f"allgather {name}")
+        if not (same_bits(got_b, want_b) and same_bits(got_b, x)):
+            bad.append(f"broadcast {name}")
+    if bad:
+        raise AssertionError(f"engine results differ from the executor's "
+                             f"arithmetic on the CPU: {bad}")
+    return count
+
+
+def closed_form(values, dtype, pre, post):
+    """An allreduce at n = 1 element by element in Python floats (IEEE
+    double): ``v * pre * post``, then the cast back: rounded to a float
+    dtype (overflowing to inf), or truncated toward zero and saturated at
+    an integer dtype's range. Exact for SATURATING's values, whose
+    products need no rounding in the dtype the executor scales in."""
+    out = [float(v) * pre * post for v in values.tolist()]
+    if dtype.is_floating_point:
+        return torch.tensor(out, dtype=torch.float64).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.tensor([min(max(math.trunc(y), info.min), info.max)
+                         for y in out], dtype=dtype)
+
+
+SATURATING = (   # (dtype, values, prescale, postscale)
+    (torch.int8, torch.arange(-128, 128), 1.0, 2.5),
+    (torch.uint8, torch.arange(0, 256), 0.5, 3.0),
+    (torch.int64, torch.tensor([-2**62, -2**40 - 3, -7, 0, 5, 2**40 + 1,
+                                2**62]), 1.0, 2.5),
+    (torch.float16, torch.linspace(-100, 100, 401), 1.0, 1000.0),
+    (torch.bfloat16, torch.linspace(-50, 50, 333), 3.0, 1.0),
+)
+
+
+def engine_saturation(hvd):
+    """Scaled allreduces whose cast back truncates, saturates or
+    overflows, on the card, bit for bit against :func:`closed_form`."""
+    bad = []
+    for i, (dt, values, pre, post) in enumerate(SATURATING):
+        x = values.to(dt)
+        got = hvd.allreduce(x.cuda(), average=False, name=f"sat.{i}",
+                            prescale_factor=pre, postscale_factor=post)
+        if not same_bits(got, closed_form(x, dt, pre, post)):
+            bad.append(str(dt))
+    if bad:
+        raise AssertionError(f"scaled allreduces differ from the closed "
+                             f"form: {bad}")
+    return len(SATURATING)
+
+
+def engine_burst(hvd, cp, texec):
+    """160 named allreduces of mixed dtypes and both averages, enqueued
+    while the engine sleeps; their groups must be the planner's."""
+    import os
+    gen = torch.Generator().manual_seed(5)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+              torch.float64, torch.uint8)
+    reqs = []
+    for i in range(BURST):
+        dt = dtypes[i % len(dtypes)]
+        n = int(torch.randint(1, 120_000, (1,), generator=gen))
+        reqs.append((f"burst.{i}", engine_input(dt, (n,), 1000 + i),
+                     bool(i % 3 == 0)))
+    items = [cp.Ready(name, cp.fusion_key(cp.ALLREDUCE, cp.dtype_name(
+        x.dtype), None, 0, avg, 1.0, 1.0), x.numel() * x.element_size())
+        for name, x, avg in reqs]
+    want = [tuple(r.name for r in g)
+            for g in cp.plan_fusion(items, BURST_THRESHOLD)]
+    saved = {k: os.environ.get(k) for k in ("HOROVOD_CYCLE_TIME",
+                                            "HOROVOD_FUSION_THRESHOLD")}
+    os.environ["HOROVOD_CYCLE_TIME"] = "60000"
+    os.environ["HOROVOD_FUSION_THRESHOLD"] = str(BURST_THRESHOLD)
+    try:
+        hvd.allreduce(torch.zeros(1, device="cuda"), name="burst.quiet")
+        time.sleep(0.1)     # the engine now pauses a minute between cycles
+        inputs = [(name, x.cuda(), avg) for name, x, avg in reqs]
+        t0 = time.perf_counter()
+        handles = [hvd.allreduce_async(x, avg, name)
+                   for name, x, avg in inputs]
+        outs = [h.wait() for h in handles]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    got = list(dict.fromkeys(h.group for h in handles))
+    if got != want:
+        raise AssertionError(f"burst groups {got} differ from the "
+                             f"planner's {want}")
+    for (name, x, avg), out in zip(reqs, outs):
+        if not same_bits(out, texec.fused_allreduce([x], lambda b: b)[0]):
+            raise AssertionError(f"burst {name}: wrong result")
+    nbytes = sum(x.numel() * x.element_size() for _, x, _ in reqs)
+    return len(got), nbytes, ms
+
+
+def engine_fence(hvd):
+    """A producer on a side stream, enqueued without a sync: the engine
+    must wait for it (the event recorded at enqueue)."""
+    side = torch.cuda.Stream()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    w = torch.randn(4096, 4096, generator=gen, device="cuda") / 64
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        x = torch.randn(4096, 4096, generator=gen, device="cuda")
+        for _ in range(8):
+            x = torch.tanh(x @ w)
+        h = hvd.allreduce_async(x, average=False, name="fence")
+    out = h.wait()
+    torch.cuda.synchronize()
+    if not torch.equal(out, x):
+        raise AssertionError("the engine read a side-stream producer's "
+                             "output before it was written")
+
+
+def engine_head_dim_96(tfm, fa, build_train_step):
+    """d_model 768 with 8 heads (head_dim 96), bf16, S = 1024: the auto
+    policy runs the flash kernels (once per layer per step); three steps
+    through the engine."""
+    cfg = tfm.TransformerConfig(vocab=32000, d_model=768, n_heads=8,
+                                n_layers=2, d_ff=3072, max_seq=1024,
+                                dtype=torch.bfloat16, remat=False)
+    step = build_train_step(cfg, lambda p: torch.optim.AdamW(p, lr=1e-4))
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model)
+    tok = torch.randint(0, cfg.vocab, (4, 1025),
+                        generator=torch.Generator().manual_seed(2)).cuda()
+    fa.reset_launch_counts()
+    losses = [float(step(model, opt, tok[:, :-1], tok[:, 1:]))
+              for _ in range(3)]
+    launches = fa.launch_counts()
+    want = {name: 3 * cfg.n_layers for name in launches}
+    if not all(math.isfinite(x) for x in losses) or launches != want:
+        raise AssertionError(f"head_dim 96: losses {losses}, flash "
+                             f"launches {launches}, expected {want}")
+    return losses, launches
+
+
+def engine_phase(hvd, cp, texec, tfm, fa, build_train_step):
+    """Phase 10: the collective engine on the card."""
+    hvd.init()
+    if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
+        raise AssertionError(f"expected NCCL at world size 1, got "
+                             f"{hvd.get_topology()}")
+    n = engine_sweep(hvd, texec)
+    log(f"collective engine: {n} sweep results (8 dtypes x 1-3 dims; "
+        "allreduce sum/average/scaled, allgather, broadcast) bit for bit "
+        "against the executor's arithmetic on the CPU and the n = 1 "
+        "closed form")
+    n = engine_saturation(hvd)
+    log(f"  {n} truncating/saturating/overflowing scaled allreduces bit "
+        "for bit against the closed form")
+    groups, nbytes, ms = engine_burst(hvd, cp, texec)
+    log(f"  burst of {BURST} allreduces ({nbytes / 1e6:.2f} MB, 6 dtypes, "
+        f"threshold {BURST_THRESHOLD >> 20} MiB): {groups} groups, as "
+        f"planned; {ms:.2f} ms enqueue to done")
+    engine_fence(hvd)
+    log("  side-stream producer enqueued without a sync: result exact")
+    parity(tfm, fa, d_model=768, n_heads=8)
+    losses, launches = engine_head_dim_96(tfm, fa, build_train_step)
+    log(f"  head_dim 96 (d_model 768, 8 heads), auto policy: flash "
+        f"launches {launches} in 3 steps, losses {losses}")
+    hvd.shutdown()
+
+
 def source_of(name):
     if name in BN_KERNELS:
         return BN_SOURCE
@@ -845,7 +1121,9 @@ def main(argv=None) -> int:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import resnet as tres
     from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch import executor as texec
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import control_plane as cp
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_bn as fbn
     from horovod_tpu_torch.ops import probes as pr
@@ -882,6 +1160,13 @@ def main(argv=None) -> int:
     check_kernels(fa, 2, 1, 100, 128, True, timed=False)
     check_kernels(fa, 2, 1, 192, 128, True, timed=False)
     check_kernels(fa, 2, 4, 512, 64, False, timed=False)
+    # The head_dim-96 LM's attention, and D=128 at the same shape: logged.
+    check_kernels(fa, 4, 8, 1024, 96, True, timed=True)
+    check_kernels(fa, 4, 8, 1024, 128, True, timed=True)
+    check_kernels(fa, 2, 3, 200, 96, True, timed=False)
+    check_kernels(fa, 2, 2, 130, 96, False, timed=False)
+    check_kernels(fa, 2, 3, 300, 80, True, timed=False)
+    check_kernels(fa, 2, 2, 130, 32, True, timed=False)
 
     # 4. parity of the LM on the flash kernels
     parity(tfm, fa)
@@ -920,6 +1205,9 @@ def main(argv=None) -> int:
         rows["flash_fwd"]["ms"])
     rows.update(probe_rows)
     launches.update(probe_launches)
+
+    # 10. the collective engine on the card
+    engine_phase(hvd, cp, texec, tfm, fa, build_train_step)
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[name], launches=launches[name],

@@ -2,7 +2,12 @@
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] bf16, contiguous;
 // lse and delta are [BH, S] fp32 (the [BH, S, 1] tensors of the Python
-// side). D is 64 or 128; sq and sk take any length >= 1, causal or not.
+// side). D is one of BuiltHeadDims below (any multiple of 16 up to 128
+// compiles); sq and sk take any length >= 1, causal or not. A head dim
+// short of a whole number of 64-column blocks (32, 80, 96) is stored in
+// shared memory at the next one, zero filled (tile_width): Q K^T and
+// dO V^T take only D/16 k-steps, and P V, dS K, P^T dO and dS^T Qs run
+// N = tile_width wide, their columns past D zero and never stored.
 // All three kernels share one convention with the JAX package
 // (horovod_tpu/ops/flash_attention.py):
 //   - q is multiplied by the scale in bf16 before the QK^T product
@@ -64,6 +69,8 @@
 // TMA); O, dQ, dK and dV leave the registers as 4-byte stores; dK/dV and
 // dQ recompute P twice where a fused backward would do it once.
 
+#include <type_traits>
+
 #include "hopper_tile.cuh"
 
 namespace {
@@ -89,8 +96,9 @@ constexpr int kFwdThreads = 256;
 
 template <int D>
 struct FwdSmem {                               // byte offsets
-  static constexpr int kTile = kFwdCols * D * 2;  // one K or V tile
-  static constexpr int kRing = kFwdRows * D * 2;  // Q [128, D] first
+  static constexpr int kW = tile_width<D>();      // stored tile width
+  static constexpr int kTile = kFwdCols * kW * 2;  // one K or V tile
+  static constexpr int kRing = kFwdRows * kW * 2;  // Q [128, D] first
   // stage s: K at kRing + 2 s kTile, V right after it
   static constexpr int kBytes = kRing + kFwdStages * 2 * kTile + 1024;
 };
@@ -148,9 +156,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<kFwdStages - 1>();  // this thread's Q chunks have landed
   scale_tile<D, kFwdRows, kFwdThreads>(smem, qscale);
 
-  float acc[D / 8][4];
+  float acc[L::kW / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < L::kW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
@@ -279,8 +287,9 @@ constexpr int kDkvThreads = 256;
 
 template <int D>
 struct DkvSmem {                                  // byte offsets
-  static constexpr int kKV = kDkvRows * D * 2;    // K at 0, V at kKV
-  static constexpr int kTile = kDkvCols * D * 2;  // one Qs or dO tile
+  static constexpr int kW = tile_width<D>();       // stored tile width
+  static constexpr int kKV = kDkvRows * kW * 2;    // K at 0, V at kKV
+  static constexpr int kTile = kDkvCols * kW * 2;  // one Qs or dO tile
   // stage s: Qs at kRing + 2 s kTile, dO right after it
   static constexpr int kRing = 2 * kKV;
   // stage s: lse[64] then delta[64] at kStats + 512 s
@@ -347,9 +356,9 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile_async<D, kDkvRows, kDkvThreads>(sV, v, k0, sk);
   for (int i = 0; i < kDkvStages - 1; ++i) issue(qt0 + i);
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[L::kW / 8][4], dva[L::kW / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < L::kW / 8; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
   }
@@ -486,8 +495,9 @@ constexpr int kDqThreads = 256;
 
 template <int D>
 struct DqSmem {                                  // byte offsets
-  static constexpr int kQ = kDqRows * D * 2;     // Qs at 0, dO at kQ
-  static constexpr int kTile = kDqCols * D * 2;  // one K or V tile
+  static constexpr int kW = tile_width<D>();      // stored tile width
+  static constexpr int kQ = kDqRows * kW * 2;     // Qs at 0, dO at kQ
+  static constexpr int kTile = kDqCols * kW * 2;  // one K or V tile
   // stage s: K at kRing + 2 s kTile, V right after it
   static constexpr int kRing = 2 * kQ;
   static constexpr int kBytes = kRing + kDqStages * 2 * kTile + 1024;
@@ -557,9 +567,9 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<kDqLead>();  // this thread's Q and dO chunks have landed
   scale_tile<D, kDqRows, kDqThreads>(smem, qscale);
 
-  float dqa[D / 8][4];
+  float dqa[L::kW / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+  for (int i = 0; i < L::kW / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
   float s[kDqCols / 8][4], dp[kDqCols / 8][4];  // S and dP of the tile in hand
   uint32_t dsa[kDqCols / 16][4];                // its dS: the dQ product's A
 
@@ -710,6 +720,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The head dims the library is built for; flash_attention.py's HEAD_DIMS
+// lists the same values.
+template <int... Ds>
+struct HeadDims {};
+using BuiltHeadDims = HeadDims<32, 64, 80, 96, 128>;
+
+// launch(std::integral_constant<int, D>) for the built D equal to d, else
+// cudaErrorInvalidValue.
+template <typename F, int... Ds>
+cudaError_t dispatch_d(HeadDims<Ds...>, int d, F launch) {
+  cudaError_t err = cudaErrorInvalidValue;
+  ((d == Ds && ((err = launch(std::integral_constant<int, Ds>{})), true)) || ...);
+  return err;
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Each returns a cudaError_t
@@ -720,9 +745,10 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int sq, int sk, int d, float qscale,
                   int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return launch_fwd<64>(q, k, v, o, lse, bh, sq, sk, qscale, causal, s);
-  if (d == 128) return launch_fwd<128>(q, k, v, o, lse, bh, sq, sk, qscale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
+    return launch_fwd<decltype(D)::value>(q, k, v, o, lse, bh, sq, sk,
+                                          qscale, causal, s);
+  });
 }
 
 int hvd_flash_dkv(const void* q, const void* k, const void* v,
@@ -730,11 +756,10 @@ int hvd_flash_dkv(const void* q, const void* k, const void* v,
                   void* dk, void* dv, int bh, int sq, int sk, int d,
                   float qscale, int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, qscale, causal, s);
-  if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, qscale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
+    return launch_dkv<decltype(D)::value>(q, k, v, dout, lse, delta, dk, dv,
+                                          bh, sq, sk, qscale, causal, s);
+  });
 }
 
 int hvd_flash_dq(const void* q, const void* k, const void* v,
@@ -742,11 +767,10 @@ int hvd_flash_dq(const void* q, const void* k, const void* v,
                  void* dq, int bh, int sq, int sk, int d, float qscale,
                  float scale, int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, qscale, scale, causal, s);
-  if (d == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, qscale, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
+    return launch_dq<decltype(D)::value>(q, k, v, dout, lse, delta, dq, bh,
+                                         sq, sk, qscale, scale, causal, s);
+  });
 }
 
 }  // extern "C"

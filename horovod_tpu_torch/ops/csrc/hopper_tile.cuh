@@ -2,8 +2,10 @@
 // (flash_attention.cu): wgmma products on 128-byte-swizzled shared-memory
 // tiles, and an asynchronous cp.async tile ring that fills them.
 //
-// Tile layout. A [ROWS, D] bf16 tile (D = 64 or 128) is stored as D/64
-// column blocks of [ROWS][64]: each row of a block is 128 bytes, and the
+// Tile layout. A [ROWS, D] bf16 tile is stored as W/64 column blocks of
+// [ROWS][64], W = tile_width<D>() (D rounded up to whole 64-column
+// blocks: a D = 96 tile is stored 128 wide, its last 32 columns zero
+// filled as it lands). Each row of a block is 128 bytes, and the
 // 16-byte chunk c of row r sits at chunk c ^ (r % 8) (the 128-byte
 // swizzle, so eight rows read at one column hit eight different bank
 // groups). Blocks start 1024-byte aligned. One stored tile serves as a
@@ -43,6 +45,14 @@
 #include "flash_tile.cuh"
 
 namespace {
+
+// Head dims: multiples of 16 up to 128, so that a k-step of 16 never
+// straddles the zero-filled columns and a row is whole 16-byte chunks.
+template <int D>
+__host__ __device__ constexpr int tile_width() {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "D is 16, 32, ..., 128");
+  return (D + 63) / 64 * 64;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -213,15 +223,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4],
   }
 }
 
-// RS product over all D columns of an MN-major B.
+// RS product over all stored columns of an MN-major B whose rows are D
+// wide: N = tile_width<D>(), so the accumulator's columns past D take the
+// zero-filled columns of B and stay zero.
 template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4],
+__device__ __forceinline__ void wgmma_rs(float (&d)[tile_width<D>() / 8][4],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (D == 64) {
+  if constexpr (tile_width<D>() == 64) {
     wgmma_rs_n64<1>(d, a, desc_b, 1);
   } else {
-    static_assert(D == 128, "D is 64 or 128");
     wgmma_rs_n128<1>(d, a, desc_b, 1);
   }
 }
@@ -251,20 +262,28 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // Issue the copies of rows row0..row0+ROWS-1 of a [seq, D] matrix into
 // the swizzled tile at shared address `tile`, 16 bytes a thread. Rows
-// past seq are zero-filled (src-size 0) and never read.
+// past seq, and columns past D, are zero-filled (src-size 0) and never
+// read.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile_async(uint32_t tile,
                                                 const bf16* src, int row0,
                                                 int seq) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = tile_width<D>() / 8;
   static_assert((ROWS * kChunks) % THREADS == 0, "whole chunks per thread");
 #pragma unroll
   for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
     const int idx = i * THREADS + threadIdx.x;
     const int r = idx / kChunks, c = idx % kChunks;
-    const bool ok = row0 + r < seq;
-    cp_async16(tile + sw128<ROWS>(r, c),
-               src + (size_t)(ok ? row0 + r : 0) * D + c * 8, ok);
+    if constexpr (kChunks == D / 8) {
+      const bool ok = row0 + r < seq;
+      cp_async16(tile + sw128<ROWS>(r, c),
+                 src + (size_t)(ok ? row0 + r : 0) * D + c * 8, ok);
+    } else {
+      const bool ok = row0 + r < seq && c < D / 8;
+      cp_async16(tile + sw128<ROWS>(r, c),
+                 src + (size_t)(ok ? row0 + r : 0) * D + (ok ? c * 8 : 0),
+                 ok);
+    }
   }
 }
 
@@ -274,7 +293,7 @@ __device__ __forceinline__ void load_tile_async(uint32_t tile,
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void scale_tile(unsigned char* tile,
                                            float scale) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = tile_width<D>() / 8;
 #pragma unroll
   for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
     const int idx = i * THREADS + threadIdx.x;

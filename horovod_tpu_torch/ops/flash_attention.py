@@ -30,7 +30,8 @@ flash_fwd_launches = 0
 flash_dkv_launches = 0
 flash_dq_launches = 0
 
-_HEAD_DIMS = (64, 128)
+# The head dims csrc/flash_attention.cu is built for (BuiltHeadDims).
+HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
 def launch_counts() -> dict:
@@ -108,8 +109,8 @@ def _check(name, *tensors):
                              f"[BH, S, D], got shape {tuple(t.shape)}")
         if t.shape[-1] != d:
             raise ValueError(f"{name}: head dims differ")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim must be one of {_HEAD_DIMS}, "
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim must be one of {HEAD_DIMS}, "
                          f"got {d}")
 
 

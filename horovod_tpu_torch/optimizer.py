@@ -3,10 +3,14 @@
 Counterpart of ``horovod_tpu/optimizer.py`` and of the torch-facing
 design in ``horovod_tpu/torch/__init__.py``: ``DistributedOptimizer``
 wraps a ``torch.optim.Optimizer`` in a dynamic subclass whose ``step()``
-first averages every gradient over the ranks. Gradients are packed into
-flat fusion buffers (one per wire dtype, each up to
-``fusion_threshold_bytes()``), each buffer is one allreduce, and the
-averages are copied back into ``p.grad`` before the inner ``step()``.
+first averages every gradient over the ranks: one allreduce request
+per gradient, named ``allreduce.<parameter name>`` as Horovod names
+them, all submitted at once (``fused_allreduce_async``: one lock and one
+CUDA fence for the list) before any is awaited, so the engine's planner
+fuses them (per dtype, up to ``HOROVOD_FUSION_THRESHOLD`` bytes a
+group). The averages are copied back into ``p.grad`` before the inner
+``step()``. The broadcasts go through the engine too: only its thread
+issues collectives.
 """
 
 from __future__ import annotations
@@ -17,7 +21,6 @@ import pickle
 from typing import Dict, Iterable, Optional
 
 import torch
-import torch.distributed as dist
 
 from . import topology as _topo
 from .compression import Compression
@@ -45,13 +48,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._compression = compression
         self._synchronized = False
         self._should_synchronize = True
-        if named_parameters is not None:
-            named_parameters = list(named_parameters)
-        else:
-            named_parameters = [
-                (f"allreduce.noname.{i}.{j}", v)
-                for i, group in enumerate(self.param_groups)
-                for j, v in enumerate(group["params"])]
+        named_parameters = list(named_parameters or [])
         all_ids = {id(v) for group in self.param_groups
                    for v in group["params"]}
         named_ids = {id(v) for _, v in named_parameters}
@@ -60,23 +57,26 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if not named_ids.issubset(all_ids):
             raise ValueError("named_parameters was not a subset of "
                              "optimizer.param_groups parameters")
-        self._steps = 0
+        # Unnamed parameters are "allreduce.noname.<group>.<index>".
+        self._names = {id(v): f"allreduce.{k}" for k, v in named_parameters}
 
     def synchronize(self) -> None:
         """Average every gradient over the ranks, in place."""
-        params = [p for group in self.param_groups for p in group["params"]
-                  if p.grad is not None]
-        if params:
-            wire, ctxs = [], []
-            for p in params:
+        params, wire, ctxs, names = [], [], [], []
+        for i, group in enumerate(self.param_groups):
+            for j, p in enumerate(group["params"]):
+                if p.grad is None:
+                    continue
                 w, c = self._compression.compress(p.grad)
+                params.append(p)
                 wire.append(w)
                 ctxs.append(c)
-            out = _coll.fused_allreduce_async(
-                wire, average=True, name=f"grads.{self._steps}").wait()
-            with torch.no_grad():
-                for p, o, c in zip(params, out, ctxs):
-                    p.grad.copy_(self._compression.decompress(o, c))
+                names.append(self._names.get(id(p),
+                                             f"allreduce.noname.{i}.{j}"))
+        outs = _coll.fused_allreduce_async(wire, True, names=names).wait()
+        with torch.no_grad():
+            for p, o, c in zip(params, outs, ctxs):
+                p.grad.copy_(self._compression.decompress(o, c))
         self._synchronized = True
 
     @contextlib.contextmanager
@@ -93,7 +93,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if self._should_synchronize and not self._synchronized:
             self.synchronize()
         self._synchronized = False
-        self._steps += 1
         return super(self.__class__, self).step(closure)
 
     def zero_grad(self, set_to_none: bool = True):
@@ -117,20 +116,15 @@ def broadcast_parameters(params, root_rank: int = 0) -> None:
     is a ``state_dict()``, a ``named_parameters()`` iterable or a list of
     tensors."""
     if isinstance(params, dict):
-        tensors = list(params.values())
+        named = list(params.items())
     else:
-        tensors = [p[1] if isinstance(p, tuple) else p for p in params]
-    n = _topo.size()
-    if not (0 <= root_rank < n):
-        raise ValueError(
-            f"Invalid root_rank {root_rank}: root rank must be in [0, {n})")
-    works = []
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("broadcast_parameters needs contiguous tensors")
-        works.append(dist.broadcast(t.data, src=root_rank, async_op=True))
-    for w in works:
-        w.wait()
+        named = [p if isinstance(p, tuple) else (None, p) for p in params]
+    handles = [(t, _coll.broadcast_async(
+        t, root_rank, None if k is None else f"broadcast.{k}"))
+        for k, t in named]
+    with torch.no_grad():
+        for t, h in handles:
+            t.copy_(h.wait())
 
 
 def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
@@ -183,7 +177,7 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     meta = broadcast_object(meta, root_rank, name="optimizer_state")
     is_root = _topo.rank() == root_rank
     new_state: Dict = {}
-    works = []
+    handles = []
     for pid, st in meta["state"].items():
         new_state[pid] = {}
         for k, v in st.items():
@@ -191,12 +185,12 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                     and v[0] == "__device_tensor__":
                 t = (device_tensors[v[1]] if is_root
                      else torch.empty(v[2], dtype=v[3], device=dev))
-                works.append(dist.broadcast(t, src=root_rank,
-                                            async_op=True))
+                handles.append((pid, k, _coll.broadcast_async(
+                    t, root_rank, f"optimizer_state.{pid}.{k}")))
                 v = t
             new_state[pid][k] = v
-    for w in works:
-        w.wait()
+    for pid, k, h in handles:
+        new_state[pid][k] = h.wait()
     if not is_root:
         optimizer.load_state_dict({"state": new_state,
                                    "param_groups": meta["param_groups"]})

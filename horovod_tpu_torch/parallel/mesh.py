@@ -1,0 +1,98 @@
+"""Multi-axis meshes over ``torch.distributed.device_mesh``.
+
+Counterpart of ``horovod_tpu/parallel/mesh.py``. Each parallelism
+strategy binds to a named axis ('dp' data, 'fsdp', 'tp', 'pp', 'sp',
+'ep'); ``create_mesh`` lays the ranks out row-major over the axes, so
+leading axes step across nodes and trailing axes stay inside one.
+
+One process drives one device, so a mesh's entries are ranks. An axis
+is ``"dcn"`` (it crosses nodes) when stepping along it changes a rank's
+node, ``rank // local_size``, and ``"ici"`` (it stays on the node's
+interconnect) otherwise. ``HOROVOD_TPU_DCN_AXES`` (comma-separated axis
+names) forces axes to ``"dcn"``.
+
+Creating a mesh creates its process groups: every rank calls
+``create_mesh`` with the same arguments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Axis-name → size spec. size -1 means "absorb remaining devices"."""
+
+    axes: Tuple[Tuple[str, int], ...]
+
+    @classmethod
+    def of(cls, **sizes: int) -> "MeshSpec":
+        return cls(tuple(sizes.items()))
+
+    def resolve(self, n_devices: int) -> Dict[str, int]:
+        fixed = math.prod(s for _, s in self.axes if s > 0)
+        wild = [a for a, s in self.axes if s <= 0]
+        if len(wild) > 1:
+            raise ValueError("at most one axis may have size -1")
+        out = dict(self.axes)
+        if wild:
+            if n_devices % fixed:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes "
+                    f"{fixed}")
+            out[wild[0]] = n_devices // fixed
+        elif fixed != n_devices:
+            raise ValueError(
+                f"mesh axes {dict(self.axes)} multiply to {fixed}, but "
+                f"{n_devices} devices are available")
+        return out
+
+
+def axis_kinds(mesh: DeviceMesh,
+               local_size: Optional[int] = None) -> Dict[str, str]:
+    """``{axis: "ici" | "dcn"}`` for every axis of ``mesh``.
+    ``local_size`` (ranks per node) defaults to the topology's."""
+    if local_size is None:
+        from .. import topology as _topo
+        local_size = _topo.local_size()
+    forced = {a.strip()
+              for a in os.environ.get("HOROVOD_TPU_DCN_AXES", "").split(",")
+              if a.strip()}
+    nodes = mesh.mesh // local_size
+    kinds: Dict[str, str] = {}
+    for k, name in enumerate(mesh.mesh_dim_names):
+        crosses = bool((torch.roll(nodes, -1, dims=k) != nodes).any())
+        kinds[name] = "dcn" if name in forced or crosses else "ici"
+    return kinds
+
+
+def dcn_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
+    """Mesh axes that cross nodes (see :func:`axis_kinds`)."""
+    return tuple(a for a, k in axis_kinds(mesh).items() if k == "dcn")
+
+
+def ici_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
+    """Mesh axes that stay inside a node."""
+    return tuple(a for a, k in axis_kinds(mesh).items() if k == "ici")
+
+
+def create_mesh(spec: Optional[MeshSpec] = None,
+                **axis_sizes: int) -> DeviceMesh:
+    """A named mesh over every rank, on the topology's device type.
+
+    ``create_mesh(dp=-1)`` — flat data parallel.
+    ``create_mesh(dp=2, tp=2, sp=2)`` — 3-axis hybrid on 8 ranks.
+    """
+    from .. import topology as _topo
+    if spec is None:
+        spec = MeshSpec.of(**(axis_sizes or {"dp": -1}))
+    sizes = spec.resolve(_topo.size())
+    return init_device_mesh(_topo.device().type, tuple(sizes.values()),
+                            mesh_dim_names=tuple(sizes.keys()))

@@ -7,6 +7,11 @@ device: NCCL on CUDA, gloo on the CPU. ``init`` reads the usual
 process needs no launcher and gets an in-process store at world size 1.
 It runs on CUDA unless the caller passes ``device="cpu"`` and never
 falls back to the CPU on its own.
+
+At world size > 1 ``init`` also creates a gloo control group for the
+collective engine's negotiation (``ops/collective.py``); data stays on
+the default group. ``init`` starts the engine and ``shutdown`` stops it
+before destroying the groups.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -37,10 +42,14 @@ class Topology:
     backend: str
     device: torch.device
     owns_group: bool      # init() created the process group
+    # The collective engine's negotiation group (gloo); None at size 1.
+    control_group: Optional[object] = dataclasses.field(default=None,
+                                                        compare=False)
 
 
 _lock = threading.Lock()
 _topology: Optional[Topology] = None
+_meshes: Dict[str, object] = {}
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -74,10 +83,10 @@ def init(*, device: Union[str, torch.device, None] = None,
         r = rank if rank is not None else (_env_int("RANK") or 0)
         n = world_size if world_size is not None else (
             _env_int("WORLD_SIZE") or 1)
+        local_size = _env_int("LOCAL_WORLD_SIZE") or n
         local_rank = _env_int("LOCAL_RANK")
         if local_rank is None:
-            local_rank = r
-        local_size = _env_int("LOCAL_WORLD_SIZE") or n
+            local_rank = r % local_size
         if dev.type == "cuda":
             if dev.index is None:
                 dev = torch.device("cuda", local_rank)
@@ -100,19 +109,31 @@ def init(*, device: Union[str, torch.device, None] = None,
                     "'tcp://localhost:29500')")
         else:
             backend = dist.get_backend()
+        ctrl = (dist.new_group(backend="gloo")
+                if dist.get_world_size() > 1 else None)
         _topology = Topology(rank=dist.get_rank(), size=dist.get_world_size(),
                              local_rank=local_rank, local_size=local_size,
-                             backend=backend, device=dev, owns_group=owns)
+                             backend=backend, device=dev, owns_group=owns,
+                             control_group=ctrl)
+        from .ops import collective
+        collective.start_engine(_topology)
         return _topology
 
 
 def shutdown() -> None:
+    """Stop the collective engine (every rank's pending ops fail with
+    ``SHUT_DOWN_ERROR``), then destroy the groups ``init`` created."""
     global _topology
+    from .ops import collective
+    collective.stop_engine()
     with _lock:
-        if _topology is not None and _topology.owns_group \
-                and dist.is_initialized():
-            dist.destroy_process_group()
+        if _topology is not None and dist.is_initialized():
+            if _topology.control_group is not None:
+                dist.destroy_process_group(_topology.control_group)
+            if _topology.owns_group:
+                dist.destroy_process_group()
         _topology = None
+        _meshes.clear()
 
 
 def is_initialized() -> bool:
@@ -157,3 +178,30 @@ def process_count() -> int:
 def device() -> torch.device:
     """The device this process drives."""
     return _get().device
+
+
+def _mesh(kind: str):
+    topo = _get()
+    with _lock:
+        if kind not in _meshes:
+            from .parallel import mesh as _mesh_mod
+            if kind == "flat":
+                m = _mesh_mod.create_mesh(dp=-1)
+            else:
+                m = _mesh_mod.create_mesh(dcn=topo.size // topo.local_size,
+                                          ici=topo.local_size)
+            _meshes[kind] = m
+        return _meshes[kind]
+
+
+def mesh():
+    """The flat world mesh, axis name ``'dp'`` (the "world communicator").
+    Built on first call, which every rank makes."""
+    return _mesh("flat")
+
+
+def hierarchical_mesh():
+    """The ``('dcn', 'ici')`` mesh, ``(size // local_size, local_size)``
+    (the local/cross communicator split). Built on first call, which
+    every rank makes."""
+    return _mesh("hier")

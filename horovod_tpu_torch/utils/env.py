@@ -10,8 +10,9 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-# Horovod's fusion threshold default (64 MiB).
+# Horovod's fusion threshold default (64 MiB) and the JAX engine's cycle.
 DEFAULT_FUSION_THRESHOLD_MB = 64
+DEFAULT_CYCLE_TIME_MS = 1.0
 
 
 def _get(name: str) -> Optional[str]:
@@ -27,6 +28,15 @@ def fusion_threshold_bytes() -> int:
     if v is not None:
         return int(v)
     return DEFAULT_FUSION_THRESHOLD_MB * 1024 * 1024
+
+
+def cycle_time_ms() -> float:
+    """Pause of the collective engine between cycles (HOROVOD_CYCLE_TIME,
+    milliseconds). A blocking ``Handle.wait`` cuts the pause short."""
+    v = _get("CYCLE_TIME")
+    if v is not None:
+        return float(v)
+    return DEFAULT_CYCLE_TIME_MS
 
 
 def log_level() -> str:

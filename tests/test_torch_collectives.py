@@ -78,11 +78,11 @@ def test_fusion_buffers_cut_at_threshold(monkeypatch):
     ts = [torch.ones(4), torch.full((4,), 2.0), torch.arange(2),
           torch.ones(1)]
     h = hvd.ops.collective.fused_allreduce_async(ts, name="cut")
-    # Each fp32 tensor would overflow the open 16-byte fp32 buffer, so
-    # each opens its own; the int64 tensor has a buffer of its dtype.
-    assert len(h._works) == 4
     for a, b in zip(h.wait(), ts):
         assert torch.equal(a, b)
+    # Each fp32 tensor would overflow the open 16-byte fp32 group, so
+    # each opens its own; the int64 tensor has a group of its dtype.
+    assert h.groups == [("cut.0",), ("cut.1",), ("cut.2",), ("cut.3",)]
 
 
 def test_allreduce_gradients_structure():

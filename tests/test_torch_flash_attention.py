@@ -131,7 +131,8 @@ def test_bf16_grads_match_jax():
 # The card tests' tile-edge shapes (a 128-row q tile with its diagonal
 # across two 64-key tiles, one row past a tile, the second 64-row
 # warpgroup of a q tile partly or wholly past the sequence, ragged tails
-# causal and not, both head dims), with the heads cut to a few. The JAX
+# causal and not, the head dims stored at their width and those stored
+# zero-padded to the next 64 columns), with the heads cut to a few. The JAX
 # side runs at the CUDA kernels' tiling: 128 q rows by 64 keys.
 EDGE_CASES = {
     # name: ([batch, seq, heads, head_dim], causal)
@@ -142,6 +143,9 @@ EDGE_CASES = {
     "ragged_causal_d64": ((1, 200, 3, 64), True),
     "second_warpgroup_past_seq": ((1, 100, 2, 128), True),
     "one_and_a_half_tiles_noncausal": ((1, 192, 2, 128), False),
+    "ragged_causal_d96": ((1, 200, 2, 96), True),
+    "ragged_noncausal_d80": ((1, 130, 2, 80), False),
+    "ragged_causal_d32": ((1, 130, 2, 32), True),
 }
 
 

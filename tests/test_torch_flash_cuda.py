@@ -35,6 +35,10 @@ SHAPES = [  # (bh, seq, head_dim, causal)
     (2, 300, 128, False),
     (2, 100, 128, True),
     (2, 192, 128, False),
+    (3, 200, 96, True),
+    (2, 130, 96, False),
+    (2, 300, 80, True),
+    (2, 130, 32, True),
 ]
 
 
@@ -133,7 +137,7 @@ def test_autograd_counts_launches(cuda_kernels):
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take(cuda_kernels):
-    q = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(2, 64, 72, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd_cuda(q, q, q, 0.1, True)
     q = torch.zeros(2, 64, 64, dtype=torch.float32, device="cuda")
