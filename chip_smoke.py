@@ -28,8 +28,11 @@ and prints no result line):
    ``broadcast_parameters``, ``DistributedOptimizer(AdamW)`` and 5 train
    steps of 8 x 2048 tokens; the loss must be finite and fall, and each
    flash kernel must launch exactly 12 times per step. The gradients go
-   through the collective engine; each step logs the host ms of
-   ``optimizer.synchronize()`` and the number of fused groups;
+   through the collective engine in 7 buckets of the default 64 MiB cap,
+   each of which must fire from its last gradient hook during backward
+   in every step (none from the flush); each step logs the host ms of
+   ``optimizer.synchronize()`` and the buckets fired from hooks and from
+   the flush;
 6. batch-norm kernels K4-K7 against their plain versions at (M, C) =
    (802816, 256), (3211264, 64) and (12544, 2048), each in the three
    variants ResNet-50 uses (ReLU, ReLU + residual, neither); repeated
@@ -44,9 +47,11 @@ and prints no result line):
 8. ResNet main path: ``ResNet50(bn_impl="pallas")``,
    ``broadcast_parameters``, ``DistributedOptimizer(SGD(0.01,
    momentum=0.9))`` and 5 train steps of 256 x 224 x 224 x 3 images; the
-   loss must be finite and fall, and each BN kernel must launch exactly
-   53 times per step. Then 5 steps of the same model on
-   ``bn_impl="flax"`` (the JAX default, plain PyTorch) for comparison;
+   loss must be finite and fall, each BN kernel must launch exactly 53
+   times per step, and the gradients' 2 buckets must fire from their
+   hooks in every step (logged as in phase 5). Then 5 steps of the same
+   model on ``bn_impl="flax"`` (the JAX default, plain PyTorch) for
+   comparison;
 9. probes P1-P3: every probe kernel (copy, +1 map, stats-like reduce,
    the flash ablation's stream / matmul / nosoft) against its plain
    version at small shapes; then the three probe scripts'
@@ -67,7 +72,19 @@ and prints no result line):
    planner's; a producer on a side stream whose output is enqueued
    without a sync (the event fence); and the head_dim-96 LM (d_model
    768, 8 heads): the flash kernels against full attention, then three
-   steps through the auto policy, which launches K1-K3 once per layer.
+   steps through the auto policy, which launches K1-K3 once per layer;
+11. the blockwise wire on the card (``init`` again, NCCL, world 1):
+   ``quantize_blocks`` (both scale forms), ``dequantize_blocks``,
+   ``local_roundtrip`` and the e4m3 casts, int8 and fp8, at the LM's
+   bucket sizes and a ragged length, bit for bit against the same
+   functions on CPU copies; a blockwise ``allreduce`` through the engine
+   at n = 1 bit for bit against ``dequant(quant(dequant(quant(x))))``
+   computed on the CPU; 3 flagship LM steps on ``int8_blockwise`` with
+   per-bucket error feedback (losses finite and falling; the device ms
+   the quantize passes add per step, timed per bucket); and one
+   ResNet-50 step each on the copy path, with ``gradient_as_bucket_view``
+   and with one request per gradient, their gradients bit for bit
+   (cuDNN deterministic for this check).
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1. The line before the last is ``{"kernels":
@@ -125,6 +142,9 @@ BN_TIMED = (802816, 256, True, True)    # (M, C, relu, residual)
 BN_CHECKED = [(802816, 256), (3211264, 64), (12544, 2048)]
 BN_VARIANTS = [(True, True), (True, False), (False, False)]
 RESNET_BATCH, RESNET_IMAGE = 256, 224
+# Buckets at the default 64 MiB cap (the JAX shim's rule): the LM's 99
+# fp32 gradients and ResNet-50's 161.
+LM_BUCKETS, RESNET_BUCKETS = 7, 2
 PROBE_STATS_BM = 1024   # the timed row tile of P2's stats-like and +1 map
 
 
@@ -646,18 +666,37 @@ def profile_steps(run, path, label, n=2):
             sorted(kinds.items(), key=lambda r: -r[1][0])))
 
 
-def timed_synchronize(opt, engine, sync_ms, groups):
-    """Wrap ``opt.synchronize`` to log its host ms and the engine's fused
-    groups per call into ``sync_ms`` and ``groups``."""
+def timed_synchronize(opt, sync_ms, fires):
+    """Wrap ``opt.synchronize`` to log, per call, its host ms into
+    ``sync_ms`` and (buckets fired from hooks since the last call,
+    buckets fired by this call's flush) into ``fires``."""
     inner = opt.synchronize
+    last = dict(opt.bucket_fires)
 
     def sync():
-        g0 = engine.groups_executed
+        hook = opt.bucket_fires["hook"] - last["hook"]
         t0 = time.perf_counter()
         inner()
         sync_ms.append((time.perf_counter() - t0) * 1e3)
-        groups.append(engine.groups_executed - g0)
+        fires.append((hook, opt.bucket_fires["flush"] - last["flush"]))
+        last.update(opt.bucket_fires)
     opt.synchronize = sync
+
+
+def check_bucket_fires(opt, fires, want):
+    """``want`` buckets, each fired from its last hook in every step."""
+    n = len(opt._buckets)
+    if n != want or any(f != (n, 0) for f in fires):
+        raise AssertionError(f"{n} buckets (expected {want}); fired (hook, "
+                             f"flush) per step {fires}")
+
+
+def bucket_line(opt, sync_ms, fires):
+    mib = [round(b.numel * b.buffer.element_size() / 2**20, 1)
+           for b in opt._buckets]
+    return (f"{len(opt._buckets)} buckets of {mib} MiB; fired (hook, "
+            f"flush) per step {fires}; optimizer.synchronize() host ms per "
+            f"step {[round(x, 3) for x in sync_ms]}")
 
 
 def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
@@ -675,8 +714,8 @@ def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
     n_params = sum(p.numel() for p in model.parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = step.make_optimizer(model)
-    sync_ms, groups = [], []
-    timed_synchronize(opt, hvd.ops.collective.engine(), sync_ms, groups)
+    sync_ms, fires = [], []
+    timed_synchronize(opt, sync_ms, fires)
     grad_mb = sum(p.numel() * p.element_size() for p in model.parameters())
     b, s = 8, 2048
     tok = torch.randint(0, cfg.vocab, (b, s + 1),
@@ -699,19 +738,16 @@ def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
         f"{6 * n_params * b * s / steady / PEAK_BF16_FLOPS:.2%} of the "
         "bf16 peak (attention not counted)")
     log(f"  launches {launches}")
-    log(f"  gradient sync ({grad_mb / 1e6:.1f} MB of fp32 gradients, "
-        f"fusion threshold {hvd.utils.env.fusion_threshold_bytes() >> 20} "
-        f"MiB): optimizer.synchronize() host ms per step "
-        f"{[round(x, 3) for x in sync_ms]}, fused groups per step {groups}")
+    log(f"  gradient sync ({grad_mb / 1e6:.1f} MB of fp32 gradients): "
+        + bucket_line(opt, sync_ms, fires))
     check_launches(launches, cfg.n_layers)
     if sum(fbn.launch_counts().values()):
         raise AssertionError("the LM step launched batch-norm kernels")
-    if len(groups) != STEPS or not all(groups):
-        raise AssertionError(f"the engine ran no groups in a step: {groups}")
+    check_bucket_fires(opt, fires, LM_BUCKETS)
     if profile:
         profile_steps(lambda: step(model, opt, tokens, targets), profile,
                       "LM flagship train step")
-    return launches
+    return launches, steady
 
 
 def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
@@ -733,6 +769,8 @@ def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
         model = step.make_model(generator=torch.Generator().manual_seed(0))
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
         opt = step.make_optimizer(model)
+        sync_ms, fires = [], []
+        timed_synchronize(opt, sync_ms, fires)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
@@ -753,6 +791,8 @@ def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
             f"{flops / steady / PEAK_BF16_FLOPS:.2%} of the bf16 peak; "
             f"BN kernels' bytes bound {bn_bound_ms:.3f} ms/step")
         log(f"  launches {counts} (flash {fa.launch_counts()})")
+        log("  gradient sync: " + bucket_line(opt, sync_ms, fires))
+        check_bucket_fires(opt, fires, RESNET_BUCKETS)
         if sum(fa.launch_counts().values()):
             raise AssertionError("the ResNet step launched flash kernels")
         if bn_impl == "pallas":
@@ -1098,6 +1138,215 @@ def engine_phase(hvd, cp, texec, tfm, fa, build_train_step):
     hvd.shutdown()
 
 
+# ------------------------------------------------------ the blockwise wire
+
+WIRE_SPECS = ("int8x256", "fp8x256")
+WIRE_RAGGED = 1_000_003      # elements: no whole number of blocks
+WIRE_STEPS = 3
+
+
+def wire_input(n, seed):
+    """n fp32 values over ten decades (N(0, 1) times e^N(0, 9)), made on
+    the card from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(n, generator=gen, device="cuda")
+            * torch.exp(3 * torch.randn(n, generator=gen, device="cuda")))
+
+
+def same_on_cpu(got, want, what):
+    if not same_bits(got, want):
+        raise AssertionError(f"{what}: the card's result differs from the "
+                             "same function on a CPU copy")
+
+
+def wire_functions(tq, sizes):
+    """The wire's functions on the card against CPU copies, bit for bit;
+    returns how many results were compared."""
+    count = 0
+    for i, n in enumerate(sizes):
+        x = wire_input(n, 40 + i)
+        xc = x.cpu()
+        for name in WIRE_SPECS:
+            spec = tq.parse(name)
+            pad = tq.padded_size(n, spec.block_size) - n
+            xp, xpc = (torch.cat([t, t.new_zeros(pad)]) for t in (x, xc))
+            for folded in (False, True):
+                q, sc = tq.quantize_blocks(xp, spec, folded)
+                qc, scc = tq.quantize_blocks(xpc, spec, folded)
+                what = f"quantize_blocks {name} n={n} folded={folded}"
+                same_on_cpu(q, qc, what)
+                same_on_cpu(sc, scc, what + " scales")
+                same_on_cpu(tq.dequantize_blocks(q, sc, spec),
+                            tq.dequantize_blocks(qc, scc, spec),
+                            f"dequantize_blocks {name} n={n}")
+            same_on_cpu(tq.local_roundtrip(x, spec),
+                        tq.local_roundtrip(xc, spec),
+                        f"local_roundtrip {name} n={n}")
+            count += 6
+        # The unscaled fp8 cast: magnitudes past ±448, so some overflow.
+        y, yc = x * 100, xc * 100
+        q, qc = tq.to_e4m3fn(y), tq.to_e4m3fn(yc)
+        same_on_cpu(q, qc, f"to_e4m3fn n={n}")
+        same_on_cpu(tq.from_e4m3fn(q, torch.float32),
+                    tq.from_e4m3fn(qc, torch.float32), f"from_e4m3fn n={n}")
+        count += 2
+    return count
+
+
+def wire_allreduce(hvd, tq, n):
+    """A blockwise allreduce through the engine at n = 1 against the
+    closed form on the CPU: the wire's quantizer twice."""
+    for i, name in enumerate(WIRE_SPECS):
+        x = wire_input(n, 60 + i)
+        spec = tq.parse(name)
+        want = torch.cat([x.cpu(), torch.zeros(
+            tq.padded_size(n, spec.block_size) - n)])
+        # Phase 1 accumulates from zero (so -0 becomes +0), phase 2 not.
+        for zero in (0.0, None):
+            want = tq.dequantize_blocks(*tq.quantize_blocks(
+                want, spec, folded=True), spec)
+            want = want if zero is None else want + zero
+        comp = (hvd.Compression.int8_blockwise if name.startswith("int8")
+                else hvd.Compression.fp8_blockwise)
+        got = hvd.allreduce(x, compression=comp, name=f"wire.{name}.{n}")
+        same_on_cpu(got, want[:n], f"blockwise allreduce {name} n={n}")
+
+
+def wire_device_ms(tq, texec, opt, spec):
+    """Device ms a step's quantize passes add, per bucket: the error
+    feedback (add the residual, round-trip, subtract) and the wire's
+    allreduce at n = 1 less the exact one, back-to-back on a copy of each
+    bucket's buffer."""
+    ident = lambda b: b               # noqa: E731  the collectives at n = 1
+    total = []
+    for b in opt._buckets:
+        buf = b.buffer.clone()
+        res = torch.zeros_like(buf)
+
+        def feedback():
+            buf.add_(res)
+            torch.sub(buf, tq.local_roundtrip(buf, spec), out=res)
+        ef = px.time_ms(feedback)
+        wire = px.time_ms(lambda: texec.fused_allreduce(
+            [buf], ident, wire=spec, world=1, all_to_all_fn=ident,
+            all_gather_fn=ident))
+        exact = px.time_ms(lambda: texec.fused_allreduce([buf], ident))
+        total.append((ef, wire - exact))
+    return total
+
+
+def wire_lm_steps(hvd, tfm, tq, texec, build_train_step, none_step_s):
+    """3 flagship LM steps on int8_blockwise; returns the buckets' sizes."""
+    cfg = tfm.TransformerConfig(vocab=32000, d_model=768, n_layers=12,
+                                d_ff=3072, max_seq=2048,
+                                dtype=torch.bfloat16, remat=False)
+    step = build_train_step(cfg, lambda p: torch.optim.AdamW(
+        p, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4))
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = hvd.DistributedOptimizer(
+        step.optimizer_factory(model.parameters()),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.int8_blockwise)
+    sync_ms, fires = [], []
+    timed_synchronize(opt, sync_ms, fires)
+    tok = torch.randint(0, cfg.vocab, (8, 2049),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    losses, times = [], []
+    for _ in range(WIRE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, opt, tok[:, :-1], tok[:, 1:])))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"int8_blockwise LM losses {losses}")
+    check_bucket_fires(opt, fires, LM_BUCKETS)
+    if len(opt._bucket_residuals) != LM_BUCKETS:
+        raise AssertionError("a bucket kept no error-feedback residual")
+    per_bucket = wire_device_ms(tq, texec, opt, tq.parse("int8x256"))
+    steady = statistics.median(times[1:])
+    log(f"  LM on int8_blockwise: losses {losses}; step seconds {times}; "
+        f"{8 * 2048 / steady:.1f} tok/s (median of steps 2-{WIRE_STEPS}; "
+        f"{8 * 2048 / none_step_s:.1f} on the exact wire in phase 5)")
+    log("  " + bucket_line(opt, sync_ms, fires))
+    log(f"  quantize device ms per step: error feedback "
+        f"{sum(e for e, _ in per_bucket):.3f}, wire less exact "
+        f"{sum(w for _, w in per_bucket):.3f}; per bucket (feedback, wire "
+        f"less exact) {[(round(e, 3), round(w, 3)) for e, w in per_bucket]}")
+    sizes = sorted({b.numel for b in opt._buckets})
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return sizes
+
+
+def wire_resnet_views(hvd, tres, build_image_train_step, images, labels):
+    """One ResNet-50 step on the copy path, on gradient views and with one
+    request per gradient: the same gradients, bit for bit. cuDNN runs
+    deterministic algorithms for the check."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    step = build_image_train_step(
+        functools.partial(tres.ResNet50, num_classes=1000, bn_impl="pallas"),
+        lambda p: torch.optim.SGD(p, lr=0.01, momentum=0.9))
+    grads = {}
+    try:
+        for kind, kw in (("copy", {}), ("view",
+                                        {"gradient_as_bucket_view": True}),
+                         ("per-tensor", {"bucket_cap_mb": 0})):
+            model = step.make_model(generator=torch.Generator().manual_seed(0))
+            opt = hvd.DistributedOptimizer(
+                step.optimizer_factory(model.parameters()),
+                named_parameters=model.named_parameters(), **kw)
+            if kind == "view" and len(opt._grad_views) != len(
+                    list(model.parameters())):
+                raise AssertionError("gradient views were not installed")
+            step(model, opt, images, labels)
+            grads[kind] = [p.grad.clone() for p in model.parameters()]
+            del model, opt
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    for kind in ("view", "per-tensor"):
+        bad = [i for i, (a, b) in enumerate(zip(grads["copy"], grads[kind]))
+               if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"ResNet-50 gradients on the {kind} path "
+                                 f"differ from the copy path in {len(bad)} "
+                                 "tensors")
+    return len(grads["copy"])
+
+
+def wire_phase(hvd, tfm, tres, texec, build_train_step,
+               build_image_train_step, none_step_s):
+    """Phase 11: the blockwise wire on the card."""
+    from horovod_tpu_torch import quantization as tq
+    hvd.init()
+    if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
+        raise AssertionError(f"expected NCCL at world size 1, got "
+                             f"{hvd.get_topology()}")
+    log("blockwise wire:")
+    sizes = wire_lm_steps(hvd, tfm, tq, texec, build_train_step,
+                          none_step_s)
+    n = wire_functions(tq, sizes + [WIRE_RAGGED])
+    log(f"  {n} results of quantize_blocks (both scale forms), "
+        f"dequantize_blocks, local_roundtrip and the e4m3 casts at "
+        f"{sizes + [WIRE_RAGGED]} elements bit for bit against CPU copies")
+    for n in (sizes[0], WIRE_RAGGED):
+        wire_allreduce(hvd, tq, n)
+    log(f"  blockwise allreduce (int8, fp8) at n = 1 of {sizes[0]} and "
+        f"{WIRE_RAGGED} elements bit for bit against the closed form")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3,
+                         generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                           device="cuda")
+    n = wire_resnet_views(hvd, tres, build_image_train_step, images, labels)
+    log(f"  ResNet-50: {n} gradients bit for bit on the copy path, on "
+        "gradient views and with one request per gradient")
+    hvd.shutdown()
+
+
 def source_of(name):
     if name in BN_KERNELS:
         return BN_SOURCE
@@ -1176,8 +1425,8 @@ def main(argv=None) -> int:
     if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
         raise AssertionError(f"expected NCCL at world size 1, got "
                              f"{hvd.get_topology()}")
-    launches = lm_main_path(hvd, tfm, fa, fbn, build_train_step,
-                            args.profile)
+    launches, lm_step_s = lm_main_path(hvd, tfm, fa, fbn, build_train_step,
+                                       args.profile)
     torch.cuda.empty_cache()
 
     # 6. BN kernels vs plain, per-call and per-step times
@@ -1208,6 +1457,10 @@ def main(argv=None) -> int:
 
     # 10. the collective engine on the card
     engine_phase(hvd, cp, texec, tfm, fa, build_train_step)
+
+    # 11. the blockwise wire on the card
+    wire_phase(hvd, tfm, tres, texec, build_train_step,
+               build_image_train_step, lm_step_s)
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[name], launches=launches[name],

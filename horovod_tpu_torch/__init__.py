@@ -3,9 +3,11 @@
 The same public names as ``horovod_tpu`` for the part ported so far:
 topology and meshes over ``torch.distributed`` (NCCL on CUDA, gloo on
 the CPU), eager collectives through a negotiated engine with tensor
-fusion, cast compression, ``DistributedOptimizer`` and the
-broadcasts, and the flagship transformer's data-parallel train step,
-whose attention runs on hand-written CUDA flash kernels for Hopper.
+fusion, cast and block-quantized compression, the hook-fired bucketed
+``DistributedOptimizer`` and the broadcasts, and the data-parallel
+train steps of the flagship transformer, whose attention runs on
+hand-written CUDA flash kernels for Hopper, and of ResNet-50, whose
+batch norms run on hand-written CUDA kernels.
 
     import torch, horovod_tpu_torch as hvd
     hvd.init()                                   # CUDA; device="cpu" for gloo
@@ -22,8 +24,9 @@ from .topology import (NotInitializedError, device, hierarchical_mesh, init,
                        process_count, process_rank, rank, shutdown, size)
 from .topology import topology as get_topology
 from .ops import (Handle, HorovodInternalError, allgather, allgather_async,
-                  allreduce, allreduce_async, broadcast, broadcast_async,
-                  grouped_allreduce, poll, synchronize)
+                  allreduce, allreduce_, allreduce_async, allreduce_async_,
+                  broadcast, broadcast_, broadcast_async, broadcast_async_,
+                  grouped_allreduce, poll, synchronize, synchronize_many)
 from .compression import Compression
 from .optimizer import (DistributedOptimizer, allreduce_gradients,
                         broadcast_object, broadcast_optimizer_state,
@@ -37,9 +40,10 @@ __all__ = [
     "local_size", "process_rank", "process_count", "device", "get_topology",
     "mesh", "hierarchical_mesh",
     "NotInitializedError",
-    "allreduce", "allreduce_async", "allgather", "allgather_async",
-    "broadcast", "broadcast_async", "grouped_allreduce", "poll",
-    "synchronize", "Handle", "HorovodInternalError",
+    "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
+    "allgather", "allgather_async", "broadcast", "broadcast_",
+    "broadcast_async", "broadcast_async_", "grouped_allreduce", "poll",
+    "synchronize", "synchronize_many", "Handle", "HorovodInternalError",
     "Compression", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allreduce_gradients",
 ]

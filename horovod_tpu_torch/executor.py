@@ -14,6 +14,14 @@ scaled in floating point as JAX promotes them (float64 for int64,
 float32 otherwise) and cast back as XLA does: toward zero, saturating at
 the dtype's range. Unscaled integer sums wrap in their dtype, as MPI's
 sum does.
+
+With a wire (``quantization.WireSpec``), a floating dtype's buffer takes
+the dual block-quantized allreduce of ``_fused_reduce_quantized``
+instead: each tensor cast to fp32 and prescaled, its span padded to
+whole blocks (blocks never mix tensors, so a per-tensor or per-bucket
+error-feedback residual matches the wire exactly), the buffer padded to
+``world * block_size``, ``quantization.allreduce_blocks``, postscale,
+and each tensor cast back.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from . import quantization as _quant
 
 _ACCUM = {torch.float16: torch.float32, torch.bfloat16: torch.float32,
           torch.float8_e4m3fn: torch.float32, torch.float8_e5m2: torch.float32,
@@ -48,6 +58,8 @@ def _scaled(buf: torch.Tensor, factor: float) -> torch.Tensor:
 def _cast_back(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if x.dtype == dtype:
         return x
+    if dtype == torch.float8_e4m3fn:
+        return _quant.to_e4m3fn(x)
     if dtype.is_floating_point or dtype == torch.bool \
             or not x.is_floating_point():
         return x.to(dtype)
@@ -59,19 +71,37 @@ def _cast_back(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return y.masked_fill_(hi, info.max).masked_fill_(lo, info.min)
 
 
+Collective = Callable[[torch.Tensor], torch.Tensor]
+
+
 def fused_allreduce(tensors: Sequence[torch.Tensor],
-                    reduce_fn: Callable[[torch.Tensor], torch.Tensor],
+                    reduce_fn: Collective,
                     prescale: float = 1.0,
-                    postscale: float = 1.0) -> List[torch.Tensor]:
+                    postscale: float = 1.0,
+                    wire: Optional[_quant.WireSpec] = None,
+                    world: int = 1,
+                    all_to_all_fn: Optional[Collective] = None,
+                    all_gather_fn: Optional[Collective] = None
+                    ) -> List[torch.Tensor]:
     """Sum ``tensors`` over the ranks with ``reduce_fn`` (flat buffer in,
-    its sum over the ranks out): one call per dtype. Returns new tensors
-    in input order, each of its input's shape and dtype."""
+    its sum over the ranks out): one call per dtype. With ``wire``, a
+    floating dtype goes through :func:`quantization.allreduce_blocks`
+    over ``world`` ranks with the two collectives instead. Returns new
+    tensors in input order, each of its input's shape and dtype."""
     by_dtype = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for dt, idx in by_dtype.items():
         group = [tensors[i] for i in idx]
+        if (wire is not None and dt.is_floating_point
+                and sum(t.numel() for t in group) > 0):
+            reds = _fused_reduce_quantized(group, wire, world, prescale,
+                                           postscale, all_to_all_fn,
+                                           all_gather_fn)
+            for i, o in zip(idx, reds):
+                out[i] = o
+            continue
         # A new buffer (the reduction may work in place; flattening one
         # tensor would return a view of it).
         buf = (_flatten_dense_tensors(group) if len(group) > 1
@@ -89,6 +119,38 @@ def fused_allreduce(tensors: Sequence[torch.Tensor],
         for i, o in zip(idx, _unflatten_dense_tensors(red, group)):
             out[i] = o
     return out
+
+
+def _fused_reduce_quantized(group: Sequence[torch.Tensor],
+                            wire: _quant.WireSpec, world: int,
+                            prescale: float, postscale: float,
+                            all_to_all_fn: Collective,
+                            all_gather_fn: Collective) -> List[torch.Tensor]:
+    """The quantized wire's fusion buffer for one dtype: per-tensor block
+    padding, the dual-quantized allreduce, the split back out."""
+    bs = wire.block_size
+    pieces, spans, off = [], [], 0
+    for t in group:
+        f = t.reshape(-1).to(torch.float32)
+        if prescale != 1.0:
+            f = f * prescale
+        n = f.numel()
+        m = _quant.padded_size(max(n, 1), bs)
+        pieces.append(f)
+        if m != n:
+            pieces.append(f.new_zeros(m - n))
+        spans.append((off, n))
+        off += m
+    extra = (-off) % (world * bs)
+    if extra:
+        pieces.append(pieces[0].new_zeros(extra))
+    red = _quant.allreduce_blocks(torch.cat(pieces), wire, world,
+                                  all_to_all_fn, all_gather_fn)
+    if postscale != 1.0:
+        red = red * postscale
+    # Elementwise, so cast back once; the results are views of it.
+    red = _cast_back(red, group[0].dtype)
+    return [red[o:o + n].view(t.shape) for t, (o, n) in zip(group, spans)]
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:

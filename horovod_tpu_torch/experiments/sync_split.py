@@ -9,7 +9,9 @@ train step calls it (right after ``backward()`` returns, the card still
 running the backward), and "idle", after ``torch.cuda.synchronize()``.
 Where the package has the collective engine, it also splits the busy
 call: the submission (``fused_allreduce_async``, one request per
-gradient), the
+gradient, where the optimizer submits in ``synchronize()``; the
+bucketed optimizer submits from its gradient hooks, during backward, so
+none of it falls in the call), the
 engine's ``_execute`` per group and the ``all_reduce`` calls inside it,
 each as wall and thread-CPU ms (``time.thread_time``, whose resolution
 is the host's), and prints the CPU operators of one busy call by self

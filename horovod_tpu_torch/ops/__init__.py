@@ -1,10 +1,13 @@
 """Collectives and kernels of the port."""
 
 from .collective import (Handle, HorovodInternalError, allgather,
-                         allgather_async, allreduce, allreduce_async,
-                         broadcast, broadcast_async, grouped_allreduce, poll,
-                         synchronize)
+                         allgather_async, allreduce, allreduce_,
+                         allreduce_async, allreduce_async_, broadcast,
+                         broadcast_, broadcast_async, broadcast_async_,
+                         grouped_allreduce, poll, synchronize,
+                         synchronize_many)
 
 __all__ = ["Handle", "HorovodInternalError", "allgather", "allgather_async",
-           "allreduce", "allreduce_async", "broadcast", "broadcast_async",
-           "grouped_allreduce", "poll", "synchronize"]
+           "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
+           "broadcast", "broadcast_", "broadcast_async", "broadcast_async_",
+           "grouped_allreduce", "poll", "synchronize", "synchronize_many"]

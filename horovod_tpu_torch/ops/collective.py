@@ -1,10 +1,21 @@
 """Eager collectives through the negotiated collective engine.
 
 Counterpart of ``horovod_tpu/ops/collective.py``: ``allreduce[_async]``
-(with ``average`` and pre/post scaling), ``grouped_allreduce``,
-``allgather[_async]``, ``broadcast[_async]``, ``poll``, ``synchronize``
-and ``Handle``. Every op returns a new tensor and leaves its input
-untouched. Names must be unique among in-flight ops, as in Horovod.
+(with ``average``, pre/post scaling and ``compression``),
+``grouped_allreduce``, ``allgather[_async]``, ``broadcast[_async]``,
+``poll``, ``synchronize`` and ``Handle``, and the in-place forms of the
+torch shim (``allreduce_[async_]``, ``broadcast_[async_]``,
+``synchronize_many``, ``horovod_tpu/torch/mpi_ops.py``). An op returns a
+new tensor and leaves its input untouched; an in-place op's result is
+its input, which the engine overwrites. Names must be unique among
+in-flight ops, as in Horovod.
+
+A blockwise compressor (``Compression.int8_blockwise``/``fp8_blockwise``)
+sets a floating tensor's request's wire: the planner fuses only
+requests of one wire and counts their wire bytes, and the executor runs
+the dual block-quantized allreduce (``quantization.py``) over
+``all_to_all_single`` and ``all_gather``. A cast compressor transforms
+the tensor before the request (``allreduce``).
 
 One :class:`CollectiveEngine` per process runs a background thread,
 Horovod's ``RunLoopOnce``. An op is queued, not issued. Each cycle
@@ -29,8 +40,10 @@ some ranks announced keeps every rank at the normal cycle until it runs.
 
 Only the engine thread issues collectives, in the agreed order. On
 CUDA it works on a stream of its own: it waits on an event recorded on
-the submitter's stream at enqueue, and ``Handle.wait`` makes the
-caller's stream wait on the event recorded after the group.
+the submitter's stream at enqueue (for a gradient hook, the backward's
+stream on autograd's thread), copies in-place results home on that
+stream, and ``Handle.wait`` makes the caller's stream wait on the event
+recorded after the group.
 
 On gloo at world size > 1 a sum gathers every rank's buffer and adds
 them in rank order, as XLA's CPU all-reduce does (gloo's ring adds each
@@ -51,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from .. import executor as _exec
+from .. import quantization as _quant
 from .. import topology as _topo
 from ..utils import env as _env
 from .control_plane import (ALLGATHER, ALLREDUCE, BROADCAST, OP_NAMES,
@@ -167,12 +181,13 @@ class GroupedHandle:
 
 
 class _Request:
-    __slots__ = ("meta", "tensor", "handle", "ready")
+    __slots__ = ("meta", "tensor", "handle", "ready", "target")
 
     def __init__(self, meta: Meta, tensor: torch.Tensor, handle: Handle,
-                 ready):
+                 ready, target: Optional[torch.Tensor] = None):
         self.meta, self.tensor, self.handle, self.ready = (meta, tensor,
                                                            handle, ready)
+        self.target = target    # an in-place op's input, else None
 
 
 class CollectiveEngine:
@@ -207,13 +222,19 @@ class CollectiveEngine:
     def enqueue(self, op: int, tensors: Sequence[torch.Tensor],
                 names: Sequence[Optional[str]], *, root_rank: int = 0,
                 average: bool = False, prescale: float = 1.0,
-                postscale: float = 1.0) -> List[Handle]:
+                postscale: float = 1.0,
+                wires: Optional[Sequence[Optional[str]]] = None,
+                inplace: bool = False) -> List[Handle]:
         """Queue one request per tensor (a name of None draws
-        ``<op>.noname.<n>``). On CUDA one event, recorded on the caller's
+        ``<op>.noname.<n>``), ``wires[i]`` its encoded wire. ``inplace``:
+        each result is written into its input tensor, which is the
+        handle's result. On CUDA one event, recorded on the caller's
         stream after the call's tensors were produced, fences them all."""
         reqs = []
         attrs = (root_rank, bool(average), float(prescale), float(postscale))
-        for tensor, name in zip(tensors, names):
+        if wires is None:
+            wires = [None] * len(tensors)
+        for tensor, name, wire in zip(tensors, names, wires):
             t = tensor.detach()
             if t.device != self.device:
                 raise ValueError(f"{OP_NAMES[op]}: the tensor is on "
@@ -221,8 +242,10 @@ class CollectiveEngine:
                                  f"run on {self.device}")
             nm = name if name is not None else \
                 f"{OP_NAMES[op]}.noname.{next(self._counter)}"
-            meta = Meta(nm, op, dtype_name(t.dtype), tuple(t.shape), *attrs)
-            reqs.append(_Request(meta, t, Handle(nm, self._cv), None))
+            meta = Meta(nm, op, dtype_name(t.dtype), tuple(t.shape), *attrs,
+                        wire)
+            reqs.append(_Request(meta, t, Handle(nm, self._cv), None,
+                                 tensor if inplace else None))
         if self._stream is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
@@ -345,6 +368,10 @@ class CollectiveEngine:
                     for r in reqs:
                         r.tensor.record_stream(self._stream)
                 outs = self._run_group(g, reqs)
+                for i, r in enumerate(reqs):
+                    if r.target is not None:
+                        r.target.detach().copy_(outs[i])
+                        outs[i] = r.target
                 if self._stream is not None:
                     event = torch.cuda.Event()
                     event.record(self._stream)
@@ -366,7 +393,9 @@ class CollectiveEngine:
         ts = [r.tensor for r in reqs]
         if g.op == ALLREDUCE:
             post = m.postscale / self.size if m.average else m.postscale
-            return _exec.fused_allreduce(ts, self._sum, m.prescale, post)
+            return _exec.fused_allreduce(ts, self._sum, m.prescale, post,
+                                         _quant.parse(m.wire), self.size,
+                                         self._all_to_all, self._all_gather)
         if g.op == BROADCAST:
             return _exec.fused_broadcast(
                 ts, lambda b: self._broadcast(b, m.root_rank))
@@ -377,6 +406,19 @@ class CollectiveEngine:
         parts = buf.new_empty((self.size,) + tuple(buf.shape))
         dist.all_gather(list(parts), buf)
         return parts
+
+    def _all_gather(self, buf: torch.Tensor) -> torch.Tensor:
+        """Every rank's flat ``buf``, concatenated in rank order."""
+        return self._gather(buf).reshape(-1)
+
+    def _all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
+        """Chunk k of ``size`` equal chunks of flat ``buf`` to rank k; the
+        chunks received, in rank order (the identity at one rank)."""
+        if self.size == 1:
+            return buf
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf)
+        return out
 
     def _sum(self, buf: torch.Tensor) -> torch.Tensor:
         if self._ordered_sum:
@@ -434,14 +476,28 @@ def _flush_hint() -> None:
 
 # ---------------------------------------------------------------- public API
 
+def _wire_for(tensor: torch.Tensor, compression) -> Optional[str]:
+    """The encoded wire a blockwise ``compression`` selects for
+    ``tensor``, or None: cast compressors transform the tensor before
+    the request, and non-floating tensors keep the exact path."""
+    spec = getattr(compression, "wire_spec", None)
+    if spec is None or not tensor.is_floating_point():
+        return None
+    return _quant.parse(spec).encoded()
+
+
 def allreduce_async(tensor: torch.Tensor, average: bool = True,
                     name: Optional[str] = None,
                     prescale_factor: float = 1.0,
-                    postscale_factor: float = 1.0) -> Handle:
-    """Asynchronous sum (or mean, with ``average``) over all ranks."""
+                    postscale_factor: float = 1.0,
+                    compression=None) -> Handle:
+    """Asynchronous sum (or mean, with ``average``) over all ranks. Here
+    ``compression`` only selects a blockwise wire; cast compressors are
+    applied by :func:`allreduce`."""
     return engine().enqueue(ALLREDUCE, [tensor], [name], average=average,
                             prescale=prescale_factor,
-                            postscale=postscale_factor)[0]
+                            postscale=postscale_factor,
+                            wires=[_wire_for(tensor, compression)])[0]
 
 
 def allreduce(tensor: torch.Tensor, average: bool = True,
@@ -449,31 +505,66 @@ def allreduce(tensor: torch.Tensor, average: bool = True,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:
     """Synchronous allreduce. A cast ``compression`` moves the tensor on
-    the wire in its dtype and restores the input dtype after."""
+    the wire in its dtype and restores the input dtype after; a
+    blockwise one selects the quantized wire."""
     if compression is not None:
         t, ctx = compression.compress(tensor)
         out = allreduce_async(t, average, name, prescale_factor,
-                              postscale_factor).wait()
+                              postscale_factor, compression).wait()
         return compression.decompress(out, ctx)
     return allreduce_async(tensor, average, name, prescale_factor,
                            postscale_factor).wait()
 
 
-def fused_allreduce_async(tensors: Sequence[torch.Tensor],
-                          average: bool = True, name: Optional[str] = None,
-                          names: Optional[Sequence[str]] = None
-                          ) -> GroupedHandle:
-    """Submit one allreduce per tensor, named ``names[i]`` or
-    ``{name}.{i}``, at once: the engine drains them together and the
-    planner fuses them (per dtype, cut at ``HOROVOD_FUSION_THRESHOLD``).
-    The handle's result is the list of reduced tensors in input order."""
+def allreduce_async_(tensor: torch.Tensor, average: bool = True,
+                     name: Optional[str] = None,
+                     compression=None) -> Handle:
+    """In place: the result lands in ``tensor``, which is the handle's
+    result."""
+    return engine().enqueue(ALLREDUCE, [tensor], [name], average=average,
+                            wires=[_wire_for(tensor, compression)],
+                            inplace=True)[0]
+
+
+def allreduce_(tensor: torch.Tensor, average: bool = True,
+               name: Optional[str] = None) -> torch.Tensor:
+    """In-place synchronous allreduce; returns ``tensor``."""
+    return allreduce_async_(tensor, average, name).wait()
+
+
+def _fused_allreduce(tensors, average, name, names, compression,
+                     inplace) -> GroupedHandle:
     eng = engine()
     if names is None:
         nm = name if name is not None else \
             f"allreduce.noname.{next(eng._counter)}"
         names = [f"{nm}.{i}" for i in range(len(tensors))]
-    return GroupedHandle(eng.enqueue(ALLREDUCE, tensors, names,
-                                     average=average))
+    return GroupedHandle(eng.enqueue(
+        ALLREDUCE, tensors, names, average=average,
+        wires=[_wire_for(t, compression) for t in tensors], inplace=inplace))
+
+
+def fused_allreduce_async(tensors: Sequence[torch.Tensor],
+                          average: bool = True, name: Optional[str] = None,
+                          names: Optional[Sequence[str]] = None,
+                          compression=None) -> GroupedHandle:
+    """Submit one allreduce per tensor, named ``names[i]`` or
+    ``{name}.{i}``, at once: the engine drains them together and the
+    planner fuses them (per dtype and wire, cut at
+    ``HOROVOD_FUSION_THRESHOLD``). The handle's result is the list of
+    reduced tensors in input order."""
+    return _fused_allreduce(tensors, average, name, names, compression,
+                            False)
+
+
+def fused_allreduce_async_(tensors: Sequence[torch.Tensor],
+                           average: bool = True, name: Optional[str] = None,
+                           names: Optional[Sequence[str]] = None,
+                           compression=None) -> GroupedHandle:
+    """In-place :func:`fused_allreduce_async`: each result lands in its
+    input tensor."""
+    return _fused_allreduce(tensors, average, name, names, compression,
+                            True)
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average: bool = True,
@@ -493,20 +584,36 @@ def allgather(tensor: torch.Tensor, name: Optional[str] = None):
     return allgather_async(tensor, name).wait()
 
 
-def broadcast_async(tensor: torch.Tensor, root_rank: int,
-                    name: Optional[str] = None) -> Handle:
-    """Asynchronous copy of ``root_rank``'s tensor to every rank."""
+def _broadcast_async(tensor, root_rank, name, inplace) -> Handle:
     n = _topo.size()
     if not (0 <= root_rank < n):
         raise ValueError(
             f"Invalid root_rank {root_rank}: root rank must be in [0, {n})")
     return engine().enqueue(BROADCAST, [tensor], [name],
-                            root_rank=root_rank)[0]
+                            root_rank=root_rank, inplace=inplace)[0]
+
+
+def broadcast_async(tensor: torch.Tensor, root_rank: int,
+                    name: Optional[str] = None) -> Handle:
+    """Asynchronous copy of ``root_rank``'s tensor to every rank."""
+    return _broadcast_async(tensor, root_rank, name, False)
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int,
               name: Optional[str] = None):
     return broadcast_async(tensor, root_rank, name).wait()
+
+
+def broadcast_async_(tensor: torch.Tensor, root_rank: int,
+                     name: Optional[str] = None) -> Handle:
+    """In place: ``root_rank``'s tensor lands in ``tensor``, which is the
+    handle's result."""
+    return _broadcast_async(tensor, root_rank, name, True)
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int,
+               name: Optional[str] = None) -> torch.Tensor:
+    return broadcast_async_(tensor, root_rank, name).wait()
 
 
 def poll(handle) -> bool:
@@ -518,3 +625,10 @@ def synchronize(handle, timeout: Optional[float] = None):
     """Wait for ``handle`` and return its output; ``TimeoutError`` after
     ``timeout`` seconds."""
     return handle.wait(timeout)
+
+
+def synchronize_many(handles: Sequence[Handle],
+                     timeout: Optional[float] = None) -> List[torch.Tensor]:
+    """Wait for every handle (``timeout`` in all) and return their
+    outputs; the caller's stream waits once per group."""
+    return _wait_all(list(handles), timeout)

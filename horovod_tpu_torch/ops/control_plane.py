@@ -20,6 +20,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .. import quantization as _quant
+
 ALLREDUCE, ALLGATHER, BROADCAST = 0, 1, 2
 OP_NAMES = {ALLREDUCE: "allreduce", ALLGATHER: "allgather",
             BROADCAST: "broadcast"}
@@ -78,10 +80,14 @@ class Meta(NamedTuple):
     average: bool = False
     prescale: float = 1.0
     postscale: float = 1.0
-    wire: Optional[str] = None   # the blockwise wire format, not yet ported
+    wire: Optional[str] = None   # encoded blockwise wire ("int8x256")
 
     @property
     def nbytes(self) -> int:
+        """Bytes on the wire: the quantized payload and its scales under a
+        wire, else the tensor's own bytes. The planner counts these."""
+        if self.wire is not None:
+            return _quant.wire_nbytes(self.wire, math.prod(self.shape))
         return itemsize(self.dtype) * math.prod(self.shape)
 
     @property

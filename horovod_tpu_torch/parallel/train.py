@@ -5,8 +5,11 @@ models.
 ``horovod_tpu/parallel/train.py`` for the 'dp' axis: each rank computes
 the mean loss of its batch shard and its gradients;
 ``DistributedOptimizer`` averages the gradients over the ranks (the JAX
-step's psum of ``loss / n_data`` gradients) before the inner optimizer's
-update; the reported loss is the global mean.
+step's psum of ``loss / n_data`` gradients), in buckets its gradient
+hooks fire during backward, before the inner optimizer's update; the
+reported loss is the global mean. A step starts with the optimizer's
+own ``zero_grad()``, which keeps gradient views (without views it sets
+the gradients to None).
 
 ``build_image_train_step`` is the counterpart of one step of
 ``bench.py``'s ``build_step`` (the ResNet-50 headline): mean softmax
@@ -59,7 +62,7 @@ class TrainStep:
                             "(see TrainStep.make_optimizer)")
         tokens = tokens.to(model.device, non_blocking=True)
         targets = targets.to(model.device, non_blocking=True)
-        optimizer.zero_grad(set_to_none=True)
+        optimizer.zero_grad()
         loss = model.loss_fn(tokens, targets)
         loss.backward()
         optimizer.step()
@@ -118,7 +121,7 @@ class ImageTrainStep:
         images = images.to(self.device, non_blocking=True)
         labels = labels.to(self.device, non_blocking=True)
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        optimizer.zero_grad()
         loss = F.cross_entropy(model(images).float(), labels)
         loss.backward()
         optimizer.step()

@@ -24,6 +24,8 @@ from typing import Dict, Optional, Union
 import torch
 import torch.distributed as dist
 
+from .utils import env as _env
+
 
 class NotInitializedError(RuntimeError):
     """Raised when rank/size accessors are used before ``init()``."""
@@ -45,6 +47,8 @@ class Topology:
     # The collective engine's negotiation group (gloo); None at size 1.
     control_group: Optional[object] = dataclasses.field(default=None,
                                                         compare=False)
+    # HOROVOD_TPU_NUMERICS at init: the buckets count nonfinite gradients.
+    numerics: bool = False
 
 
 _lock = threading.Lock()
@@ -114,7 +118,8 @@ def init(*, device: Union[str, torch.device, None] = None,
         _topology = Topology(rank=dist.get_rank(), size=dist.get_world_size(),
                              local_rank=local_rank, local_size=local_size,
                              backend=backend, device=dev, owns_group=owns,
-                             control_group=ctrl)
+                             control_group=ctrl,
+                             numerics=_env.numerics_enabled())
         from .ops import collective
         collective.start_engine(_topology)
         return _topology

@@ -30,6 +30,39 @@ def fusion_threshold_bytes() -> int:
     return DEFAULT_FUSION_THRESHOLD_MB * 1024 * 1024
 
 
+def torch_bucket_mb() -> float:
+    """Size target of the DistributedOptimizer's gradient buckets
+    (HOROVOD_TPU_TORCH_BUCKET_MB, MiB). The default is the fusion
+    threshold's, so each bucket fills one fused group; 0 disables
+    bucketing (per-tensor hooks). ``bucket_cap_mb=`` overrides it."""
+    v = _get("TORCH_BUCKET_MB")
+    if v is not None:
+        return float(v)
+    return float(DEFAULT_FUSION_THRESHOLD_MB)
+
+
+def torch_grad_view() -> bool:
+    """Default of the DistributedOptimizer's ``gradient_as_bucket_view``
+    (HOROVOD_TPU_TORCH_GRAD_VIEW): alias each ``p.grad`` into its
+    bucket's buffer. Off by default: it changes the identity of
+    ``p.grad`` tensors."""
+    return _get("TORCH_GRAD_VIEW") not in (None, "", "0")
+
+
+def torch_skip_nonfinite() -> bool:
+    """Default of the DistributedOptimizer's ``skip_nonfinite_steps``
+    (HOROVOD_TPU_TORCH_SKIP_NONFINITE): skip the inner update of a step
+    whose packed gradients held NaN or Inf. Needs HOROVOD_TPU_NUMERICS=1
+    for the count to exist."""
+    return _get("TORCH_SKIP_NONFINITE") not in (None, "", "0")
+
+
+def numerics_enabled() -> bool:
+    """HOROVOD_TPU_NUMERICS=1 arms the nonfinite sentinel of the
+    gradient buckets; ``init`` reads it."""
+    return _get("NUMERICS") in ("1",)
+
+
 def cycle_time_ms() -> float:
     """Pause of the collective engine between cycles (HOROVOD_CYCLE_TIME,
     milliseconds). A blocking ``Handle.wait`` cuts the pause short."""

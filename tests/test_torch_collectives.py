@@ -4,6 +4,7 @@ that checks the collectives' arithmetic and that two ranks with half a
 batch each train exactly like one rank with the whole batch."""
 
 import socket
+import threading
 
 import pytest
 import torch
@@ -48,10 +49,25 @@ def test_world_one_async_handles():
     assert hvd.poll(h) and hvd.poll(g) and hvd.poll(b)
 
 
-def test_duplicate_in_flight_name_raises():
+def test_duplicate_in_flight_name_raises(monkeypatch):
+    # The engine frees a name when it executes the op, within a cycle of
+    # 1 ms; a gate holds the first "dup" in flight, as
+    # tests/test_ops.py::test_duplicate_name_error does.
+    eng = hvd.ops.collective.engine()
+    gate = threading.Event()
+    execute = eng._execute
+
+    def gated(group):
+        gate.wait(30)
+        return execute(group)
+
+    monkeypatch.setattr(eng, "_execute", gated)
     h = hvd.allreduce_async(torch.ones(2), name="dup")
-    with pytest.raises(ValueError, match="same name"):
-        hvd.allreduce_async(torch.ones(2), name="dup")
+    try:
+        with pytest.raises(ValueError, match="same name"):
+            hvd.allreduce_async(torch.ones(2), name="dup")
+    finally:
+        gate.set()
     h.wait()
     hvd.allreduce_async(torch.ones(2), name="dup").wait()   # free again
 
@@ -85,6 +101,42 @@ def test_fusion_buffers_cut_at_threshold(monkeypatch):
     assert h.groups == [("cut.0",), ("cut.1",), ("cut.2",), ("cut.3",)]
 
 
+def test_world_one_inplace_ops_land_in_their_input():
+    x = torch.arange(6.0)
+    assert hvd.allreduce_(x, average=False) is x
+    assert torch.equal(x, torch.arange(6.0))
+    ys = [torch.full((3,), 2.0), torch.ones(2, dtype=torch.bfloat16)]
+    hs = [hvd.allreduce_async_(y, name=f"ip.{i}") for i, y in enumerate(ys)]
+    outs = hvd.synchronize_many(hs)
+    assert all(o is y for o, y in zip(outs, ys))
+    w = torch.nn.Parameter(torch.ones(4))       # requires grad
+    assert hvd.broadcast_(w, 0) is w
+    h = hvd.broadcast_async_(torch.zeros(2), 0)
+    assert torch.equal(h.wait(), torch.zeros(2))
+
+
+@pytest.mark.parametrize("name", ["int8_blockwise", "fp8_blockwise"])
+def test_world_one_blockwise_allreduce_is_the_closed_form(name):
+    """At one rank the wire quantizes twice: dequant(quant(0 + dequant(
+    quant(x)))) with the wire's quantizer, in the input's dtype."""
+    from horovod_tpu_torch import quantization as tq
+    comp = getattr(hvd.Compression, name)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(700, generator=gen) * torch.exp(3 * torch.randn(
+        700, generator=gen))
+    spec = tq.parse(comp.wire_spec)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = torch.cat([x.to(dtype).float(), torch.zeros(68)])
+        # Phase 1 accumulates from zero (so -0 becomes +0), phase 2 not.
+        for zero in (0.0, None):
+            want = tq.dequantize_blocks(*tq.quantize_blocks(
+                want, spec, folded=True), spec)
+            want = want if zero is None else want + zero
+        got = hvd.allreduce(x.to(dtype), compression=comp, name=name)
+        assert got.dtype == dtype
+        assert torch.equal(got, want[:700].to(dtype))
+
+
 def test_allreduce_gradients_structure():
     grads = {"a": torch.ones(3), "b": torch.full((2, 2), 2.0)}
     out = hvd.allreduce_gradients(grads)
@@ -110,6 +162,12 @@ def _two_rank_worker(rank, port):
     assert torch.equal(hvd.allreduce(torch.tensor([3, 4]) * (rank + 1)),
                        torch.tensor([4, 6]))
     assert torch.equal(hvd.broadcast(x, 1), torch.tensor([2.0, 4.0]))
+    y = x.clone()
+    assert hvd.allreduce_(y, average=False) is y
+    assert torch.equal(y, torch.tensor([3.0, 6.0]))
+    assert torch.equal(hvd.broadcast_(y, 0), torch.tensor([3.0, 6.0]))
+    assert torch.equal(hvd.broadcast_async_(x.clone(), 1).wait(),
+                       torch.tensor([2.0, 4.0]))
     ragged = hvd.allgather(torch.full((rank + 1, 2), float(rank)))
     assert torch.equal(ragged, torch.tensor([[0.0, 0.0], [1.0, 1.0],
                                              [1.0, 1.0]]))

@@ -20,17 +20,27 @@ tolerance of a few units in the last place there.
 - the four arithmetic faults of the engine this one replaced, each in
   its own test: integer ``average`` floored, integer scale factors
   raised, fp16/bf16 reduced in their own dtype, float ``average``
-  divided by n instead of multiplied by ``postscale / n``;
+  divided by n instead of multiplied by ``postscale / n``; and fp8
+  sums past ±448, which JAX casts back to NaN where ``Tensor.to``
+  saturates;
+- the blockwise wire (int8 and fp8 at block 256, int8 at block 64):
+  fp32, bf16 and fp16 tensors of ragged lengths and an empty one, with
+  an int32 tensor that keeps the exact path, several tensors a group,
+  sum, average and pre/postscale, against ``_fused_reduce(...,
+  wire=spec, axis="dp", world=n)``, bit for bit: the wire's collectives
+  only move bytes, and phase 1 adds the ranks' contributions from zero
+  in rank order, as XLA's reduce does;
 - an idle world: a half-second pause after the work runs a few
   negotiation rounds, not one per cycle;
 - on 4 ranks: 12 named ops enqueued in a rank-dependent rotation, a
   ragged allgather, a broadcast from rank 3, every kind of mismatch
-  (each raising the JAX coordinator's message on every rank), a
-  ``synchronize`` timeout while one rank holds back, and a shutdown that
-  fails the other ranks' pending op;
-- in this process: the planner against the JAX ``_plan_fusion``, the
-  validation messages and fingerprint against the JAX coordinator's,
-  and fusion at world size 1.
+  (each raising the JAX coordinator's message on every rank), a wire
+  mismatch among them, a ``synchronize`` timeout while one rank holds
+  back, and a shutdown that fails the other ranks' pending op;
+- in this process: the planner against the JAX ``_plan_fusion`` (on
+  wire bytes where a wire is set), the validation messages and
+  fingerprint against the JAX coordinator's, block-aligned packing of a
+  wire group, and fusion at world size 1.
 
 Each job has a time limit of its own, so a hang fails its tests.
 """
@@ -46,7 +56,9 @@ import torch
 import torch.multiprocessing as mp
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch import compression as tcomp
 from horovod_tpu_torch import executor as texec
+from horovod_tpu_torch import quantization as tq
 from horovod_tpu_torch.ops import collective as tcoll
 from horovod_tpu_torch.ops import control_plane as tcp
 
@@ -96,6 +108,11 @@ def _np_input(kind, dtype, shape, seed):
         return (rng.randint(-400, 400, size=shape) / 4).astype(dtype)
     if kind == "signed":        # integers of both signs
         return rng.randint(-50, 50, size=shape).astype(dtype)
+    if kind == "wide":          # magnitudes 1e-6 to 1e6 within a block
+        x = rng.standard_normal(shape) * 10.0 ** rng.randint(-6, 7, shape)
+        return x.astype(np.float32 if dtype == "bfloat16" else dtype)
+    if dtype.startswith("float8"):
+        return rng.uniform(-100, 100, size=shape).astype(np.float32)
     if dtype in ("bfloat16", "float16", "float32", "float64"):
         x = rng.uniform(-100, 100, size=shape)
         return x.astype(np.float32 if dtype == "bfloat16" else dtype)
@@ -106,15 +123,26 @@ def _to_torch(x, dtype):
     return torch.from_numpy(np.ascontiguousarray(x)).to(getattr(torch, dtype))
 
 
+class Int8x64Compressor(tcomp._BlockwiseCompressor):
+    """The int8 wire at a smaller block than the stock compressors'."""
+    wire_spec = "int8x64"
+
+
+WIRE_COMPRESSORS = {"int8x256": tcomp.Compression.int8_blockwise,
+                    "fp8x256": tcomp.Compression.fp8_blockwise,
+                    "int8x64": Int8x64Compressor}
+
+
 class Case:
     """One allreduce: its inputs on every rank and its attributes."""
 
     def __init__(self, key, dtype, shape, seed, average, prescale, postscale,
-                 kind="uniform"):
+                 kind="uniform", wire=None):
         self.key, self.dtype, self.shape, self.seed = key, dtype, shape, seed
         self.average, self.prescale, self.postscale = (average, prescale,
                                                        postscale)
         self.kind = kind
+        self.wire = wire         # a WIRE_COMPRESSORS key, or None
 
     def np_input(self, rank):
         return _np_input(self.kind, self.dtype, self.shape, self.seed + rank)
@@ -157,6 +185,27 @@ def _fault_cases():
                           1.0, "quarters"))
         cases.append(Case(f"fault5.{dt}.avg_post", dt, (256,), 52, True,
                           1.0, 0.3, "quarters"))
+    # 6. fp8 sums past the e4m3 range become NaN, as JAX casts them.
+    cases.append(Case("fault6.float8.sum_post", "float8_e4m3fn", (256,), 61,
+                      False, 1.0, 3.0))
+    cases.append(Case("fault6.float8.avg", "float8_e4m3fn", (256,), 62,
+                      True, 1.0, 1.0))
+    return cases
+
+
+WIRE_SHAPES = [("float32", (17,)), ("float32", (300,)), ("float32", (3, 100)),
+               ("bfloat16", (5, 61)), ("float16", (513,)), ("float32", (0,)),
+               ("int32", (40,))]
+
+
+def _wire_cases():
+    cases = []
+    for w, (cfg, avg, pre, post) in itertools.product(WIRE_COMPRESSORS,
+                                                      CONFIGS):
+        for i, (dt, shape) in enumerate(WIRE_SHAPES):
+            cases.append(Case(f"wire.{w}.{cfg}.{i}.{dt}", dt, shape,
+                              SEED + 300 + i, avg, pre, post,
+                              "wide" if i == 1 else "uniform", w))
     return cases
 
 
@@ -209,6 +258,14 @@ def _sweep_worker(rank, n, port, outdir):
         for key, dt, dim, seed in gathers]
     for key, h in handles:
         _record(out, key, h.wait)
+    # The blockwise wire: each batch submitted back to back, so that the
+    # planner fuses it (per dtype and wire).
+    handles = [(c.key, hvd.allreduce_async(
+        c.input(rank), average=c.average, name=c.key,
+        prescale_factor=c.prescale, postscale_factor=c.postscale,
+        compression=WIRE_COMPRESSORS[c.wire])) for c in _wire_cases()]
+    for key, h in handles:
+        _record(out, key, h.wait)
 
     # The sweep again through dist.all_reduce, NCCL's path on the card.
     eng = tcoll.engine()
@@ -230,7 +287,7 @@ def _sweep_worker(rank, n, port, outdir):
 
 
 MISMATCHES = ("shape", "dtype", "op", "root", "average", "gather_rest",
-              "gather_0d")
+              "gather_0d", "wire")
 
 
 def _mismatch(kind, rank):
@@ -250,6 +307,10 @@ def _mismatch(kind, rank):
         return hvd.allreduce(torch.ones(4), average=rank == 0, name=nm)
     if kind == "gather_rest":
         return hvd.allgather(torch.ones(2, 3 if rank == 0 else 4), name=nm)
+    if kind == "wire":
+        return hvd.allreduce(torch.ones(4), name=nm, compression=(
+            tcomp.Compression.int8_blockwise if rank == 0
+            else tcomp.Compression.fp8_blockwise))
     return hvd.allgather(torch.tensor(float(rank)), name=nm)
 
 
@@ -317,25 +378,26 @@ def _jax_allreduce(cases, n):
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P
     from horovod_tpu.executor import _fused_reduce
+    from horovod_tpu.quantization import parse
 
     mesh = Mesh(np.array(jax.devices()[:n]), ("dp",))
     out = {}
     groups = {}
     for c in cases:
         x64 = c.dtype in ("int64", "float64")
-        groups.setdefault((x64, c.average, c.prescale, c.postscale),
+        groups.setdefault((x64, c.average, c.prescale, c.postscale, c.wire),
                           []).append(c)
-    for (x64, avg, pre, post), batch in groups.items():
+    for (x64, avg, pre, post, wire), batch in groups.items():
         post = post / n if avg else post
         with jax.enable_x64(x64):
             xs = [jnp.stack([jnp.asarray(c.np_input(r),
                                          dtype=getattr(jnp, c.dtype))
                              for r in range(n)]) for c in batch]
 
-            def body(*ys, pre=pre, post=post):
+            def body(*ys, pre=pre, post=post, wire=parse(wire)):
                 return _fused_reduce(tuple(y[0] for y in ys),
                                      lambda b: jax.lax.psum(b, "dp"), pre,
-                                     post)
+                                     post, wire=wire, axis="dp", world=n)
             fn = jax.jit(jax.shard_map(
                 body, mesh=mesh, in_specs=tuple(P("dp") for _ in xs),
                 out_specs=tuple(P() for _ in xs), check_vma=False))
@@ -349,6 +411,8 @@ def _bits(x):
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             x = x.view(torch.int16)
+        elif x.element_size() == 1 and x.is_floating_point():
+            x = x.view(torch.uint8)
         x = x.numpy()
     return x.view(f"u{x.dtype.itemsize}") if x.dtype != np.bool_ else x
 
@@ -453,6 +517,56 @@ def test_float_average_multiplies_by_postscale_over_n(runs):
     _fault(runs, "fault5.")
 
 
+def test_fp8_sums_past_the_range_are_nan_as_in_jax(runs):
+    _fault(runs, "fault6.")
+    for r in runs(2):       # the case does overflow
+        assert r["fault6.float8.sum_post"].float().isnan().any()
+
+
+@pytest.mark.parametrize("wire", sorted(WIRE_COMPRESSORS))
+@pytest.mark.parametrize("n", WORLDS)
+def test_blockwise_wire_sweep_matches_jax(runs, n, wire):
+    _check_cases(runs, [c for c in _wire_cases() if c.wire == wire], n)
+
+
+def test_blockwise_wire_packs_each_tensor_block_aligned():
+    """A group of wire requests pads each tensor to whole blocks: a small
+    tensor fused behind a large one comes out as it does alone. Packed
+    back to back, its elements would share a block (and its scale) with
+    the large tensor's and quantize to zero."""
+    spec = tq.parse("int8x256")
+    ident = lambda b: b              # noqa: E731  the collectives at n = 1
+    rng = np.random.default_rng(4)
+    big = torch.from_numpy((rng.standard_normal(100) * 1e3).astype(
+        np.float32))
+    small = torch.from_numpy((rng.standard_normal(200) * 1e-3).astype(
+        np.float32))
+    fused = texec.fused_allreduce([big, small], ident, wire=spec, world=1,
+                                  all_to_all_fn=ident, all_gather_fn=ident)
+    alone = [texec.fused_allreduce([t], ident, wire=spec, world=1,
+                                   all_to_all_fn=ident,
+                                   all_gather_fn=ident)[0]
+             for t in (big, small)]
+    for got, want in zip(fused, alone):
+        assert torch.equal(got, want)
+    assert torch.count_nonzero(fused[1]) > 150       # of 200
+    packed = torch.cat([big, small, torch.zeros(212)])
+    back_to_back = tq.allreduce_blocks(packed, spec, 1, ident, ident)
+    assert not torch.equal(back_to_back[100:300], fused[1])
+    assert not back_to_back[100:256].any()
+
+
+def test_blockwise_compressor_keeps_integers_exact(world_one):
+    comp = tcomp.Compression.int8_blockwise
+    assert tcoll._wire_for(torch.ones(3), comp) == "int8x256"
+    assert tcoll._wire_for(torch.ones(3, dtype=torch.bfloat16),
+                           comp) == "int8x256"
+    assert tcoll._wire_for(torch.arange(3), comp) is None
+    assert tcoll._wire_for(torch.ones(3), tcomp.Compression.fp16) is None
+    x = torch.arange(-500, 500, dtype=torch.int32)
+    assert torch.equal(hvd.allreduce(x, compression=comp, name="ints"), x)
+
+
 def test_integer_average_example():
     """JAX's [-1, 1, -2] for a sum of [-3, 3, -5] over 2 ranks, through
     the executor's arithmetic with the sum in place of the collective."""
@@ -530,6 +644,8 @@ def _mismatch_meta(kind, rank):
     elif kind == "gather_rest":
         meta.update(op=tcp.ALLGATHER, shape=(2, 3 if rank == 0 else 4),
                     average=False)
+    elif kind == "wire":
+        meta["wire"] = "int8x256" if rank == 0 else "fp8x256"
     else:
         meta.update(op=tcp.ALLGATHER, shape=(), average=False)
     return tcp.Meta(**meta)
@@ -539,7 +655,7 @@ def _jax_fingerprint(m):
     from horovod_tpu.ops.collective import _Request, _semantics_fingerprint
     req = _Request(m.name, m.op, np.zeros((1,), np.float32), None,
                    average=m.average, prescale=m.prescale,
-                   postscale=m.postscale)
+                   postscale=m.postscale, wire=m.wire)
     return _semantics_fingerprint(req)
 
 
@@ -654,6 +770,28 @@ def test_planner_matches_jax_randomized(seed):
     assert got == want
 
 
+@pytest.mark.parametrize("n", [1, 255, 256, 1000, 70000])
+@pytest.mark.parametrize("wire", [None, "int8x256", "fp8x256", "int8x64"])
+def test_meta_counts_wire_bytes_as_jax(wire, n):
+    m = tcp.Meta("t", tcp.ALLREDUCE, "float32", (n,), wire=wire)
+    assert m.nbytes == _jax_req("t", n=n, wire=wire).nbytes
+
+
+def test_planner_cuts_on_wire_bytes():
+    """Eight fp32 tensors of 256 elements: 1 KiB each, 260 bytes on the
+    int8x256 wire. At a 600-byte threshold the wire requests fuse in
+    pairs, the plain ones not at all, as the JAX planner decides."""
+    c = tcp.Coordinator(1)
+    metas = [tcp.Meta(f"w{i}", tcp.ALLREDUCE, "float32", (256,),
+                      wire="int8x256" if i % 2 else None) for i in range(8)]
+    got = [g.names for g in c.cycle([metas], 600)]
+    assert got == [["w0"], ["w1", "w3"], ["w2"], ["w4"], ["w5", "w7"],
+                   ["w6"]]
+    _, want = _plans([_jax_req(m.name, n=256, wire=m.wire) for m in metas],
+                     600)
+    assert got == want
+
+
 @pytest.mark.parametrize("kind", MISMATCHES)
 def test_validate_matches_jax_coordinator(kind):
     e = tcp.Entry()
@@ -695,10 +833,13 @@ def world_one():
 
 def _quiet_engine(monkeypatch):
     """Pause the engine's cycle for a minute, so that a burst is drained
-    at once by the first blocking wait."""
+    at once by the first blocking wait. The wait for "quiet" may leave
+    a wake-up behind (it can land after the engine took the op on its
+    1 ms cycle); it is cleared, or it would drain the next op at once."""
     monkeypatch.setenv("HOROVOD_CYCLE_TIME", "60000")
     hvd.allreduce(torch.zeros(1), name="quiet")
     time.sleep(0.05)
+    tcoll.engine()._wake.clear()
 
 
 def test_world_one_fuses_by_first_fit(world_one, monkeypatch):
