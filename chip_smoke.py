@@ -84,7 +84,29 @@ and prints no result line):
    the quantize passes add per step, timed per bucket); and one
    ResNet-50 step each on the copy path, with ``gradient_as_bucket_view``
    and with one request per gradient, their gradients bit for bit
-   (cuDNN deterministic for this check).
+   (cuDNN deterministic for this check);
+12. tensor and sequence parallelism: (a) the fp32-output forms of K1-K3
+   (what ring attention launches) against their plain fp32 versions at
+   the shapes a ring's shards take (D=128: S=2048, 1024 and 512, causal
+   and not, and ragged S=1000; D=96: S=1024 causal and not, and ragged
+   S=200), repeat-exact, and at the flagship shape timed back-to-back
+   beside the bf16 forms; (b) a virtual ring at the flagship's attention
+   (B=8, H=6, S=2048, D=128, causal) split into n = 2 and 4 shards: the
+   ring's per-step bodies for every virtual rank in one process, K/V and
+   the travelling dK/dV shifted by hand, forward and backward, against
+   the single-device bf16 kernels and the plain version, with the branch
+   rule's launch counts (n(n+1)/2 of each fp32 form: at n = 4, 4
+   diagonal and 6 past blocks, 6 skipped); (c) the tp/sp main path:
+   ``init`` (NCCL, world 1), ``create_mesh(dp=1, tp=1, sp=1)``, the 111M
+   flagship with ``tp_axis="tp", sp_axis="sp"`` through the mesh
+   ``build_train_step`` with AdamW, 5 steps of 8 x 2048 tokens: the loss
+   finite and falling, each fp32 form launched 12 times a step and the
+   bf16 forms never, and step 1's loss and gradients bit for bit those
+   of phase 5's first step on the same weights and tokens (at n = 1 the
+   ring's merge is exact and the fp32 outputs round as the bf16
+   epilogue does); then 2 steps with ``sp_impl="ulysses"`` (the bf16
+   kernels, 12 launches a step). It logs tok/s beside phase 5's and the
+   fp32 forms' ms per step.
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1. The line before the last is ``{"kernels":
@@ -121,6 +143,9 @@ REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:123",
     "flash_dkv": "horovod_tpu/ops/flash_attention.py:178",
     "flash_dq": "horovod_tpu/ops/flash_attention.py:246",
+    "flash_fwd_f32": "horovod_tpu/ops/flash_attention.py:123",
+    "flash_dkv_f32": "horovod_tpu/ops/flash_attention.py:178",
+    "flash_dq_f32": "horovod_tpu/ops/flash_attention.py:246",
     "bn_stats": "horovod_tpu/ops/fused_bn.py:99",
     "bn_norm": "horovod_tpu/ops/fused_bn.py:110",
     "bn_bwd_reduce": "horovod_tpu/ops/fused_bn.py:119",
@@ -133,6 +158,8 @@ REPLACES = {
     "flash_ablate_nosoft": "experiments/flash_ablate_probe.py:24",
 }
 BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+BF16_FLASH = ("flash_fwd", "flash_dkv", "flash_dq")
+F32_FLASH = ("flash_fwd_f32", "flash_dkv_f32", "flash_dq_f32")
 STEPS = 5
 REL_TOL = 2e-2    # max |kernel - plain| / max |plain| on O, dQ, dK, dV
 LSE_TOL = 1e-3    # max |kernel - plain| on lse
@@ -173,46 +200,59 @@ def sumerr(got, want, mag):
                   / mag.clamp_min(1e-30)).max())
 
 
-def check_kernels(fa, b, h, s, d, causal, timed):
-    """Hold K1-K3 against their plain versions at one shape, and to
-    bit-identical repeats; with ``timed`` also time the kernels,
-    the plain versions and SDPA back-to-back, and the kernels and SDPA
-    as single calls."""
+def check_kernels(fa, b, h, s, d, causal, timed, out_dtype=None):
+    """Hold K1-K3 (their fp32-output forms when ``out_dtype`` is fp32)
+    against their plain versions at one shape, and to bit-identical
+    repeats; with ``timed`` also time the kernels, the plain versions
+    and SDPA back-to-back, and the kernels and SDPA as single calls (the
+    fp32 forms: back-to-back, each beside its bf16 form)."""
     gen = torch.Generator(device="cuda").manual_seed(1234 + s + d)
     bh = b * h
     shape = (bh, s, d)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
+    sfx = "_f32" if out_dtype == torch.float32 else ""
 
-    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, causal)
-    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, causal,
+                                            out_dtype)
     delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
-    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, do, lse_ref,
-                                                    delta, scale, causal)
-    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal)
-    dq = fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal)
-    again = (*fa.flash_fwd_cuda(q, k, v, scale, causal),
-             *fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal),
-             fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal))
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(
+        q, k, v, do, lse_ref, delta, scale, causal, out_dtype)
+
+    def kernels():
+        return (*fa.flash_fwd_cuda(q, k, v, scale, causal, out_dtype),
+                *fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale,
+                                   causal, out_dtype),
+                fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal,
+                                 out_dtype))
+    (o, lse, dk, dv, dq), again = kernels(), kernels()
     torch.cuda.synchronize()
+    if not all(t.dtype == (out_dtype or torch.bfloat16)
+               for t in (o, dk, dv, dq)):
+        raise AssertionError(f"K1-K3{sfx} wrote another dtype than "
+                             f"{out_dtype}")
     if not all(torch.equal(x, y)
                for x, y in zip((o, lse, dk, dv, dq), again)):
-        raise AssertionError(f"K1-K3: two calls on the same input gave "
-                             f"different bits at S={s} D={d} causal={causal}")
+        raise AssertionError(f"K1-K3{sfx}: two calls on the same input "
+                             f"gave different bits at S={s} D={d} "
+                             f"causal={causal}")
 
     errs = {
-        "flash_fwd": {"o": relerr(o, o_ref), "lse": abserr(lse, lse_ref)},
-        "flash_dkv": {"dk": relerr(dk, dk_ref), "dv": relerr(dv, dv_ref)},
-        "flash_dq": {"dq": relerr(dq, dq_ref)},
+        "flash_fwd" + sfx: {"o": relerr(o, o_ref),
+                            "lse": abserr(lse, lse_ref)},
+        "flash_dkv" + sfx: {"dk": relerr(dk, dk_ref),
+                            "dv": relerr(dv, dv_ref)},
+        "flash_dq" + sfx: {"dq": relerr(dq, dq_ref)},
     }
     absmax = {
-        "flash_fwd": max(abserr(o, o_ref), abserr(lse, lse_ref)),
-        "flash_dkv": max(abserr(dk, dk_ref), abserr(dv, dv_ref)),
-        "flash_dq": abserr(dq, dq_ref),
+        "flash_fwd" + sfx: max(abserr(o, o_ref), abserr(lse, lse_ref)),
+        "flash_dkv" + sfx: max(abserr(dk, dk_ref), abserr(dv, dv_ref)),
+        "flash_dq" + sfx: abserr(dq, dq_ref),
     }
-    log(f"  shape B={b} H={h} S={s} D={d} causal={causal}: "
-        f"{json.dumps(errs)}; K1-K3 repeats bit-identical")
+    log(f"  shape B={b} H={h} S={s} D={d} causal={causal}"
+        f"{', fp32 outputs' if sfx else ''}: {json.dumps(errs)}; "
+        f"K1-K3{sfx} repeats bit-identical")
     for name, e in errs.items():
         for out, val in e.items():
             tol = LSE_TOL if out == "lse" else REL_TOL
@@ -220,6 +260,9 @@ def check_kernels(fa, b, h, s, d, causal, timed):
                 raise AssertionError(
                     f"{name}.{out} disagrees with its plain version at "
                     f"S={s} D={d} causal={causal}: {val} > {tol}")
+    if timed and sfx:
+        return time_f32_forms(fa, (q, k, v, do, lse_ref, delta), scale,
+                              causal, absmax)
     if not timed:
         return None
 
@@ -607,13 +650,26 @@ def check_launches(launches, per_step):
                 f"{per_step * STEPS}")
 
 
+def check_flash_launches(launches, bf16_per_step, f32_per_step,
+                         steps=STEPS):
+    """Each bf16 form of K1-K3 launched ``bf16_per_step`` times a step,
+    each fp32 form ``f32_per_step`` times."""
+    want = {**{n: bf16_per_step * steps for n in BF16_FLASH},
+            **{n: f32_per_step * steps for n in F32_FLASH}}
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise AssertionError(f"flash launches {got} in {steps} steps, "
+                             f"expected {want}")
+
+
 def kind_of(key):
     """Coarse kind of a kernel name, for the profile's summary."""
     k = key.lower()
     if any(f"bn_{n}_kernel" in k for n in ("stats", "finalize", "norm",
                                            "bwd_reduce", "bwd_dx")):
         return "bn kernels K4-K7"
-    if any(f"flash_{n}_kernel" in k for n in ("fwd", "dkv", "dq")):
+    if any(f"flash_{n}_kernel" in k or f"flash_{n}_f32_kernel" in k
+           for n in ("fwd", "dkv", "dq")):
         return "flash kernels K1-K3"
     if any(s in k for s in ("conv", "cudnn", "dgrad", "wgrad", "fprop",
                             "implicit", "winograd")):
@@ -740,14 +796,14 @@ def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
     log(f"  launches {launches}")
     log(f"  gradient sync ({grad_mb / 1e6:.1f} MB of fp32 gradients): "
         + bucket_line(opt, sync_ms, fires))
-    check_launches(launches, cfg.n_layers)
+    check_flash_launches(launches, cfg.n_layers, 0)
     if sum(fbn.launch_counts().values()):
         raise AssertionError("the LM step launched batch-norm kernels")
     check_bucket_fires(opt, fires, LM_BUCKETS)
     if profile:
         profile_steps(lambda: step(model, opt, tokens, targets), profile,
                       "LM flagship train step")
-    return launches, steady
+    return launches, steady, losses[0]
 
 
 def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
@@ -1104,7 +1160,8 @@ def engine_head_dim_96(tfm, fa, build_train_step):
     losses = [float(step(model, opt, tok[:, :-1], tok[:, 1:]))
               for _ in range(3)]
     launches = fa.launch_counts()
-    want = {name: 3 * cfg.n_layers for name in launches}
+    want = {name: 3 * cfg.n_layers if name in BF16_FLASH else 0
+            for name in launches}
     if not all(math.isfinite(x) for x in losses) or launches != want:
         raise AssertionError(f"head_dim 96: losses {losses}, flash "
                              f"launches {launches}, expected {want}")
@@ -1347,6 +1404,270 @@ def wire_phase(hvd, tfm, tres, texec, build_train_step,
     hvd.shutdown()
 
 
+# ------------------------------------ tensor and sequence parallelism
+
+# (b, h, s, d, causal) of phase 12a; the first is timed. D=128 at the
+# flagship's B and H, the S of its shards at n = 1, 2 and 4, and ragged;
+# D=96 at the head_dim-96 LM's B and H.
+F32_SHAPES = [(8, 6, 2048, 128, True), (8, 6, 2048, 128, False),
+              (8, 6, 1024, 128, True), (8, 6, 1024, 128, False),
+              (8, 6, 512, 128, True), (8, 6, 512, 128, False),
+              (2, 6, 1000, 128, True), (4, 8, 1024, 96, True),
+              (4, 8, 1024, 96, False), (2, 3, 200, 96, True)]
+
+
+def randn_bf16_cuda(seed, *shape):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+
+def time_f32_forms(fa, inputs, scale, causal, absmax):
+    """Phase 12a's timing: the fp32-output forms of K1-K3, each beside
+    its bf16 form, and the plain fp32 versions, back-to-back; their
+    rows of the ``kernels`` line."""
+    q, k, v, do, lse_ref, delta = inputs
+    bh, s, d = q.shape
+    f32 = torch.float32
+    n_pairs = pairs(s, s, causal) * bh
+    elem = bh * s * d
+    work = {   # (operations, bytes): bf16 operands, fp32 outputs and stats
+        "flash_fwd_f32": (4 * d * n_pairs, 3 * elem * 2 + elem * 4
+                          + bh * s * 4),
+        "flash_dkv_f32": (8 * d * n_pairs, 4 * elem * 2 + 2 * elem * 4
+                          + 2 * bh * s * 4),
+        "flash_dq_f32": (6 * d * n_pairs, 4 * elem * 2 + elem * 4
+                         + 2 * bh * s * 4),
+    }
+    calls = {   # out_dtype None: the bf16 form
+        "flash_fwd": lambda o=None: fa.flash_fwd_cuda(q, k, v, scale,
+                                                      causal, o),
+        "flash_dkv": lambda o=None: fa.flash_dkv_cuda(
+            q, k, v, do, lse_ref, delta, scale, causal, o),
+        "flash_dq": lambda o=None: fa.flash_dq_cuda(
+            q, k, v, do, lse_ref, delta, scale, causal, o),
+    }
+    b2b = {}
+    for name, fn in calls.items():   # each bf16 form beside its fp32 form
+        b2b[name] = px.time_ms(fn)
+        b2b[name + "_f32"] = px.time_ms(functools.partial(fn, f32))
+    log(f"  back-to-back ms at the flagship, bf16 and fp32 forms "
+        f"{json.dumps(b2b)}")
+    plain_fwd = px.time_ms(lambda: fa.flash_fwd_reference(
+        q, k, v, scale, causal, f32))
+    plain_bwd = px.time_ms(lambda: fa.flash_bwd_reference(
+        q, k, v, do, lse_ref, delta, scale, causal, f32))
+    rows = {}
+    for name in F32_FLASH:
+        ops, nbytes = work[name]
+        b_ms, b_by = bound_ms(ops, nbytes)
+        rows[name] = {"ms": b2b[name],
+                      "plain_ms": plain_fwd if name == "flash_fwd_f32"
+                      else plain_bwd,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                      "max_abs_err": absmax[name], "gflop": ops / 1e9,
+                      "mbytes": nbytes / 1e6, "bf16_ms": b2b[name[:-4]]}
+        log(f"  {name}: {json.dumps(rows[name])}")
+    return rows
+
+
+def shift(blocks):
+    """The ring's shift by hand: virtual rank i receives rank i-1's."""
+    return [blocks[(i - 1) % len(blocks)] for i in range(len(blocks))]
+
+
+def virtual_ring(fa, rf, n, b=8, h=6, s=2048, d=128, causal=True):
+    """Phase 12b: one sequence split into ``n`` virtual ranks in this
+    process, each running the ring's per-step bodies, held against the
+    single-device kernels and the plain version."""
+    bh = b * h
+    q, k, v, do = (randn_bf16_cuda(77 + i, bh, s, d) for i in range(4))
+    scale = d ** -0.5
+    o1, lse1 = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    delta1 = (do.float() * o1.float()).sum(-1, keepdim=True)
+    dk1, dv1 = fa.flash_dkv_cuda(q, k, v, do, lse1, delta1, scale, causal)
+    dq1 = fa.flash_dq_cuda(q, k, v, do, lse1, delta1, scale, causal)
+    op, lsep = fa.flash_fwd_reference(q, k, v, scale, causal)
+    deltap = (do.float() * op.float()).sum(-1, keepdim=True)
+    dqp, dkp, dvp = fa.flash_bwd_reference(q, k, v, do, lsep, deltap, scale,
+                                           causal)
+    qs, ks, vs, dos = ([c.contiguous() for c in x.chunk(n, dim=1)]
+                       for x in (q, k, v, do))
+
+    fa.reset_launch_counts()
+    carry = [(None, None)] * n
+    kres, vres = ks, vs
+    for t in range(n):
+        carry = [rf.ring_flash_fwd_step(qs[i], kres[i], vres[i], *carry[i],
+                                        rf.ring_branch(i, t, n, causal),
+                                        scale) for i in range(n)]
+        kres, vres = shift(kres), shift(vres)
+    fwd_counts = fa.launch_counts()
+    outs = [o.to(torch.bfloat16) for o, _ in carry]
+    lses = [lse for _, lse in carry]
+    deltas = [(g.float() * o.float()).sum(-1, keepdim=True)
+              for g, o in zip(dos, outs)]
+    dq, dk, dv = [None] * n, [None] * n, [None] * n
+    kres, vres = ks, vs
+    for t in range(n):
+        for i in range(n):
+            dq[i], dk[i], dv[i] = rf.ring_flash_bwd_step(
+                qs[i], kres[i], vres[i], dos[i], lses[i], deltas[i], dq[i],
+                dk[i], dv[i], rf.ring_branch(i, t, n, causal), scale)
+        kres, vres, dk, dv = shift(kres), shift(vres), shift(dk), shift(dv)
+    counts = fa.launch_counts()
+    blocks = n * (n + 1) // 2 if causal else n * n
+    want_fwd = {**{x: 0 for x in counts}, "flash_fwd_f32": blocks}
+    want = {**want_fwd, "flash_dkv_f32": blocks, "flash_dq_f32": blocks}
+    if fwd_counts != want_fwd or counts != want:
+        raise AssertionError(f"virtual ring n={n}: launches forward "
+                             f"{fwd_counts}, in all {counts}; the branch "
+                             f"rule gives {want}")
+    o = torch.cat(outs, dim=1)
+    lse = torch.cat(lses, dim=1)
+    got = [torch.cat([x.to(torch.bfloat16) for x in g], dim=1)
+           for g in (dq, dk, dv)]
+    errs = {"kernels": {"o": relerr(o, o1), "lse": abserr(lse, lse1),
+                        "dq": relerr(got[0], dq1), "dk": relerr(got[1], dk1),
+                        "dv": relerr(got[2], dv1)},
+            "plain": {"o": relerr(o, op), "lse": abserr(lse, lsep),
+                      "dq": relerr(got[0], dqp), "dk": relerr(got[1], dkp),
+                      "dv": relerr(got[2], dvp)}}
+    for against, e in errs.items():
+        for out, val in e.items():
+            tol = LSE_TOL if out == "lse" else REL_TOL
+            if not (val <= tol):
+                raise AssertionError(
+                    f"virtual ring n={n}: {out} against the single-device "
+                    f"{against} off by {val} > {tol}")
+    split = (f"{n} diagonal, {blocks - n} past, {n * n - blocks} skipped"
+             if causal else f"{blocks} non-causal")
+    log(f"  virtual ring n={n} (B={b} H={h} S={s} D={d} causal={causal}): "
+        f"launches {dict((x, counts[x]) for x in F32_FLASH)} ({split}); "
+        f"errors {json.dumps(errs)}")
+
+
+def same_or_close(got, want, what):
+    """Bit for bit, or (a finding, logged) within 1e-3 relative."""
+    if torch.equal(got, want):
+        return True
+    rel = relerr(got, want)
+    log(f"  FINDING: {what} not bit for bit; max rel diff {rel:.3e}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"{what}: {rel} > 1e-3 relative")
+    return False
+
+
+def tp_sp_main_path(hvd, tfm, fa, build_train_step, create_mesh, lm_loss1,
+                    lm_step_s, f32_rows, profile):
+    """Phase 12c; returns the fp32 forms' launch counts of its 5 steps."""
+    hvd.init()
+    if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
+        raise AssertionError(f"expected NCCL at world size 1, got "
+                             f"{hvd.get_topology()}")
+    mesh = create_mesh(dp=1, tp=1, sp=1)
+    kw = dict(vocab=32000, d_model=768, n_layers=12, d_ff=3072,
+              max_seq=2048, dtype=torch.bfloat16, remat=False)
+    b, s = 8, 2048
+    tok = torch.randint(0, kw["vocab"], (b, s + 1),
+                        generator=torch.Generator().manual_seed(1))
+    tokens, targets = tok[:, :-1].cuda(), tok[:, 1:].cuda()
+
+    def factory(p):
+        return torch.optim.AdamW(p, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    # Phase 5's first step on the same weights and tokens: its loss and
+    # the gradients that step's backward gives.
+    ref = tfm.Transformer(tfm.TransformerConfig(**kw),
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    ref_loss = ref.loss_fn(tokens, targets)
+    ref_loss.backward()
+    ref_loss = float(ref_loss.detach())
+    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+    del ref
+
+    cfg = tfm.TransformerConfig(tp_axis="tp", sp_axis="sp", **kw)
+    step = build_train_step(cfg, factory, mesh=mesh)
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    losses, times = [], []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        loss = step(model, opt, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    launches = fa.launch_counts()
+    log(f"tp/sp main path (mesh dp=1 tp=1 sp=1, ring): losses {losses}")
+    log(f"  step seconds {times}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"tp/sp losses not finite and falling: {losses}")
+    check_flash_launches(launches, 0, cfg.n_layers)
+    steady = statistics.median(times[1:])
+    per_step = cfg.n_layers * sum(f32_rows[n]["ms"] for n in F32_FLASH)
+    log(f"  {b * s / steady:.1f} tok/s (median of steps 2-{STEPS}, "
+        f"{steady * 1e3:.2f} ms/step) beside phase 5's "
+        f"{b * s / lm_step_s:.1f} ({lm_step_s * 1e3:.2f} ms/step); fp32 "
+        f"forms {per_step:.3f} ms per step ({cfg.n_layers} launches each "
+        f"at their back-to-back ms); launches {launches}")
+    exact = same_or_close(torch.tensor(losses[0]), torch.tensor(ref_loss),
+                          "step 1 loss against phase 5's first step")
+    exact &= same_or_close(torch.tensor(losses[0]), torch.tensor(lm_loss1),
+                           "step 1 loss against phase 5's logged loss")
+    if grads.keys() != ref_grads.keys():
+        raise AssertionError("the mesh model's parameters are not phase 5's")
+    for n in ref_grads:
+        exact &= same_or_close(grads[n], ref_grads[n], f"gradient {n}")
+    log(f"  step 1: loss {losses[0]!r} against phase 5's {lm_loss1!r} "
+        f"(recomputed {ref_loss!r}), {len(grads)} gradients: "
+        f"{'bit for bit' if exact else 'within 1e-3 (see FINDING)'}")
+    if profile:
+        profile_steps(lambda: step(model, opt, tokens, targets), profile,
+                      "LM tp/sp mesh step (ring, fp32 forms)")
+    del model, opt, grads, ref_grads
+
+    cfg_u = tfm.TransformerConfig(tp_axis="tp", sp_axis="sp",
+                                  sp_impl="ulysses", **kw)
+    step_u = build_train_step(cfg_u, factory, mesh=mesh)
+    model_u = step_u.make_model(generator=torch.Generator().manual_seed(0))
+    opt_u = step_u.make_optimizer(model_u)
+    fa.reset_launch_counts()
+    losses_u = [float(step_u(model_u, opt_u, tokens, targets))
+                for _ in range(2)]
+    counts_u = fa.launch_counts()
+    if not all(math.isfinite(x) for x in losses_u):
+        raise AssertionError(f"Ulysses losses {losses_u}")
+    check_flash_launches(counts_u, cfg.n_layers, 0, steps=2)
+    log(f"  Ulysses (sp_impl='ulysses'): losses {losses_u}, launches "
+        f"{counts_u}")
+    hvd.shutdown()
+    return {n: launches[n] for n in F32_FLASH}
+
+
+def tp_sp_phase(hvd, tfm, fa, build_train_step, lm_loss1, lm_step_s,
+                profile):
+    """Phase 12: the fp32 forms, the virtual ring and the tp/sp step."""
+    from horovod_tpu_torch.parallel import ring_attention as rf
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    log("fp32-output forms of K1-K3 vs plain fp32 (tolerance: rel "
+        f"{REL_TOL} on O/dQ/dK/dV, abs {LSE_TOL} on lse):")
+    rows = {}
+    for k, shape in enumerate(F32_SHAPES):
+        rows.update(check_kernels(fa, *shape, timed=k == 0,
+                                  out_dtype=torch.float32) or {})
+    for n in (2, 4):
+        virtual_ring(fa, rf, n)
+    launches = tp_sp_main_path(hvd, tfm, fa, build_train_step, create_mesh,
+                               lm_loss1, lm_step_s, rows, profile)
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def source_of(name):
     if name in BN_KERNELS:
         return BN_SOURCE
@@ -1425,8 +1746,9 @@ def main(argv=None) -> int:
     if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
         raise AssertionError(f"expected NCCL at world size 1, got "
                              f"{hvd.get_topology()}")
-    launches, lm_step_s = lm_main_path(hvd, tfm, fa, fbn, build_train_step,
-                                       args.profile)
+    launches, lm_step_s, lm_loss1 = lm_main_path(hvd, tfm, fa, fbn,
+                                                 build_train_step,
+                                                 args.profile)
     torch.cuda.empty_cache()
 
     # 6. BN kernels vs plain, per-call and per-step times
@@ -1461,6 +1783,12 @@ def main(argv=None) -> int:
     # 11. the blockwise wire on the card
     wire_phase(hvd, tfm, tres, texec, build_train_step,
                build_image_train_step, lm_step_s)
+
+    # 12. tensor and sequence parallelism
+    f32_rows, f32_launches = tp_sp_phase(hvd, tfm, fa, build_train_step,
+                                         lm_loss1, lm_step_s, args.profile)
+    rows.update(f32_rows)
+    launches.update(f32_launches)
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[name], launches=launches[name],

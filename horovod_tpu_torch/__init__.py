@@ -4,10 +4,12 @@ The same public names as ``horovod_tpu`` for the part ported so far:
 topology and meshes over ``torch.distributed`` (NCCL on CUDA, gloo on
 the CPU), eager collectives through a negotiated engine with tensor
 fusion, cast and block-quantized compression, the hook-fired bucketed
-``DistributedOptimizer`` and the broadcasts, and the data-parallel
-train steps of the flagship transformer, whose attention runs on
-hand-written CUDA flash kernels for Hopper, and of ResNet-50, whose
-batch norms run on hand-written CUDA kernels.
+``DistributedOptimizer`` and the broadcasts, the data-parallel train
+steps of the flagship transformer, whose attention runs on hand-written
+CUDA flash kernels for Hopper, and of ResNet-50, whose batch norms run
+on hand-written CUDA kernels, and the transformer's tensor- and
+sequence-parallel train step over a mesh (``parallel/``: Megatron tp,
+ring and Ulysses attention).
 
     import torch, horovod_tpu_torch as hvd
     hvd.init()                                   # CUDA; device="cpu" for gloo

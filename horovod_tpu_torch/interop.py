@@ -3,7 +3,10 @@
 The flagship transformer keeps the JAX ``x @ W`` layout, so each leaf is
 a copy, never a transpose. The JAX side is a tree of numpy arrays
 (``jax.device_get`` of ``init_params``'s output): ``{"embed", "pos",
-"ln_f", "layers": [...]}``.
+"ln_f", "layers": [...]}``. Under tensor parallelism
+:func:`shard_from_jax` gives one rank's slice of it, the block that
+JAX's ``NamedSharding`` under ``param_specs`` puts on the device at the
+same mesh coordinate.
 
 The ResNet takes PyTorch's layouts: a conv kernel goes from HWIO to
 OIHW, the head's Dense kernel from ``[in, out]`` to ``[out, in]``; BN
@@ -21,6 +24,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .parallel.mesh import shard_tensor
+
 _TOP = ("embed", "pos", "ln_f")
 
 
@@ -37,6 +42,26 @@ def params_from_jax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
             sd[f"layers.{i}.{name}"] = torch.from_numpy(
                 np.array(leaf, dtype=np.float32))
     return sd
+
+
+def shard_from_jax(tree: Dict, cfg, sizes: Dict[str, int],
+                   coords: Dict[str, int]
+                   ) -> "OrderedDict[str, torch.Tensor]":
+    """The state_dict of the ``Transformer`` shard at mesh coordinate
+    ``coords`` (axis sizes ``sizes``; ``parallel.mesh.place(mesh)`` gives
+    both for this rank) from a global JAX parameter tree, cut under
+    ``param_specs(cfg)``."""
+    from .models.transformer import param_specs
+    specs = param_specs(cfg)
+    out = OrderedDict()
+    for key, t in params_from_jax(tree).items():
+        if key.startswith("layers."):
+            _, idx, name = key.split(".", 2)
+            spec = specs["layers"][int(idx)][name]
+        else:
+            spec = specs[key]
+        out[key] = shard_tensor(t, spec, sizes, coords)
+    return out
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:

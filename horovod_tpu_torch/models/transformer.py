@@ -1,30 +1,42 @@
 """Flagship decoder-only Transformer LM.
 
-Counterpart of ``horovod_tpu/models/transformer.py`` for the data-parallel
-path: the same config, parameter tree and numerics. Parameters are fp32
-and cast to ``cfg.dtype`` at each use, so gradients land in fp32 on fp32
+Counterpart of ``horovod_tpu/models/transformer.py``: the same config,
+parameter tree, partition specs and numerics. Parameters are fp32 and
+cast to ``cfg.dtype`` at each use, so gradients land in fp32 on fp32
 masters. Weights keep the JAX ``x @ W`` layout (``wq`` is ``[d, d]``,
 ``wi`` is ``[d, f]``, ``embed`` is ``[vocab, d]`` and tied to the output
 projection). GELU is the tanh approximation, as ``jax.nn.gelu``'s
 default is; layernorm has no bias, eps 1e-5, and runs in fp32.
 
-Tensor, sequence and expert parallelism (``tp_axis``/``sp_axis``/
-``ep_axis``/``num_experts``) and ``remat_policy="dots"`` are later
-slices of the port and raise here.
+With ``tp_axis``/``sp_axis`` the model runs as one shard of a mesh (the
+``mesh`` argument, from ``parallel.mesh.create_mesh``), as JAX's
+functions run inside ``shard_map``: it holds this rank's slices of the
+weights (:func:`param_specs`: Q/K/V and ``wi`` split on their output
+columns over 'tp', ``wo`` and ``wo_mlp`` on their input rows, one psum
+after each), takes this rank's sequence shard, and attends over 'sp' by
+ring attention (``sp_impl="ring"``) or Ulysses (``"ulysses"``). Expert
+parallelism (``ep_axis``/``num_experts``) is a later slice of the port
+and raises here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.device_mesh import DeviceMesh
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.flash_attention import flash_attention
-from ..parallel.ring_attention import full_attention
+from ..parallel.collectives import axis_index, axis_size, psum
+from ..parallel.mesh import place, shard_tree
+from ..parallel.ring_attention import full_attention, ring_attention
+from ..parallel.ulysses import ulysses_attention
 from ..topology import resolve_device
 
 # Attended length from which ``use_flash=None`` picks the flash kernels.
@@ -50,6 +62,9 @@ class TransformerConfig:
     # bf16, full attention otherwise. True forces flash_attention (its
     # plain version on the CPU).
     use_flash: Optional[bool] = None
+    # The Pallas kernels' tile size in JAX. The Hopper kernels' tiles are
+    # fixed by their design (128 q rows by 64 keys) and the plain version
+    # has none, so here it is accepted and changes nothing.
     flash_block: Optional[int] = None
     num_experts: int = 0
     capacity_factor: float = 2.0
@@ -81,20 +96,27 @@ class TransformerConfig:
         if self.d_model % self.n_heads:
             raise ValueError(f"d_model ({self.d_model}) must be divisible "
                              f"by n_heads ({self.n_heads})")
-        for field in ("tp_axis", "sp_axis", "ep_axis"):
-            if getattr(self, field):
-                raise NotImplementedError(
-                    f"{field} is not ported yet: this slice is data "
-                    "parallel only")
+        if self.ep_axis:
+            raise NotImplementedError(
+                "ep_axis is not ported yet: expert parallelism is a later "
+                "slice")
         if self.num_experts:
             raise NotImplementedError("MoE layers are not ported yet")
-        if self.flash_block is not None:
-            raise NotImplementedError(
-                "flash_block is not ported: the CUDA kernels use fixed "
-                "64x64 tiles")
-        if self.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported yet; use 'full'")
+
+
+def param_specs(cfg: TransformerConfig) -> Dict:
+    """The partition spec of every parameter, the tree of JAX's
+    ``param_specs`` with each ``PartitionSpec`` a tuple
+    (``parallel.mesh``): Q/K/V and ``wi`` split on their output columns
+    over 'tp' (column-parallel), ``wo`` and ``wo_mlp`` on their input
+    rows (row-parallel: one psum per block), everything else replicated
+    (dp and sp shard data, not parameters)."""
+    tp = cfg.tp_axis
+    layer = {"ln1": (), "ln2": (),
+             "wq": (None, tp), "wk": (None, tp), "wv": (None, tp),
+             "wo": (tp, None), "wi": (None, tp), "wo_mlp": (tp, None)}
+    return {"embed": (), "pos": (), "ln_f": (),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
 
 
 def init_params(cfg: TransformerConfig,
@@ -131,31 +153,79 @@ def _layernorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _use_flash(cfg: TransformerConfig, x: torch.Tensor, s: int) -> bool:
+    """The flash kernels for ``s`` attended tokens: as ``cfg.use_flash``
+    says, else on CUDA in bf16 from FLASH_MIN_SEQ."""
     if cfg.use_flash is not None:
         return cfg.use_flash
     return (x.is_cuda and s >= FLASH_MIN_SEQ
             and cfg.dtype == torch.bfloat16)
 
 
+def _local_heads(cfg: TransformerConfig, tp_n: int) -> int:
+    if cfg.n_heads % tp_n:
+        raise ValueError(
+            f"n_heads ({cfg.n_heads}) must be divisible by the tensor-"
+            f"parallel axis size ({tp_n})")
+    return cfg.n_heads // tp_n
+
+
+def _attention(q, k, v, cfg: TransformerConfig,
+               mesh: Optional[DeviceMesh]):
+    s = q.shape[1]
+    if cfg.sp_axis and cfg.sp_impl == "ulysses":
+        # The local attention runs over the whole sequence, so the auto
+        # policy compares s * sp.
+        flash = _use_flash(cfg, q, s * axis_size(mesh, cfg.sp_axis))
+        return ulysses_attention(q, k, v, mesh=mesh, axis=cfg.sp_axis,
+                                 causal=True, use_flash=flash)
+    flash = _use_flash(cfg, q, s)
+    if cfg.sp_axis:
+        # Each ring step attends a q shard to a kv shard, so the policy
+        # keys on the shard length.
+        return ring_attention(q, k, v, mesh=mesh, axis=cfg.sp_axis,
+                              causal=True, use_flash=flash)
+    if flash:
+        return flash_attention(q, k, v, True)
+    return full_attention(q, k, v, causal=True)
+
+
 def _block(p: Dict[str, torch.Tensor], x: torch.Tensor,
-           cfg: TransformerConfig) -> torch.Tensor:
-    """One pre-norm decoder block; x is [B, S, d] in cfg.dtype."""
-    d, h = cfg.d_model, cfg.n_heads
-    hd = d // h
+           cfg: TransformerConfig,
+           mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """One pre-norm decoder block of this rank; x is [B, S_local, d] in
+    cfg.dtype. Under 'tp' the Q/K/V slices give the local heads and the
+    out-projections' partial sums meet in a psum."""
+    d = cfg.d_model
+    h = _local_heads(cfg, axis_size(mesh, cfg.tp_axis))
+    hd = d // cfg.n_heads
     dt = cfg.dtype
     y = _layernorm(x, p["ln1"])
     b, s, _ = y.shape
     q = (y @ p["wq"].to(dt)).reshape(b, s, h, hd)
     k = (y @ p["wk"].to(dt)).reshape(b, s, h, hd)
     v = (y @ p["wv"].to(dt)).reshape(b, s, h, hd)
-    if _use_flash(cfg, x, s):
-        attn = flash_attention(q, k, v, True)
-    else:
-        attn = full_attention(q, k, v, causal=True)
-    x = x + attn.reshape(b, s, d) @ p["wo"].to(dt)
+    attn = _attention(q, k, v, cfg, mesh)
+    o = attn.reshape(b, s, h * hd) @ p["wo"].to(dt)
+    if cfg.tp_axis:
+        o = psum(o, mesh, cfg.tp_axis)   # row-parallel out-projection
+    x = x + o
     y = _layernorm(x, p["ln2"])
     hmid = F.gelu(y @ p["wi"].to(dt), approximate="tanh")
-    return x + hmid @ p["wo_mlp"].to(dt)
+    m = hmid @ p["wo_mlp"].to(dt)
+    if cfg.tp_axis:
+        m = psum(m, mesh, cfg.tp_axis)
+    return x + m
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of the
+    matmuls without batch dimensions (every ``x @ W``; the attention's
+    batched products are not among them), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class _Layer(nn.Module):
@@ -168,17 +238,35 @@ class _Layer(nn.Module):
 class Transformer(nn.Module):
     """The flagship LM as an ``nn.Module``. It runs on CUDA unless
     ``device="cpu"`` is passed; ``params`` (a tree as from
-    :func:`init_params`) defaults to one drawn from ``generator``."""
+    :func:`init_params`) defaults to one drawn from ``generator``.
+
+    When ``cfg`` names ``tp_axis`` or ``sp_axis``, ``mesh`` must hold
+    those axes, and the model is this rank's shard: ``params`` is then
+    this rank's slice of the tree (``parallel.mesh.shard_tree`` under
+    :func:`param_specs`), and a tree drawn from ``generator`` is the
+    global one, cut to this rank's slice."""
 
     def __init__(self, cfg: TransformerConfig, *,
                  params: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh: Optional[DeviceMesh] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        for axis in (cfg.tp_axis, cfg.sp_axis):
+            if axis and (mesh is None or axis not in mesh.mesh_dim_names):
+                raise ValueError(
+                    f"the config's mesh axis {axis!r} is not an axis of "
+                    f"the model's mesh "
+                    f"({None if mesh is None else mesh.mesh_dim_names})")
+        if cfg.tp_axis:
+            _local_heads(cfg, axis_size(mesh, cfg.tp_axis))
         if params is None:
             params = init_params(cfg, generator)
+            if cfg.tp_axis:
+                params = shard_tree(params, param_specs(cfg), *place(mesh))
         self.embed = nn.Parameter(params["embed"].clone())
         self.pos = nn.Parameter(params["pos"].clone())
         self.ln_f = nn.Parameter(params["ln_f"].clone())
@@ -190,17 +278,25 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def apply_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] int -> hidden [B, S, d] after the final norm."""
+        """tokens [B, S_local] int -> hidden [B, S_local, d] after the
+        final norm. Under 'sp' this rank's tokens start at position
+        ``axis_index(sp) * S_local``."""
         cfg = self.cfg
         dt = cfg.dtype
         s = tokens.shape[1]
-        x = self.embed.to(dt)[tokens] + self.pos[:s].to(dt)
+        start = axis_index(self.mesh, cfg.sp_axis) * s if cfg.sp_axis else 0
+        x = self.embed.to(dt)[tokens] + self.pos[start:start + s].to(dt)
+        remat = {}
+        if cfg.remat_policy == "dots":
+            remat["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
         for layer in self.layers:
             p = dict(layer.named_parameters())
             if cfg.remat:
-                x = checkpoint(_block, p, x, cfg, use_reentrant=False)
+                x = checkpoint(_block, p, x, cfg, self.mesh,
+                               use_reentrant=False, **remat)
             else:
-                x = _block(p, x, cfg)
+                x = _block(p, x, cfg, self.mesh)
         return _layernorm(x, self.ln_f)
 
     def _project_logits(self, h: torch.Tensor) -> torch.Tensor:

@@ -91,10 +91,13 @@ def build_dir() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hvd_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
-    lib.hvd_flash_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i,
-                                  p]
-    lib.hvd_flash_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
+    for form in ("", "_f32"):   # the bf16- and fp32-output forms
+        getattr(lib, "hvd_flash_fwd" + form).argtypes = [
+            p, p, p, p, p, i, i, i, i, f, i, p]
+        getattr(lib, "hvd_flash_dkv" + form).argtypes = [
+            p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+        getattr(lib, "hvd_flash_dq" + form).argtypes = [
+            p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.hvd_bn_stats.argtypes = [p, p, p, i, i, i, i, p]
     lib.hvd_bn_norm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.hvd_bn_bwd_reduce.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
@@ -106,6 +109,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hvd_probe_stats_like.argtypes = [p, p, p, i, i, i, p]
     lib.hvd_wgmma_rate.argtypes = [i, p, i, i, p]
     for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dkv, lib.hvd_flash_dq,
+               lib.hvd_flash_fwd_f32, lib.hvd_flash_dkv_f32,
+               lib.hvd_flash_dq_f32,
                lib.hvd_bn_stats, lib.hvd_bn_norm, lib.hvd_bn_bwd_reduce,
                lib.hvd_bn_bwd_dx, lib.hvd_flash_ablate, lib.hvd_probe_map,
                lib.hvd_probe_stats_like, lib.hvd_wgmma_rate):

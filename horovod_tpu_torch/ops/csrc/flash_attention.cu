@@ -2,7 +2,11 @@
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] bf16, contiguous;
 // lse and delta are [BH, S] fp32 (the [BH, S, 1] tensors of the Python
-// side). D is one of BuiltHeadDims below (any multiple of 16 up to 128
+// side). Each kernel also has an fp32-output form (flash_*_f32_kernel,
+// the hvd_flash_*_f32 entry points) for ring attention, whose merge adds
+// n per-block results and would stack n bf16 roundings: the same body,
+// templated on the output type, keeps the fp32 accumulator values and
+// stores them as float2 pairs where the bf16 form packs them (Pair). D is one of BuiltHeadDims below (any multiple of 16 up to 128
 // compiles); sq and sk take any length >= 1, causal or not. A head dim
 // short of a whole number of 64-column blocks (32, 80, 96) is stored in
 // shared memory at the next one, zero filled (tile_width): Q K^T and
@@ -85,6 +89,30 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + (((a + 1023) & ~1023u) - a);
 }
 
+// The epilogue's store of two adjacent accumulator columns of one row,
+// `*reinterpret_cast<Pair<OutT>::T*>(p) = Pair<OutT>::of(lo, hi)`:
+// rounded to bf16 and packed into one 4-byte store, or kept in fp32 as
+// one 8-byte store. Either way a thread's pair is columns i*8 + t*2 and
+// i*8 + t*2 + 1 of the fragment, so the row/column mapping is the same.
+// (An assignment, as the bf16-only kernels had: C++ sequences its value
+// before its address, so the bf16 forms compile to the same SASS.)
+template <typename OutT>
+struct Pair;
+template <>
+struct Pair<bf16> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T of(float lo, float hi) {
+    return pack2(lo, hi);
+  }
+};
+template <>
+struct Pair<float> {
+  using T = float2;
+  static __device__ __forceinline__ T of(float lo, float hi) {
+    return make_float2(lo, hi);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Forward (K1)
 // ---------------------------------------------------------------------------
@@ -103,12 +131,12 @@ struct FwdSmem {                               // byte offsets
   static constexpr int kBytes = kRing + kFwdStages * 2 * kTile + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kFwdThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, float qscale,
-                 int causal) {
+template <int D, typename OutT>
+__device__ __forceinline__ void
+flash_fwd_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, OutT* __restrict__ o,
+               float* __restrict__ lse, int sq, int sk, float qscale,
+               int causal) {
   using L = FwdSmem<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -266,14 +294,32 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= sq) continue;
     const float inv = 1.f / l[r];
-    bf16* orow = o + (size_t)row[r] * D;
+    OutT* orow = o + (size_t)row[r] * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(orow + i * 8 + t * 2) =
-          pack2(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+      *reinterpret_cast<typename Pair<OutT>::T*>(orow + i * 8 + t * 2) =
+          Pair<OutT>::of(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
     }
     if (t == 0) lse[row[r]] = m[r] + logf(l[r]);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, float qscale,
+                 int causal) {
+  flash_fwd_body<D>(q, k, v, o, lse, sq, sk, qscale, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, float qscale,
+                     int causal) {
+  flash_fwd_body<D>(q, k, v, o, lse, sq, sk, qscale, causal);
 }
 
 // ---------------------------------------------------------------------------
@@ -297,14 +343,14 @@ struct DkvSmem {                                  // byte offsets
   static constexpr int kBytes = kStats + kDkvStages * 512 + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kDkvThreads)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int sq, int sk, float qscale,
-                 int causal) {
+template <int D, typename OutT>
+__device__ __forceinline__ void
+flash_dkv_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, OutT* __restrict__ dk,
+               OutT* __restrict__ dv, int sq, int sk, float qscale,
+               int causal) {
   using L = DkvSmem<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -467,16 +513,41 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (krow[r] >= sk) continue;
-    bf16* dkr = dk + (size_t)krow[r] * D;
-    bf16* dvr = dv + (size_t)krow[r] * D;
+    OutT* dkr = dk + (size_t)krow[r] * D;
+    OutT* dvr = dv + (size_t)krow[r] * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(dkr + i * 8 + t * 2) =
-          pack2(dka[i][2 * r], dka[i][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvr + i * 8 + t * 2) =
-          pack2(dva[i][2 * r], dva[i][2 * r + 1]);
+      *reinterpret_cast<typename Pair<OutT>::T*>(dkr + i * 8 + t * 2) =
+          Pair<OutT>::of(dka[i][2 * r], dka[i][2 * r + 1]);
+      *reinterpret_cast<typename Pair<OutT>::T*>(dvr + i * 8 + t * 2) =
+          Pair<OutT>::of(dva[i][2 * r], dva[i][2 * r + 1]);
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads)
+flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int sq, int sk, float qscale,
+                 int causal) {
+  flash_dkv_body<D>(q, k, v, dout, lse, delta, dk, dv, sq, sk, qscale,
+                    causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads)
+flash_dkv_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int sq, int sk, float qscale,
+                     int causal) {
+  flash_dkv_body<D>(q, k, v, dout, lse, delta, dk, dv, sq, sk, qscale,
+                    causal);
 }
 
 // ---------------------------------------------------------------------------
@@ -503,13 +574,13 @@ struct DqSmem {                                  // byte offsets
   static constexpr int kBytes = kRing + kDqStages * 2 * kTile + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kDqThreads)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
-                int sq, int sk, float qscale, float scale, int causal) {
+template <int D, typename OutT>
+__device__ __forceinline__ void
+flash_dq_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, OutT* __restrict__ dq,
+              int sq, int sk, float qscale, float scale, int causal) {
   using L = DqSmem<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -658,13 +729,35 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= sq) continue;
-    bf16* dqr = dq + (size_t)row[r] * D;
+    OutT* dqr = dq + (size_t)row[r] * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(dqr + i * 8 + t * 2) =
-          pack2(dqa[i][2 * r] * scale, dqa[i][2 * r + 1] * scale);
+      *reinterpret_cast<typename Pair<OutT>::T*>(dqr + i * 8 + t * 2) =
+          Pair<OutT>::of(dqa[i][2 * r] * scale, dqa[i][2 * r + 1] * scale);
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads)
+flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                int sq, int sk, float qscale, float scale, int causal) {
+  flash_dq_body<D>(q, k, v, dout, lse, delta, dq, sq, sk, qscale, scale,
+                   causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads)
+flash_dq_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int sq, int sk, float qscale, float scale, int causal) {
+  flash_dq_body<D>(q, k, v, dout, lse, delta, dq, sq, sk, qscale, scale,
+                   causal);
 }
 
 template <typename K>
@@ -674,48 +767,59 @@ cudaError_t prepare(K kernel, int smem) {
                               smem);
 }
 
-template <int D>
+// The kernel of each output type: the bf16 forms and the fp32 forms.
+template <int D> auto fwd_kernel(bf16*) { return flash_fwd_kernel<D>; }
+template <int D> auto fwd_kernel(float*) { return flash_fwd_f32_kernel<D>; }
+template <int D> auto dkv_kernel(bf16*) { return flash_dkv_kernel<D>; }
+template <int D> auto dkv_kernel(float*) { return flash_dkv_f32_kernel<D>; }
+template <int D> auto dq_kernel(bf16*) { return flash_dq_kernel<D>; }
+template <int D> auto dq_kernel(float*) { return flash_dq_f32_kernel<D>; }
+
+template <int D, typename OutT>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int sq, int sk, float qscale,
                        int causal, cudaStream_t stream) {
   constexpr int smem = FwdSmem<D>::kBytes;
-  cudaError_t err = prepare(flash_fwd_kernel<D>, smem);
+  const auto kernel = fwd_kernel<D>((OutT*)nullptr);
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (sq + kFwdRows - 1) / kFwdRows);
-  flash_fwd_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (OutT*)o, (float*)lse,
       sq, sk, qscale, causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int sq, int sk,
                        float qscale, int causal, cudaStream_t stream) {
   constexpr int smem = DkvSmem<D>::kBytes;
-  cudaError_t err = prepare(flash_dkv_kernel<D>, smem);
+  const auto kernel = dkv_kernel<D>((OutT*)nullptr);
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (sk + kDkvRows - 1) / kDkvRows);
-  flash_dkv_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
+  kernel<<<grid, kDkvThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, sq, sk,
+      (const float*)lse, (const float*)delta, (OutT*)dk, (OutT*)dv, sq, sk,
       qscale, causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int sq, int sk, float qscale,
                       float scale, int causal, cudaStream_t stream) {
   constexpr int smem = DqSmem<D>::kBytes;
-  cudaError_t err = prepare(flash_dq_kernel<D>, smem);
+  const auto kernel = dq_kernel<D>((OutT*)nullptr);
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (sq + kDqRows - 1) / kDqRows);
-  flash_dq_kernel<D><<<grid, kDqThreads, smem, stream>>>(
+  kernel<<<grid, kDqThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, sq, sk, qscale,
+      (const float*)lse, (const float*)delta, (OutT*)dq, sq, sk, qscale,
       scale, causal);
   return cudaGetLastError();
 }
@@ -735,42 +839,92 @@ cudaError_t dispatch_d(HeadDims<Ds...>, int d, F launch) {
   return err;
 }
 
+// One entry point's body for each output type.
+template <typename OutT>
+int fwd_entry(const void* q, const void* k, const void* v, void* o,
+              void* lse, int bh, int sq, int sk, int d, float qscale,
+              int causal, void* stream) {
+  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
+    return launch_fwd<decltype(D)::value, OutT>(
+        q, k, v, o, lse, bh, sq, sk, qscale, causal, (cudaStream_t)stream);
+  });
+}
+
+template <typename OutT>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dk, void* dv, int bh,
+              int sq, int sk, int d, float qscale, int causal, void* stream) {
+  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
+    return launch_dkv<decltype(D)::value, OutT>(
+        q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, qscale, causal,
+        (cudaStream_t)stream);
+  });
+}
+
+template <typename OutT>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, int bh, int sq,
+             int sk, int d, float qscale, float scale, int causal,
+             void* stream) {
+  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
+    return launch_dq<decltype(D)::value, OutT>(
+        q, k, v, dout, lse, delta, dq, bh, sq, sk, qscale, scale, causal,
+        (cudaStream_t)stream);
+  });
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Each returns a cudaError_t
 // (0 on success); the caller raises on anything else.
 extern "C" {
 
+// The bf16-output forms, then the fp32-output forms (_f32) with the same
+// arguments.
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int sq, int sk, int d, float qscale,
                   int causal, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
-    return launch_fwd<decltype(D)::value>(q, k, v, o, lse, bh, sq, sk,
-                                          qscale, causal, s);
-  });
+  return fwd_entry<bf16>(q, k, v, o, lse, bh, sq, sk, d, qscale, causal,
+                         stream);
 }
 
 int hvd_flash_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int bh, int sq, int sk, int d,
                   float qscale, int causal, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
-    return launch_dkv<decltype(D)::value>(q, k, v, dout, lse, delta, dk, dv,
-                                          bh, sq, sk, qscale, causal, s);
-  });
+  return dkv_entry<bf16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
+                         qscale, causal, stream);
 }
 
 int hvd_flash_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int bh, int sq, int sk, int d, float qscale,
                  float scale, int causal, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {
-    return launch_dq<decltype(D)::value>(q, k, v, dout, lse, delta, dq, bh,
-                                         sq, sk, qscale, scale, causal, s);
-  });
+  return dq_entry<bf16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, qscale,
+                        scale, causal, stream);
+}
+
+int hvd_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int bh, int sq, int sk, int d, float qscale,
+                      int causal, void* stream) {
+  return fwd_entry<float>(q, k, v, o, lse, bh, sq, sk, d, qscale, causal,
+                          stream);
+}
+
+int hvd_flash_dkv_f32(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int bh, int sq, int sk, int d,
+                      float qscale, int causal, void* stream) {
+  return dkv_entry<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
+                          qscale, causal, stream);
+}
+
+int hvd_flash_dq_f32(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int bh, int sq, int sk, int d, float qscale,
+                     float scale, int causal, void* stream) {
+  return dq_entry<float>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                         qscale, scale, causal, stream);
 }
 
 }  // extern "C"

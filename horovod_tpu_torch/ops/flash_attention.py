@@ -14,6 +14,13 @@ products, every product accumulates in fp32, ``lse = m + log(max(l,
 Dispatch is by device: CPU tensors take the plain version, CUDA tensors
 launch the kernel or raise. Each kernel wrapper counts its launches in
 ``flash_fwd_launches`` / ``flash_dkv_launches`` / ``flash_dq_launches``.
+
+Each kernel and plain version takes ``out_dtype``, as JAX's ``_flash_fwd``
+and ``_flash_bwd`` do: None (the operands' dtype) or fp32, which ring
+attention asks for so that its merge of n per-block results does not
+stack n bf16 roundings. The plain version casts where JAX's ``_finalize``
+casts; on the card fp32 launches each kernel's fp32-output form, whose
+launches count apart (``flash_*_f32`` in :func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ NEG_INF = -1e30
 flash_fwd_launches = 0
 flash_dkv_launches = 0
 flash_dq_launches = 0
+flash_fwd_f32_launches = 0
+flash_dkv_f32_launches = 0
+flash_dq_f32_launches = 0
 
 # The head dims csrc/flash_attention.cu is built for (BuiltHeadDims).
 HEAD_DIMS = (32, 64, 80, 96, 128)
@@ -36,12 +46,19 @@ HEAD_DIMS = (32, 64, 80, 96, 128)
 
 def launch_counts() -> dict:
     return {"flash_fwd": flash_fwd_launches, "flash_dkv": flash_dkv_launches,
-            "flash_dq": flash_dq_launches}
+            "flash_dq": flash_dq_launches,
+            "flash_fwd_f32": flash_fwd_f32_launches,
+            "flash_dkv_f32": flash_dkv_f32_launches,
+            "flash_dq_f32": flash_dq_f32_launches}
 
 
 def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_dkv_launches, flash_dq_launches
+    global flash_fwd_f32_launches, flash_dkv_f32_launches
+    global flash_dq_f32_launches
     flash_fwd_launches = flash_dkv_launches = flash_dq_launches = 0
+    flash_fwd_f32_launches = flash_dkv_f32_launches = 0
+    flash_dq_f32_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -60,9 +77,11 @@ def _valid(sq: int, sk: int, causal: bool, device) -> torch.Tensor:
     return ok & (qpos >= kpos) if causal else ok
 
 
-def flash_fwd_reference(qb, kb, vb, scale: float, causal: bool
+def flash_fwd_reference(qb, kb, vb, scale: float, causal: bool,
+                        out_dtype: Optional[torch.dtype] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [BH,S,D] in q's dtype, lse [BH,S,1] fp32)."""
+    """(o [BH,S,D] in ``out_dtype`` (default q's dtype), lse [BH,S,1]
+    fp32)."""
     sq, sk = qb.shape[1], kb.shape[1]
     s = _scaled_q(qb, scale).float() @ kb.float().transpose(1, 2)
     valid = _valid(sq, sk, causal, qb.device)
@@ -71,12 +90,13 @@ def flash_fwd_reference(qb, kb, vb, scale: float, causal: bool
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     o = (p.to(vb.dtype).float() @ vb.float()) / l
-    return o.to(qb.dtype), m + torch.log(l)
+    return o.to(out_dtype or qb.dtype), m + torch.log(l)
 
 
 def flash_bwd_reference(qb, kb, vb, do, lse, delta, scale: float,
-                        causal: bool):
-    """(dq, dk, dv), each [BH,S,D] in its operand's dtype."""
+                        causal: bool, out_dtype: Optional[torch.dtype] = None):
+    """(dq, dk, dv), each [BH,S,D] in ``out_dtype`` (default its
+    operand's dtype)."""
     sq, sk = qb.shape[1], kb.shape[1]
     qs = _scaled_q(qb, scale)
     s = qs.float() @ kb.float().transpose(1, 2)
@@ -87,7 +107,8 @@ def flash_bwd_reference(qb, kb, vb, do, lse, delta, scale: float,
     ds = torch.where(valid, p * (dp - delta), 0.0)
     dk = ds.to(qb.dtype).float().transpose(1, 2) @ qs.float()
     dq = (ds.to(kb.dtype).float() @ kb.float()) * scale
-    return dq.to(qb.dtype), dk.to(kb.dtype), dv.to(vb.dtype)
+    return (dq.to(out_dtype or qb.dtype), dk.to(out_dtype or kb.dtype),
+            dv.to(out_dtype or vb.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -126,69 +147,99 @@ def _qscale(scale: float) -> float:
     return float(torch.tensor(scale, dtype=torch.bfloat16))
 
 
-def flash_fwd_cuda(qb, kb, vb, scale: float, causal: bool):
-    """K1: (o, lse) from the forward kernel."""
-    global flash_fwd_launches
+def _f32_out(name, out_dtype) -> bool:
+    """Whether ``out_dtype`` asks for the fp32-output form: None and
+    bfloat16 give the bf16 form, float32 the fp32 form; no other output
+    type is built."""
+    if out_dtype in (None, torch.bfloat16):
+        return False
+    if out_dtype == torch.float32:
+        return True
+    raise TypeError(f"{name}: the kernel writes bfloat16 or float32, got "
+                    f"out_dtype {out_dtype}")
+
+
+def flash_fwd_cuda(qb, kb, vb, scale: float, causal: bool, out_dtype=None):
+    """K1: (o, lse) from the forward kernel; o in fp32 when ``out_dtype``
+    is fp32."""
+    global flash_fwd_launches, flash_fwd_f32_launches
     _check("flash_fwd", qb, kb, vb)
+    f32 = _f32_out("flash_fwd", out_dtype)
     bh, sq, d = qb.shape
     sk = kb.shape[1]
-    o = torch.empty_like(qb)
+    o = torch.empty_like(qb, dtype=torch.float32 if f32 else qb.dtype)
     lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=qb.device)
-    err = library().hvd_flash_fwd(
-        ptr(qb), ptr(kb), ptr(vb), ptr(o), ptr(lse), bh, sq, sk, d,
-        _qscale(scale), int(causal), stream(qb))
-    raise_on(err, "flash_fwd")
-    flash_fwd_launches += 1
+    entry = library().hvd_flash_fwd_f32 if f32 else library().hvd_flash_fwd
+    err = entry(ptr(qb), ptr(kb), ptr(vb), ptr(o), ptr(lse), bh, sq, sk, d,
+                _qscale(scale), int(causal), stream(qb))
+    raise_on(err, "flash_fwd_f32" if f32 else "flash_fwd")
+    if f32:
+        flash_fwd_f32_launches += 1
+    else:
+        flash_fwd_launches += 1
     return o, lse
 
 
-def flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool):
-    """K2: (dk, dv) from the key-block backward kernel."""
-    global flash_dkv_launches
+def flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool,
+                   out_dtype=None):
+    """K2: (dk, dv) from the key-block backward kernel; fp32 when
+    ``out_dtype`` is fp32."""
+    global flash_dkv_launches, flash_dkv_f32_launches
     _check("flash_dkv", qb, kb, vb, do)
+    f32 = _f32_out("flash_dkv", out_dtype)
     bh, sq, d = qb.shape
     _check_stats("flash_dkv", bh, sq, lse, delta)
     sk = kb.shape[1]
-    dk = torch.empty_like(kb)
-    dv = torch.empty_like(vb)
-    err = library().hvd_flash_dkv(
-        ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
-        ptr(dk), ptr(dv), bh, sq, sk, d, _qscale(scale), int(causal),
-        stream(qb))
-    raise_on(err, "flash_dkv")
-    flash_dkv_launches += 1
+    dk = torch.empty_like(kb, dtype=torch.float32 if f32 else kb.dtype)
+    dv = torch.empty_like(vb, dtype=torch.float32 if f32 else vb.dtype)
+    entry = library().hvd_flash_dkv_f32 if f32 else library().hvd_flash_dkv
+    err = entry(ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
+                ptr(dk), ptr(dv), bh, sq, sk, d, _qscale(scale), int(causal),
+                stream(qb))
+    raise_on(err, "flash_dkv_f32" if f32 else "flash_dkv")
+    if f32:
+        flash_dkv_f32_launches += 1
+    else:
+        flash_dkv_launches += 1
     return dk, dv
 
 
-def flash_dq_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool):
-    """K3: dq from the query-block backward kernel."""
-    global flash_dq_launches
+def flash_dq_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool,
+                  out_dtype=None):
+    """K3: dq from the query-block backward kernel; fp32 when
+    ``out_dtype`` is fp32."""
+    global flash_dq_launches, flash_dq_f32_launches
     _check("flash_dq", qb, kb, vb, do)
+    f32 = _f32_out("flash_dq", out_dtype)
     bh, sq, d = qb.shape
     _check_stats("flash_dq", bh, sq, lse, delta)
     sk = kb.shape[1]
-    dq = torch.empty_like(qb)
-    err = library().hvd_flash_dq(
-        ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
-        ptr(dq), bh, sq, sk, d, _qscale(scale), float(scale), int(causal),
-        stream(qb))
-    raise_on(err, "flash_dq")
-    flash_dq_launches += 1
+    dq = torch.empty_like(qb, dtype=torch.float32 if f32 else qb.dtype)
+    entry = library().hvd_flash_dq_f32 if f32 else library().hvd_flash_dq
+    err = entry(ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
+                ptr(dq), bh, sq, sk, d, _qscale(scale), float(scale),
+                int(causal), stream(qb))
+    raise_on(err, "flash_dq_f32" if f32 else "flash_dq")
+    if f32:
+        flash_dq_f32_launches += 1
+    else:
+        flash_dq_launches += 1
     return dq
 
 
-def _flash_fwd(qb, kb, vb, scale, causal):
+def _flash_fwd(qb, kb, vb, scale, causal, out_dtype=None):
     if qb.device.type == "cpu":
-        return flash_fwd_reference(qb, kb, vb, scale, causal)
-    return flash_fwd_cuda(qb, kb, vb, scale, causal)
+        return flash_fwd_reference(qb, kb, vb, scale, causal, out_dtype)
+    return flash_fwd_cuda(qb, kb, vb, scale, causal, out_dtype)
 
 
-def _flash_bwd(qb, kb, vb, do, lse, delta, scale, causal):
+def _flash_bwd(qb, kb, vb, do, lse, delta, scale, causal, out_dtype=None):
     if qb.device.type == "cpu":
         return flash_bwd_reference(qb, kb, vb, do, lse, delta, scale,
-                                   causal)
-    dk, dv = flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale, causal)
-    dq = flash_dq_cuda(qb, kb, vb, do, lse, delta, scale, causal)
+                                   causal, out_dtype)
+    dk, dv = flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale, causal,
+                            out_dtype)
+    dq = flash_dq_cuda(qb, kb, vb, do, lse, delta, scale, causal, out_dtype)
     return dq, dk, dv
 
 

@@ -1,1 +1,2 @@
-"""Parallel training of the port (data parallel in this slice)."""
+"""Parallel training of the port: meshes, the axis collectives, tensor
+parallelism, ring and Ulysses attention, and the train steps."""

@@ -1,0 +1,235 @@
+"""Collectives over one axis of a mesh, with JAX's transposes.
+
+Counterparts of the ``jax.lax`` collectives that the JAX package calls
+inside ``shard_map`` (``psum``, ``ppermute``, ``all_to_all``,
+``all_gather``, ``psum_scatter``, ``axis_index``, ``axis_size``), over
+the process group of one axis of a ``DeviceMesh``
+(``mesh.get_group(axis)``). Each differentiable collective is a
+``torch.autograd.Function`` whose backward is the transpose JAX uses
+under ``shard_map(check_vma=False)``:
+
+- ``psum``'s backward is a ``psum`` of the cotangents. The train step's
+  masked-loss rule (``parallel/train.py``) depends on it. Megatron's
+  identity/all-reduce f/g pair gives other gradients here.
+- ``ppermute`` by a ring shift: its backward is the inverse shift.
+- tiled ``all_to_all(split_axis, concat_axis)``: its backward is the
+  reverse ``all_to_all``.
+- tiled ``all_gather``: its backward is a ``psum_scatter``, and the
+  reverse.
+
+On an axis of size 1 every collective is the identity, as in JAX: that
+is the semantics, not a fallback. Every rank of an axis's group must
+call the same collectives in the same order, as under ``shard_map``.
+
+JAX's own ``parallel/collectives.py`` (the hierarchical psum over an
+ICI and a DCN axis, ``cross_slice_bytes``) is a later slice of the
+port.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+Axes = Union[str, Sequence[str], None]
+
+
+def axis_size(mesh: DeviceMesh, axis: Axes) -> int:
+    """The size of ``axis`` (the product over a tuple of axes; 1 for
+    None), as ``lax.axis_size``."""
+    size = 1
+    for a in _names(axis):
+        size *= mesh.size(mesh.mesh_dim_names.index(a))
+    return size
+
+
+def axis_index(mesh: DeviceMesh, axis: str) -> int:
+    """This rank's coordinate along ``axis``, as ``lax.axis_index``."""
+    return mesh.get_local_rank(axis)
+
+
+def _names(axis: Axes) -> Tuple[str, ...]:
+    if axis is None:
+        return ()
+    if isinstance(axis, str):
+        return (axis,)
+    return tuple(axis)
+
+
+def _groups(mesh: DeviceMesh, axis: Axes):
+    """The process groups of the named axes of size > 1."""
+    return tuple(mesh.get_group(a) for a in _names(axis)
+                 if axis_size(mesh, a) > 1)
+
+
+def _all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
+    y = x.contiguous().clone()
+    for g in groups:
+        dist.all_reduce(y, group=g)
+    return y
+
+
+class _Psum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups), None
+
+
+def psum(x: torch.Tensor, mesh: DeviceMesh, axis: Axes) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (a name or a tuple of names); its
+    backward is a psum of the cotangents."""
+    groups = _groups(mesh, axis)
+    if not groups:
+        return x
+    return _Psum.apply(x, groups)
+
+
+def _shift(tensors, group, shift: int):
+    """Send each tensor to group rank ``i + shift`` and receive the one
+    from ``i - shift``, as one batch of sends and receives."""
+    ranks = dist.get_process_group_ranks(group)
+    n, i = len(ranks), dist.get_group_rank(group, dist.get_rank())
+    dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
+    sends = [t.contiguous() for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
+           + [dist.P2POp(dist.irecv, t, src, group) for t in recvs])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return recvs
+
+
+class _Ppermute(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, group, shift, *tensors):
+        ctx.group, ctx.shift = group, shift
+        return tuple(_shift(tensors, group, shift))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_shift(grads, ctx.group, -ctx.shift))
+
+
+def ppermute(tensors: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str,
+             shift: int = 1) -> Tuple[torch.Tensor, ...]:
+    """Ring shift along ``axis``: rank ``i`` sends each tensor to rank
+    ``(i + shift) % n`` and receives rank ``(i - shift) % n``'s, as
+    ``lax.ppermute(x, axis, [(i, (i + shift) % n) for i in range(n)])``.
+    The tensors travel together in one batch; the backward shifts the
+    cotangents back."""
+    tensors = tuple(tensors)
+    if axis_size(mesh, axis) == 1:
+        return tensors
+    return _Ppermute.apply(mesh.get_group(axis), shift, *tensors)
+
+
+def _a2a(x, group, n, split_axis, concat_axis):
+    send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, n, split_axis, concat_axis):
+        ctx.args = (group, n, concat_axis, split_axis)
+        return _a2a(x, group, n, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_a2a(g, *ctx.args), None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+               split_axis: int, concat_axis: int) -> torch.Tensor:
+    """Tiled all-to-all along ``axis``: ``x`` splits along
+    ``split_axis`` into n chunks, chunk j goes to rank j, and the chunks
+    received concatenate along ``concat_axis`` in rank order, as
+    ``lax.all_to_all(..., tiled=True)``. The backward is the reverse
+    all-to-all."""
+    n = axis_size(mesh, axis)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dimension {split_axis} of size "
+                         f"{x.shape[split_axis]} does not split over "
+                         f"{axis!r} of size {n}")
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, mesh.get_group(axis), n, split_axis,
+                           concat_axis)
+
+
+def _gather(x, group, n, dim):
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter_sum(x, group, n, dim):
+    # The sum then this rank's chunk: the values of a reduce-scatter,
+    # on every backend.
+    total = _all_reduce(x, (group,))
+    i = dist.get_group_rank(group, dist.get_rank())
+    return total.chunk(n, dim=dim)[i].contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return _gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, *ctx.args), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return _scatter_sum(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+               dim: int = 0) -> torch.Tensor:
+    """Tiled all-gather along ``axis``: every rank's ``x`` concatenated
+    along ``dim`` in rank order, as ``lax.all_gather(..., tiled=True)``.
+    The backward is a psum_scatter."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    return _AllGather.apply(x, mesh.get_group(axis), n, dim)
+
+
+def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+                 dim: int = 0) -> torch.Tensor:
+    """Tiled psum_scatter along ``axis``: the sum over the axis, of
+    which rank i keeps chunk i along ``dim``, as
+    ``lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``. The
+    backward is an all_gather."""
+    n = axis_size(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dimension {dim} of size "
+                         f"{x.shape[dim]} does not split over {axis!r} of "
+                         f"size {n}")
+    if n == 1:
+        return x
+    return _PsumScatter.apply(x, mesh.get_group(axis), n, dim)

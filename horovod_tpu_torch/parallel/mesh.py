@@ -13,6 +13,13 @@ names) forces axes to ``"dcn"``.
 
 Creating a mesh creates its process groups: every rank calls
 ``create_mesh`` with the same arguments.
+
+A partition spec is a tuple with one entry per dimension of a tensor:
+None (not split), an axis name, or a tuple of axis names (split over
+their product, the first the slowest), as JAX's ``PartitionSpec``;
+``()`` replicates. :func:`shard_tensor` and :func:`shard_tree` cut a
+global tensor or tree into the shard that a mesh coordinate holds, as
+``NamedSharding`` places it.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -96,3 +103,54 @@ def create_mesh(spec: Optional[MeshSpec] = None,
     sizes = spec.resolve(_topo.size())
     return init_device_mesh(_topo.device().type, tuple(sizes.values()),
                             mesh_dim_names=tuple(sizes.keys()))
+
+
+Spec = Tuple[Any, ...]
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The axis names a partition spec splits over, in order."""
+    out = []
+    for entry in spec:
+        if entry is None:
+            continue
+        out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
+
+
+def place(mesh: DeviceMesh) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """``(sizes, coords)``: every axis's size and this rank's coordinate
+    along it."""
+    names = mesh.mesh_dim_names
+    return ({a: mesh.size(k) for k, a in enumerate(names)},
+            {a: mesh.get_local_rank(a) for a in names})
+
+
+def shard_tensor(x: torch.Tensor, spec: Spec, sizes: Dict[str, int],
+                 coords: Dict[str, int]) -> torch.Tensor:
+    """The block of global ``x`` that the mesh coordinate ``coords``
+    holds under ``spec``, as a contiguous copy."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * sizes[a], i * sizes[a] + coords[a]
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {x.shape[dim]} does "
+                             f"not split over {axes} of size {n}")
+        x = x.chunk(n, dim=dim)[i]
+    return x.contiguous().clone()
+
+
+def shard_tree(tree, specs, sizes: Dict[str, int],
+               coords: Dict[str, int]):
+    """:func:`shard_tensor` leaf by leaf over matching dict/list trees."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(tree[k], specs[k], sizes, coords)
+                for k in tree}
+    if isinstance(tree, list):
+        return [shard_tree(t, s, sizes, coords)
+                for t, s in zip(tree, specs)]
+    return shard_tensor(tree, specs, sizes, coords)

@@ -58,7 +58,9 @@ def test_auto_policy_runs_head_dim_96_on_the_kernels():
                           {n: p.grad.float()
                            for n, p in model.named_parameters()})
     (lf, counts, gf), (lp, plain_counts, gp) = out[None], out[False]
-    assert counts == {"flash_fwd": 1, "flash_dkv": 1, "flash_dq": 1}
+    assert counts == {"flash_fwd": 1, "flash_dkv": 1, "flash_dq": 1,
+                      "flash_fwd_f32": 0, "flash_dkv_f32": 0,
+                      "flash_dq_f32": 0}
     assert sum(plain_counts.values()) == 0
     assert abs(lf - lp) <= 1e-2 * abs(lp)
     for n in gp:

@@ -183,5 +183,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
     q = torch.zeros(2, 64, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tfa.flash_fwd_cuda(q, q, q, 0.125, True)
+    with pytest.raises(ValueError):
+        tfa.flash_fwd_cuda(q, q, q, 0.125, True, out_dtype=torch.float32)
     assert tfa.launch_counts() == {"flash_fwd": 0, "flash_dkv": 0,
-                                   "flash_dq": 0}
+                                   "flash_dq": 0, "flash_fwd_f32": 0,
+                                   "flash_dkv_f32": 0, "flash_dq_f32": 0}

@@ -14,6 +14,11 @@ and, in the last q tile, wholly past it (S=192), ragged tails causal
 and not, and both head dims. Repeats are bit-identical (no
 atomics), and operands that are views into larger NaN-filled buffers
 give what clean copies give (nothing past the sequence is read).
+
+The fp32-output forms (``out_dtype=torch.float32``, what ring attention
+launches) are held to their plain fp32 versions at the same shapes and
+tolerance, write fp32, repeat bit for bit, count apart from the bf16
+forms, and round to exactly the bf16 forms' outputs.
 """
 
 import pytest
@@ -132,7 +137,8 @@ def test_autograd_counts_launches(cuda_kernels):
     out = fa.flash_attention(q, k, v, True)
     out.backward(do.detach())
     assert fa.launch_counts() == {"flash_fwd": 1, "flash_dkv": 1,
-                                  "flash_dq": 1}
+                                  "flash_dq": 1, "flash_fwd_f32": 0,
+                                  "flash_dkv_f32": 0, "flash_dq_f32": 0}
     assert out.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
@@ -143,3 +149,60 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda_kernels):
     q = torch.zeros(2, 64, 64, dtype=torch.float32, device="cuda")
     with pytest.raises(TypeError):
         fa.flash_fwd_cuda(q, q, q, 0.1, True)
+
+
+@pytest.mark.parametrize("bh,s,d,causal", SHAPES)
+def test_fp32_forms_match_plain(cuda_kernels, bh, s, d, causal):
+    q, k, v, do = _inputs(bh, s, d, seed=s + d + 11)
+    scale = d ** -0.5
+    f32 = torch.float32
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, causal, f32)
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, out_dtype=f32)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    want = fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, scale, causal,
+                                  f32)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale, causal,
+                               out_dtype=f32)
+    dq = fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal,
+                          out_dtype=f32)
+    torch.cuda.synchronize()
+    assert all(t.dtype == f32 for t in (o, dq, dk, dv, *want, o_ref))
+    assert _rel(o, o_ref) <= 2e-2
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel(got, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_fp32_forms_round_to_the_bf16_forms(cuda_kernels, d):
+    """The two epilogues differ only in the store: the fp32 values,
+    rounded to bf16, are the bf16 form's bits; the forms count apart."""
+    q, k, v, do = _inputs(3, 333, d, seed=17 + d)
+    lse, delta = _stats(q, k, v, do, True)
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    bf = _all_kernels(q, k, v, do, lse, delta, True)
+    f32 = (*fa.flash_fwd_cuda(q, k, v, scale, True, torch.float32),
+           *fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale, True,
+                              torch.float32),
+           fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, True,
+                            torch.float32))
+    again = (*fa.flash_fwd_cuda(q, k, v, scale, True, torch.float32),
+             *fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale, True,
+                                torch.float32),
+             fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, True,
+                              torch.float32))
+    torch.cuda.synchronize()
+    for a, b in zip(f32, again):
+        assert torch.equal(a, b)
+    for a, b in zip(f32, bf):
+        assert torch.equal(a.to(b.dtype), b)
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_dkv": 1,
+                                  "flash_dq": 1, "flash_fwd_f32": 2,
+                                  "flash_dkv_f32": 2, "flash_dq_f32": 2}
+
+
+def test_fp32_forms_take_only_fp32_or_bf16_outputs(cuda_kernels):
+    q = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_fwd_cuda(q, q, q, 0.1, True, out_dtype=torch.float16)

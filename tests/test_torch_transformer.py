@@ -131,8 +131,11 @@ def test_param_shapes_match_jax_init():
                                  device="cpu").state_dict().items()})
 
 
-@pytest.mark.parametrize("over", [dict(tp_axis="tp"), dict(sp_axis="sp"),
-                                  dict(remat_policy="dots")])
+# Expert parallelism is a later slice of the port.
+@pytest.mark.parametrize("over", [dict(ep_axis="ep"),
+                                  dict(ep_axis="ep", num_experts=4),
+                                  dict(ep_axis="ep", tp_axis="tp",
+                                       sp_axis="sp")])
 def test_unported_options_raise(over):
     with pytest.raises(NotImplementedError):
         ttfm.TransformerConfig(**over)
