@@ -106,10 +106,29 @@ and prints no result line):
    ring's merge is exact and the fp32 outputs round as the bf16
    epilogue does); then 2 steps with ``sp_impl="ulysses"`` (the bf16
    kernels, 12 launches a step). It logs tok/s beside phase 5's and the
-   fp32 forms' ms per step.
+   fp32 forms' ms per step;
+13. ZeRO-1 and the hierarchical reduction at one card (``init`` again,
+   NCCL, world 1): the flagship of phase 5 on ``create_mesh(dp=1)``
+   through the mesh ``build_train_step`` with AdamW, 5 steps without
+   and 5 with ZeRO-1 (``make_optimizer(model, zero1=True)``) from the
+   same weights: step 1's loss and every parameter after steps 1-3 bit
+   for bit, both runs' tok/s and the optimizer state's bytes on the
+   rank; then on ``create_mesh(dcn=1, dp=1)`` one step with
+   ``dcn_axis="dcn"``, exact (its loss and parameters bit for bit the
+   flat step's) and with ``dcn_wire="int8x256"`` (its loss bit for bit;
+   its reduced gradients, quantized at n = 1, bit for bit
+   ``quantized_psum`` of the flat step's gradients on their CPU
+   copies); and ``quantized_psum`` of a 64 MiB bucket (the LM's bucket
+   cap), int8 and fp8, bit for bit the same call on the CPU copy;
+14. the MoE flagship at full width: phase 5's LM with ``num_experts=8``
+   (a top-1 MoE in every odd layer, capacity factor 2.0, about 309M
+   parameters) on ``create_mesh(dp=1, ep=1)``, 5 AdamW steps of
+   8 x 2048 tokens: the loss finite and falling, each bf16 form of
+   K1-K3 launched 12 times a step; it logs tok/s, the share of tokens
+   each MoE layer dropped at step 1 and the peak memory.
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
-their own after phase 1. The line before the last is ``{"kernels":
+their own after phase 1, and the run's seconds before the last lines. The line before the last is ``{"kernels":
 [...]}``: every ``ms``, ``plain_ms`` and ``library_ms`` in it is a mean
 over back-to-back launches between two CUDA events
 (``experiments.time_ms``). The last line is ``{"ok": true, "device":
@@ -1668,6 +1687,191 @@ def tp_sp_phase(hvd, tfm, fa, build_train_step, lm_loss1, lm_step_s,
     return rows, launches
 
 
+FLAGSHIP = dict(vocab=32000, d_model=768, n_layers=12, d_ff=3072,
+                max_seq=2048, dtype=torch.bfloat16, remat=False)
+BUCKET_ELEMENTS = 64 * 2**20 // 4   # one 64 MiB bucket of fp32
+
+
+def adamw(p):
+    return torch.optim.AdamW(p, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def flagship_batch(vocab, b=8, s=2048):
+    tok = torch.randint(0, vocab, (b, s + 1),
+                        generator=torch.Generator().manual_seed(1))
+    return tok[:, :-1].cuda(), tok[:, 1:].cuda()
+
+
+def state_bytes(opt):
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for t in st.values() if torch.is_tensor(t))
+
+
+def zero1_run(step, tokens, targets, zero1, ref):
+    """5 steps through ``step`` from the seed-0 flagship; (losses, step
+    seconds, optimizer-state bytes). Without ``zero1`` ``ref`` receives
+    the parameters after steps 1-3 (``"params"``) and step 1's gradients
+    (``"grads"``); with it, the parameters are held to them bit for
+    bit."""
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model, zero1=zero1)
+    losses, times = [], []
+    for i in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model, opt, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i >= 3:
+            continue
+        params = dict(model.named_parameters())
+        if not zero1:
+            ref.setdefault("params", []).append(
+                {n: p.detach().clone() for n, p in params.items()})
+            if i == 0:
+                ref["grads"] = {n: p.grad.clone() for n, p in params.items()}
+            continue
+        want = ref["params"][i]
+        bad = [n for n in want if not torch.equal(params[n], want[n])]
+        if bad:
+            raise AssertionError(f"ZeRO-1 step {i + 1}: {len(bad)} "
+                                 f"parameters differ, first {bad[0]}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    return losses, times, state_bytes(opt)
+
+
+def dcn_step(build_train_step, tfm, mesh, wire, tokens, targets):
+    """One flagship step with ``dcn_axis="dcn"``; (loss, parameters,
+    reduced gradients)."""
+    step = build_train_step(tfm.TransformerConfig(**FLAGSHIP), adamw,
+                            mesh=mesh, dcn_axis="dcn", dcn_wire=wire)
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model)
+    loss = float(step(model, opt, tokens, targets))
+    return (loss, {n: p.detach() for n, p in model.named_parameters()},
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+def quantized_psum_check(tq, mesh):
+    """quantized_psum over a world-1 axis on the card against the same
+    call on the CPU copy of its input, bit for bit."""
+    for k, spec in enumerate(("int8x256", "fp8x256")):
+        x = torch.randn(BUCKET_ELEMENTS, generator=torch.Generator()
+                        .manual_seed(40 + k)).mul_(1e-3)
+        got = tq.quantized_psum(x.cuda(), mesh, "dcn", spec).cpu()
+        want = tq.quantized_psum(x, mesh, "dcn", spec)
+        if not same_bits(got, want):
+            raise AssertionError(f"quantized_psum {spec} on the card is not "
+                                 "the CPU's")
+        log(f"  quantized_psum {spec}, {BUCKET_ELEMENTS} elements at world "
+            f"1: bit for bit the CPU copy (max |x - q(x)| "
+            f"{float((got - x).abs().max()):.3e})")
+
+
+def zero_dcn_phase(hvd, tfm, tq, build_train_step, create_mesh, lm_step_s):
+    """Phase 13: ZeRO-1 and the hierarchical step at world 1."""
+    hvd.init()
+    if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
+        raise AssertionError(f"expected NCCL at world size 1, got "
+                             f"{hvd.get_topology()}")
+    tokens, targets = flagship_batch(FLAGSHIP["vocab"])
+    n_tok = tokens.numel()
+    step = build_train_step(tfm.TransformerConfig(**FLAGSHIP), adamw,
+                            mesh=create_mesh(dp=1))
+    ref = {}
+    runs = {}
+    for zero1 in (False, True):
+        runs[zero1] = zero1_run(step, tokens, targets, zero1, ref)
+        losses, times, nbytes = runs[zero1]
+        steady = statistics.median(times[1:])
+        log(f"ZeRO-1 {'on ' if zero1 else 'off'} (mesh dp=1): losses "
+            f"{losses}; {n_tok / steady:.1f} tok/s (median of steps "
+            f"2-{STEPS}, {steady * 1e3:.2f} ms/step; phase 5's "
+            f"{n_tok / lm_step_s:.1f}); optimizer state "
+            f"{nbytes / 2**20:.1f} MiB on the rank")
+    if runs[True][0][0] != runs[False][0][0]:
+        raise AssertionError(f"ZeRO-1 step 1 loss {runs[True][0][0]!r} is "
+                             f"not the mesh step's {runs[False][0][0]!r}")
+    log("  ZeRO-1: step 1's loss and the parameters after steps 1-3 bit "
+        "for bit the mesh step's")
+    flat_loss = runs[False][0][0]
+    flat_params, flat_grads = ref["params"][0], ref["grads"]
+    del ref
+    mesh = create_mesh(dcn=1, dp=1)
+    loss, params, grads = dcn_step(build_train_step, tfm, mesh, None,
+                                   tokens, targets)
+    if loss != flat_loss or any(not torch.equal(params[n], flat_params[n])
+                                for n in flat_params):
+        raise AssertionError("the hierarchical step at dcn=1, dp=1 is not "
+                             "the flat step bit for bit")
+    log("  hierarchical (dcn_axis='dcn', exact): step 1's loss and "
+        "parameters bit for bit the flat step's")
+    del params, grads
+    loss, params, grads = dcn_step(build_train_step, tfm, mesh, "int8x256",
+                                   tokens, targets)
+    if loss != flat_loss:
+        raise AssertionError(f"the int8x256 step's loss {loss!r} is not the "
+                             f"flat step's {flat_loss!r}")
+    names = list(flat_grads)
+    want = tq.quantized_psum_many([flat_grads[n].cpu() for n in names],
+                                  mesh, "dcn", "int8x256")
+    for n, w in zip(names, want):
+        if not same_bits(grads[n].cpu(), w):
+            raise AssertionError(f"int8x256 gradient {n} is not "
+                                 "quantized_psum of the flat one")
+    moved = max(float((params[n] - flat_params[n]).abs().max())
+                for n in names)
+    log(f"  hierarchical with dcn_wire='int8x256': step 1's loss bit for "
+        f"bit; its {len(names)} reduced gradients bit for bit "
+        f"quantized_psum of the flat ones on the CPU; parameters within "
+        f"{moved:.3e} of the flat step's")
+    del params, grads, flat_params, flat_grads
+    quantized_psum_check(tq, mesh)
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
+def moe_main_path(hvd, tfm, fa, build_train_step, create_mesh, profile):
+    """Phase 14: the MoE flagship, 5 steps on one card."""
+    hvd.init()
+    cfg = tfm.TransformerConfig(num_experts=8, capacity_factor=2.0,
+                                ep_axis="ep", **FLAGSHIP)
+    step = build_train_step(cfg, adamw, mesh=create_mesh(dp=1, ep=1))
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = step.make_optimizer(model)
+    tokens, targets = flagship_batch(cfg.vocab)
+    model.moe_drops = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, times = train_steps(step, model, opt, tokens, targets)
+    launches = fa.launch_counts()
+    n_moe = cfg.n_layers // 2
+    dropped = [int(d) / tokens.numel() for d in model.moe_drops[:n_moe]]
+    model.moe_drops = None
+    steady = statistics.median(times[1:])
+    log(f"MoE main path (8 experts, capacity factor 2.0, mesh dp=1 ep=1): "
+        f"{n_params} params, losses {losses}")
+    log(f"  step seconds {times}")
+    log(f"  {tokens.numel() / steady:.1f} tok/s (median of steps 2-{STEPS}, "
+        f"{steady * 1e3:.2f} ms/step); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  tokens dropped at step 1 per MoE layer: "
+        f"{[round(x, 4) for x in dropped]}")
+    log(f"  launches {launches}")
+    check_flash_launches(launches, cfg.n_layers, 0)
+    if profile:
+        profile_steps(lambda: step(model, opt, tokens, targets), profile,
+                      "LM MoE train step")
+    del model, opt
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
 def source_of(name):
     if name in BN_KERNELS:
         return BN_SOURCE
@@ -1688,6 +1892,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import resnet as tres
     from horovod_tpu_torch.models import transformer as tfm
@@ -1790,12 +1995,21 @@ def main(argv=None) -> int:
     rows.update(f32_rows)
     launches.update(f32_launches)
 
+    # 13. ZeRO-1 and the hierarchical reduction at one card
+    from horovod_tpu_torch import quantization as tq
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    zero_dcn_phase(hvd, tfm, tq, build_train_step, create_mesh, lm_step_s)
+
+    # 14. the MoE flagship
+    moe_main_path(hvd, tfm, fa, build_train_step, create_mesh, args.profile)
+
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for name, r in rows.items()]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

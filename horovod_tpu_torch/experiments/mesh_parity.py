@@ -5,27 +5,45 @@
 Needs four CUDA cards on one host. Starts four ranks (NCCL, one card
 each) and runs one AdamW step of the flagship LM's width (vocab 32000,
 d_model 768, 6 heads of 128, d_ff 3072, bf16, no remat; ``--layers``
-deep) on 4 x 2048 tokens, twice:
+deep) on 4 x 2048 tokens in each variant:
 
-- ``tp=2, sp=2``, ring attention: each sequence shard of 1024 tokens on
-  the flash kernels' fp32-output forms, K/V and the travelling dK/dV
-  sent around the ring by NCCL sends and receives; the row-parallel
-  psums over 'tp';
-- ``dp=2, sp=2``, Ulysses: the two all-to-alls, the bf16 kernels over
-  the gathered 2048 tokens, and the gradients summed over 'dp'.
+- ``ring``: ``tp=2, sp=2``, ring attention: each sequence shard of 1024
+  tokens on the flash kernels' fp32-output forms, K/V and the travelling
+  dK/dV sent around the ring by NCCL sends and receives; the
+  row-parallel psums over 'tp';
+- ``ulysses``: ``dp=2, sp=2``: the two all-to-alls, the bf16 kernels
+  over the gathered 2048 tokens, and the gradients summed over 'dp';
+- ``zero1``: ``dp=4`` with the ZeRO-1 optimizer: the gradients summed
+  and cut by one ``reduce_scatter_tensor``, the updated shards back by
+  one ``all_gather_into_tensor``; ``replicated`` is the same mesh step
+  without it, for the memory beside it;
+- ``dcn_exact`` and ``dcn_int8``: ``dcn=2, dp=2`` with
+  ``HOROVOD_TPU_DCN_AXES=dcn`` and ``dcn_axis="auto"``: the
+  hierarchical reduction, its cross-node leg exact or ``int8x256``;
+- ``moe``: the flagship with a top-1 MoE of 8 experts in every odd
+  layer (capacity factor 8.0, so that no token drops on one card or on
+  the mesh) on ``dp=2, ep=2``: the experts' two all-to-alls.
 
-Every rank also runs the data-parallel model (no mesh) on the whole
-batch on its own card, from the same weights. It prints the card's
-``nvidia-smi`` name and power limit, then one JSON line per variant:
-the step's global loss against that reference, the largest error of
-any rank's gradient shard against the reference's block at its
-coordinate (relative to the block's max |value|), the fp32 and bf16
-kernel launches of rank 0's step, and that first step's ms on rank 0
-(host clock, to the loss on the host: it carries each kernel's first
-launch). It fails past 1e-2 on the loss or 5e-2 on any gradient (bf16:
-the ring and the single card attend in other orders), as
-``chip_smoke.py``'s parity does. ``run(..., device="cpu", width=...)``
-runs the same ranks on gloo, for a rehearsal at a small width.
+Every rank also runs the reference on the whole batch on its own card,
+from the same weights: the data-parallel model (no mesh), or for
+``moe`` the same MoE model on a mesh of this rank alone. It prints the
+card's ``nvidia-smi`` name and power limit, then one JSON line per
+variant: the step's global loss against the reference's, the largest
+error of any rank's reduced gradient against the reference's block at
+its coordinate (relative to the block's max |value|; under ZeRO-1 the
+rank's flat shard of the gradient), the fp32 and bf16 kernel launches
+of rank 0's step, that first step's ms on rank 0 (host clock, to the
+loss on the host: it carries each kernel's first launch), the largest
+peak memory of any rank over a second step, with the optimizer's state
+in place (``torch.cuda.max_memory_allocated`` less what was allocated
+before the variant's model),
+and for the dcn variants the bytes one rank sends across nodes per step
+(``cross_slice_bytes``, hierarchical and flat). It fails past 1e-2 on
+the loss or 5e-2 on any gradient (bf16: the mesh and the single card
+sum in other orders; int8 adds a level of a 256-block), as
+``chip_smoke.py``'s parity does. ``run(..., device="cpu",
+width=...)`` runs the same ranks on gloo, for a rehearsal at a small
+width.
 """
 
 from __future__ import annotations
@@ -39,7 +57,9 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import flash_attention as fa
 from . import device_line
@@ -47,8 +67,22 @@ from . import device_line
 WORLD = 4
 FLAGSHIP = dict(vocab=32000, d_model=768, n_heads=6, d_ff=3072,
                 max_seq=2048)
-VARIANTS = {"ring": ({"tp": 2, "sp": 2}, "ring"),
-            "ulysses": ({"dp": 2, "sp": 2}, "ulysses")}
+WIRE = "int8x256"
+# name: (mesh axes, config options, build_train_step options, ZeRO-1)
+VARIANTS = {
+    "ring": ({"tp": 2, "sp": 2}, dict(tp_axis="tp", sp_axis="sp"), {},
+             False),
+    "ulysses": ({"dp": 2, "sp": 2}, dict(sp_axis="sp", sp_impl="ulysses"),
+                {}, False),
+    "zero1": ({"dp": 4}, {}, {}, True),
+    "replicated": ({"dp": 4}, {}, {}, False),
+    "dcn_exact": ({"dcn": 2, "dp": 2}, {}, dict(dcn_axis="auto"), False),
+    "dcn_int8": ({"dcn": 2, "dp": 2}, {},
+                 dict(dcn_axis="auto", dcn_wire=WIRE), False),
+    "moe": ({"dp": 2, "ep": 2},
+            dict(ep_axis="ep", num_experts=8, capacity_factor=8.0), {},
+            False),
+}
 LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
 
 
@@ -66,13 +100,61 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _reference(tfm, cfg, params, dev, tokens, targets):
+    """(loss, gradients) of one card on the whole batch. A MoE config
+    runs on a mesh of this rank alone (its 'ep' of size 1)."""
+    mesh = None
+    if cfg.ep_axis:
+        group, _ = dist.new_subgroups(group_size=1)
+        mesh = DeviceMesh.from_group(group, dev.type,
+                                     mesh_dim_names=(cfg.ep_axis,))
+    ref = tfm.Transformer(cfg, params=params, device=dev, mesh=mesh)
+    loss = ref.loss_fn(tokens, targets)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in
+                                  ref.named_parameters()}
+
+
+def _grad_err(model, opt, step, ref_grads, zero1):
+    """The largest error of this rank's reduced gradients against the
+    reference's blocks, relative to each block's max |value|."""
+    from ..parallel.mesh import shard_tensor, spec_of
+    from ..parallel.zero import _flat_pad
+    err = 0.0
+    for k, (n, p) in enumerate(model.named_parameters()):
+        want = shard_tensor(ref_grads[n], spec_of(step.specs, n),
+                            step.sizes, step.coords)
+        got = p.grad
+        if zero1:
+            # This rank's flat shard of the dp-summed gradient.
+            got = opt.shadows[k].grad
+            width = got.numel()
+            want = _flat_pad(want, opt.n_shards)[opt.index * width:
+                                                 (opt.index + 1) * width]
+        err = max(err, float((got.float() - want.float()).abs().max()
+                             / want.float().abs().max().clamp_min(1e-30)))
+    return err
+
+
+def _crossing_bytes(model, step):
+    """Bytes one rank sends across nodes per step, hierarchical (with
+    the step's wire) and flat."""
+    from ..parallel.collectives import cross_slice_bytes
+    ici = step.sizes["dp"]
+    sizes = [p.numel() for p in model.parameters()]
+    return {"hierarchical": sum(cross_slice_bytes(n, ici, wire=step.dcn_wire)
+                                for n in sizes),
+            "flat": sum(cross_slice_bytes(n, ici, hierarchical=False)
+                        for n in sizes)}
+
+
 def run_rank(rank, port, layers, outdir, device, width):
-    """One rank: the reference on its own device, then each variant's
+    """One rank: the references on its own device, then each variant's
     mesh step on 4 sequences of ``width["max_seq"]`` tokens; writes its
     results to ``outdir``."""
     import horovod_tpu_torch as hvd
     from ..models import transformer as tfm
-    from ..parallel.mesh import create_mesh, place, shard_tensor
+    from ..parallel.mesh import create_mesh
     from ..parallel.train import build_train_step
     hvd.init(device=device, init_method=f"tcp://localhost:{port}",
              rank=rank, world_size=WORLD)
@@ -81,43 +163,50 @@ def run_rank(rank, port, layers, outdir, device, width):
     tok = torch.randint(0, width["vocab"], (4, width["max_seq"] + 1),
                         generator=gen)
     tokens, targets = tok[:, :-1].to(dev), tok[:, 1:].to(dev)
-    params = tfm.init_params(_config(tfm, width, layers),
-                             torch.Generator().manual_seed(0))
-    ref = tfm.Transformer(_config(tfm, width, layers), params=params,
-                          device=dev)
-    ref_loss = ref.loss_fn(tokens, targets)
-    ref_loss.backward()
-    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+    refs = {}
     out = {}
-    for name, (axes, impl) in VARIANTS.items():
+    for name, (axes, cfg_kw, step_kw, zero1) in VARIANTS.items():
+        moe = bool(cfg_kw.get("num_experts"))
+        cfg = _config(tfm, width, layers, **cfg_kw)
+        ref_cfg = _config(tfm, width, layers,
+                          **({k: cfg_kw[k] for k in ("ep_axis", "num_experts",
+                                                     "capacity_factor")}
+                             if moe else {}))
+        params = tfm.init_params(ref_cfg, torch.Generator().manual_seed(0))
+        if moe not in refs:
+            refs[moe] = _reference(tfm, ref_cfg, params, dev, tokens,
+                                   targets)
+        ref_loss, ref_grads = refs[moe]
+        if "dcn" in axes:
+            os.environ["HOROVOD_TPU_DCN_AXES"] = "dcn"
         mesh = create_mesh(**axes)
-        cfg = _config(tfm, width, layers,
-                      tp_axis="tp" if "tp" in axes else None, sp_axis="sp",
-                      sp_impl=impl)
-        step = build_train_step(cfg, _factory, mesh=mesh)
+        step = build_train_step(cfg, _factory, mesh=mesh, **step_kw)
+        os.environ.pop("HOROVOD_TPU_DCN_AXES", None)
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
         model = step.make_model(params=step.shard_params(params))
-        opt = step.make_optimizer(model)
+        opt = step.make_optimizer(model, zero1=zero1)
+        batch = step.shard_batch(tokens), step.shard_batch(targets)
         fa.reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
-        loss = step(model, opt, step.shard_batch(tokens),
-                    step.shard_batch(targets))
-        loss = float(loss)
+        loss = float(step(model, opt, *batch))
         ms = (time.perf_counter() - t0) * 1e3
-        sizes, coords = place(mesh)
-        specs = dict(step.specs, **{f"layers.{i}.{k}": v
-                                    for i, layer in enumerate(
-                                        step.specs["layers"])
-                                    for k, v in layer.items()})
-        err = 0.0
-        for n, p in model.named_parameters():
-            want = shard_tensor(ref_grads[n], specs[n], sizes, coords)
-            err = max(err, float((p.grad.float() - want.float()).abs().max()
-                                 / want.float().abs().max().clamp_min(1e-30)))
-        out[name] = {"mesh": axes, "loss": loss,
-                     "reference_loss": float(ref_loss.detach()),
-                     "max_grad_rel_err": err, "ms": ms,
-                     "launches": fa.launch_counts()}
+        line = {"mesh": axes, "loss": loss, "reference_loss": ref_loss,
+                "max_grad_rel_err": _grad_err(model, opt, step, ref_grads,
+                                              zero1),
+                "ms": ms, "launches": fa.launch_counts(), "peak_mib": None}
+        if dev.type == "cuda":
+            # A second step, with the optimizer's state in place.
+            torch.cuda.reset_peak_memory_stats(dev)
+            step(model, opt, *batch)
+            _sync(dev)
+            line["peak_mib"] = (torch.cuda.max_memory_allocated(dev)
+                                - base) / 2**20
+        if "dcn" in axes:
+            line["dcn_axis"] = step.dcn_axis
+            line["cross_slice_bytes"] = _crossing_bytes(model, step)
+        out[name] = line
         del model, opt
     hvd.shutdown()
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
@@ -130,8 +219,8 @@ def _free_port():
 
 
 def run(layers, device="cuda", width=FLAGSHIP):
-    """{variant: rank 0's line, with the worst gradient error of all
-    ranks}."""
+    """{variant: rank 0's line, with the worst gradient error and peak
+    memory of all ranks}."""
     with tempfile.TemporaryDirectory() as outdir:
         mp.spawn(run_rank, args=(_free_port(), layers, outdir, device,
                                  width), nprocs=WORLD)
@@ -142,6 +231,8 @@ def run(layers, device="cuda", width=FLAGSHIP):
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
                                        for r in ranks)
+        if line["peak_mib"] is not None:
+            line["peak_mib"] = max(r[name]["peak_mib"] for r in ranks)
         line["loss_rel_err"] = (abs(line["loss"] - line["reference_loss"])
                                 / abs(line["reference_loss"]))
         lines[name] = line

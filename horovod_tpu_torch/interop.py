@@ -3,7 +3,8 @@
 The flagship transformer keeps the JAX ``x @ W`` layout, so each leaf is
 a copy, never a transpose. The JAX side is a tree of numpy arrays
 (``jax.device_get`` of ``init_params``'s output): ``{"embed", "pos",
-"ln_f", "layers": [...]}``. Under tensor parallelism
+"ln_f", "layers": [...]}``, a MoE layer with a ``moe`` subtree
+(``router``, ``wi``, ``wo``). Under tensor or expert parallelism
 :func:`shard_from_jax` gives one rank's slice of it, the block that
 JAX's ``NamedSharding`` under ``param_specs`` puts on the device at the
 same mesh coordinate.
@@ -24,23 +25,21 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .parallel.mesh import shard_tensor
+from .parallel.mesh import shard_tensor, spec_of
 
 _TOP = ("embed", "pos", "ln_f")
 
 
 def params_from_jax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
-    """A ``Transformer`` state_dict from a JAX parameter tree."""
+    """A ``Transformer`` state_dict from a JAX parameter tree; a layer's
+    subtree (a MoE's ``moe``) joins its names with dots
+    (``layers.1.moe.wi``)."""
     sd = OrderedDict()
     for name in _TOP:
         sd[name] = torch.from_numpy(np.array(tree[name], dtype=np.float32))
     for i, layer in enumerate(tree["layers"]):
-        for name, leaf in layer.items():
-            if isinstance(leaf, dict):
-                raise NotImplementedError(
-                    f"layer {i} holds a {name!r} subtree (MoE); not ported")
-            sd[f"layers.{i}.{name}"] = torch.from_numpy(
-                np.array(leaf, dtype=np.float32))
+        for name, arr in _flat(layer, f"layers.{i}."):
+            sd[name] = torch.from_numpy(np.array(arr))
     return sd
 
 
@@ -53,15 +52,9 @@ def shard_from_jax(tree: Dict, cfg, sizes: Dict[str, int],
     ``param_specs(cfg)``."""
     from .models.transformer import param_specs
     specs = param_specs(cfg)
-    out = OrderedDict()
-    for key, t in params_from_jax(tree).items():
-        if key.startswith("layers."):
-            _, idx, name = key.split(".", 2)
-            spec = specs["layers"][int(idx)][name]
-        else:
-            spec = specs[key]
-        out[key] = shard_tensor(t, spec, sizes, coords)
-    return out
+    return OrderedDict(
+        (key, shard_tensor(t, spec_of(specs, key), sizes, coords))
+        for key, t in params_from_jax(tree).items())
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
@@ -73,8 +66,11 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     layers: Dict[int, Dict] = {}
     for key, t in state_dict.items():
         if key.startswith("layers."):
-            _, idx, name = key.split(".", 2)
-            layers.setdefault(int(idx), {})[name] = arr(t)
+            _, idx, *path, leaf = key.split(".")
+            node = layers.setdefault(int(idx), {})
+            for name in path:
+                node = node.setdefault(name, {})
+            node[leaf] = arr(t)
     tree["layers"] = [layers[i] for i in sorted(layers)]
     return tree
 

@@ -14,9 +14,12 @@ functions run inside ``shard_map``: it holds this rank's slices of the
 weights (:func:`param_specs`: Q/K/V and ``wi`` split on their output
 columns over 'tp', ``wo`` and ``wo_mlp`` on their input rows, one psum
 after each), takes this rank's sequence shard, and attends over 'sp' by
-ring attention (``sp_impl="ring"``) or Ulysses (``"ulysses"``). Expert
-parallelism (``ep_axis``/``num_experts``) is a later slice of the port
-and raises here.
+ring attention (``sp_impl="ring"``) or Ulysses (``"ulysses"``). With
+``num_experts`` every odd layer's MLP is a top-1 mixture of experts
+(``parallel/expert.py``) whose experts split over ``ep_axis``; under
+'tp' each tp rank routes its 1/tp of the tokens and an ``all_gather``
+over 'tp' joins the outputs, so the experts' work is done once per tp
+group.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.flash_attention import flash_attention
-from ..parallel.collectives import axis_index, axis_size, psum
+from ..parallel.collectives import all_gather, axis_index, axis_size, psum
+from ..parallel.expert import moe_apply, moe_init
 from ..parallel.mesh import place, shard_tree
 from ..parallel.ring_attention import full_attention, ring_attention
 from ..parallel.ulysses import ulysses_attention
@@ -96,12 +100,10 @@ class TransformerConfig:
         if self.d_model % self.n_heads:
             raise ValueError(f"d_model ({self.d_model}) must be divisible "
                              f"by n_heads ({self.n_heads})")
-        if self.ep_axis:
-            raise NotImplementedError(
-                "ep_axis is not ported yet: expert parallelism is a later "
-                "slice")
-        if self.num_experts:
-            raise NotImplementedError("MoE layers are not ported yet")
+
+
+def _is_moe(cfg: TransformerConfig, i: int) -> bool:
+    return bool(cfg.num_experts) and i % 2 == 1
 
 
 def param_specs(cfg: TransformerConfig) -> Dict:
@@ -109,20 +111,29 @@ def param_specs(cfg: TransformerConfig) -> Dict:
     ``param_specs`` with each ``PartitionSpec`` a tuple
     (``parallel.mesh``): Q/K/V and ``wi`` split on their output columns
     over 'tp' (column-parallel), ``wo`` and ``wo_mlp`` on their input
-    rows (row-parallel: one psum per block), everything else replicated
-    (dp and sp shard data, not parameters)."""
-    tp = cfg.tp_axis
-    layer = {"ln1": (), "ln2": (),
-             "wq": (None, tp), "wk": (None, tp), "wv": (None, tp),
-             "wo": (tp, None), "wi": (None, tp), "wo_mlp": (tp, None)}
-    return {"embed": (), "pos": (), "ln_f": (),
-            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+    rows (row-parallel: one psum per block), a MoE's experts over 'ep',
+    everything else replicated (dp and sp shard data, not
+    parameters)."""
+    tp, ep = cfg.tp_axis, cfg.ep_axis
+    layers = []
+    for i in range(cfg.n_layers):
+        spec = {"ln1": (), "ln2": (),
+                "wq": (None, tp), "wk": (None, tp), "wv": (None, tp),
+                "wo": (tp, None)}
+        if _is_moe(cfg, i):
+            spec["moe"] = {"router": (), "wi": (ep, None, None),
+                           "wo": (ep, None, None)}
+        else:
+            spec.update(wi=(None, tp), wo_mlp=(tp, None))
+        layers.append(spec)
+    return {"embed": (), "pos": (), "ln_f": (), "layers": layers}
 
 
 def init_params(cfg: TransformerConfig,
                 generator: Optional[torch.Generator] = None) -> Dict:
     """The parameter tree of the JAX ``init_params`` (same names, shapes
-    and scales), fp32 on the CPU, drawn from ``generator``."""
+    and scales; a MoE layer holds a ``moe`` subtree in place of ``wi``
+    and ``wo_mlp``), fp32 on the CPU, drawn from ``generator``."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     d, f = cfg.d_model, cfg.d_ff
@@ -133,13 +144,19 @@ def init_params(cfg: TransformerConfig,
                            dtype=torch.float32) * s
 
     layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": torch.ones(d), "ln2": torch.ones(d),
-            "wq": dense((d, d), scale), "wk": dense((d, d), scale),
-            "wv": dense((d, d), scale), "wo": dense((d, d), scale),
-            "wi": dense((d, f), scale), "wo_mlp": dense((f, d), f ** -0.5),
-        })
+    for i in range(cfg.n_layers):
+        layer = {"ln1": torch.ones(d), "ln2": torch.ones(d),
+                 "wq": dense((d, d), scale), "wk": dense((d, d), scale),
+                 "wv": dense((d, d), scale), "wo": dense((d, d), scale)}
+        if _is_moe(cfg, i):
+            # Every expert at init: the global tree, cut over 'ep' later.
+            layer["moe"] = moe_init(generator, num_experts=cfg.num_experts,
+                                    experts_per_shard=cfg.num_experts,
+                                    features=d, hidden=f)
+        else:
+            layer.update(wi=dense((d, f), scale),
+                         wo_mlp=dense((f, d), f ** -0.5))
+        layers.append(layer)
     return {"embed": dense((cfg.vocab, d), 1.0),
             "pos": dense((cfg.max_seq, d), 0.02),
             "ln_f": torch.ones(d), "layers": layers}
@@ -189,12 +206,37 @@ def _attention(q, k, v, cfg: TransformerConfig,
     return full_attention(q, k, v, causal=True)
 
 
-def _block(p: Dict[str, torch.Tensor], x: torch.Tensor,
-           cfg: TransformerConfig,
-           mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+def _moe(p: Dict[str, torch.Tensor], y: torch.Tensor,
+         cfg: TransformerConfig, mesh: Optional[DeviceMesh],
+         drops: Optional[list]) -> torch.Tensor:
+    """The MoE MLP of a block. Under 'tp' each tp rank routes its 1/tp of
+    the tokens, so every parameter's gradient stays a partial sum over
+    'tp', as the train step's reduction rule wants; an ``all_gather``
+    joins the outputs (its backward is a psum_scatter)."""
+    b, s, d = y.shape
+    tokens = y.reshape(b * s, d)
+    tp_n = axis_size(mesh, cfg.tp_axis)
+    if tp_n > 1:
+        t_local = tokens.shape[0] // tp_n
+        i = axis_index(mesh, cfg.tp_axis)
+        tokens = tokens[i * t_local:(i + 1) * t_local]
+    out = moe_apply(p, tokens, num_experts=cfg.num_experts,
+                    capacity_factor=cfg.capacity_factor, mesh=mesh,
+                    axis=cfg.ep_axis,
+                    act=functools.partial(F.gelu, approximate="tanh"),
+                    dtype=cfg.dtype, drops=drops)
+    if tp_n > 1:
+        out = all_gather(out, mesh, cfg.tp_axis, dim=0)
+    return out.reshape(b, s, d)
+
+
+def _block(p: Dict, x: torch.Tensor, cfg: TransformerConfig,
+           mesh: Optional[DeviceMesh] = None,
+           drops: Optional[list] = None) -> torch.Tensor:
     """One pre-norm decoder block of this rank; x is [B, S_local, d] in
     cfg.dtype. Under 'tp' the Q/K/V slices give the local heads and the
-    out-projections' partial sums meet in a psum."""
+    out-projections' partial sums meet in a psum. A block whose ``p``
+    holds a ``moe`` subtree runs :func:`_moe` as its MLP."""
     d = cfg.d_model
     h = _local_heads(cfg, axis_size(mesh, cfg.tp_axis))
     hd = d // cfg.n_heads
@@ -210,6 +252,8 @@ def _block(p: Dict[str, torch.Tensor], x: torch.Tensor,
         o = psum(o, mesh, cfg.tp_axis)   # row-parallel out-projection
     x = x + o
     y = _layernorm(x, p["ln2"])
+    if "moe" in p:
+        return x + _moe(p["moe"], y, cfg, mesh, drops)
     hmid = F.gelu(y @ p["wi"].to(dt), approximate="tanh")
     m = hmid @ p["wo_mlp"].to(dt)
     if cfg.tp_axis:
@@ -229,10 +273,21 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 class _Layer(nn.Module):
-    def __init__(self, params: Dict[str, torch.Tensor]):
+    """A layer's parameters; a subtree (``moe``) is a child module."""
+
+    def __init__(self, params: Dict):
         super().__init__()
         for name, t in params.items():
-            self.register_parameter(name, nn.Parameter(t.clone()))
+            if isinstance(t, dict):
+                self.add_module(name, _Layer(t))
+            else:
+                self.register_parameter(name, nn.Parameter(t.clone()))
+
+    def tree(self) -> Dict:
+        """The parameters as the nested dict ``_block`` takes."""
+        out = dict(self.named_parameters(recurse=False))
+        out.update((name, m.tree()) for name, m in self.named_children())
+        return out
 
 
 class Transformer(nn.Module):
@@ -240,11 +295,15 @@ class Transformer(nn.Module):
     ``device="cpu"`` is passed; ``params`` (a tree as from
     :func:`init_params`) defaults to one drawn from ``generator``.
 
-    When ``cfg`` names ``tp_axis`` or ``sp_axis``, ``mesh`` must hold
-    those axes, and the model is this rank's shard: ``params`` is then
-    this rank's slice of the tree (``parallel.mesh.shard_tree`` under
-    :func:`param_specs`), and a tree drawn from ``generator`` is the
-    global one, cut to this rank's slice."""
+    When ``cfg`` names ``tp_axis``, ``sp_axis`` or ``ep_axis``, ``mesh``
+    must hold those axes, and the model is this rank's shard: ``params``
+    is then this rank's slice of the tree (``parallel.mesh.shard_tree``
+    under :func:`param_specs`), and a tree drawn from ``generator`` is
+    the global one, cut to this rank's slice.
+
+    ``moe_drops``, when set to a list, receives each MoE layer's count
+    of dropped tokens at every forward (0-d tensors on the device; a
+    remat recompute adds its own)."""
 
     def __init__(self, cfg: TransformerConfig, *,
                  params: Optional[Dict] = None,
@@ -255,7 +314,8 @@ class Transformer(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
-        for axis in (cfg.tp_axis, cfg.sp_axis):
+        self.moe_drops: Optional[list] = None
+        for axis in (cfg.tp_axis, cfg.sp_axis, cfg.ep_axis):
             if axis and (mesh is None or axis not in mesh.mesh_dim_names):
                 raise ValueError(
                     f"the config's mesh axis {axis!r} is not an axis of "
@@ -265,7 +325,7 @@ class Transformer(nn.Module):
             _local_heads(cfg, axis_size(mesh, cfg.tp_axis))
         if params is None:
             params = init_params(cfg, generator)
-            if cfg.tp_axis:
+            if cfg.tp_axis or cfg.ep_axis:
                 params = shard_tree(params, param_specs(cfg), *place(mesh))
         self.embed = nn.Parameter(params["embed"].clone())
         self.pos = nn.Parameter(params["pos"].clone())
@@ -291,12 +351,12 @@ class Transformer(nn.Module):
             remat["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts, _save_dots)
         for layer in self.layers:
-            p = dict(layer.named_parameters())
+            p = layer.tree()
             if cfg.remat:
-                x = checkpoint(_block, p, x, cfg, self.mesh,
+                x = checkpoint(_block, p, x, cfg, self.mesh, self.moe_drops,
                                use_reentrant=False, **remat)
             else:
-                x = _block(p, x, cfg, self.mesh)
+                x = _block(p, x, cfg, self.mesh, self.moe_drops)
         return _layernorm(x, self.ln_f)
 
     def _project_logits(self, h: torch.Tensor) -> torch.Tensor:

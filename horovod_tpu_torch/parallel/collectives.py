@@ -20,17 +20,25 @@ under ``shard_map(check_vma=False)``:
 On an axis of size 1 every collective is the identity, as in JAX: that
 is the semantics, not a fallback. Every rank of an axis's group must
 call the same collectives in the same order, as under ``shard_map``.
+On NCCL ``psum_scatter`` is one ``reduce_scatter_tensor`` and
+``all_gather`` one ``all_gather_into_tensor``.
 
-JAX's own ``parallel/collectives.py`` (the hierarchical psum over an
-ICI and a DCN axis, ``cross_slice_bytes``) is a later slice of the
-port.
+The hierarchical reduction of JAX's ``parallel/collectives.py``
+(:func:`hierarchical_psum`, :func:`cross_slice_bytes`) sums over an
+in-node ('ici') and a cross-node ('dcn') axis in two stages, so that
+only 1/ici_size of the bytes cross nodes. Several tensors go through
+it together in a chunk-major buffer (:func:`chunk_major`) whose values
+are each tensor's own: every collective of the stages works
+element by element or on the chunk of each tensor that the tensor's
+own reduction would give the rank.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
@@ -170,15 +178,34 @@ def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis: str,
                            concat_axis)
 
 
+def _nccl(group) -> bool:
+    return dist.get_backend(group) == "nccl"
+
+
 def _gather(x, group, n, dim):
+    if _nccl(group):
+        # Chunk-major: ``dim`` to the front, every rank's block gathered
+        # into one buffer in rank order, ``dim`` moved back.
+        front = x.movedim(dim, 0).contiguous()
+        out = front.new_empty((n * front.shape[0],) + front.shape[1:])
+        dist.all_gather_into_tensor(out, front, group=group)
+        return out.movedim(0, dim).contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
 
 
 def _scatter_sum(x, group, n, dim):
-    # The sum then this rank's chunk: the values of a reduce-scatter,
-    # on every backend.
+    if _nccl(group):
+        front = x.movedim(dim, 0).contiguous()
+        out = front.new_empty((front.shape[0] // n,) + front.shape[1:])
+        dist.reduce_scatter_tensor(out, front, group=group)
+        return out.movedim(0, dim).contiguous()
+    # gloo: the sum, then this rank's chunk. The values of a
+    # reduce-scatter at n times its bytes. torch 2.13's gloo runs
+    # reduce_scatter_tensor too (checked on the CPU build), but the CPU
+    # tests were first held to this all_reduce's sums, and on the CPU
+    # the bytes do not matter.
     total = _all_reduce(x, (group,))
     i = dist.get_group_rank(group, dist.get_rank())
     return total.chunk(n, dim=dim)[i].contiguous()
@@ -233,3 +260,99 @@ def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str,
     if n == 1:
         return x
     return _PsumScatter.apply(x, mesh.get_group(axis), n, dim)
+
+
+def chunk_major(flats: Sequence[torch.Tensor], n: int) -> torch.Tensor:
+    """``[n, W]``: row k holds the k-th of n equal chunks of every flat
+    tensor (each of a length divisible by n), side by side. A
+    reduce-scatter or all-to-all over dimension 0 then moves to rank k
+    what each tensor's own would."""
+    return torch.cat([f.reshape(n, -1) for f in flats], dim=1)
+
+
+def split_chunk_major(buf: torch.Tensor, sizes: Sequence[int],
+                      n: int) -> List[torch.Tensor]:
+    """The inverse of :func:`chunk_major`: the flat tensors of lengths
+    ``sizes`` from a ``[n, W]`` buffer (or its flattening)."""
+    parts = buf.reshape(n, -1).split([s // n for s in sizes], dim=1)
+    return [p.reshape(-1) for p in parts]
+
+
+def _padded(n: int, multiple: int) -> int:
+    return -(-int(n) // multiple) * multiple
+
+
+def _flat_fp32(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    flat = t.reshape(-1).float()
+    return F.pad(flat, (0, _padded(flat.numel(), multiple) - flat.numel()))
+
+
+def hierarchical_psum_tree(tensors: Sequence[torch.Tensor],
+                           mesh: DeviceMesh, ici_axis: str, dcn_axis: str,
+                           *, wire=None, average: bool = False
+                           ) -> List[torch.Tensor]:
+    """:func:`hierarchical_psum` of each tensor, the values of one call
+    per tensor, in one collective per stage: each tensor flattened to
+    fp32 and padded to a multiple of the ici size, the flats laid out
+    chunk-major, ``psum_scatter`` over ``ici_axis``, the span summed over
+    ``dcn_axis`` (block-quantized by ``quantization.quantized_psum_many``
+    when ``wire`` names a spec such as ``"int8x256"``, whose blocks then
+    stay each tensor's own), ``all_gather`` over ``ici_axis``, and each
+    tensor cut, averaged if asked and cast back."""
+    tensors = list(tensors)
+    live = [i for i, t in enumerate(tensors) if t.numel()]
+    if not live:
+        return tensors
+    n_ici = axis_size(mesh, ici_axis)
+    flats = [_flat_fp32(tensors[i], n_ici) for i in live]
+    sizes = [f.numel() for f in flats]
+    span = psum_scatter(chunk_major(flats, n_ici), mesh, ici_axis, dim=0)
+    if wire is not None:
+        from .. import quantization as _quant
+        spans = span.reshape(-1).split([s // n_ici for s in sizes])
+        span = torch.cat(_quant.quantized_psum_many(spans, mesh, dcn_axis,
+                                                    wire)).reshape(1, -1)
+    else:
+        span = psum(span, mesh, dcn_axis)
+    full = all_gather(span, mesh, ici_axis, dim=0)
+    outs = split_chunk_major(full, sizes, n_ici)
+    if average:
+        # A division by a device tensor: CUDA turns a division by a
+        # Python number into a multiply by its reciprocal.
+        n = full.new_full((), n_ici * axis_size(mesh, dcn_axis))
+        outs = [o / n for o in outs]
+    out = list(tensors)
+    for i, o in zip(live, outs):
+        t = tensors[i]
+        out[i] = o[:t.numel()].reshape(t.shape).to(t.dtype)
+    return out
+
+
+def hierarchical_psum(x: torch.Tensor, mesh: DeviceMesh, ici_axis: str,
+                      dcn_axis: str, *, wire=None,
+                      average: bool = False) -> torch.Tensor:
+    """The sum (or mean) of ``x`` over both axes in two stages:
+    ``psum_scatter`` over ``ici_axis`` (each in-node rank holds the
+    in-node sum of a 1/ici_size span), the span's ``psum`` over
+    ``dcn_axis`` (the only cross-node traffic; with ``wire`` it crosses
+    block-quantized), then ``all_gather`` over ``ici_axis``. The value of
+    ``psum(x, mesh, (ici_axis, dcn_axis))`` up to the order of the fp32
+    sums (and, with ``wire``, the quantization of the cross-node leg)."""
+    return hierarchical_psum_tree([x], mesh, ici_axis, dcn_axis, wire=wire,
+                                  average=average)[0]
+
+
+def cross_slice_bytes(n_elements: int, ici_size: int, *,
+                      hierarchical: bool = True, wire=None,
+                      dtype_bytes: int = 4) -> int:
+    """Bytes one rank sends over the cross-node leg per reduction of
+    ``n_elements``: all of them for the flat psum, the 1/ici_size span
+    for the hierarchical one, counted in wire bytes when ``wire`` is
+    set."""
+    if not hierarchical:
+        return int(n_elements) * dtype_bytes
+    span = -(-int(n_elements) // int(ici_size))
+    if wire is not None:
+        from .. import quantization as _quant
+        return _quant.wire_nbytes(wire, span)
+    return span * dtype_bytes

@@ -154,3 +154,12 @@ def shard_tree(tree, specs, sizes: Dict[str, int],
         return [shard_tree(t, s, sizes, coords)
                 for t, s in zip(tree, specs)]
     return shard_tensor(tree, specs, sizes, coords)
+
+
+def spec_of(specs, name: str) -> Spec:
+    """The spec of the parameter ``name`` (dotted, as in a state_dict:
+    ``layers.1.moe.wi``) in a spec tree of dicts and lists."""
+    node = specs
+    for part in name.split("."):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node

@@ -11,23 +11,34 @@ reported loss is the global mean. A step starts with the optimizer's
 own ``zero_grad()``, which keeps gradient views (without views it sets
 the gradients to None).
 
-With a mesh (``cfg.tp_axis``/``cfg.sp_axis``, or mesh axes besides
-'dp'), ``build_train_step`` builds :class:`MeshTrainStep`, the
-counterpart of the JAX step itself (``horovod_tpu/parallel/train.py``):
-every rank holds its shard of the parameters (``param_specs``) and of
-the batch (batch over 'dp', sequence over the config's 'sp'), runs the
-model's own collectives (the row-parallel psum, the ring's shifts,
-Ulysses' all-to-alls), and then follows JAX's gradient rule. Each data
-shard's loss is its local mean over ``n_data`` (the product of 'dp'
-and 'sp'), masked to zero except at tp index 0; backward, with psum's
-backward a psum; then each gradient is summed over every mesh axis its
-parameter is not split over, and the inner optimizer steps. The
-reported loss is the sum over all axes: the global mean. This step
+With a ``mesh``, ``build_train_step`` builds :class:`MeshTrainStep`,
+the counterpart of the JAX step itself (``horovod_tpu/parallel/
+train.py``): every rank holds its shard of the parameters
+(``param_specs``: tp blocks, ep experts) and of the batch (batch over
+'dp', or over ``(dcn_axis, 'dp')`` jointly, sequence over the config's
+'sp'), runs the model's own collectives (the row-parallel psum, the
+ring's shifts, Ulysses' and the experts' all-to-alls), and then follows
+JAX's gradient rule. Each data shard's loss is its local mean over
+``n_data`` (the product of 'dp', 'sp' and the dcn axis), masked to zero
+except at tp and ep index 0; backward, with psum's backward a psum;
+then each gradient is summed over every mesh axis its parameter is not
+split over (:func:`reduce_gradients`), and the inner optimizer steps.
+The reported loss is the sum over all axes: the global mean. This step
 does not go through the collective engine: the engine negotiates
 Horovod's named requests over the whole world, while the JAX step's
 reductions are in-program psums over mesh axes, which every rank of an
-axis's group issues in the same order (coalesced ``all_reduce``s on the
+axis's group issues in the same order (coalesced collectives on the
 mesh's groups).
+
+Two modes of the mesh step change the reduction, as in JAX. With
+``dcn_axis`` (an outer data axis that crosses nodes) the gradients that
+sum over both it and 'dp' take the hierarchical path
+(``collectives.hierarchical_psum_tree``: reduce-scatter over 'dp', the
+1/dp span summed over the dcn axis, exact or through the ``dcn_wire``
+block quantizer, all-gather over 'dp'). Handed a ZeRO-1 optimizer
+(``make_optimizer(model, zero1=True)`` or ``zero.zero1_init``), the
+step skips 'dp' in the reduction and the optimizer's own
+``psum_scatter`` sums over it (``parallel/zero.py``).
 
 ``build_image_train_step`` is the counterpart of one step of
 ``bench.py``'s ``build_step`` (the ResNet-50 headline): mean softmax
@@ -40,7 +51,7 @@ from __future__ import annotations
 
 import math
 from collections import defaultdict
-from typing import Callable, Dict, Iterable, Optional, Union
+from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -52,8 +63,10 @@ from .. import topology as _topo
 from ..models.transformer import Transformer, TransformerConfig, param_specs
 from ..ops import collective as _coll
 from ..optimizer import DistributedOptimizer
-from .collectives import axis_size, psum
-from .mesh import place, shard_tensor, shard_tree, spec_axes
+from .collectives import axis_size, hierarchical_psum_tree, psum
+from .mesh import (dcn_axes, place, shard_tensor, shard_tree, spec_axes,
+                   spec_of)
+from .zero import Zero1Optimizer, zero1_init
 
 DATA_AXES = ("dp", "sp")
 MODEL_AXES = ("tp", "ep")
@@ -104,27 +117,36 @@ def _step_device(device) -> torch.device:
     return _topo.resolve_device(device)
 
 
-def _spec_of(specs: Dict, name: str):
-    if name.startswith("layers."):
-        _, idx, leaf = name.split(".", 2)
-        return specs["layers"][int(idx)][leaf]
-    return specs[name]
-
-
-def reduce_gradients(model: nn.Module, specs: Dict, mesh: DeviceMesh
-                     ) -> None:
+def reduce_gradients(model: nn.Module, specs: Dict, mesh: DeviceMesh,
+                     skip: Iterable[str] = (),
+                     hierarchical: Optional[Tuple[str, str]] = None,
+                     dcn_wire: Optional[str] = None) -> None:
     """JAX's reduction rule, in place: each parameter's gradient summed
-    over every mesh axis (of size > 1) not in its spec, one coalesced
-    ``all_reduce`` per axis for the gradients that share the axes
-    missing from their specs."""
+    over every mesh axis not in its spec, leaving out the axes in
+    ``skip`` (ZeRO-1 sums over 'dp' in its own psum_scatter). The
+    gradients that miss the same axes go together, one coalesced
+    collective per axis. With ``hierarchical=(ici_axis, dcn_axis)`` the
+    gradients that miss both take the two-stage reduction
+    (``hierarchical_psum_tree``, its cross-node leg quantized by
+    ``dcn_wire``), whatever the axes' sizes, as in JAX; the others keep
+    the plain sums."""
+    axes = [a for a in mesh.mesh_dim_names if a not in skip]
     groups = defaultdict(list)
     for name, p in model.named_parameters():
-        have = set(spec_axes(_spec_of(specs, name)))
-        missing = tuple(a for a in mesh.mesh_dim_names
-                        if a not in have and axis_size(mesh, a) > 1)
+        have = set(spec_axes(spec_of(specs, name)))
+        missing = tuple(a for a in axes if a not in have)
         if missing and p.grad is not None:
             groups[missing].append(p.grad)
     for missing, grads in groups.items():
+        if hierarchical and set(hierarchical) <= set(missing):
+            ici, dcn = hierarchical
+            for g, r in zip(grads, hierarchical_psum_tree(
+                    grads, mesh, ici, dcn, wire=dcn_wire)):
+                g.copy_(r)
+            missing = tuple(a for a in missing if a not in hierarchical)
+        missing = tuple(a for a in missing if axis_size(mesh, a) > 1)
+        if not missing:
+            continue
         flat = torch.cat([g.reshape(-1) for g in grads])
         for a in missing:
             dist.all_reduce(flat, group=mesh.get_group(a))
@@ -137,27 +159,52 @@ class MeshTrainStep:
 
     ``model`` comes from :meth:`make_model` (this rank's shard of the
     parameters), ``optimizer`` from :meth:`make_optimizer` (the inner
-    optimizer over the shard); ``tokens``/``targets`` are this rank's
-    ``[B / dp, S / sp]`` block (:meth:`shard_batch` cuts it from the
-    global batch). The returned loss is a 0-d fp32 tensor, the global
-    mean, on every rank."""
+    optimizer over the shard, or with ``zero1=True`` the ZeRO-1 wrapper,
+    which selects the ZeRO-1 reduction); ``tokens``/``targets`` are this
+    rank's ``[B / (dcn * dp), S / sp]`` block (:meth:`shard_batch` cuts
+    it from the global batch). The returned loss is a 0-d fp32 tensor,
+    the global mean, on every rank."""
 
     def __init__(self, cfg: TransformerConfig,
                  optimizer_factory: Callable[[Iterable],
                                              torch.optim.Optimizer],
-                 mesh: DeviceMesh, device: torch.device):
-        for axis in (cfg.tp_axis, cfg.sp_axis):
-            if axis and axis not in mesh.mesh_dim_names:
+                 mesh: DeviceMesh, device: torch.device,
+                 dcn_axis: Optional[str] = None,
+                 dcn_wire: Optional[str] = None,
+                 dcn_hierarchical: bool = True):
+        names = mesh.mesh_dim_names
+        for axis in (cfg.tp_axis, cfg.sp_axis, cfg.ep_axis):
+            if axis and axis not in names:
                 raise ValueError(f"config axis {axis!r} is not a mesh axis "
-                                 f"(axes: {mesh.mesh_dim_names})")
+                                 f"(axes: {names})")
+        if dcn_axis == "auto":
+            found = [a for a in dcn_axes(mesh)
+                     if a not in (cfg.tp_axis, cfg.sp_axis, cfg.ep_axis)]
+            dcn_axis = found[0] if found else None
+        if dcn_axis is not None:
+            if dcn_axis not in names:
+                raise ValueError(f"dcn_axis {dcn_axis!r} is not a mesh axis "
+                                 f"(axes: {sorted(names)})")
+            if "dp" not in names:
+                raise ValueError("hierarchical reduction needs an in-slice "
+                                 f"'dp' axis under dcn_axis {dcn_axis!r}")
         self.cfg = cfg
         self.optimizer_factory = optimizer_factory
         self.mesh = mesh
         self.device = device
+        self.dcn_axis = dcn_axis
+        self.dcn_wire = dcn_wire
+        self.hierarchical = (("dp", dcn_axis)
+                             if dcn_axis is not None and dcn_hierarchical
+                             else None)
         self.specs = param_specs(cfg)
         self.sizes, self.coords = place(mesh)
         self.n_data = math.prod(self.sizes.get(a, 1) for a in DATA_AXES)
-        batch = "dp" if "dp" in self.sizes else None
+        if dcn_axis is not None:
+            self.n_data *= self.sizes[dcn_axis]
+            batch = (dcn_axis, "dp")
+        else:
+            batch = "dp" if "dp" in self.sizes else None
         self.data_spec = (batch, cfg.sp_axis)
 
     def shard_params(self, params: Dict) -> Dict:
@@ -172,47 +219,110 @@ class MeshTrainStep:
         return Transformer(self.cfg, device=self.device, mesh=self.mesh,
                            **kwargs)
 
-    def make_optimizer(self, model: Transformer) -> torch.optim.Optimizer:
-        return self.optimizer_factory(model.parameters())
+    def make_optimizer(self, model: Transformer, zero1: bool = False):
+        """The inner optimizer over ``model``'s parameters; with
+        ``zero1`` the ZeRO-1 wrapper over 'dp' (``zero.zero1_init``)."""
+        if not zero1:
+            return self.optimizer_factory(model.parameters())
+        opt = zero1_init(self.optimizer_factory, model,
+                         self.sizes.get("dp", 1), self.mesh)
+        self._check_zero1(opt)
+        return opt
+
+    def _check_zero1(self, opt: Zero1Optimizer) -> None:
+        """JAX's refusals of a ZeRO-1 state for this step."""
+        if self.dcn_axis is not None:
+            raise ValueError(
+                "ZeRO-1 optimizer state and dcn_axis hierarchical "
+                "reduction are mutually exclusive: ZeRO-1's psum_scatter "
+                "already owns the 'dp'-space reduction")
+        if "dp" not in self.sizes:
+            raise ValueError("ZeRO-1 optimizer state requires a 'dp' mesh "
+                             "axis to shard over")
+        dp = self.sizes["dp"]
+        if opt.n_shards != dp:
+            raise ValueError(
+                f"the ZeRO-1 state was built for n_shards={opt.n_shards} "
+                f"but this mesh's 'dp' axis has {dp} shards; the flat-shard "
+                "padding depends on the shard count, so rebuild the state "
+                f"with zero1_init(..., n_shards={dp}) for this mesh")
+        for spec in _spec_leaves(self.specs):
+            if "dp" in spec_axes(spec):
+                raise ValueError(
+                    "ZeRO-1 shards moments over 'dp' and requires "
+                    f"dp-replicated parameters; spec {spec} already uses "
+                    "'dp'")
 
     def __call__(self, model: Transformer, optimizer, tokens: torch.Tensor,
                  targets: torch.Tensor) -> torch.Tensor:
+        zero1 = isinstance(optimizer, Zero1Optimizer)
+        if zero1:
+            self._check_zero1(optimizer)
         tokens = tokens.to(model.device, non_blocking=True)
         targets = targets.to(model.device, non_blocking=True)
         optimizer.zero_grad()
         loss = model.loss_fn(tokens, targets) / self.n_data
         # Model ranks past index 0 hold copies of the same loss: masked,
         # each data shard counts once, and the masked ranks still get
-        # their cotangents through psum's backward.
+        # their cotangents through the collectives' backward.
         if any(self.coords[a] for a in MODEL_AXES if a in self.coords):
             loss = torch.where(loss.new_zeros((), dtype=torch.bool), loss,
                                0.0)
         loss.backward()
-        reduce_gradients(model, self.specs, self.mesh)
+        if zero1:
+            reduce_gradients(model, self.specs, self.mesh, skip=("dp",))
+        else:
+            reduce_gradients(model, self.specs, self.mesh,
+                             hierarchical=self.hierarchical,
+                             dcn_wire=self.dcn_wire)
         optimizer.step()
         return psum(loss.detach().float(), self.mesh,
                     self.mesh.mesh_dim_names)
+
+
+def _spec_leaves(tree):
+    """The specs (tuples) of a spec tree of dicts and lists."""
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, list):
+        yield tree
+        return
+    for sub in tree:
+        yield from _spec_leaves(sub)
 
 
 def build_train_step(cfg: TransformerConfig,
                      optimizer_factory: Callable[[Iterable],
                                                  torch.optim.Optimizer],
                      *, device: Union[str, torch.device, None] = None,
-                     mesh: Optional[DeviceMesh] = None
+                     mesh: Optional[DeviceMesh] = None,
+                     dcn_axis: Optional[str] = None,
+                     dcn_wire: Optional[str] = None,
+                     dcn_hierarchical: bool = True
                      ) -> Union[TrainStep, MeshTrainStep]:
     """The train step for ``cfg``. ``optimizer_factory(params)`` builds
     the inner ``torch.optim`` optimizer. ``device`` defaults to the one
-    ``init()`` chose, else CUDA. With ``cfg.tp_axis``/``cfg.sp_axis``,
-    or a ``mesh`` with axes besides 'dp', it is the mesh step over
-    ``mesh`` (which then must be given); otherwise the dp step through
-    ``DistributedOptimizer``."""
+    ``init()`` chose, else CUDA. With a ``mesh`` it is the mesh step
+    (a config with ``tp_axis``/``sp_axis``/``ep_axis`` needs one);
+    without, the dp step through ``DistributedOptimizer``.
+
+    ``dcn_axis`` names an outer data axis of the mesh that crosses nodes
+    (``"auto"``: the first of ``mesh.dcn_axes``, which honours
+    ``HOROVOD_TPU_DCN_AXES``, that is no model axis of ``cfg``): the
+    batch splits over ``(dcn_axis, 'dp')`` jointly, and the gradients
+    reduce hierarchically, the cross-node leg block-quantized when
+    ``dcn_wire`` names a spec (``"int8x256"``, ``"fp8x256"``).
+    ``dcn_hierarchical=False`` keeps the layout and sums with flat
+    psums, the baseline the bytes are compared against."""
     dev = _step_device(device)
-    axes = () if mesh is None else mesh.mesh_dim_names
-    if cfg.tp_axis or cfg.sp_axis or any(a != "dp" for a in axes):
-        if mesh is None:
-            raise ValueError("a config with tp_axis/sp_axis needs mesh= "
-                             "(parallel.mesh.create_mesh)")
-        return MeshTrainStep(cfg, optimizer_factory, mesh, dev)
+    if mesh is not None:
+        return MeshTrainStep(cfg, optimizer_factory, mesh, dev,
+                             dcn_axis=dcn_axis, dcn_wire=dcn_wire,
+                             dcn_hierarchical=dcn_hierarchical)
+    if cfg.tp_axis or cfg.sp_axis or cfg.ep_axis or dcn_axis:
+        raise ValueError("a config with tp_axis/sp_axis/ep_axis, or a "
+                         "dcn_axis, needs mesh= "
+                         "(parallel.mesh.create_mesh)")
     return TrainStep(cfg, optimizer_factory, dev)
 
 

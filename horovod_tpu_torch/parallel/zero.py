@@ -1,0 +1,164 @@
+"""ZeRO-1: the optimizer's state sharded over the data axis.
+
+Counterpart of ``horovod_tpu/parallel/zero.py``. Each parameter's
+optimizer state lives as 1/dp flat shards over 'dp': the gradients
+arrive by ``psum_scatter`` (the sum over 'dp' and the cut in one
+collective), each rank's inner optimizer steps only its shard, and the
+updated shards come back to every rank by ``all_gather``.
+
+Layout, JAX's. A parameter whose spec splits it over model axes of
+combined size m (tp or ep blocks) holds ``local = numel / m`` elements
+on each rank, padded to ``padded_local``, a multiple of dp. JAX's
+state leaf is the flat vector of ``m * padded_local`` elements sharded
+over ``(model axes..., 'dp')``: each model shard owns one contiguous
+``padded_local`` block, split contiguously over 'dp' in the block order
+of a tiled ``psum_scatter``. So this rank's shard is elements
+``[i * padded_local / dp, (i + 1) * padded_local / dp)`` of its own
+parameter block flattened and zero-padded, i its 'dp' coordinate: what
+:class:`Zero1Optimizer` keeps, and what :func:`zero1_state_specs` gives
+the shape of. (``torch.distributed.optim.ZeroRedundancyOptimizer``
+gives whole parameters to ranks instead, another layout.)
+
+The inner optimizer is any ``torch.optim`` optimizer that works element
+by element per parameter (SGD, momentum, Adam, AdamW, RMSprop): it
+steps fp32 flat "shadow" shards, whose ``.grad`` is the gradient shard.
+A global-norm clip needs the whole gradient and goes outside.
+
+Use (``MeshTrainStep`` takes the ZeRO-1 path when it is handed a
+:class:`Zero1Optimizer`)::
+
+    step = build_train_step(cfg, factory, mesh=create_mesh(dp=4))
+    model = step.make_model()
+    opt = step.make_optimizer(model, zero1=True)   # or zero1_init(...)
+    loss = step(model, opt, tokens, targets)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable, List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+
+from .collectives import (all_gather, chunk_major, psum_scatter,
+                          split_chunk_major)
+from .mesh import Spec, place, spec_axes
+
+
+def _spec_axes_ordered(spec: Spec) -> List[str]:
+    """The axis names a spec splits over, in order."""
+    return list(spec_axes(spec))
+
+
+def _padded_size(n_elem: int, n_shards: int) -> int:
+    return ((n_elem + n_shards - 1) // n_shards) * n_shards
+
+
+def _model_factor(spec: Spec, mesh: DeviceMesh) -> int:
+    """The product of the sizes of the axes ``spec`` splits over."""
+    sizes = place(mesh)[0]
+    return math.prod(sizes[a] for a in spec_axes(spec))
+
+
+def _flat_pad(x: torch.Tensor, n_shards: int) -> torch.Tensor:
+    flat = x.reshape(-1)
+    return F.pad(flat, (0, _padded_size(flat.numel(), n_shards)
+                        - flat.numel()))
+
+
+class Zero1Optimizer:
+    """The ZeRO-1 wrapper: the inner optimizer over this rank's flat fp32
+    shadow shards of ``params`` (each rank's own blocks of them).
+    ``n_shards`` records the 'dp' size the layout was built for.
+
+    :meth:`step` expects each parameter's gradient reduced over every
+    mesh axis except ``axis`` (``reduce_gradients(..., skip=("dp",))``):
+    it sums and cuts them over ``axis`` in one ``psum_scatter``, steps
+    the inner optimizer, and writes the ``all_gather`` of the updated
+    shards into the parameters."""
+
+    def __init__(self, inner: torch.optim.Optimizer,
+                 params: List[nn.Parameter], shadows: List[torch.Tensor],
+                 n_shards: int, mesh: DeviceMesh, axis: str, index: int):
+        self.inner = inner
+        self.params = params
+        self.shadows = shadows
+        self.n_shards = n_shards
+        self.mesh = mesh
+        self.axis = axis
+        self.index = index
+
+    @property
+    def state(self):
+        """The inner optimizer's state, keyed by the shadow shards."""
+        return self.inner.state
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def _padded(self) -> List[int]:
+        return [_padded_size(p.numel(), self.n_shards) for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n, sizes = self.n_shards, self._padded()
+        grads = [_flat_pad(p.grad if p.grad is not None
+                           else torch.zeros_like(p), n).float()
+                 for p in self.params]
+        shards = split_chunk_major(
+            psum_scatter(chunk_major(grads, n), self.mesh, self.axis, dim=0),
+            [s // n for s in sizes], 1)
+        for p, shadow, g, size in zip(self.params, self.shadows, shards,
+                                      sizes):
+            # This rank's slice of the parameter as it stands, so that a
+            # parameter written elsewhere (a checkpoint) is what steps.
+            width = size // n
+            lo = self.index * width
+            hi = min(lo + width, p.numel())
+            if hi > lo:
+                shadow[:hi - lo].copy_(p.reshape(-1)[lo:hi])
+            shadow.grad = g
+        self.inner.step()
+        full = all_gather(torch.cat(self.shadows).reshape(1, -1), self.mesh,
+                          self.axis, dim=0)
+        for p, flat in zip(self.params, split_chunk_major(full, sizes, n)):
+            p.copy_(flat[:p.numel()].view_as(p))
+
+
+def zero1_init(optimizer_factory: Callable[[Iterable],
+                                           torch.optim.Optimizer],
+               model: nn.Module, n_shards: int, mesh: DeviceMesh,
+               axis: str = "dp") -> Zero1Optimizer:
+    """The ZeRO-1 optimizer of ``model`` (this rank's shard of the
+    parameters) for ``n_shards`` shards over ``axis``:
+    ``optimizer_factory`` builds the inner optimizer over the fp32 flat
+    shadow shards, each this rank's slice of its zero-padded
+    parameter."""
+    index = (mesh.get_local_rank(axis) if axis in mesh.mesh_dim_names
+             else 0)
+    params = [p for p in model.parameters() if p.requires_grad]
+    shadows = []
+    for p in params:
+        width = _padded_size(p.numel(), n_shards) // n_shards
+        flat = _flat_pad(p.detach(), n_shards).float()
+        shadows.append(flat[index * width:(index + 1) * width].clone()
+                       .requires_grad_())
+    return Zero1Optimizer(optimizer_factory(shadows), params, shadows,
+                          int(n_shards), mesh, axis, index)
+
+
+def zero1_state_specs(n_shards: int, model: nn.Module
+                      ) -> Dict[str, torch.Size]:
+    """The shape of this rank's shard of every parameter's optimizer
+    state: ``[padded_local / n_shards]``, with ``padded_local`` the
+    rank's parameter block padded to a multiple of ``n_shards``. (JAX's
+    ``zero1_state_specs`` gives the specs of the global leaves, ``P((model
+    axes..., 'dp'))`` over ``m * padded_local`` elements: the same
+    shard.)"""
+    return {name: torch.Size([_padded_size(p.numel(), n_shards)
+                              // n_shards])
+            for name, p in model.named_parameters() if p.requires_grad}

@@ -16,8 +16,9 @@ The allreduce runs in the quantized domain (:func:`allreduce_blocks`):
 
 fp8 payloads cross the collectives as ``uint8`` (the same bytes). The
 collectives are functions the caller passes, so the same arithmetic
-runs over ``torch.distributed`` in the engine and with the identity in
-a check.
+runs over ``torch.distributed`` in the engine, over one axis of a mesh
+in :func:`quantized_psum` (the hierarchical reduction's cross-node
+leg), and with the identity in a check.
 
 Every function computes what the JAX function of the same name does,
 bit for bit: true fp32 divides by the scale, round half to even, and
@@ -34,9 +35,14 @@ place of a block's scale.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+
+from .parallel.collectives import chunk_major, split_chunk_major
 
 DEFAULT_BLOCK = 256
 
@@ -277,3 +283,75 @@ def allreduce_blocks(buf: torch.Tensor, spec: WireSpec, world: int,
     qg = all_gather_fn(_to_transport(q2, spec))
     sg = all_gather_fn(s2)
     return dequantize_blocks(_from_transport(qg, spec), sg, spec)
+
+
+def axis_world(mesh: DeviceMesh, axis: str) -> int:
+    """The size of ``mesh``'s axis ``axis``. NameError, as JAX raises
+    for an axis that is not bound, when the mesh has no such axis."""
+    if axis not in mesh.mesh_dim_names:
+        raise NameError(f"unbound axis name: {axis}")
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _axis_collectives(mesh: DeviceMesh, axis: str, world: int):
+    """:func:`allreduce_blocks`' all-to-all and all-gather over the
+    axis's process group (the identity at one rank)."""
+    if world == 1:
+        return (lambda buf: buf), (lambda buf: buf)
+    group = mesh.get_group(axis)
+    nccl = dist.get_backend(group) == "nccl"
+
+    def all_to_all(buf):
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, group=group)
+        return out
+
+    def all_gather(buf):
+        if nccl:
+            out = buf.new_empty(world * buf.numel())
+            dist.all_gather_into_tensor(out, buf, group=group)
+            return out
+        parts = buf.new_empty((world,) + tuple(buf.shape))
+        dist.all_gather(list(parts), buf, group=group)
+        return parts.reshape(-1)
+
+    return all_to_all, all_gather
+
+
+def quantized_psum_many(tensors: Sequence[torch.Tensor], mesh: DeviceMesh,
+                        axis: str, spec: Union[str, WireSpec]
+                        ) -> List[torch.Tensor]:
+    """:func:`quantized_psum` of each tensor in one dual quantized
+    allreduce: each flat fp32 tensor padded to a multiple of ``world *
+    block_size`` and the flats laid out chunk-major
+    (``parallel.collectives.chunk_major``), so that every block and
+    every rank's shard holds what the tensor's own call would."""
+    spec = parse(spec)
+    world = axis_world(mesh, axis)
+    tensors = list(tensors)
+    live = [i for i, t in enumerate(tensors) if t.numel()]
+    if not live:
+        return tensors
+    flats = []
+    for i in live:
+        flat = tensors[i].reshape(-1).to(torch.float32)
+        m = padded_size(flat.numel(), world * spec.block_size)
+        flats.append(F.pad(flat, (0, m - flat.numel())))
+    sizes = [f.numel() for f in flats]
+    buf = chunk_major(flats, world).reshape(-1)
+    out = allreduce_blocks(buf, spec, world,
+                           *_axis_collectives(mesh, axis, world))
+    result = list(tensors)
+    for i, o in zip(live, split_chunk_major(out, sizes, world)):
+        t = tensors[i]
+        result[i] = o[:t.numel()].reshape(t.shape).to(t.dtype)
+    return result
+
+
+def quantized_psum(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+                   spec: Union[str, WireSpec]) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` through the dual block-quantized
+    wire (:func:`allreduce_blocks` over the axis's group): the
+    counterpart of JAX's ``quantized_psum`` inside ``shard_map``. NameError
+    when the mesh has no such axis."""
+    return quantized_psum_many([x], mesh, axis, spec)[0]

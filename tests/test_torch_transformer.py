@@ -131,11 +131,13 @@ def test_param_shapes_match_jax_init():
                                  device="cpu").state_dict().items()})
 
 
-# Expert parallelism is a later slice of the port.
+# Expert parallelism is ported now: its options make a config, and the
+# model refuses them without a mesh that holds their axes.
 @pytest.mark.parametrize("over", [dict(ep_axis="ep"),
                                   dict(ep_axis="ep", num_experts=4),
                                   dict(ep_axis="ep", tp_axis="tp",
                                        sp_axis="sp")])
 def test_unported_options_raise(over):
-    with pytest.raises(NotImplementedError):
-        ttfm.TransformerConfig(**over)
+    cfg = ttfm.TransformerConfig(**over)
+    with pytest.raises(ValueError, match="mesh"):
+        ttfm.Transformer(cfg, device="cpu")
