@@ -125,7 +125,24 @@ and prints no result line):
    parameters) on ``create_mesh(dp=1, ep=1)``, 5 AdamW steps of
    8 x 2048 tokens: the loss finite and falling, each bf16 form of
    K1-K3 launched 12 times a step; it logs tok/s, the share of tokens
-   each MoE layer dropped at step 1 and the peak memory.
+   each MoE layer dropped at step 1 and the peak memory;
+15. the pipelined flagship (``init`` again, NCCL, world 1): phase 5's LM
+   and batch as m = 8 microbatches of 1 through
+   ``build_pipeline_train_step`` with AdamW on gpipe, 1f1b, zb-h1 and
+   interleaved (V = 3). (a) On ``create_mesh(pp=1)``, 5 steps each: the
+   loss finite and falling, step 1's within 1e-4 of phase 5's step 1 on
+   the same weights and tokens, tok/s beside phase 5's and the peak
+   memory; (c) K1-K3 launched per step 1-2-1 x 96 (gpipe: the backward
+   sweep's recompute), 96 each (1f1b, interleaved) and 1-2-2 x 96
+   (zb-h1: W walks the chain again), the fp32 forms never; these
+   launches join the ``kernels`` line's. (b) The same step on 4 virtual
+   stages in this process (3 layers a stage, 1 a chunk interleaved), 3
+   steps: step 1's loss and every parameter after it bit for bit (a)'s
+   (or, logged as a finding, within 1e-3), the same launches; (e) each
+   schedule's ``schedule_info`` at n = 4, m = 8 beside (b)'s step
+   times. The schedules' step-1 losses and gradients are held to
+   gpipe's the same way. (d) K1-K3 checked and timed back-to-back at
+   the microbatch's shape (B=1, H=6, S=2048), logged beside phase 3's.
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1, and the run's seconds before the last lines. The line before the last is ``{"kernels":
@@ -671,9 +688,12 @@ def check_launches(launches, per_step):
 
 def check_flash_launches(launches, bf16_per_step, f32_per_step,
                          steps=STEPS):
-    """Each bf16 form of K1-K3 launched ``bf16_per_step`` times a step,
-    each fp32 form ``f32_per_step`` times."""
-    want = {**{n: bf16_per_step * steps for n in BF16_FLASH},
+    """Each bf16 form of K1-K3 launched ``bf16_per_step`` times a step
+    (or K1, K2 and K3 each its entry of a triple), each fp32 form
+    ``f32_per_step`` times."""
+    if isinstance(bf16_per_step, int):
+        bf16_per_step = (bf16_per_step,) * len(BF16_FLASH)
+    want = {**{n: k * steps for n, k in zip(BF16_FLASH, bf16_per_step)},
             **{n: f32_per_step * steps for n in F32_FLASH}}
     got = {n: launches[n] for n in want}
     if got != want:
@@ -1872,6 +1892,208 @@ def moe_main_path(hvd, tfm, fa, build_train_step, create_mesh, profile):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ the pipelined flagship
+
+# (schedule, num_virtual) of phase 15; interleaved at V = 3 so that the
+# 12 layers divide into pp·V = 12 chunks at pp = 4.
+PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("zb-h1", 1),
+                  ("interleaved", 3))
+PIPE_M = 8            # phase 5's 8 x 2048 tokens as 8 microbatches of 1
+PIPE_VIRTUAL = 4      # (b)'s stages in one process
+PIPE_VIRTUAL_STEPS = 3
+# K1, K2, K3 launches per microbatch and layer: gpipe recomputes the
+# forward in its backward sweep; zb-h1's W walks the activation-gradient
+# chain again after Bx.
+PIPE_PER_MB_LAYER = {"gpipe": (2, 1, 1), "1f1b": (1, 1, 1),
+                     "interleaved": (1, 1, 1), "zb-h1": (1, 2, 2)}
+# Step 1's loss against phase 5's on the same weights and tokens
+# (relative). The fused schedules add 8 microbatch means where phase 5
+# takes one mean of 16,384 tokens: fp32 sums in another order, 6.4e-8
+# on an H100 with torch 2.11 and CUDA 12.8, where the per-token losses
+# came out the same bits (gpipe's mean of the stacked means: 0). The
+# bound leaves room for GEMMs that a cuBLAS tiles otherwise on 2,048
+# rows than on 16,384, which would round the bf16 activations otherwise.
+PIPE_LOSS_TOL = 1e-4
+
+
+def pipe_tensors(models, n, grads=False):
+    """{name: tensor} of the whole model (or with ``grads`` its
+    gradients) from the 'pp' ranks' models: ``layers.{i}.{key}`` in
+    layer order, and ``rank{r}.{name}`` for every rank's ``embed``,
+    ``pos`` and ``ln_f``."""
+    out = {}
+    for r, model in enumerate(models):
+        lpc = len(model.chunks[0])
+        for key, p in model.named_parameters():
+            t = p.grad if grads else p.detach()
+            if key.startswith("chunks."):
+                _, v, i, leaf = key.split(".")
+                out[f"layers.{(int(v) * n + r) * lpc + int(i)}.{leaf}"] = t
+            else:
+                out[f"rank{r}.{key}"] = t
+    return out
+
+
+def same_tensors(got, want, what):
+    """Bit for bit over matching names (``rank{r}.`` entries of a
+    multi-rank ``got`` against ``rank0.`` of ``want``), or (a finding,
+    logged) each within 1e-3 relative."""
+    exact = True
+    for name, t in got.items():
+        ref = want[name if name in want else "rank0." + name.split(".", 1)[1]]
+        exact &= same_or_close(t, ref, f"{what}: {name}")
+    return exact
+
+
+def pipe_launches(schedule, n_layers):
+    """K1, K2 and K3 launches per pipelined step of PIPE_M
+    microbatches."""
+    return tuple(c * PIPE_M * n_layers for c in PIPE_PER_MB_LAYER[schedule])
+
+
+def pipe_one_card(ttrain, cfg, mesh, full, schedule, v, tok_mb, tgt_mb, fa,
+                  lm_loss1, lm_step_s, profile):
+    """(a): ``create_mesh(pp=1)``, STEPS steps; returns (losses, step
+    seconds, parameters and gradients after step 1, launches)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30
+    step = ttrain.build_pipeline_train_step(cfg, mesh, adamw,
+                                            schedule=schedule,
+                                            num_virtual=v)
+    model = step.make_model(params=step.shard_params(
+        ttrain.to_pipeline_params(cfg, full, 1, v)))
+    opt = step.make_optimizer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, times = [], []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        loss = step(model, opt, tok_mb, tgt_mb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            after1 = {k: t.clone()
+                      for k, t in pipe_tensors([model], 1).items()}
+            grads1 = {k: t.clone()
+                      for k, t in pipe_tensors([model], 1, True).items()}
+    launches = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = statistics.median(times[1:])
+    n_tok = tok_mb.numel()
+    rel = abs(losses[0] - lm_loss1) / abs(lm_loss1)
+    log(f"  (a) {schedule}{f' V={v}' if v > 1 else ''} on pp=1: losses "
+        f"{losses}; step seconds {times}; {n_tok / steady:.1f} tok/s "
+        f"(median of steps 2-{STEPS}, {steady * 1e3:.2f} ms/step) beside "
+        f"phase 5's {n_tok / lm_step_s:.1f} ({lm_step_s * 1e3:.2f} "
+        f"ms/step); peak memory {peak:.2f} GiB ({base:.2f} GiB held "
+        f"before the model); step 1 loss {losses[0]!r} "
+        f"against phase 5's {lm_loss1!r}: rel {rel:.3e} (tolerance "
+        f"{PIPE_LOSS_TOL}); launches {launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{schedule}: losses not finite and falling: "
+                             f"{losses}")
+    if not rel <= PIPE_LOSS_TOL:
+        raise AssertionError(f"{schedule}: step 1 loss {losses[0]} against "
+                             f"phase 5's {lm_loss1}: {rel} > "
+                             f"{PIPE_LOSS_TOL}")
+    check_flash_launches(launches, pipe_launches(schedule, cfg.n_layers), 0)
+    if profile:
+        profile_steps(lambda: step(model, opt, tok_mb, tgt_mb), profile,
+                      f"LM pipeline step, {schedule}, pp=1")
+    del model, opt
+    return losses, times, after1, grads1, launches, peak
+
+
+def pipe_virtual(ttrain, cfg, full, schedule, v, tok_mb, tgt_mb, fa,
+                 loss1, after1):
+    """(b): PIPE_VIRTUAL stages in this process, PIPE_VIRTUAL_STEPS
+    steps; step 1's loss and parameters against (a)'s. Returns the step
+    seconds."""
+    n = PIPE_VIRTUAL
+    step = ttrain._virtual_pipeline_train_step(cfg, n, adamw,
+                                               schedule=schedule,
+                                               num_virtual=v)
+    tree = ttrain.to_pipeline_params(cfg, full, n, v)
+    models = [step.make_model(params=step.shard_params(tree, r))
+              for r in range(n)]
+    opts = [step.make_optimizer(m) for m in models]
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    times = []
+    for i in range(PIPE_VIRTUAL_STEPS):
+        t0 = time.perf_counter()
+        loss = float(step(models, opts, tok_mb, tgt_mb))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            exact = same_or_close(torch.tensor(loss), torch.tensor(loss1),
+                                  f"(b) {schedule} step 1 loss")
+            exact &= same_tensors(pipe_tensors(models, n), after1,
+                                  f"(b) {schedule} after step 1")
+    check_flash_launches(fa.launch_counts(),
+                         pipe_launches(schedule, cfg.n_layers), 0,
+                         steps=PIPE_VIRTUAL_STEPS)
+    info = step.schedule_info(PIPE_M)
+    log(f"  (b) {schedule} on {n} virtual stages: step 1's loss and "
+        f"{sum(p.numel() for m in models for p in m.parameters())} "
+        f"parameter values "
+        f"{'bit for bit' if exact else 'within 1e-3 (see FINDING)'} (a)'s; "
+        f"step seconds {times}; (e) schedule_info n={n} m={PIPE_M}"
+        f"{f' V={v}' if v > 1 else ''}: ticks {info.ticks}, bubble share "
+        f"{info.bubble_share:.4f} (the virtual stages run one after "
+        f"another on one card, so their wall time holds no bubble)")
+    del models, opts
+    return times
+
+
+def pipeline_phase(hvd, tfm, fa, create_mesh, lm_loss1, lm_step_s,
+                   profile):
+    """Phase 15: the pipelined flagship; returns the launch counts of
+    (a), its main path."""
+    from horovod_tpu_torch.parallel import train as ttrain
+    hvd.init()
+    if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
+        raise AssertionError(f"expected NCCL at world size 1, got "
+                             f"{hvd.get_topology()}")
+    cfg = tfm.TransformerConfig(**FLAGSHIP)
+    full = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens, targets = flagship_batch(cfg.vocab)
+    tok_mb = tokens.reshape(PIPE_M, -1, tokens.shape[1])
+    tgt_mb = targets.reshape(PIPE_M, -1, targets.shape[1])
+    mesh = create_mesh(pp=1)
+    launches = {n: 0 for n in BF16_FLASH}
+    runs = {}
+    for schedule, v in PIPE_SCHEDULES:
+        losses, _, after1, grads1, counts, _ = pipe_one_card(
+            ttrain, cfg, mesh, full, schedule, v, tok_mb, tgt_mb, fa,
+            lm_loss1, lm_step_s, profile)
+        for n in BF16_FLASH:
+            launches[n] += counts[n]
+        pipe_virtual(ttrain, cfg, full, schedule, v, tok_mb, tgt_mb, fa,
+                     losses[0], after1)
+        runs[schedule] = (losses[0], grads1)
+        del after1
+        torch.cuda.empty_cache()
+    base_loss, base_grads = runs["gpipe"]
+    for schedule in ("1f1b", "zb-h1", "interleaved"):
+        loss, grads = runs[schedule]
+        exact = same_or_close(torch.tensor(loss), torch.tensor(base_loss),
+                              f"{schedule} step 1 loss against gpipe's")
+        exact &= same_tensors(grads, base_grads,
+                              f"{schedule} step 1 gradients against gpipe's")
+        log(f"  {schedule} against gpipe at step 1: loss and "
+            f"{len(grads)} gradients "
+            f"{'bit for bit' if exact else 'within 1e-3 (see FINDING)'}")
+    del runs
+    log("  (d) K1-K3 at the microbatch's shape (B=1, H=6, S=2048):")
+    check_kernels(fa, 1, 6, 2048, 128, True, timed=True)
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def source_of(name):
     if name in BN_KERNELS:
         return BN_SOURCE
@@ -2002,6 +2224,13 @@ def main(argv=None) -> int:
 
     # 14. the MoE flagship
     moe_main_path(hvd, tfm, fa, build_train_step, create_mesh, args.profile)
+
+    # 15. the pipelined flagship
+    t15 = time.perf_counter()
+    for name, n in pipeline_phase(hvd, tfm, fa, create_mesh, lm_loss1,
+                                  lm_step_s, args.profile).items():
+        launches[name] += n
+    log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[name], launches=launches[name],

@@ -1,6 +1,6 @@
 """The mesh train step across cards against one card, over NCCL.
 
-    python -m horovod_tpu_torch.experiments.mesh_parity [--layers 2]
+    python -m horovod_tpu_torch.experiments.mesh_parity [--layers 2] [--variants A,B]
 
 Needs four CUDA cards on one host. Starts four ranks (NCCL, one card
 each) and runs one AdamW step of the flagship LM's width (vocab 32000,
@@ -24,6 +24,15 @@ deep) on 4 x 2048 tokens in each variant:
   layer (capacity factor 8.0, so that no token drops on one card or on
   the mesh) on ``dp=2, ep=2``: the experts' two all-to-alls.
 
+and the pipelined flagship at its full depth (12 layers, whatever
+``--layers`` says) on ``pp=4``, 8 x 2048 tokens as m = 8 microbatches of
+1, with NCCL sends and receives between the stages:
+
+- ``pp_gpipe``, ``pp_1f1b``, ``pp_zb-h1``: ``build_pipeline_train_step``
+  on each schedule;
+- ``pp_interleaved``: interleaved with V = 3 (12 layers in pp·V = 12
+  chunks).
+
 Every rank also runs the reference on the whole batch on its own card,
 from the same weights: the data-parallel model (no mesh), or for
 ``moe`` the same MoE model on a mesh of this rank alone. It prints the
@@ -38,12 +47,20 @@ peak memory of any rank over a second step, with the optimizer's state
 in place (``torch.cuda.max_memory_allocated`` less what was allocated
 before the variant's model),
 and for the dcn variants the bytes one rank sends across nodes per step
-(``cross_slice_bytes``, hierarchical and flat). It fails past 1e-2 on
+(``cross_slice_bytes``, hierarchical and flat). A pipeline variant's
+reference is the same step on 4 virtual stages in one process (the
+local transport, ``chip_smoke.py`` phase 15b) from the same weights and
+tokens: its line holds the step-1 loss, the largest error of this rank's
+step-1 gradients (its stage and the replicated embedding, position and
+final-norm weights) against the virtual stage of the same rank, whether
+all of them are bit for bit, then 3 more steps: their ms (host clock to
+``synchronize``), the median's tok/s per card, ``schedule_info``'s bubble
+share at n = 4, m = 8 and the peak memory over them. It fails past 1e-2 on
 the loss or 5e-2 on any gradient (bf16: the mesh and the single card
 sum in other orders; int8 adds a level of a 256-block), as
 ``chip_smoke.py``'s parity does. ``run(..., device="cpu",
 width=...)`` runs the same ranks on gloo, for a rehearsal at a small
-width.
+width; ``--variants`` (and ``run(..., variants=...)``) picks some.
 """
 
 from __future__ import annotations
@@ -83,6 +100,10 @@ VARIANTS = {
             dict(ep_axis="ep", num_experts=8, capacity_factor=8.0), {},
             False),
 }
+# name: (schedule, num_virtual)
+PIPE_VARIANTS = {"pp_gpipe": ("gpipe", 1), "pp_1f1b": ("1f1b", 1),
+                 "pp_zb-h1": ("zb-h1", 1), "pp_interleaved": ("interleaved", 3)}
+PIPE_LAYERS, PIPE_M, PIPE_TIMED = 12, 8, 3
 LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
 
 
@@ -148,7 +169,72 @@ def _crossing_bytes(model, step):
                         for n in sizes)}
 
 
-def run_rank(rank, port, layers, outdir, device, width):
+def _pipe_grads(model):
+    return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def _pipe_line(tfm, width, name, mesh, dev):
+    """One pipeline variant on this rank: the virtual reference, then the
+    'pp' step."""
+    from ..parallel import train as ttrain
+    from ..parallel.pipeline import schedule_info
+    schedule, v = PIPE_VARIANTS[name]
+    n = WORLD
+    r = mesh.get_local_rank("pp")
+    cfg = _config(tfm, width, PIPE_LAYERS)
+    full = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.randint(0, width["vocab"], (PIPE_M, width["max_seq"] + 1),
+                        generator=torch.Generator().manual_seed(1))
+    tok_mb = tok[:, :-1].reshape(PIPE_M, 1, -1).to(dev)
+    tgt_mb = tok[:, 1:].reshape(PIPE_M, 1, -1).to(dev)
+    tree = ttrain.to_pipeline_params(cfg, full, n, v)
+
+    vstep = ttrain._virtual_pipeline_train_step(
+        cfg, n, _factory, schedule=schedule, num_virtual=v, device=dev)
+    models = [vstep.make_model(params=vstep.shard_params(tree, k))
+              for k in range(n)]
+    ref_loss = float(vstep(models, [vstep.make_optimizer(m) for m in models],
+                           tok_mb, tgt_mb))
+    ref_grads = _pipe_grads(models[r])
+    del models
+
+    step = ttrain.build_pipeline_train_step(cfg, mesh, _factory,
+                                            schedule=schedule,
+                                            num_virtual=v, device=dev)
+    model = step.make_model(params=step.shard_params(tree))
+    opt = step.make_optimizer(model)
+    fa.reset_launch_counts()
+    loss = float(step(model, opt, tok_mb, tgt_mb))
+    launches = fa.launch_counts()
+    grads = _pipe_grads(model)
+    err, exact = 0.0, loss == ref_loss
+    for key, g in grads.items():
+        want = ref_grads[key]
+        exact &= torch.equal(g, want)
+        err = max(err, float((g.float() - want.float()).abs().max()
+                             / want.float().abs().max().clamp_min(1e-30)))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(PIPE_TIMED):
+        _sync(dev)
+        t0 = time.perf_counter()
+        step(model, opt, tok_mb, tgt_mb)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(times)[len(times) // 2]
+    return {"mesh": {"pp": n}, "schedule": schedule, "num_virtual": v,
+            "loss": loss, "reference_loss": ref_loss,
+            "max_grad_rel_err": err, "bitwise": exact,
+            "launches": launches, "ms_steps": times, "ms": ms,
+            "tok_s_per_card": tok_mb.numel() / (ms / 1e3) / n,
+            "bubble_share": schedule_info(schedule, n, PIPE_M,
+                                          num_virtual=v).bubble_share,
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                         if dev.type == "cuda" else None)}
+
+
+def run_rank(rank, port, layers, outdir, device, width, variants):
     """One rank: the references on its own device, then each variant's
     mesh step on 4 sequences of ``width["max_seq"]`` tokens; writes its
     results to ``outdir``."""
@@ -165,7 +251,12 @@ def run_rank(rank, port, layers, outdir, device, width):
     tokens, targets = tok[:, :-1].to(dev), tok[:, 1:].to(dev)
     refs = {}
     out = {}
-    for name, (axes, cfg_kw, step_kw, zero1) in VARIANTS.items():
+    for name in variants:
+        if name in PIPE_VARIANTS:
+            out[name] = _pipe_line(tfm, width, name,
+                                   create_mesh(pp=WORLD), dev)
+            continue
+        axes, cfg_kw, step_kw, zero1 = VARIANTS[name]
         moe = bool(cfg_kw.get("num_experts"))
         cfg = _config(tfm, width, layers, **cfg_kw)
         ref_cfg = _config(tfm, width, layers,
@@ -218,21 +309,25 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run(layers, device="cuda", width=FLAGSHIP):
+def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     """{variant: rank 0's line, with the worst gradient error and peak
-    memory of all ranks}."""
+    memory of all ranks (and, for a pipeline variant, whether every rank
+    was bit for bit)}; ``variants`` defaults to all."""
+    variants = list(variants or (*VARIANTS, *PIPE_VARIANTS))
     with tempfile.TemporaryDirectory() as outdir:
         mp.spawn(run_rank, args=(_free_port(), layers, outdir, device,
-                                 width), nprocs=WORLD)
+                                 width, variants), nprocs=WORLD)
         ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
                  for r in range(WORLD)]
     lines = {}
-    for name in VARIANTS:
+    for name in variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
                                        for r in ranks)
         if line["peak_mib"] is not None:
             line["peak_mib"] = max(r[name]["peak_mib"] for r in ranks)
+        if "bitwise" in line:
+            line["bitwise"] = all(r[name]["bitwise"] for r in ranks)
         line["loss_rel_err"] = (abs(line["loss"] - line["reference_loss"])
                                 / abs(line["reference_loss"]))
         lines[name] = line
@@ -242,13 +337,19 @@ def run(layers, device="cuda", width=FLAGSHIP):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--variants", help="comma-separated names (default: "
+                    f"all of {', '.join((*VARIANTS, *PIPE_VARIANTS))})")
     args = ap.parse_args(argv)
+    variants = args.variants.split(",") if args.variants else None
+    unknown = set(variants or ()) - set(VARIANTS) - set(PIPE_VARIANTS)
+    if unknown:
+        sys.exit(f"mesh_parity: unknown variants {sorted(unknown)}")
     if torch.cuda.device_count() < WORLD:
         sys.exit(f"mesh_parity: needs {WORLD} CUDA cards, found "
                  f"{torch.cuda.device_count()}")
     print(device_line(), flush=True)
     ok = True
-    for name, line in run(args.layers).items():
+    for name, line in run(args.layers, variants=variants).items():
         print(json.dumps({"variant": name, **line}), flush=True)
         ok &= (line["loss_rel_err"] <= LOSS_TOL
                and line["max_grad_rel_err"] <= GRAD_TOL)

@@ -7,7 +7,10 @@ a copy, never a transpose. The JAX side is a tree of numpy arrays
 (``router``, ``wi``, ``wo``). Under tensor or expert parallelism
 :func:`shard_from_jax` gives one rank's slice of it, the block that
 JAX's ``NamedSharding`` under ``param_specs`` puts on the device at the
-same mesh coordinate.
+same mesh coordinate. A tree in JAX's pipeline layout (its
+``to_pipeline_params``) gives each 'pp' rank's ``PipelineModel`` state
+(:func:`pipeline_from_jax`), and every rank's state gathers back into it
+bit for bit (:func:`pipeline_to_jax`).
 
 The ResNet takes PyTorch's layouts: a conv kernel goes from HWIO to
 OIHW, the head's Dense kernel from ``[in, out]`` to ``[out, in]``; BN
@@ -72,6 +75,52 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 node = node.setdefault(name, {})
             node[leaf] = arr(t)
     tree["layers"] = [layers[i] for i in sorted(layers)]
+    return tree
+
+
+def pipeline_from_jax(tree: Dict, rank: int
+                      ) -> "OrderedDict[str, torch.Tensor]":
+    """The state_dict of rank ``rank``'s ``PipelineModel``
+    (``parallel.train``) from a tree in JAX's pipeline layout (JAX's
+    ``to_pipeline_params``: ``{"embed", "pos", "ln_f", "stages"}``, each
+    stages leaf ``[n_pp, V, layers_per_chunk, ...]``):
+    ``chunks.{v}.{i}.{key}`` is ``stages[key][rank, v, i]``."""
+    sd = OrderedDict()
+    for name in _TOP:
+        sd[name] = torch.from_numpy(np.array(tree[name], dtype=np.float32))
+    stages = {k: np.asarray(a, dtype=np.float32)
+              for k, a in tree["stages"].items()}
+    _, n_virtual, lpc = next(iter(stages.values())).shape[:3]
+    for v in range(n_virtual):
+        for i in range(lpc):
+            for key, arr in stages.items():
+                sd[f"chunks.{v}.{i}.{key}"] = torch.from_numpy(
+                    np.array(arr[rank, v, i]))
+    return sd
+
+
+def pipeline_to_jax(state_dicts) -> Dict:
+    """The inverse: JAX's pipeline layout (fp32 numpy) from every rank's
+    ``PipelineModel`` state_dict, in rank order; ``embed``, ``pos`` and
+    ``ln_f`` from rank 0's."""
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    tree = {name: arr(state_dicts[0][name]) for name in _TOP}
+    blocks: Dict[str, Dict] = {}
+    for key, t in state_dicts[0].items():
+        if key.startswith("chunks."):
+            _, v, i, leaf = key.split(".")
+            blocks.setdefault(leaf, {})[(int(v), int(i))] = key
+    stages = {}
+    for leaf, keys in blocks.items():
+        n_virtual = 1 + max(v for v, _ in keys)
+        lpc = 1 + max(i for _, i in keys)
+        stages[leaf] = np.stack([
+            np.stack([np.stack([arr(sd[keys[(v, i)]]) for i in range(lpc)])
+                      for v in range(n_virtual)])
+            for sd in state_dicts])
+    tree["stages"] = stages
     return tree
 
 

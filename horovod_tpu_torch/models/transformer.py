@@ -272,6 +272,15 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def project_logits(embed: torch.Tensor, h: torch.Tensor,
+                   cfg: TransformerConfig) -> torch.Tensor:
+    """The tied output projection, fp32 logits: in ``cfg.dtype`` then
+    cast with ``cfg.logits_bf16``, else in fp32."""
+    if cfg.logits_bf16:
+        return (h @ embed.to(cfg.dtype).T).float()
+    return h.float() @ embed.T
+
+
 class _Layer(nn.Module):
     """A layer's parameters; a subtree (``moe``) is a child module."""
 
@@ -360,9 +369,7 @@ class Transformer(nn.Module):
         return _layernorm(x, self.ln_f)
 
     def _project_logits(self, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.logits_bf16:
-            return (h @ self.embed.to(self.cfg.dtype).T).float()
-        return h.float() @ self.embed.T
+        return project_logits(self.embed, h, self.cfg)
 
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:  # noqa: A003
         """Logits [B, S, vocab] in fp32. (Shadows ``nn.Module.apply(fn)``

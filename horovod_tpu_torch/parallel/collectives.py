@@ -11,7 +11,8 @@ under ``shard_map(check_vma=False)``:
 - ``psum``'s backward is a ``psum`` of the cotangents. The train step's
   masked-loss rule (``parallel/train.py``) depends on it. Megatron's
   identity/all-reduce f/g pair gives other gradients here.
-- ``ppermute`` by a ring shift: its backward is the inverse shift.
+- ``ppermute`` by a ring shift (and :func:`ring_shift`, one tensor by
+  an offset): its backward is the inverse shift.
 - tiled ``all_to_all(split_axis, concat_axis)``: its backward is the
   reverse ``all_to_all``.
 - tiled ``all_gather``: its backward is a ``psum_scatter``, and the
@@ -104,13 +105,24 @@ def psum(x: torch.Tensor, mesh: DeviceMesh, axis: Axes) -> torch.Tensor:
 def _shift(tensors, group, shift: int):
     """Send each tensor to group rank ``i + shift`` and receive the one
     from ``i - shift``, as one batch of sends and receives."""
+    return _shifts([(t, shift) for t in tensors], group)
+
+
+def _shifts(sends, group):
+    """For each ``(tensor, shift)``: send the tensor to group rank ``i +
+    shift`` and receive, in its place, the one rank ``i - shift`` sent;
+    all in one batch of sends and receives. Every rank passes the same
+    shifts in the same order, so that the k-th message between two ranks
+    lands in the k-th receive posted for it, also where two shifts reach
+    the same neighbour (n = 2)."""
     ranks = dist.get_process_group_ranks(group)
     n, i = len(ranks), dist.get_group_rank(group, dist.get_rank())
-    dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
-    sends = [t.contiguous() for t in tensors]
-    recvs = [torch.empty_like(t) for t in sends]
-    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
-           + [dist.P2POp(dist.irecv, t, src, group) for t in recvs])
+    sends = [(t.contiguous(), s) for t, s in sends]
+    recvs = [torch.empty_like(t) for t, _ in sends]
+    ops = ([dist.P2POp(dist.isend, t, ranks[(i + s) % n], group)
+            for t, s in sends]
+           + [dist.P2POp(dist.irecv, r, ranks[(i - s) % n], group)
+              for r, (_, s) in zip(recvs, sends)])
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return recvs
@@ -139,6 +151,14 @@ def ppermute(tensors: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str,
     if axis_size(mesh, axis) == 1:
         return tensors
     return _Ppermute.apply(mesh.get_group(axis), shift, *tensors)
+
+
+def ring_shift(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+               offset: int = 1) -> torch.Tensor:
+    """Each rank's ``x`` to the next rank around the ring of ``axis``
+    (rank i -> rank (i + offset) % n), as JAX's ``ring_shift``: the
+    building block of ring attention and the pipeline's hand-off."""
+    return ppermute([x], mesh, axis, shift=offset)[0]
 
 
 def _a2a(x, group, n, split_axis, concat_axis):

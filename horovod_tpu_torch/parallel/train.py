@@ -40,6 +40,13 @@ block quantizer, all-gather over 'dp'). Handed a ZeRO-1 optimizer
 step skips 'dp' in the reduction and the optimizer's own
 ``psum_scatter`` sums over it (``parallel/zero.py``).
 
+``build_pipeline_train_step`` is the counterpart of JAX's pipelined
+step over 'pp': the flagship cut into ``n_layers / (pp·V)``-layer
+chunks (:class:`PipelineModel`, JAX's pipeline layout through
+:func:`to_pipeline_params`), the embedding and the loss head on every
+rank, the schedules of ``parallel/pipeline.py`` in between, every
+gradient written to ``.grad`` and the inner optimizer stepped.
+
 ``build_image_train_step`` is the counterpart of one step of
 ``bench.py``'s ``build_step`` (the ResNet-50 headline): mean softmax
 cross-entropy of integer labels over fp32 logits, the BN running stats
@@ -49,6 +56,7 @@ averaged over the ranks, then the inner step.
 
 from __future__ import annotations
 
+import functools
 import math
 from collections import defaultdict
 from typing import Callable, Dict, Iterable, Optional, Tuple, Union
@@ -380,3 +388,310 @@ def build_image_train_step(model_factory: Callable[..., nn.Module],
     defaults to the one ``init()`` chose, else CUDA."""
     return ImageTrainStep(model_factory, optimizer_factory,
                           _step_device(device))
+
+
+# ---------------------------------------------------------------------------
+# The pipelined flagship over 'pp'
+# ---------------------------------------------------------------------------
+
+_DENSE_LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "wi", "wo_mlp")
+
+
+def _check_pipeline_cfg(cfg: TransformerConfig, mesh: Optional[DeviceMesh],
+                        num_virtual: int, stages: Optional[int] = None
+                        ) -> int:
+    """JAX's refusals, in JAX's order, and the stage count: the mesh's
+    'pp' size, or ``stages`` for virtual stages in one process (no
+    mesh)."""
+    if mesh is not None:
+        names = mesh.mesh_dim_names
+        if "pp" not in names:
+            raise ValueError("build_pipeline_train_step needs a 'pp' mesh "
+                             f"axis (axes: {sorted(names)})")
+    for ax, name in ((cfg.tp_axis, "tp"), (cfg.sp_axis, "sp"),
+                     (cfg.ep_axis, "ep")):
+        if ax:
+            raise ValueError(
+                f"pipeline train step does not compose with {name} "
+                "parallelism yet; build the config with "
+                f"{name}_axis=None")
+    if cfg.num_experts:
+        raise ValueError("pipeline train step supports dense layers "
+                         "only (num_experts=0): MoE layer dicts are not "
+                         "homogeneous across the stage stack")
+    n = stages
+    if mesh is not None:
+        n = axis_size(mesh, "pp")
+        extra = [a for a in names if a != "pp" and axis_size(mesh, a) > 1]
+        if extra:
+            raise ValueError("pipeline train step shards over 'pp' only; "
+                             f"fold or drop mesh axes {extra}")
+    if cfg.n_layers % (n * num_virtual):
+        raise ValueError(
+            f"n_layers ({cfg.n_layers}) must divide evenly into "
+            f"pp ({n}) x num_virtual ({num_virtual}) stage chunks")
+    return n
+
+
+def to_pipeline_params(cfg: TransformerConfig, params: Dict,
+                       num_stages: int, num_virtual: int = 1) -> Dict:
+    """``init_params``' tree in the pipeline layout: ``{"embed", "pos",
+    "ln_f", "stages"}``, each stages leaf ``[n_pp, V, layers_per_chunk,
+    ...]``: slot ``[r, v]`` holds chunk-stage ``v·n + r``'s layers in
+    order (V = 1: contiguous stages)."""
+    nV = num_stages * num_virtual
+    lpc = cfg.n_layers // nV
+    layers = params["layers"]
+    stages = {}
+    for key in layers[0]:
+        arr = torch.stack([torch.stack([layers[c * lpc + i][key]
+                                        for i in range(lpc)])
+                           for c in range(nV)])
+        stages[key] = arr.reshape((num_virtual, num_stages)
+                                  + arr.shape[1:]).transpose(0, 1)
+    return {"embed": params["embed"], "pos": params["pos"],
+            "ln_f": params["ln_f"], "stages": stages}
+
+
+def from_pipeline_params(cfg: TransformerConfig, pparams: Dict,
+                         num_stages: int, num_virtual: int = 1) -> Dict:
+    """The inverse of :func:`to_pipeline_params`."""
+    nV = num_stages * num_virtual
+    lpc = cfg.n_layers // nV
+    flat = {k: s.transpose(0, 1).reshape((nV * lpc,) + s.shape[3:])
+            for k, s in pparams["stages"].items()}
+    return {"embed": pparams["embed"], "pos": pparams["pos"],
+            "ln_f": pparams["ln_f"],
+            "layers": [{k: f[i] for k, f in flat.items()}
+                       for i in range(nV * lpc)]}
+
+
+def pipeline_param_specs(cfg: TransformerConfig) -> Dict:
+    """Partition specs of the pipeline layout: the stage stacks split
+    their leading n_pp axis over 'pp'; embed, pos and ln_f replicate
+    (the embedding and the loss head run on every rank)."""
+    return {"embed": (), "pos": (), "ln_f": (),
+            "stages": {k: ("pp",) for k in _DENSE_LAYER_KEYS}}
+
+
+class PipelineModel(nn.Module):
+    """One 'pp' rank's part of the pipelined flagship: ``embed``, ``pos``
+    and ``ln_f``, replicated, and its V chunks of ``n_layers / (pp·V)``
+    layers, ``chunks[v][i]`` the i-th layer of chunk-stage ``v·n +
+    rank``. ``params`` is the rank's block of the pipeline layout
+    (stages leaves ``[1, V, layers_per_chunk, ...]``)."""
+
+    def __init__(self, cfg: TransformerConfig, params: Dict,
+                 device: torch.device):
+        super().__init__()
+        from ..models.transformer import _Layer
+        self.cfg = cfg
+        self.embed = nn.Parameter(params["embed"].clone())
+        self.pos = nn.Parameter(params["pos"].clone())
+        self.ln_f = nn.Parameter(params["ln_f"].clone())
+        stages = params["stages"]
+        _, V, lpc = next(iter(stages.values())).shape[:3]
+        self.chunks = nn.ModuleList(
+            nn.ModuleList(_Layer({k: s[0, v, i] for k, s in stages.items()})
+                          for i in range(lpc))
+            for v in range(V))
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+class PipelineTrainStep:
+    """``step(model, optimizer, tokens_mb, targets_mb) -> loss`` over
+    'pp', the counterpart of JAX's ``build_pipeline_train_step`` step.
+
+    ``model`` is this rank's :class:`PipelineModel` (:meth:`make_model`),
+    ``optimizer`` the inner optimizer over it (:meth:`make_optimizer`);
+    ``tokens_mb``/``targets_mb`` are ``[m, micro_batch, S]``, the same
+    on every rank ('pp' splits layers, not data). The embedding runs on
+    every rank; its gradient is the pullback of the schedule's input
+    gradients (summed over 'pp'). The head (final layernorm, the tied
+    projection under ``cfg.logits_bf16`` and the mean NLL, on full
+    logits per microbatch: ``cfg.loss_chunk`` is not used, as in JAX)
+    rides the schedule's ``loss_params``, so ``embed``'s gradient is
+    the sum of both paths. The step zeroes the gradients, runs the
+    schedule, writes every gradient to ``.grad`` and steps the
+    optimizer. The returned loss is a 0-d fp32 tensor, the mean over
+    the microbatches, the same on every rank."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 optimizer_factory: Callable[[Iterable],
+                                             torch.optim.Optimizer],
+                 ring, mesh: Optional[DeviceMesh], schedule: str,
+                 num_virtual: int, cost_backward: float,
+                 device: torch.device):
+        self.cfg = cfg
+        self.optimizer_factory = optimizer_factory
+        self.ring = ring
+        self.mesh = mesh
+        self.n = ring.n
+        self.schedule = schedule
+        self.num_virtual = num_virtual
+        self.cost_backward = cost_backward
+        self.device = device
+        self.specs = pipeline_param_specs(cfg)
+        self._remat = {}
+        if cfg.remat_policy == "dots":
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+            from ..models.transformer import _save_dots
+            self._remat["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+
+    def schedule_info(self, num_microbatches: int):
+        """The schedule's static budget at this stage count
+        (``pipeline.schedule_info``)."""
+        from .pipeline import schedule_info
+        return schedule_info(self.schedule, self.n, num_microbatches,
+                             num_virtual=self.num_virtual,
+                             cost_bwd=self.cost_backward)
+
+    def _rank(self, rank: Optional[int]) -> int:
+        if rank is not None:
+            return rank
+        if self.mesh is None:
+            raise ValueError("virtual stages need the rank of the model")
+        return self.ring.ranks[0]
+
+    def shard_params(self, pparams: Dict, rank: Optional[int] = None
+                     ) -> Dict:
+        """Rank ``rank``'s block (default: this rank's) of a tree in the
+        pipeline layout."""
+        return shard_tree(pparams, self.specs, {"pp": self.n},
+                          {"pp": self._rank(rank)})
+
+    def shard_batch(self, batch: torch.Tensor) -> torch.Tensor:
+        """The ``[m, micro_batch, S]`` batch on the step's device (it is
+        replicated over 'pp')."""
+        return batch.to(self.device)
+
+    def make_model(self, params: Optional[Dict] = None,
+                   generator: Optional[torch.Generator] = None,
+                   rank: Optional[int] = None) -> PipelineModel:
+        """Rank ``rank``'s model (default: this rank's) from its block
+        ``params``, or cut from a tree drawn from ``generator``."""
+        if params is None:
+            from ..models.transformer import init_params
+            params = self.shard_params(
+                to_pipeline_params(self.cfg, init_params(self.cfg, generator),
+                                   self.n, self.num_virtual), rank)
+        return PipelineModel(self.cfg, params, self.device)
+
+    def make_optimizer(self, model: PipelineModel) -> torch.optim.Optimizer:
+        return self.optimizer_factory(model.parameters())
+
+    def _stage(self, chunk, x):
+        from torch.utils.checkpoint import checkpoint
+        from ..models.transformer import _block
+        for p in chunk:
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(_block, p, x, self.cfg, use_reentrant=False,
+                               **self._remat)
+            else:
+                x = _block(p, x, self.cfg)
+        return x
+
+    def _head_loss(self, lp, y, targets):
+        from ..models.transformer import _layernorm, project_logits
+        logits = project_logits(lp["embed"], _layernorm(y, lp["ln_f"]),
+                                self.cfg)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1))
+
+    def _embed(self, model: PipelineModel, tokens_mb):
+        dt = self.cfg.dtype
+        s = tokens_mb.shape[-1]
+        return model.embed.to(dt)[tokens_mb] + model.pos[:s].to(dt)
+
+    def __call__(self, model, optimizer, tokens_mb: torch.Tensor,
+                 targets_mb: torch.Tensor) -> torch.Tensor:
+        from .pipeline import _leaves, _value_and_grad_chunks
+        virtual = self.mesh is None
+        models = list(model) if virtual else [model]
+        opts = list(optimizer) if virtual else [optimizer]
+        tokens_mb = tokens_mb.to(models[0].device, non_blocking=True)
+        targets_mb = targets_mb.to(models[0].device, non_blocking=True)
+        xs, chunks, lps = [], [], []
+        for mdl, opt in zip(models, opts):
+            opt.zero_grad()
+            xs.append(self._embed(mdl, tokens_mb))
+            chunks.append([[layer.tree() for layer in c]
+                           for c in mdl.chunks])
+            lps.append({"ln_f": mdl.ln_f, "embed": mdl.embed})
+        results = _value_and_grad_chunks(
+            self.ring, self._stage, self._head_loss, chunks,
+            [x.detach() for x in xs], schedule=self.schedule,
+            num_virtual=self.num_virtual,
+            loss_aux=[targets_mb] * len(models), loss_params=lps,
+            return_input_grads=True)
+        for mdl, opt, x, cs, (_, grads, lp_grads, xg) in zip(
+                models, opts, xs, chunks, results):
+            x.backward(xg)
+            d_ln_f, d_embed = lp_grads
+            # Tied embedding: the input path's pullback + the head's.
+            mdl.embed.grad = mdl.embed.grad + d_embed
+            mdl.ln_f.grad = d_ln_f
+            for c, gs in zip(cs, grads):
+                for p, g in zip(_leaves(c), gs):
+                    p.grad = g
+            opt.step()
+        return results[0][0]
+
+
+def _pipeline_step(cfg, mesh, ring, optimizer_factory, schedule,
+                   num_virtual, cost_backward, device):
+    interleaved = schedule == "interleaved"
+    if interleaved and num_virtual < 2:
+        raise ValueError("interleaved needs num_virtual >= 2")
+    if not interleaved and num_virtual != 1:
+        raise ValueError(f"schedule {schedule!r} uses num_virtual=1")
+    if schedule == "zb-h1" and cfg.remat and cfg.remat_policy == "dots":
+        raise ValueError(
+            "zb-h1 runs two backward passes through each microbatch's "
+            "graph (Bx, then W), and torch's selective checkpoint "
+            "(remat_policy='dots') allows one; use remat_policy='full' "
+            "or another schedule")
+    return PipelineTrainStep(cfg, optimizer_factory, ring, mesh, schedule,
+                             num_virtual, cost_backward,
+                             _step_device(device))
+
+
+def build_pipeline_train_step(cfg: TransformerConfig, mesh: DeviceMesh,
+                              optimizer_factory: Callable[
+                                  [Iterable], torch.optim.Optimizer], *,
+                              schedule: str = "1f1b", num_virtual: int = 1,
+                              cost_backward: float = 2.0,
+                              device: Union[str, torch.device, None] = None
+                              ) -> PipelineTrainStep:
+    """The pipeline-parallel train step of the flagship over the mesh's
+    'pp' axis (every other axis of size 1): each rank runs ``n_layers /
+    (pp · V)`` decoder blocks per chunk (under ``checkpoint`` with
+    ``cfg.remat``), on the schedule ``"gpipe"``, ``"1f1b"``,
+    ``"interleaved"`` (``num_virtual`` >= 2 chunks a rank) or
+    ``"zb-h1"``. The microbatch count is the batch's leading axis.
+    ``cost_backward`` enters only :meth:`PipelineTrainStep.schedule_info`.
+    ``device`` defaults to the one ``init()`` chose, else CUDA."""
+    from .pipeline import _GroupRing
+    _check_pipeline_cfg(cfg, mesh, num_virtual)
+    return _pipeline_step(cfg, mesh, _GroupRing(mesh, "pp"),
+                          optimizer_factory, schedule, num_virtual,
+                          cost_backward, device)
+
+
+def _virtual_pipeline_train_step(cfg: TransformerConfig, stages: int,
+                                 optimizer_factory, *, schedule="1f1b",
+                                 num_virtual=1, cost_backward=2.0,
+                                 device=None) -> PipelineTrainStep:
+    """The same step over ``stages`` virtual stages in this process: one
+    model and one optimizer per stage (``make_model(rank=r)``), passed
+    to the step as lists in rank order."""
+    from .pipeline import _LocalRing
+    n = _check_pipeline_cfg(cfg, None, num_virtual, stages)
+    return _pipeline_step(cfg, None, _LocalRing(n), optimizer_factory,
+                          schedule, num_virtual, cost_backward, device)
