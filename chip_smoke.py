@@ -142,7 +142,38 @@ and prints no result line):
    schedule's ``schedule_info`` at n = 4, m = 8 beside (b)'s step
    times. The schedules' step-1 losses and gradients are held to
    gpipe's the same way. (d) K1-K3 checked and timed back-to-back at
-   the microbatch's shape (B=1, H=6, S=2048), logged beside phase 3's.
+   the microbatch's shape (B=1, H=6, S=2048), logged beside phase 3's;
+16. the flagship LM in fp16 and in fp32 (``init`` again, NCCL, world
+   1): phase 5's model, weights, tokens and AdamW with ``dtype`` fp16 and
+   then fp32 through the automatic flash choice, 3 steps each: the loss
+   finite and falling, step 1's within 1e-4 (fp16) and 1e-5 (fp32) of
+   the same model on ``use_flash=False``, the dtype's K1, K2 and K3
+   launched 12 times a step and no other form; tok/s and peak memory
+   beside phase 5's. Then 2 steps of the fp16 tp/sp mesh step (ring
+   attention on the fp16 operands' fp32-output forms, 12 launches a
+   step each);
+17. the engine's remainder at one card: phase 5's dp step again with
+   ``HOROVOD_TPU_HIERARCHICAL_ALLREDUCE=1`` and ``HOROVOD_TPU_TIMELINE``
+   set: the plan carries the flag, the losses of the 5 steps are phase
+   5's bit for bit (at ici = 1 the two stages are the identity), the
+   timeline is catapult JSON with a ``NEGOTIATE_ALLREDUCE`` and an
+   ``NCCL_ALLREDUCE`` span once a step for each of the 7 buckets (and
+   the step's loss), and tok/s is logged beside phase 5's; the stall
+   probe: a request placed in the engine's table of announced ops and
+   never planned, with a 1 s warning time, must draw the engine's stall
+   warning within 4 s.
+
+Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
+each with its own and fp32 outputs, and fp32 operands on the SIMT
+kernels) against its plain version at head dims 8, 16, 48, 80, 112,
+160, 192 and 256 (8 padded to 16 by the wrapper; above 128 stored 256
+wide in two column chunks), causal and not, with ragged sq != sk:
+bf16 2e-2 of max |plain| (lse 1e-3), fp16 5e-3 (lse 1e-3), fp32 2e-5
+on O and lse and 1e-4 on dQ, dK and dV, every call repeated bit for
+bit; then the fp16 and fp32 forms timed at the flagship beside their
+plain versions, SDPA at the same dtype as a yardstick, with bounds at
+989 (fp16) and 67 (fp32) TFLOP/s; and each operand dtype's own form at
+D=256 (B=8, H=3, S=2048), logged.
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1, and the run's seconds before the last lines. The line before the last is ``{"kernels":
@@ -159,6 +190,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import logging
 import math
 import statistics
 import sys
@@ -172,6 +204,14 @@ from horovod_tpu_torch.experiments import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
                                            flash_times, single_ms)
 
 FLASH_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
+# Each flash form's source, by its suffix (the bodies of the 16-bit
+# forms are in flash_attention.cuh); the longest suffix first.
+FLASH_FORM_SOURCES = {
+    "_f16_f32": "horovod_tpu_torch/ops/csrc/flash_attention_f16_f32.cu",
+    "_fp32": "horovod_tpu_torch/ops/csrc/flash_attention_fp32.cu",
+    "_f16": "horovod_tpu_torch/ops/csrc/flash_attention_f16.cu",
+    "_f32": "horovod_tpu_torch/ops/csrc/flash_attention_bf16_f32.cu",
+    "": FLASH_SOURCE}
 BN_SOURCE = "horovod_tpu_torch/ops/csrc/fused_bn.cu"
 PROBE_SOURCE = "horovod_tpu_torch/ops/csrc/probes.cu"
 ABLATE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_ablate.cu"
@@ -182,6 +222,9 @@ REPLACES = {
     "flash_fwd_f32": "horovod_tpu/ops/flash_attention.py:123",
     "flash_dkv_f32": "horovod_tpu/ops/flash_attention.py:178",
     "flash_dq_f32": "horovod_tpu/ops/flash_attention.py:246",
+    **{f"flash_{k}{sfx}": f"horovod_tpu/ops/flash_attention.py:{line}"
+       for sfx in ("_f16", "_f16_f32", "_fp32")
+       for k, line in (("fwd", 123), ("dkv", 178), ("dq", 246))},
     "bn_stats": "horovod_tpu/ops/fused_bn.py:99",
     "bn_norm": "horovod_tpu/ops/fused_bn.py:110",
     "bn_bwd_reduce": "horovod_tpu/ops/fused_bn.py:119",
@@ -707,7 +750,7 @@ def kind_of(key):
     if any(f"bn_{n}_kernel" in k for n in ("stats", "finalize", "norm",
                                            "bwd_reduce", "bwd_dx")):
         return "bn kernels K4-K7"
-    if any(f"flash_{n}_kernel" in k or f"flash_{n}_f32_kernel" in k
+    if any(f"flash_{n}" in k and "_kernel" in k
            for n in ("fwd", "dkv", "dq")):
         return "flash kernels K1-K3"
     if any(s in k for s in ("conv", "cudnn", "dgrad", "wgrad", "fprop",
@@ -842,7 +885,7 @@ def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
     if profile:
         profile_steps(lambda: step(model, opt, tokens, targets), profile,
                       "LM flagship train step")
-    return launches, steady, losses[0]
+    return launches, steady, losses
 
 
 def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
@@ -2094,6 +2137,364 @@ def pipeline_phase(hvd, tfm, fa, create_mesh, lm_loss1, lm_step_s,
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# Phases 3b, 16 and 17: the flash forms of every operand dtype and head
+# dim, the flagship LM in fp16 and fp32, and the engine's remainder.
+# ---------------------------------------------------------------------------
+
+FORMS = {   # entry-point suffix: (operand dtype, out_dtype)
+    "": (torch.bfloat16, None), "_f32": (torch.bfloat16, torch.float32),
+    "_f16": (torch.float16, None),
+    "_f16_f32": (torch.float16, torch.float32),
+    "_fp32": (torch.float32, None)}
+NEW_FORMS = ("_f16", "_f16_f32", "_fp32")
+# Per operand dtype: O's and the gradients' tolerance (share of max
+# |plain|), lse's, and whether lse's is relative too.
+FORM_TOL = {torch.bfloat16: (REL_TOL, REL_TOL, LSE_TOL, False),
+            torch.float16: (5e-3, 5e-3, 1e-3, False),
+            torch.float32: (2e-5, 1e-4, 2e-5, True)}
+PEAK = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float16: PEAK_BF16_FLOPS,
+        torch.float32: PEAK_FP32_FLOPS}
+SWEEP_DIMS = (8, 16, 48, 80, 112, 160, 192, 256)
+SWEEP_SHAPES = ((True, 200, 200), (False, 130, 250), (True, 257, 70))
+DTYPE_STEPS = 3
+DTYPE_LOSS_TOL = {torch.float16: 1e-4, torch.float32: 1e-5}
+STALL_WARNING_S = 1.0
+
+
+def form_names(sfx):
+    return tuple(f"flash_{k}{sfx}" for k in ("fwd", "dkv", "dq"))
+
+
+def check_form(fa, sfx, bh, sq, sk, d, causal, seed):
+    """Hold one form of K1-K3 to its plain versions at one shape (sq
+    queries, sk keys) and to bit-identical repeats. Returns ({kernel: max
+    abs error}, {output: error in its tolerance's unit}, the inputs and
+    the plain statistics)."""
+    dtype, out = FORMS[sfx]
+    tol, gtol, ltol, lrel = FORM_TOL[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(bh, sq, d, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = d ** -0.5
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, causal, out)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(
+        q, k, v, do, lse_ref, delta, scale, causal, out)
+
+    def kernels():
+        return (*fa.flash_fwd_cuda(q, k, v, scale, causal, out),
+                *fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale,
+                                   causal, out),
+                fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal,
+                                 out))
+    (o, lse, dk, dv, dq), again = kernels(), kernels()
+    torch.cuda.synchronize()
+    where = f"flash{sfx} at BH={bh} sq={sq} sk={sk} D={d} causal={causal}"
+    if not all(t.dtype == (out or dtype) for t in (o, dk, dv, dq)):
+        raise AssertionError(f"{where}: wrote another dtype than "
+                             f"{out or dtype}")
+    if not all(torch.equal(x, y)
+               for x, y in zip((o, lse, dk, dv, dq), again)):
+        raise AssertionError(f"{where}: two calls gave different bits")
+    lse_err = abserr(lse, lse_ref)
+    if lrel:
+        lse_err /= float(lse_ref.abs().max())
+    errs = {"o": relerr(o, o_ref), "lse": lse_err, "dq": relerr(dq, dq_ref),
+            "dk": relerr(dk, dk_ref), "dv": relerr(dv, dv_ref)}
+    limits = {"o": tol, "lse": ltol, "dq": gtol, "dk": gtol, "dv": gtol}
+    for name, err in errs.items():
+        if not err <= limits[name]:
+            raise AssertionError(f"{where}: {name} off its plain version by "
+                                 f"{err} > {limits[name]}")
+    fwd, dkv, dq_name = form_names(sfx)
+    absmax = {fwd: max(abserr(o, o_ref), abserr(lse, lse_ref)),
+              dkv: max(abserr(dk, dk_ref), abserr(dv, dv_ref)),
+              dq_name: abserr(dq, dq_ref)}
+    return absmax, errs, (q, k, v, do, lse_ref, delta)
+
+
+def time_form(fa, sfx, b, h, s, d, causal=True):
+    """One form of K1-K3 at [B*H, S, D]: checked, then timed
+    back-to-back beside its plain versions and, for a form with the
+    operands' own output dtype, PyTorch's SDPA at that dtype (a
+    yardstick only); bounds at the dtype's peak. Returns the rows."""
+    dtype, out = FORMS[sfx]
+    bh = b * h
+    absmax, _, (q, k, v, do, lse, delta) = check_form(
+        fa, sfx, bh, s, s, d, causal, 1234 + s + d)
+    scale = d ** -0.5
+    calls = {
+        "fwd": lambda: fa.flash_fwd_cuda(q, k, v, scale, causal, out),
+        "dkv": lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale,
+                                         causal, out),
+        "dq": lambda: fa.flash_dq_cuda(q, k, v, do, lse, delta, scale,
+                                       causal, out)}
+    b2b = {kn: px.time_ms(fn) for kn, fn in calls.items()}
+    plain = {"fwd": px.time_ms(lambda: fa.flash_fwd_reference(
+        q, k, v, scale, causal, out))}
+    plain["dkv"] = plain["dq"] = px.time_ms(lambda: fa.flash_bwd_reference(
+        q, k, v, do, lse, delta, scale, causal, out))
+    library = {"fwd": None, "dkv": None, "dq": None}
+    if out is None:
+        sdpa = flash_times.calls(q, k, v, do, b, h, causal)
+        library["fwd"] = px.time_ms(sdpa["sdpa_fwd"])
+        library["dkv"] = library["dq"] = px.time_ms(sdpa["sdpa_bwd"])
+    n_pairs = pairs(s, s, causal) * bh
+    elem, stats = bh * s * d, bh * s * 4
+    isz, osz = dtype.itemsize, (out or dtype).itemsize
+    work = {   # (operations, bytes): each input read once, output written once
+        "fwd": (4 * d * n_pairs, 3 * elem * isz + elem * osz + stats),
+        "dkv": (8 * d * n_pairs, 4 * elem * isz + 2 * elem * osz + 2 * stats),
+        "dq": (6 * d * n_pairs, 4 * elem * isz + elem * osz + 2 * stats)}
+    rows = {}
+    for kn, name in zip(("fwd", "dkv", "dq"), form_names(sfx)):
+        ops, nbytes = work[kn]
+        b_ms, b_by = bound_ms(ops, nbytes, PEAK[dtype])
+        rows[name] = {"ms": b2b[kn], "plain_ms": plain[kn],
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library[kn], "max_abs_err": absmax[name],
+                      "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+        log(f"  B={b} H={h} S={s} D={d} {name}: {json.dumps(rows[name])}")
+    return rows
+
+
+def flash_forms_phase(fa):
+    """Phase 3b: every form (bf16, fp16 and fp32 operands; the 16-bit
+    ones with their fp32-output forms) against its plain version at head
+    dims 8-256, causal and not, ragged; the new forms timed at the
+    flagship, and each operand dtype's own form at D=256. Returns the
+    new forms' rows of the ``kernels`` line."""
+    log("flash forms vs plain at head dims "
+        f"{SWEEP_DIMS} x (causal, sq, sk) {SWEEP_SHAPES}; tolerances "
+        "(O, gradients of max |plain|; lse) bf16 "
+        f"{FORM_TOL[torch.bfloat16][:3]}, fp16 "
+        f"{FORM_TOL[torch.float16][:3]}, fp32 "
+        f"{FORM_TOL[torch.float32][:3]} (lse relative):")
+    t0 = time.perf_counter()
+    for sfx in FORMS:
+        worst = {}
+        for d in SWEEP_DIMS:
+            for causal, sq, sk in SWEEP_SHAPES:
+                _, errs, _ = check_form(fa, sfx, 3, sq, sk, d, causal,
+                                        sq + sk + d)
+                for name, err in errs.items():
+                    worst[name] = max(worst.get(name, 0.0), err)
+        n = len(SWEEP_DIMS) * len(SWEEP_SHAPES)
+        log(f"  flash{sfx or '_bf16'} ({FORMS[sfx][0]}, out "
+            f"{FORMS[sfx][1] or 'same'}): {n} shapes, worst "
+            f"{json.dumps(worst)}; repeats bit-identical")
+    log(f"  sweep {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    log("new forms timed at the flagship (B=8, H=6, S=2048, D=128, causal):")
+    for sfx in NEW_FORMS:
+        rows.update(time_form(fa, sfx, 8, 6, 2048, 128))
+    log("each dtype's own form at D=256 (B=8, H=3, S=2048, causal):")
+    for sfx in ("", "_f16", "_fp32"):
+        time_form(fa, sfx, 8, 3, 2048, 256)
+    return rows
+
+
+def dtype_lm_phase(hvd, tfm, fa, build_train_step, create_mesh, lm_step_s):
+    """Phase 16: the flagship LM of phase 5 in fp16 and in fp32 through
+    the automatic flash choice, then the fp16 tp/sp mesh step (ring
+    attention's fp32-output blocks). Returns the launch counts."""
+    b, s = 8, 2048
+    tok = torch.randint(0, FLAGSHIP["vocab"], (b, s + 1),
+                        generator=torch.Generator().manual_seed(1))
+    tokens, targets = tok[:, :-1].cuda(), tok[:, 1:].cuda()
+    launches = {}
+    for dtype, sfx in ((torch.float16, "_f16"), (torch.float32, "_fp32")):
+        kw = dict(FLAGSHIP, dtype=dtype)
+        hvd.init()
+        # Step 1's loss on plain attention, the same weights and tokens.
+        ref = tfm.Transformer(tfm.TransformerConfig(use_flash=False, **kw),
+                              generator=torch.Generator().manual_seed(0),
+                              device="cuda")
+        with torch.no_grad():
+            ref_loss = float(ref.loss_fn(tokens, targets))
+        del ref
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 2**30
+        step = build_train_step(tfm.TransformerConfig(**kw), adamw)
+        model = step.make_model(generator=torch.Generator().manual_seed(0))
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = step.make_optimizer(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(DTYPE_STEPS):
+            t0 = time.perf_counter()
+            loss = step(model, opt, tokens, targets)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        counts = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30 - base
+        steady = statistics.median(times[1:])
+        rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        log(f"flagship LM in {dtype} (auto flash): losses {losses}; step "
+            f"seconds {times}; {b * s / steady:.1f} tok/s (median of steps "
+            f"2-{DTYPE_STEPS}, {steady * 1e3:.2f} ms/step) beside phase "
+            f"5's bf16 {b * s / lm_step_s:.1f}; peak memory {peak:.2f} GiB "
+            f"above the {base:.2f} GiB held before the model; "
+            f"step 1 loss {losses[0]!r} against use_flash=False "
+            f"{ref_loss!r}: rel {rel:.3e} (tolerance "
+            f"{DTYPE_LOSS_TOL[dtype]}); launches {counts}")
+        want = {n: 0 for n in counts}
+        want.update({n: FLAGSHIP["n_layers"] * DTYPE_STEPS
+                     for n in form_names(sfx)})
+        if counts != want:
+            raise AssertionError(f"{dtype} LM launches {counts}, expected "
+                                 f"{want}")
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"{dtype} LM losses not finite and "
+                                 f"falling: {losses}")
+        if not rel <= DTYPE_LOSS_TOL[dtype]:
+            raise AssertionError(f"{dtype} LM step 1 loss {losses[0]} "
+                                 f"against plain attention's {ref_loss}: "
+                                 f"{rel} > {DTYPE_LOSS_TOL[dtype]}")
+        launches.update({n: counts[n] for n in form_names(sfx)})
+        del step, model, opt
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+
+    hvd.init()
+    mesh = create_mesh(dp=1, tp=1, sp=1)
+    cfg = tfm.TransformerConfig(tp_axis="tp", sp_axis="sp",
+                                **dict(FLAGSHIP, dtype=torch.float16))
+    step = build_train_step(cfg, adamw, mesh=mesh)
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model)
+    fa.reset_launch_counts()
+    losses = [float(step(model, opt, tokens, targets)) for _ in range(2)]
+    counts = fa.launch_counts()
+    log(f"fp16 tp/sp mesh step (ring, fp32 blocks): losses {losses}; "
+        f"launches {counts}")
+    want = {n: 0 for n in counts}
+    want.update({n: 2 * cfg.n_layers for n in form_names("_f16_f32")})
+    if counts != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fp16 ring: losses {losses}, launches "
+                             f"{counts}, expected {want}")
+    launches.update({n: counts[n] for n in form_names("_f16_f32")})
+    del step, model, opt
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def stall_probe(hvd):
+    """A request placed in the engine's table of announced ops and never
+    planned, with a 1 s warning time: the engine's own cycle must warn
+    about it within a few seconds."""
+    from horovod_tpu_torch.ops import collective as coll
+    eng = coll.engine()
+    rec = _Records()
+    logger = logging.getLogger("horovod_tpu_torch.ops.collective")
+    logger.addHandler(rec)
+    req = coll._Request(coll.Meta("stall.probe", coll.ALLREDUCE, "float32",
+                                  (3,)),
+                        torch.ones(3, device=hvd.device()),
+                        coll.Handle("stall.probe", eng._cv), None)
+    old = eng.stall_warning_s
+    t0 = time.perf_counter()
+    try:
+        eng.stall_warning_s = STALL_WARNING_S
+        with eng._lock:
+            eng._announced["stall.probe"] = req
+        while time.perf_counter() - t0 < 4 * STALL_WARNING_S and not any(
+                "stall.probe" in m for m in rec.messages):
+            time.sleep(0.05)
+    finally:
+        with eng._lock:
+            eng._announced.pop("stall.probe", None)
+        eng.stall_warning_s = old
+        logger.removeHandler(rec)
+    hits = [m for m in rec.messages if "stall.probe" in m]
+    if not hits:
+        raise AssertionError("the stall inspector did not warn about a "
+                             "request stalled past its warning time")
+    log(f"  stall probe: warned after {time.perf_counter() - t0:.2f} s: "
+        + hits[0].splitlines()[-1])
+
+
+def engine_remainder_phase(hvd, tfm, fa, fbn, build_train_step, lm_losses,
+                           lm_step_s):
+    """Phase 17: phase 5's dp step with HOROVOD_TPU_HIERARCHICAL_ALLREDUCE
+    and HOROVOD_TPU_TIMELINE set (at one card the hierarchy is the
+    identity: its losses must be phase 5's bit for bit); the timeline
+    must be catapult JSON with a NEGOTIATE_ALLREDUCE and an
+    NCCL_ALLREDUCE span for each bucket in every step; and the stall
+    probe."""
+    import os
+    import tempfile
+    from horovod_tpu_torch.ops import collective as coll
+    from horovod_tpu_torch.ops.control_plane import (
+        FLAG_HIERARCHICAL_ALLREDUCE)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "timeline.json")
+        env = {"HOROVOD_TPU_HIERARCHICAL_ALLREDUCE": "1",
+               "HOROVOD_TPU_TIMELINE": path}
+        os.environ.update(env)
+        try:
+            hvd.init()
+            if not coll.engine()._coord.flags & FLAG_HIERARCHICAL_ALLREDUCE:
+                raise AssertionError("the plan does not carry the "
+                                     "hierarchical allreduce")
+            log("phase 5's dp step, hierarchical allreduce and timeline on:")
+            _, steady, losses = lm_main_path(hvd, tfm, fa, fbn,
+                                             build_train_step, None)
+            stall_probe(hvd)
+        finally:
+            hvd.shutdown()
+            for k in env:
+                os.environ.pop(k, None)
+        with open(path) as f:
+            events = json.load(f)
+        size = os.path.getsize(path)
+    if losses != lm_losses:
+        raise AssertionError(f"hierarchical losses {losses} are not phase "
+                             f"5's {lm_losses}")
+    pids = {e["pid"]: e["args"]["name"] for e in events
+            if e.get("name") == "process_name"}
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            key = (pids[e["pid"]], e["name"])
+            spans[key] = spans.get(key, 0) + 1
+    # Every allreduce (the gradient buckets, and the step's loss) has
+    # both spans once a step.
+    reduced = sorted({t for t, n in spans if n == "NCCL_ALLREDUCE"})
+    for t in reduced:
+        for n in ("NEGOTIATE_ALLREDUCE", "NCCL_ALLREDUCE"):
+            if spans.get((t, n), 0) != STEPS:
+                raise AssertionError(f"timeline: {n} of {t} "
+                                     f"{spans.get((t, n))} times in {STEPS} "
+                                     "steps")
+    buckets = [t for t in reduced if ".bucket." in t]
+    if len(buckets) != LM_BUCKETS:
+        raise AssertionError(f"timeline: NCCL_ALLREDUCE spans of "
+                             f"{reduced}, expected {LM_BUCKETS} buckets")
+    log(f"  losses bit for bit phase 5's; {len(events)} timeline events "
+        f"({size} bytes), NEGOTIATE_ALLREDUCE and NCCL_ALLREDUCE {STEPS} "
+        f"times each for {reduced}; {8 * 2048 / steady:.1f} tok/s beside "
+        f"phase 5's {8 * 2048 / lm_step_s:.1f} (the timeline's cost)")
+
+
 def source_of(name):
     if name in BN_KERNELS:
         return BN_SOURCE
@@ -2101,6 +2502,9 @@ def source_of(name):
         return ABLATE_SOURCE
     if name.startswith("probe_"):
         return PROBE_SOURCE
+    for sfx, src in FLASH_FORM_SOURCES.items():
+        if sfx and name.endswith(sfx):
+            return src
     return FLASH_SOURCE
 
 
@@ -2165,6 +2569,9 @@ def main(argv=None) -> int:
     check_kernels(fa, 2, 3, 300, 80, True, timed=False)
     check_kernels(fa, 2, 2, 130, 32, True, timed=False)
 
+    # 3b. every operand dtype and head dim of the flash forms
+    rows.update(flash_forms_phase(fa))
+
     # 4. parity of the LM on the flash kernels
     parity(tfm, fa)
 
@@ -2173,9 +2580,10 @@ def main(argv=None) -> int:
     if hvd.size() != 1 or hvd.get_topology().backend != "nccl":
         raise AssertionError(f"expected NCCL at world size 1, got "
                              f"{hvd.get_topology()}")
-    launches, lm_step_s, lm_loss1 = lm_main_path(hvd, tfm, fa, fbn,
-                                                 build_train_step,
-                                                 args.profile)
+    launches, lm_step_s, lm_losses = lm_main_path(hvd, tfm, fa, fbn,
+                                                  build_train_step,
+                                                  args.profile)
+    lm_loss1 = lm_losses[0]
     torch.cuda.empty_cache()
 
     # 6. BN kernels vs plain, per-call and per-step times
@@ -2231,6 +2639,16 @@ def main(argv=None) -> int:
                                   lm_step_s, args.profile).items():
         launches[name] += n
     log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # 16. the flagship LM in fp16 and fp32
+    t16 = time.perf_counter()
+    launches.update(dtype_lm_phase(hvd, tfm, fa, build_train_step,
+                                   create_mesh, lm_step_s))
+    log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
+
+    # 17. the engine's remainder at one card
+    engine_remainder_phase(hvd, tfm, fa, fbn, build_train_step, lm_losses,
+                           lm_step_s)
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[name], launches=launches[name],

@@ -23,7 +23,8 @@ This package imports neither ``jax`` nor ``horovod_tpu``.
 
 from .topology import (NotInitializedError, device, hierarchical_mesh, init,
                        is_initialized, local_rank, local_size, mesh,
-                       process_count, process_rank, rank, shutdown, size)
+                       mpi_threads_supported, process_count, process_rank,
+                       rank, shutdown, size)
 from .topology import topology as get_topology
 from .ops import (Handle, HorovodInternalError, allgather, allgather_async,
                   allreduce, allreduce_, allreduce_async, allreduce_async_,
@@ -40,7 +41,7 @@ __all__ = [
     "__version__",
     "init", "shutdown", "is_initialized", "rank", "local_rank", "size",
     "local_size", "process_rank", "process_count", "device", "get_topology",
-    "mesh", "hierarchical_mesh",
+    "mesh", "hierarchical_mesh", "mpi_threads_supported",
     "NotInitializedError",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "allgather", "allgather_async", "broadcast", "broadcast_",

@@ -15,6 +15,12 @@ float32 otherwise) and cast back as XLA does: toward zero, saturating at
 the dtype's range. Unscaled integer sums wrap in their dtype, as MPI's
 sum does.
 
+Hierarchically (``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER``) the
+sum is :func:`hier_reduce` and the gather :func:`hier_gather`, the
+counterparts of the JAX executor's ``_hier_reduce`` and ``_hier_gather``
+over the ``('dcn', 'ici')`` layout: ranks ``d * ici + i``, ``ici`` of them
+to a node. A wire skips them, as JAX's does.
+
 With a wire (``quantization.WireSpec``), a floating dtype's buffer takes
 the dual block-quantized allreduce of ``_fused_reduce_quantized``
 instead: each tensor cast to fp32 and prescaled, its span padded to
@@ -151,6 +157,34 @@ def _fused_reduce_quantized(group: Sequence[torch.Tensor],
     # Elementwise, so cast back once; the results are views of it.
     red = _cast_back(red, group[0].dtype)
     return [red[o:o + n].view(t.shape) for t, (o, n) in zip(group, spans)]
+
+
+def hier_reduce(buf: torch.Tensor, ici: int, scatter_fn: Collective,
+                dcn_sum_fn: Collective, gather_fn: Collective
+                ) -> torch.Tensor:
+    """The sum over every rank of flat ``buf`` in two stages: padded with
+    zeros to a multiple of ``ici``, reduce-scattered within the node
+    (``scatter_fn``: this rank's 1/ici span of the node's sum), the span
+    summed across nodes (``dcn_sum_fn``), the spans gathered within the
+    node again (``gather_fn``: every in-node rank's span, in order) and
+    the padding cut."""
+    n = buf.numel()
+    pad = (-n) % ici
+    if pad:
+        buf = torch.cat([buf, buf.new_zeros(pad)])
+    out = gather_fn(dcn_sum_fn(scatter_fn(buf)))
+    return out[:n] if pad else out
+
+
+def hier_gather(buf: torch.Tensor, ici_gather_fn: Collective,
+                dcn_gather_fn: Collective) -> torch.Tensor:
+    """Every rank's flat ``buf`` as ``[size, n]`` in two stages: within
+    the node (``ici_gather_fn``: ``[ici, n]``), then across nodes
+    (``dcn_gather_fn`` of the node's flattened gather). The result is
+    node-major, rank ``d * ici + i`` at row ``d * ici + i``: the flat
+    gather's order."""
+    g = ici_gather_fn(buf)
+    return dcn_gather_fn(g.reshape(-1)).reshape(-1, buf.numel())
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@ two and three tiles ahead.
 
     python -m horovod_tpu_torch.experiments.flash_dq_order
 
-Builds ``ops/csrc/flash_attention.cu`` once per variant (in a temporary
-directory, with the build's nvcc flags), holds each variant's dQ to the
+Builds ``ops/csrc/flash_attention.cu`` once per variant of the bodies
+in ``flash_attention.cuh`` (in a temporary directory, with the build's
+nvcc flags), holds each variant's dQ to the
 plain version at the flagship LM's attention (BH=48, S=2048, D=128,
 causal; 2e-2 of max |plain|), then times K3 back-to-back there in
 rounds, the variants in turn and in reverse turn:
@@ -38,16 +39,17 @@ import torch
 from ..ops import _build
 from ..ops import flash_attention as fa
 from . import device_line, require_cuda, time_ms
-from .flash_fwd_split import cut_source, nvcc_shared, registers
+from .flash_fwd_split import (cut_source, nvcc_shared, registers,
+                              variant_source)
 
 STAGES_4 = "constexpr int kDqStages = 4;"
 LEAD_2 = "constexpr int kDqLead = 2;"
 LEAD_3 = "constexpr int kDqLead = 3;"
-DQ_COMMIT = """        wgmma_rs<D>(dqa, dsa[c], desc_mnmajor<kDqCols>(sK, c));
+DQ_COMMIT = """        wgmma_rs<D, InT>(dqa, dsa[c], desc_mnmajor<kDqCols>(sK, c));
       }
       wgmma_commit();
     }"""
-DQ_WAIT = """        wgmma_rs<D>(dqa, dsa[c], desc_mnmajor<kDqCols>(sK, c));
+DQ_WAIT = """        wgmma_rs<D, InT>(dqa, dsa[c], desc_mnmajor<kDqCols>(sK, c));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -66,11 +68,9 @@ REL_TOL = 2e-2
 def run(tmp: Path, rounds=2):
     """{variant: {"ms": [per turn], "registers": n, "rel_err": x}}."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    text = (_build.CSRC / "flash_attention.cu").read_text()
-    pairs = []
-    for name in VARIANTS:
-        (tmp / f"{name}.cu").write_text(cut_source(text, name, VARIANTS))
-        pairs.append((tmp / f"{name}.cu", tmp / f"{name}.so"))
+    text = (_build.CSRC / "flash_attention.cuh").read_text()
+    pairs = [(variant_source(tmp, name, cut_source(text, name, VARIANTS)),
+              tmp / f"{name}.so") for name in VARIANTS]
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(4))

@@ -3,8 +3,9 @@ rate of each wgmma form alone.
 
     python -m horovod_tpu_torch.experiments.flash_fwd_split
 
-Part 1 builds ``ops/csrc/flash_attention.cu`` once as it is and once
-per cut (in a temporary directory, with the build's nvcc flags) and
+Part 1 builds ``ops/csrc/flash_attention.cu`` (the bf16 forms) once as
+it is and once per cut of the bodies in ``flash_attention.cuh`` (in a
+temporary directory, with the build's nvcc flags) and
 times K1 back-to-back at the flagship LM's attention (BH=48, S=2048,
 D=128, causal), in two rounds:
 
@@ -32,6 +33,7 @@ import argparse
 import ctypes
 import json
 import re
+import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -43,14 +45,14 @@ from ..ops import flash_attention as fa
 from . import PEAK_BF16_FLOPS, device_line, require_cuda, time_ms
 
 S_PRODUCT = """    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<kFwdCols>(s, desc_kmajor<kFwdRows>(sQ, wg * 64, kk),
-                         desc_kmajor<kFwdCols>(sK, 0, kk), kk);
+      wgmma_ss<kFwdCols, InT>(s, desc_kmajor<kFwdRows>(sQ, wg * 64, kk),
+                              desc_kmajor<kFwdCols>(sK, 0, kk), kk);
     }"""
 PV_PRODUCT = """    for (int c = 0; c < kFwdCols / 16; ++c) {
-      wgmma_rs<D>(acc, pa[c], desc_mnmajor<kFwdCols>(sV, c));
+      wgmma_rs<D, InT>(acc, pa[c], desc_mnmajor<kFwdCols>(sV, c));
     }"""
 EXP2 = "float p = exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]));"
-RING_WAIT = """    cp_async_wait<kFwdStages - 2>();
+RING_WAIT = """    cp_async_wait<L::kStages - 2>();
     fence_proxy_async();
     __syncthreads();"""
 CUTS = {
@@ -68,7 +70,7 @@ RATE_MODES = ("RS m64n128k16, B MN-major (P V)",
 
 
 def cut_source(text: str, cut: str, cuts=CUTS) -> str:
-    """flash_attention.cu with one of ``cuts`` applied; each piece it
+    """flash_attention.cuh with one of ``cuts`` applied; each piece it
     cuts must occur exactly once."""
     for old, new in cuts[cut]:
         if text.count(old) != 1:
@@ -76,6 +78,17 @@ def cut_source(text: str, cut: str, cuts=CUTS) -> str:
                              "exactly once")
         text = text.replace(old, new)
     return text
+
+
+def variant_source(tmp: Path, name: str, header: str) -> Path:
+    """``flash_attention.cu`` in a directory of its own beside ``header``
+    (a cut ``flash_attention.cuh``), which its include then finds before
+    the package's; returns the .cu's path."""
+    d = tmp / name
+    d.mkdir()
+    (d / "flash_attention.cuh").write_text(header)
+    shutil.copy(_build.CSRC / "flash_attention.cu", d / "flash_attention.cu")
+    return d / "flash_attention.cu"
 
 
 def nvcc_shared(pairs):
@@ -111,11 +124,9 @@ def registers(report: str, kernel: str = "flash_fwd_kernel") -> int:
 def split(tmp: Path, rounds=2):
     """{cut: {"ms": [per round], "registers": n}}."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    text = (_build.CSRC / "flash_attention.cu").read_text()
-    pairs = []
-    for cut in CUTS:
-        (tmp / f"{cut}.cu").write_text(cut_source(text, cut))
-        pairs.append((tmp / f"{cut}.cu", tmp / f"{cut}.so"))
+    text = (_build.CSRC / "flash_attention.cuh").read_text()
+    pairs = [(variant_source(tmp, cut, cut_source(text, cut)),
+              tmp / f"{cut}.so") for cut in CUTS]
     libs, out = {}, {}
     for cut, (_, so), report in zip(CUTS, pairs, nvcc_shared(pairs)):
         lib = ctypes.CDLL(str(so))

@@ -24,6 +24,22 @@ deep) on 4 x 2048 tokens in each variant:
   layer (capacity factor 8.0, so that no token drops on one card or on
   the mesh) on ``dp=2, ep=2``: the experts' two all-to-alls.
 
+and the data-parallel step through the collective engine:
+
+- ``hier_engine``: ``LOCAL_WORLD_SIZE=2`` (two "nodes" of two cards on
+  the one host: dcn = 2, ici = 2), ``HOROVOD_TPU_HIERARCHICAL_ALLREDUCE``
+  and ``_ALLGATHER`` on: the ``DistributedOptimizer``'s buckets reduced
+  within each pair (``reduce_scatter_tensor``), across the pairs
+  (``all_reduce``) and gathered back (``all_gather_into_tensor``); one
+  rank's sequence per rank. The same ranks run the flat engine (the
+  switches off) in a second job. Its line holds both runs' step-1
+  losses, the hierarchical gradients' largest error against the flat
+  run's and against the one-card reference, their ms per step (median
+  of 3 steps after the first, host clock to ``synchronize``) and
+  whether a ragged ``allgather`` through the two-stage gather is the
+  flat concatenation. Both pairs share one host's NVLink, so this times
+  the two-stage algorithm, not a cross-node link.
+
 and the pipelined flagship at its full depth (12 layers, whatever
 ``--layers`` says) on ``pp=4``, 8 x 2048 tokens as m = 8 microbatches of
 1, with NCCL sends and receives between the stages:
@@ -105,6 +121,8 @@ PIPE_VARIANTS = {"pp_gpipe": ("gpipe", 1), "pp_1f1b": ("1f1b", 1),
                  "pp_zb-h1": ("zb-h1", 1), "pp_interleaved": ("interleaved", 3)}
 PIPE_LAYERS, PIPE_M, PIPE_TIMED = 12, 8, 3
 LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
+HIER_TOL = 1e-2     # hier_engine's gradients against the flat run's
+ENGINE_TIMED = 3
 
 
 def _config(tfm, width, layers, **kw):
@@ -303,6 +321,90 @@ def run_rank(rank, port, layers, outdir, device, width, variants):
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
 
 
+def run_engine_rank(rank, port, layers, outdir, device, width, hier):
+    """One rank of ``hier_engine``: the engine's dp step on this rank's
+    sequence, two ranks to a node, hierarchical or flat."""
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    for knob in ("HIERARCHICAL_ALLREDUCE", "HIERARCHICAL_ALLGATHER"):
+        os.environ["HOROVOD_TPU_" + knob] = "1" if hier else "0"
+    import horovod_tpu_torch as hvd
+    from ..models import transformer as tfm
+    from ..parallel.train import build_train_step
+    # The "nodes" share one host: each rank keeps its own card, where the
+    # local rank (rank % 2) would put two ranks on each of two cards.
+    hvd.init(device=f"cuda:{rank}" if device == "cuda" else device,
+             init_method=f"tcp://localhost:{port}", rank=rank,
+             world_size=WORLD)
+    dev = hvd.device()
+    tok = torch.randint(0, width["vocab"], (WORLD, width["max_seq"] + 1),
+                        generator=torch.Generator().manual_seed(5))
+    tokens, targets = tok[:, :-1].to(dev), tok[:, 1:].to(dev)
+    cfg = _config(tfm, width, layers)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    ref_loss, ref_grads = _reference(tfm, cfg, params, dev, tokens, targets)
+    step = build_train_step(cfg, _factory, device=dev)
+    model = step.make_model(params=params)
+    opt = step.make_optimizer(model)
+    mine = slice(rank, rank + 1)
+    fa.reset_launch_counts()
+    loss = float(step(model, opt, tokens[mine], targets[mine]))
+    launches = fa.launch_counts()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    err = max(float((grads[n].float() - g.float()).abs().max()
+                    / g.float().abs().max().clamp_min(1e-30))
+              for n, g in ref_grads.items())
+    times = []
+    for _ in range(ENGINE_TIMED):
+        _sync(dev)
+        t0 = time.perf_counter()
+        step(model, opt, tokens[mine], targets[mine])
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rows = torch.full((rank + 1, 3), float(rank), device=dev)
+    gathered = hvd.allgather(rows, name="hier_engine.ragged")
+    want = torch.cat([torch.full((r + 1, 3), float(r), device=dev)
+                      for r in range(WORLD)])
+    line = {"mesh": {"dcn": WORLD // 2, "ici": 2}, "hierarchical": hier,
+            "loss": loss, "reference_loss": ref_loss,
+            "max_grad_rel_err": err, "ms_steps": times,
+            "ms": sorted(times)[len(times) // 2], "launches": launches,
+            "allgather_exact": bool(torch.equal(gathered, want)),
+            "peak_mib": None}
+    hvd.shutdown()
+    torch.save({"line": line, "grads": {n: g.cpu() for n, g in grads.items()}},
+               os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _hier_engine(layers, device, width):
+    """``hier_engine``'s line: the hierarchical job's rank 0, with the
+    flat job's loss and ms and the largest error of any rank's
+    hierarchical gradients against the flat ones."""
+    runs = {}
+    for hier in (False, True):
+        with tempfile.TemporaryDirectory() as outdir:
+            mp.spawn(run_engine_rank, args=(_free_port(), layers, outdir,
+                                            device, width, hier),
+                     nprocs=WORLD)
+            runs[hier] = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+                          for r in range(WORLD)]
+    line = dict(runs[True][0]["line"])
+    line["max_grad_rel_err"] = max(r["line"]["max_grad_rel_err"]
+                                   for r in runs[True])
+    line["allgather_exact"] = all(r["line"]["allgather_exact"]
+                                  for r in runs[True])
+    flat = runs[False][0]["line"]
+    line.update(flat_loss=flat["loss"], flat_ms=flat["ms"],
+                flat_ms_steps=flat["ms_steps"],
+                flat_max_grad_rel_err=max(r["line"]["max_grad_rel_err"]
+                                          for r in runs[False]))
+    line["grad_rel_err_vs_flat"] = max(
+        float((g.float() - f["grads"][n].float()).abs().max()
+              / f["grads"][n].float().abs().max().clamp_min(1e-30))
+        for h, f in zip(runs[True], runs[False])
+        for n, g in h["grads"].items())
+    return line
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -313,14 +415,19 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     """{variant: rank 0's line, with the worst gradient error and peak
     memory of all ranks (and, for a pipeline variant, whether every rank
     was bit for bit)}; ``variants`` defaults to all."""
-    variants = list(variants or (*VARIANTS, *PIPE_VARIANTS))
-    with tempfile.TemporaryDirectory() as outdir:
-        mp.spawn(run_rank, args=(_free_port(), layers, outdir, device,
-                                 width, variants), nprocs=WORLD)
-        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
-                 for r in range(WORLD)]
+    variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine"))
+    mesh_variants = [v for v in variants if v != "hier_engine"]
+    ranks = []
+    if mesh_variants:
+        with tempfile.TemporaryDirectory() as outdir:
+            mp.spawn(run_rank, args=(_free_port(), layers, outdir, device,
+                                     width, mesh_variants), nprocs=WORLD)
+            ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+                     for r in range(WORLD)]
     lines = {}
-    for name in variants:
+    if "hier_engine" in variants:
+        lines["hier_engine"] = _hier_engine(layers, device, width)
+    for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
                                        for r in ranks)
@@ -328,20 +435,22 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
             line["peak_mib"] = max(r[name]["peak_mib"] for r in ranks)
         if "bitwise" in line:
             line["bitwise"] = all(r[name]["bitwise"] for r in ranks)
+        lines[name] = line
+    for line in lines.values():
         line["loss_rel_err"] = (abs(line["loss"] - line["reference_loss"])
                                 / abs(line["reference_loss"]))
-        lines[name] = line
     return lines
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
+    names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine")
     ap.add_argument("--variants", help="comma-separated names (default: "
-                    f"all of {', '.join((*VARIANTS, *PIPE_VARIANTS))})")
+                    f"all of {', '.join(names)})")
     args = ap.parse_args(argv)
     variants = args.variants.split(",") if args.variants else None
-    unknown = set(variants or ()) - set(VARIANTS) - set(PIPE_VARIANTS)
+    unknown = set(variants or ()) - set(names)
     if unknown:
         sys.exit(f"mesh_parity: unknown variants {sorted(unknown)}")
     if torch.cuda.device_count() < WORLD:
@@ -352,7 +461,9 @@ def main(argv=None) -> int:
     for name, line in run(args.layers, variants=variants).items():
         print(json.dumps({"variant": name, **line}), flush=True)
         ok &= (line["loss_rel_err"] <= LOSS_TOL
-               and line["max_grad_rel_err"] <= GRAD_TOL)
+               and line["max_grad_rel_err"] <= GRAD_TOL
+               and line.get("grad_rel_err_vs_flat", 0.0) <= HIER_TOL
+               and line.get("allgather_exact", True))
     return 0 if ok else 1
 
 

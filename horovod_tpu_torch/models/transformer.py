@@ -62,8 +62,8 @@ class TransformerConfig:
     sp_axis: Optional[str] = None
     ep_axis: Optional[str] = None
     sp_impl: str = "ring"
-    # None: flash kernels on CUDA from FLASH_MIN_SEQ attended tokens in
-    # bf16, full attention otherwise. True forces flash_attention (its
+    # None: flash kernels on CUDA from FLASH_MIN_SEQ attended tokens, at
+    # any dtype, full attention otherwise. True forces flash_attention (its
     # plain version on the CPU).
     use_flash: Optional[bool] = None
     # The Pallas kernels' tile size in JAX. The Hopper kernels' tiles are
@@ -171,11 +171,11 @@ def _layernorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def _use_flash(cfg: TransformerConfig, x: torch.Tensor, s: int) -> bool:
     """The flash kernels for ``s`` attended tokens: as ``cfg.use_flash``
-    says, else on CUDA in bf16 from FLASH_MIN_SEQ."""
+    says, else on CUDA from FLASH_MIN_SEQ at any dtype, as JAX's policy
+    takes its compiled kernels on the TPU from 1024."""
     if cfg.use_flash is not None:
         return cfg.use_flash
-    return (x.is_cuda and s >= FLASH_MIN_SEQ
-            and cfg.dtype == torch.bfloat16)
+    return x.is_cuda and s >= FLASH_MIN_SEQ
 
 
 def _local_heads(cfg: TransformerConfig, tp_n: int) -> int:

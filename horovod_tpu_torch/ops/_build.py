@@ -36,6 +36,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+# The flash kernels' forms, the suffixes of their entry points: bf16
+# operands with bf16 and fp32 outputs, fp16 with fp16 and fp32, and fp32
+# operands (the SIMT kernels), each with the same arguments.
+FLASH_FORMS = ("", "_f32", "_f16", "_f16_f32", "_fp32")
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -91,7 +96,7 @@ def build_dir() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for form in ("", "_f32"):   # the bf16- and fp32-output forms
+    for form in FLASH_FORMS:
         getattr(lib, "hvd_flash_fwd" + form).argtypes = [
             p, p, p, p, p, i, i, i, i, f, i, p]
         getattr(lib, "hvd_flash_dkv" + form).argtypes = [
@@ -108,12 +113,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hvd_probe_map.argtypes = [p, p, i, i, i, i, p]
     lib.hvd_probe_stats_like.argtypes = [p, p, p, i, i, i, p]
     lib.hvd_wgmma_rate.argtypes = [i, p, i, i, p]
-    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_dkv, lib.hvd_flash_dq,
-               lib.hvd_flash_fwd_f32, lib.hvd_flash_dkv_f32,
-               lib.hvd_flash_dq_f32,
-               lib.hvd_bn_stats, lib.hvd_bn_norm, lib.hvd_bn_bwd_reduce,
-               lib.hvd_bn_bwd_dx, lib.hvd_flash_ablate, lib.hvd_probe_map,
-               lib.hvd_probe_stats_like, lib.hvd_wgmma_rate):
+    flash = [getattr(lib, f"hvd_flash_{k}{form}")
+             for form in FLASH_FORMS for k in ("fwd", "dkv", "dq")]
+    for fn in (*flash, lib.hvd_bn_stats, lib.hvd_bn_norm,
+               lib.hvd_bn_bwd_reduce, lib.hvd_bn_bwd_dx, lib.hvd_flash_ablate,
+               lib.hvd_probe_map, lib.hvd_probe_stats_like,
+               lib.hvd_wgmma_rate):
         fn.restype = ctypes.c_int
     return lib
 

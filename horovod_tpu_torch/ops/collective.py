@@ -49,6 +49,25 @@ On gloo at world size > 1 a sum gathers every rank's buffer and adds
 them in rank order, as XLA's CPU all-reduce does (gloo's ring adds each
 chunk in another order, so its float sums depend on the tensor's size);
 NCCL sums with ``all_reduce``.
+
+Rank 0's coordinator stamps its ``HOROVOD_HIERARCHICAL_ALLREDUCE`` and
+``_ALLGATHER`` into every group, and every rank runs the group so: the
+sum within each node's ``ici`` ranks, across nodes, and back
+(``executor.hier_reduce``), the gather within the node and then across
+(``executor.hier_gather``), on the groups of
+``topology.hierarchical_mesh()`` (ranks per node from
+``LOCAL_WORLD_SIZE``). On gloo each stage adds in rank order, as XLA's
+``psum_scatter('ici')`` and ``psum('dcn')`` do; on NCCL the stages are
+``reduce_scatter_tensor``, ``all_reduce`` and ``all_gather_into_tensor``.
+
+The stall inspector (``HOROVOD_STALL_WARNING``, 60 s) warns about ops
+in flight past the warning time, each with its op and age and, at more
+than one rank, the ranks that have not announced it, from rank 0's
+coordinator (shipped in the plan). ``HOROVOD_TIMELINE`` writes a Chrome
+trace (``ops/timeline_py.py``): a ``NEGOTIATE_<OP>`` span per op from its
+enqueue to the plan's arrival, then the op's activity span
+(``NCCL_ALLREDUCE``, ``GLOO_ALLGATHER``, ...) over its group's execution,
+and with ``HOROVOD_TIMELINE_MARK_CYCLES`` a ``CYCLE_START`` per cycle.
 """
 
 from __future__ import annotations
@@ -58,6 +77,7 @@ import contextlib
 import itertools
 import logging
 import threading
+import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -67,8 +87,11 @@ from .. import executor as _exec
 from .. import quantization as _quant
 from .. import topology as _topo
 from ..utils import env as _env
-from .control_plane import (ALLGATHER, ALLREDUCE, BROADCAST, OP_NAMES,
+from .control_plane import (ALLGATHER, ALLREDUCE, BROADCAST,
+                            FLAG_HIERARCHICAL_ALLGATHER,
+                            FLAG_HIERARCHICAL_ALLREDUCE, OP_NAMES,
                             Coordinator, Group, Meta, dtype_name)
+from .timeline_py import PyTimeline, write_clock_sidecar
 
 _log = logging.getLogger(__name__)
 
@@ -76,6 +99,10 @@ _log = logging.getLogger(__name__)
 # how long a rank's shutdown, or an op only some ranks have submitted,
 # waits for the idle ranks to join a round.
 IDLE_CYCLE_S = 0.1
+
+# Rounds whose clock readings a nonzero rank's timeline takes its offset
+# to rank 0 from (the sample of the shortest round trip wins).
+CLOCK_ROUNDS = 8
 
 
 class HorovodInternalError(RuntimeError):
@@ -181,13 +208,15 @@ class GroupedHandle:
 
 
 class _Request:
-    __slots__ = ("meta", "tensor", "handle", "ready", "target")
+    __slots__ = ("meta", "tensor", "handle", "ready", "target",
+                 "enqueued_at")
 
     def __init__(self, meta: Meta, tensor: torch.Tensor, handle: Handle,
                  ready, target: Optional[torch.Tensor] = None):
         self.meta, self.tensor, self.handle, self.ready = (meta, tensor,
                                                            handle, ready)
         self.target = target    # an in-place op's input, else None
+        self.enqueued_at = time.monotonic()
 
 
 class CollectiveEngine:
@@ -198,7 +227,25 @@ class CollectiveEngine:
         self.device = topo.device
         self._ctrl = topo.control_group
         self._ordered_sum = topo.size > 1 and topo.backend == "gloo"
-        self._coord = Coordinator(topo.size)
+        self._nccl = topo.backend == "nccl"
+        self._activity = "NCCL_" if self._nccl else "GLOO_"
+        # Rank 0's environment decides how every group runs.
+        flags = ((FLAG_HIERARCHICAL_ALLREDUCE
+                  if _env.hierarchical_allreduce() else 0)
+                 | (FLAG_HIERARCHICAL_ALLGATHER
+                    if _env.hierarchical_allgather() else 0))
+        self._coord = Coordinator(topo.size, flags)
+        self._init_hierarchy(topo)
+        self.stall_warning_s = _env.stall_warning_secs()
+        self._last_stall_check = time.monotonic()
+        self._missing = {}      # name -> ranks rank 0 still awaits
+        self._mark_cycles = _env.timeline_mark_cycles()
+        self._trace_path: Optional[str] = None
+        self._clock = None      # (rtt, offset) of the best round so far
+        self._clock_rounds = 0
+        self.timeline = self._ensure_timeline()
+        self._group_seq = 0     # groups delivered: the same on every rank
+        self._t_deliver = 0.0   # when this cycle's plan arrived
         self._lock = threading.Lock()
         self._cv = threading.Condition()    # handles' results are set
         self._queue: List[_Request] = []
@@ -291,6 +338,8 @@ class CollectiveEngine:
                     self._arrived.wait(IDLE_CYCLE_S)
                 self._wake.wait(_env.cycle_time_ms() / 1e3)
                 self._wake.clear()
+                if self._mark_cycles and self.timeline is not None:
+                    self.timeline.mark_cycle()
                 with self._lock:
                     batch, self._queue = self._queue, []
                     self._arrived.clear()
@@ -299,30 +348,141 @@ class CollectiveEngine:
                 groups, stopping, idle = self._negotiate(
                     [r.meta for r in batch], self._stop,
                     _env.fusion_threshold_bytes())
+                self._t_deliver = time.monotonic()
                 for g in groups:
                     self._execute(g)
+                self._maybe_check_stalls()
         except Exception as e:   # the thread's boundary: fail every handle
             _log.exception("collective engine failed")
             error = HorovodInternalError(f"collective engine failed: {e}")
         self._close(error)
+        if self.timeline is not None:
+            self.timeline.close()
 
     def _negotiate(self, metas: List[Meta], stop: bool, threshold: int):
         """One round with rank 0: gather announcements, broadcast the
         ordered groups, whether any rank is stopping and whether the
-        world is idle (no name awaits an announcement). At world size 1
-        the round sends nothing."""
+        world is idle (no name awaits an announcement). The plan also
+        carries rank 0's stall report and its clock. At world size 1 the
+        round sends nothing."""
         self.rounds += 1
         got = [(stop, metas)]
+        t_sent = time.monotonic()
         if self.size > 1:
             got = [None] * self.size if self.rank == 0 else None
             dist.gather_object((stop, metas), got, dst=0, group=self._ctrl)
         plan = [None]
         if self.rank == 0:
+            stalls = (self._coord.stalled(self.stall_warning_s)
+                      if self.stall_warning_s > 0 else {})
             plan[0] = (self._coord.cycle([m for _, m in got], threshold),
-                       any(s for s, _ in got), self._coord.pending() == 0)
+                       any(s for s, _ in got), self._coord.pending() == 0,
+                       stalls, time.monotonic())
         if self.size > 1:
             dist.broadcast_object_list(plan, src=0, group=self._ctrl)
-        return plan[0]
+        groups, stopping, idle, self._missing, clock0 = plan[0]
+        if self.rank != 0 and self._clock_rounds < CLOCK_ROUNDS \
+                and self.timeline is not None:
+            self._clock_sample(t_sent, time.monotonic(), clock0)
+        return groups, stopping, idle
+
+    # ------------------------------------------------------------ tracing
+
+    def _ensure_timeline(self) -> Optional[PyTimeline]:
+        """The timeline writer of this rank, or None: without a
+        ``{rank}`` placeholder in ``HOROVOD_TIMELINE`` only rank 0
+        writes, with one every rank writes its own file. An unwritable
+        path disables the timeline rather than failing the ops. Rank 0
+        is the reference clock; the others take their offset to it from
+        the first ``CLOCK_ROUNDS`` negotiation rounds."""
+        path = _env.resolved_timeline_path(self.rank)
+        if not path:
+            return None
+        try:
+            tl = PyTimeline(path, rank=self.rank, world=self.size)
+        except OSError as e:
+            _log.warning("timeline disabled: cannot open %s: %s", path, e)
+            return None
+        self._trace_path = path
+        if self.rank == 0:
+            tl.set_clock_meta(0.0, 0.0)
+            self._write_clock_sidecar(tl, 0.0, 0.0, True)
+        else:
+            self._write_clock_sidecar(tl, 0.0, 0.0, False)
+        return tl
+
+    def _write_clock_sidecar(self, tl: PyTimeline, offset_s: float,
+                             rtt_s: float, synced: bool) -> None:
+        try:
+            write_clock_sidecar(self._trace_path, {
+                "rank": self.rank, "world": self.size,
+                "start_mono_us": tl.start_monotonic_us,
+                "offset_to_rank0_us": offset_s * 1e6, "rtt_us": rtt_s * 1e6,
+                "clock_synced": bool(synced)})
+        except OSError as e:
+            _log.warning("timeline clock sidecar not written: %s", e)
+
+    def _clock_sample(self, t_sent: float, t_got: float,
+                      clock0: float) -> None:
+        """One round's estimate of rank 0's clock minus ours: rank 0 read
+        ``clock0`` between this rank's send and the plan's arrival, taken
+        as the middle of the two; after ``CLOCK_ROUNDS`` rounds the
+        shortest round trip's estimate goes into the trace."""
+        rtt = t_got - t_sent
+        if self._clock is None or rtt < self._clock[0]:
+            self._clock = (rtt, clock0 - (t_sent + t_got) / 2)
+        self._clock_rounds += 1
+        if self._clock_rounds == CLOCK_ROUNDS:
+            rtt, offset = self._clock
+            self.timeline.set_clock_meta(offset, rtt)
+            self._write_clock_sidecar(self.timeline, offset, rtt, True)
+
+    def _maybe_check_stalls(self) -> None:
+        """Warn about ops in flight past ``stall_warning_s``
+        (CheckForStalledTensors, operations.cc:1625-1672): each with its
+        op type and age and, at more than one rank, the ranks rank 0's
+        coordinator has not heard from. At one rank no rank can be
+        missing: a stall there is a wedged engine or an op that never
+        reached it, and the report says so. At most one report every
+        ``stall_warning_s``."""
+        if self.stall_warning_s <= 0:
+            return
+        now = time.monotonic()
+        if now - self._last_stall_check < self.stall_warning_s:
+            return
+        self._last_stall_check = now
+        with self._lock:
+            stalled = sorted(
+                (r.meta.name, OP_NAMES[r.meta.op], now - r.enqueued_at)
+                for r in itertools.chain(self._queue,
+                                         self._announced.values())
+                if now - r.enqueued_at > self.stall_warning_s)
+        if not stalled:
+            return
+        lines = []
+        for name, op, age in stalled:
+            missing = self._missing.get(name)
+            if missing is not None:
+                lines.append(f"{name} [missing ranks: "
+                             f"{', '.join(map(str, missing))}] "
+                             f"[{op}, waiting {int(age)}s]")
+            elif self.size > 1:
+                lines.append(f"{name} [{op}, waiting {int(age)}s; "
+                             "announced, awaiting the coordinator's "
+                             "grouping]")
+            else:
+                lines.append(f"{name} [{op}, waiting {int(age)}s; one "
+                             "rank, so no rank is missing: likely a "
+                             "wedged engine or an op never announced]")
+        _log.warning(
+            "One or more tensors were submitted to be reduced, gathered "
+            "or broadcasted by subset of ranks and are waiting for "
+            "remainder of ranks for more than %d seconds. This may "
+            "indicate that different ranks are trying to submit "
+            "different tensors or that only subset of ranks is "
+            "submitting tensors, which will cause deadlock.\n"
+            "Stalled ops:\n%s",
+            int(self.stall_warning_s), "\n".join(lines))
 
     def _close(self, error: Optional[BaseException]) -> None:
         """Refuse new ops and fail the pending ones with ``error``, or with
@@ -354,9 +514,17 @@ class CollectiveEngine:
         with self._lock:
             reqs = [self._announced.pop(n) for n in g.names]
             self._names.difference_update(g.names)
+        seq, self._group_seq = self._group_seq, self._group_seq + 1
+        tl = self.timeline
+        if tl is not None:
+            for r in reqs:
+                tl.negotiate_span(r.meta.name, OP_NAMES[g.op], r.enqueued_at,
+                                  self._t_deliver, group=seq)
         if g.error:
             self._fulfill(reqs, error=HorovodInternalError(g.error))
             return
+        t_start = time.monotonic()
+        activity = self._activity + OP_NAMES[g.op].upper()
         try:
             ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                    else contextlib.nullcontext())
@@ -382,9 +550,18 @@ class CollectiveEngine:
                         bases[id(b)] = b
                     done = _Done(event, tuple(bases.values()))
         except Exception as e:
+            if tl is not None:
+                t_end = time.monotonic()
+                for r in reqs:
+                    tl.execute_span(r.meta.name, activity, t_start, t_end)
             self._fulfill(reqs, error=HorovodInternalError(
                 f"{OP_NAMES[g.op]} of {g.names} failed: {e}"))
             return
+        if tl is not None:
+            t_end = time.monotonic()
+            for r, o in zip(reqs, outs):
+                tl.execute_span(r.meta.name, activity, t_start, t_end,
+                                o.shape)
         self.groups_executed += 1
         self._fulfill(reqs, outs, done=done, group=tuple(g.names))
 
@@ -393,14 +570,77 @@ class CollectiveEngine:
         ts = [r.tensor for r in reqs]
         if g.op == ALLREDUCE:
             post = m.postscale / self.size if m.average else m.postscale
-            return _exec.fused_allreduce(ts, self._sum, m.prescale, post,
-                                         _quant.parse(m.wire), self.size,
+            wire = _quant.parse(m.wire)
+            hier = g.flags & FLAG_HIERARCHICAL_ALLREDUCE and wire is None
+            return _exec.fused_allreduce(ts,
+                                         self._hier_sum if hier else self._sum,
+                                         m.prescale, post, wire, self.size,
                                          self._all_to_all, self._all_gather)
         if g.op == BROADCAST:
             return _exec.fused_broadcast(
                 ts, lambda b: self._broadcast(b, m.root_rank))
+        hier = g.flags & FLAG_HIERARCHICAL_ALLGATHER
         return _exec.fused_allgather(ts, [g.rows[n] for n in g.names],
-                                     self._gather)
+                                     self._hier_gather if hier
+                                     else self._gather)
+
+    # The two-level layout: ``ici`` ranks to a node, ``dcn`` nodes, rank
+    # d * ici + i. A level of one rank is the identity; a level of every
+    # rank is the default group.
+
+    def _init_hierarchy(self, topo: _topo.Topology) -> None:
+        ici = topo.local_size if self.size % topo.local_size == 0 else 1
+        self._ici, self._dcn = ici, self.size // ici
+        self._ici_group = self._dcn_group = dist.group.WORLD
+        if 1 < ici < self.size:
+            mesh = _topo.hierarchical_mesh()
+            self._ici_group = mesh.get_group("ici")
+            self._dcn_group = mesh.get_group("dcn")
+
+    def _group_gather(self, buf: torch.Tensor, group, n: int) -> torch.Tensor:
+        """``[n, *buf.shape]``: every member's ``buf``, in group order."""
+        if n == 1:
+            return buf[None]
+        parts = buf.new_empty((n,) + tuple(buf.shape))
+        if self._nccl:
+            dist.all_gather_into_tensor(parts, buf, group=group)
+        else:
+            dist.all_gather(list(parts), buf, group=group)
+        return parts
+
+    def _group_sum(self, buf: torch.Tensor, group, n: int) -> torch.Tensor:
+        if n == 1:
+            return buf
+        if self._ordered_sum:
+            parts = self._group_gather(buf, group, n)
+            out = parts[0]
+            for p in parts[1:]:
+                out += p
+            return out
+        dist.all_reduce(buf, group=group)
+        return buf
+
+    def _hier_sum(self, buf: torch.Tensor) -> torch.Tensor:
+        ici, i = self._ici, self.rank % self._ici
+
+        def scatter(b):
+            if ici == 1:
+                return b
+            if self._nccl:
+                out = b.new_empty(b.numel() // ici)
+                dist.reduce_scatter_tensor(out, b, group=self._ici_group)
+                return out
+            return self._group_sum(b, self._ici_group, ici).chunk(ici)[i]
+
+        return _exec.hier_reduce(
+            buf, ici, scatter,
+            lambda b: self._group_sum(b, self._dcn_group, self._dcn),
+            lambda b: self._group_gather(b, self._ici_group, ici).reshape(-1))
+
+    def _hier_gather(self, buf: torch.Tensor) -> torch.Tensor:
+        return _exec.hier_gather(
+            buf, lambda b: self._group_gather(b, self._ici_group, self._ici),
+            lambda b: self._group_gather(b, self._dcn_group, self._dcn))
 
     def _gather(self, buf: torch.Tensor) -> torch.Tensor:
         parts = buf.new_empty((self.size,) + tuple(buf.shape))
@@ -500,20 +740,83 @@ def allreduce_async(tensor: torch.Tensor, average: bool = True,
                             wires=[_wire_for(tensor, compression)])[0]
 
 
+# Autograd: the synchronous ops' backward passes are collectives, as the
+# torch shim registers them (horovod_tpu/torch/mpi_ops.py, after
+# Horovod's torch/mpi_ops.py).
+
+class _Allreduce(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, tensor, average, name, prescale, postscale,
+                compression):
+        ctx.args = (average, prescale, postscale, compression)
+        return allreduce_async(tensor, average, name, prescale, postscale,
+                               compression).wait()
+
+    @staticmethod
+    def backward(ctx, grad):
+        # The op is linear, and its own adjoint: the same allreduce (the
+        # same average, scales and wire) of the gradients.
+        average, prescale, postscale, compression = ctx.args
+        return (allreduce_async(grad.contiguous(), average, None, prescale,
+                                postscale, compression).wait(),
+                None, None, None, None, None)
+
+
+class _Allgather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, tensor, name):
+        out = allgather_async(tensor, name).wait()
+        ctx.rows = tensor.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # The sum over the ranks of the gathered gradient, then this
+        # rank's rows. Ranks may gather different first dims: the offset
+        # is the sum of the lower ranks' rows (gathered once more).
+        summed = allreduce_async(grad.contiguous(), False).wait()
+        rows = allgather_async(
+            torch.tensor([ctx.rows], device=grad.device)).wait()
+        start = int(rows[:_topo.rank()].sum())
+        return summed[start:start + ctx.rows], None
+
+
+class _Broadcast(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, tensor, root_rank, name):
+        ctx.root_rank = root_rank
+        return broadcast_async(tensor, root_rank, name).wait()
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Every rank's gradient flows to the root's input; the others'
+        # inputs did not reach the output.
+        summed = allreduce_async(grad.contiguous(), False).wait()
+        if _topo.rank() != ctx.root_rank:
+            summed = torch.zeros_like(summed)
+        return summed, None, None
+
+
 def allreduce(tensor: torch.Tensor, average: bool = True,
               name: Optional[str] = None, compression=None,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:
-    """Synchronous allreduce. A cast ``compression`` moves the tensor on
-    the wire in its dtype and restores the input dtype after; a
-    blockwise one selects the quantized wire."""
+    """Synchronous, differentiable allreduce. A cast ``compression``
+    moves the tensor on the wire in its dtype and restores the input
+    dtype after (outside the autograd Function, as the shim does); a
+    blockwise one selects the quantized wire, in the backward too."""
     if compression is not None:
         t, ctx = compression.compress(tensor)
-        out = allreduce_async(t, average, name, prescale_factor,
-                              postscale_factor, compression).wait()
+        blockwise = (compression if getattr(compression, "wire_spec", None)
+                     is not None else None)
+        out = _Allreduce.apply(t, average, name, prescale_factor,
+                               postscale_factor, blockwise)
         return compression.decompress(out, ctx)
-    return allreduce_async(tensor, average, name, prescale_factor,
-                           postscale_factor).wait()
+    return _Allreduce.apply(tensor, average, name, prescale_factor,
+                            postscale_factor, None)
 
 
 def allreduce_async_(tensor: torch.Tensor, average: bool = True,
@@ -581,7 +884,8 @@ def allgather_async(tensor: torch.Tensor,
 
 
 def allgather(tensor: torch.Tensor, name: Optional[str] = None):
-    return allgather_async(tensor, name).wait()
+    """Synchronous, differentiable allgather along dim 0."""
+    return _Allgather.apply(tensor, name)
 
 
 def _broadcast_async(tensor, root_rank, name, inplace) -> Handle:
@@ -601,7 +905,8 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int,
 
 def broadcast(tensor: torch.Tensor, root_rank: int,
               name: Optional[str] = None):
-    return broadcast_async(tensor, root_rank, name).wait()
+    """Synchronous, differentiable broadcast from ``root_rank``."""
+    return _Broadcast.apply(tensor, root_rank, name)
 
 
 def broadcast_async_(tensor: torch.Tensor, root_rank: int,

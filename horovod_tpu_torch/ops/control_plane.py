@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 import zlib
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -25,6 +26,12 @@ from .. import quantization as _quant
 ALLREDUCE, ALLGATHER, BROADCAST = 0, 1, 2
 OP_NAMES = {ALLREDUCE: "allreduce", ALLGATHER: "allgather",
             BROADCAST: "broadcast"}
+
+# Execution modes the coordinator stamps into every group (the JAX wire's
+# Response flags), so that every rank runs a group the same way whatever
+# its own environment says.
+FLAG_HIERARCHICAL_ALLREDUCE = 1 << 0
+FLAG_HIERARCHICAL_ALLGATHER = 1 << 1
 
 
 _DTYPE_NAMES: Dict[torch.dtype, str] = {}
@@ -143,12 +150,13 @@ def plan_fusion(batch: Sequence[Ready], threshold: int) -> List[List[Ready]]:
 class Entry:
     """One name's announcements, by rank (in the order they came)."""
 
-    __slots__ = ("by_rank", "first", "nbytes")
+    __slots__ = ("by_rank", "first", "nbytes", "first_seen")
 
     def __init__(self):
         self.by_rank: Dict[int, Meta] = {}
         self.first: Optional[Meta] = None     # rank 0's, else the first
         self.nbytes = 0                       # the largest rank's
+        self.first_seen = time.monotonic()    # its first announcement
 
     def add(self, rank: int, m: Meta) -> None:
         self.by_rank[rank] = m
@@ -219,19 +227,30 @@ class Group:
     error: str = ""
     # Allgather: each name's first dim on every rank.
     rows: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
+    flags: int = 0      # FLAG_HIERARCHICAL_*
 
 
 class Coordinator:
     """Collects announcements per name and, once every rank announced a
     name, validates and plans it. Entries complete in the order their
-    names were first announced."""
+    names were first announced. ``flags`` go into every group."""
 
-    def __init__(self, size: int):
+    def __init__(self, size: int, flags: int = 0):
         self.size = size
+        self.flags = flags
         self._table: Dict[str, Entry] = {}
 
     def pending(self) -> int:
         return len(self._table)
+
+    def stalled(self, older_than: float) -> Dict[str, List[int]]:
+        """The ranks that have not announced each name announced by the
+        others more than ``older_than`` seconds ago (the reference
+        coordinator's stall report, operations.cc:1644-1668)."""
+        now = time.monotonic()
+        return {nm: [r for r in range(self.size) if r not in e.by_rank]
+                for nm, e in self._table.items()
+                if now - e.first_seen > older_than}
 
     def cycle(self, announcements: Sequence[Sequence[Meta]],
               threshold: int) -> List[Group]:
@@ -273,5 +292,6 @@ class Coordinator:
             elif id(s) in first_of:
                 names = [r.name for r in first_of[id(s)]]
                 groups.append(Group(s.key[0], names, "",
-                                    {n: rows[n] for n in names if n in rows}))
+                                    {n: rows[n] for n in names if n in rows},
+                                    self.flags))
         return groups

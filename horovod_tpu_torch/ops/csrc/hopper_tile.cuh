@@ -2,10 +2,16 @@
 // (flash_attention.cu): wgmma products on 128-byte-swizzled shared-memory
 // tiles, and an asynchronous cp.async tile ring that fills them.
 //
-// Tile layout. A [ROWS, D] bf16 tile is stored as W/64 column blocks of
+// Element types. Every tile and product here takes bf16 or fp16 (T, a
+// template parameter defaulting to bf16): the two have the same size and
+// fragment layouts, so only the wgmma instruction's type suffix, the
+// packing of two fp32 values and the q-scale pass differ.
+//
+// Tile layout. A [ROWS, D] tile is stored as W/64 column blocks of
 // [ROWS][64], W = tile_width<D>() (D rounded up to whole 64-column
-// blocks: a D = 96 tile is stored 128 wide, its last 32 columns zero
-// filled as it lands). Each row of a block is 128 bytes, and the
+// blocks up to 128, and to 256 above: a D = 96 tile is stored 128 wide,
+// a D = 160 tile 256 wide, the columns past D zero filled as they
+// land). Each row of a block is 128 bytes, and the
 // 16-byte chunk c of row r sits at chunk c ^ (r % 8) (the 128-byte
 // swizzle, so eight rows read at one column hit eight different bank
 // groups). Blocks start 1024-byte aligned. One stored tile serves as a
@@ -28,8 +34,8 @@
 // column blocks: d[j][0..1] at row g = lane / 4, columns 8j + 2(lane % 4)
 // + {0, 1}; d[j][2..3] at row g + 8. Its register A operand (the RS form)
 // is the m16n8k16 A fragment, so an fp32 accumulator over 16 columns
-// becomes the bf16 A operand of the next product by acc_to_a (from
-// flash_tile.cuh: column blocks 2c and 2c+1 make k-chunk c).
+// becomes the T A operand of the next product by acc_to_a_as (bf16:
+// acc_to_a of flash_tile.cuh; column blocks 2c and 2c+1 make k-chunk c).
 //
 // wgmma is asynchronous: a warpgroup issues a batch, commits it and
 // waits. Registers an asm statement names are pinned with fence_acc /
@@ -42,16 +48,30 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
+
+#include <type_traits>
+
 #include "flash_tile.cuh"
 
 namespace {
 
-// Head dims: multiples of 16 up to 128, so that a k-step of 16 never
+typedef __half half;
+
+// Head dims: multiples of 16 up to 256, so that a k-step of 16 never
 // straddles the zero-filled columns and a row is whole 16-byte chunks.
 template <int D>
 __host__ __device__ constexpr int tile_width() {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "D is 16, 32, ..., 128");
-  return (D + 63) / 64 * 64;
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "D is 16, 32, ..., 256");
+  return D <= 128 ? (D + 63) / 64 * 64 : 256;
+}
+
+// Columns of an RS product's accumulator: the whole stored width up to
+// 128; a 256-wide tile's products run as two 128-column chunks, one per
+// CTA, so that no accumulator takes more than 64 registers a thread.
+template <int D>
+__host__ __device__ constexpr int out_width() {
+  return tile_width<D>() > 128 ? 128 : tile_width<D>();
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -113,127 +133,187 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
   }
 }
 
-// d (+)= A B, m64nNk16, bf16 in, fp32 accumulate. SS: A and B from
-// shared memory; RS: A from registers. TRANS_B 0 reads B K-major, 1
-// MN-major. accumulate 0 overwrites d.
-template <int TRANS_B>
+// d (+)= A B, m64nNk16, T (bf16 or fp16) in, fp32 accumulate. SS: A and
+// B from shared memory; RS: A from registers. TRANS_B 0 reads B K-major,
+// 1 MN-major. accumulate 0 overwrites d. Each body is a macro over the
+// PTX type name, so the bf16 and fp16 forms are one text.
+#define HVD_WGMMA_SS_N64(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+  "%32, %33, p, 1, 1, 0, %35;\n}\n" \
+  : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+  "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+  "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+  "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
+  : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B))
+
+template <int TRANS_B, typename T = bf16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a,
                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (std::is_same<T, bf16>::value) {
+    HVD_WGMMA_SS_N64("bf16");
+  } else {
+    static_assert(std::is_same<T, half>::value, "T is bf16 or half");
+    HVD_WGMMA_SS_N64("f16");
+  }
 }
 
-template <int TRANS_B>
+#define HVD_WGMMA_SS_N128(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+  "%64, %65, p, 1, 1, 0, %67;\n}\n" \
+  : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+  "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+  "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+  "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), \
+  "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), \
+  "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), \
+  "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), \
+  "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), \
+  "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), \
+  "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), \
+  "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), \
+  "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]) \
+  : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B))
+
+template <int TRANS_B, typename T = bf16>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t desc_a,
                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (std::is_same<T, bf16>::value) {
+    HVD_WGMMA_SS_N128("bf16");
+  } else {
+    static_assert(std::is_same<T, half>::value, "T is bf16 or half");
+    HVD_WGMMA_SS_N128("f16");
+  }
 }
 
-template <int TRANS_B>
+#define HVD_WGMMA_RS_N64(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+  "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+  : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+  "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+  "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+  "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
+  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+  "r"(accumulate), "n"(TRANS_B))
+
+template <int TRANS_B, typename T = bf16>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
+  if constexpr (std::is_same<T, bf16>::value) {
+    HVD_WGMMA_RS_N64("bf16");
+  } else {
+    static_assert(std::is_same<T, half>::value, "T is bf16 or half");
+    HVD_WGMMA_RS_N64("f16");
+  }
 }
 
-template <int TRANS_B>
+#define HVD_WGMMA_RS_N128(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+  "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+  : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+  "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+  "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+  "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), \
+  "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), \
+  "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), \
+  "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), \
+  "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), \
+  "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), \
+  "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), \
+  "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), \
+  "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]) \
+  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+  "r"(accumulate), "n"(TRANS_B))
+
+template <int TRANS_B, typename T = bf16>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
+  if constexpr (std::is_same<T, bf16>::value) {
+    HVD_WGMMA_RS_N128("bf16");
+  } else {
+    static_assert(std::is_same<T, half>::value, "T is bf16 or half");
+    HVD_WGMMA_RS_N128("f16");
+  }
 }
 
 // SS product with a K-major B of N = 64 or 128 rows.
-template <int N>
+template <int N, typename T = bf16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4],
                                          uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
   if constexpr (N == 64) {
-    wgmma_ss_n64<0>(d, desc_a, desc_b, accumulate);
+    wgmma_ss_n64<0, T>(d, desc_a, desc_b, accumulate);
   } else {
     static_assert(N == 128, "N is 64 or 128");
-    wgmma_ss_n128<0>(d, desc_a, desc_b, accumulate);
+    wgmma_ss_n128<0, T>(d, desc_a, desc_b, accumulate);
   }
 }
 
-// RS product over all stored columns of an MN-major B whose rows are D
-// wide: N = tile_width<D>(), so the accumulator's columns past D take the
-// zero-filled columns of B and stay zero.
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[tile_width<D>() / 8][4],
+// RS product over out_width<D>() stored columns of an MN-major B whose
+// rows are D wide (from the column block desc_b starts at): the
+// accumulator's columns past D take the zero-filled columns of B and
+// stay zero.
+template <int D, typename T = bf16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[out_width<D>() / 8][4],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (tile_width<D>() == 64) {
-    wgmma_rs_n64<1>(d, a, desc_b, 1);
+  if constexpr (out_width<D>() == 64) {
+    wgmma_rs_n64<1, T>(d, a, desc_b, 1);
   } else {
-    wgmma_rs_n128<1>(d, a, desc_b, 1);
+    wgmma_rs_n128<1, T>(d, a, desc_b, 1);
+  }
+}
+
+// Two fp32 values rounded to T and packed low-first into one register,
+// and the A fragment of the next product from an accumulator (as
+// pack2 / acc_to_a of flash_tile.cuh, which are the bf16 forms).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2_as(float lo, float hi) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return pack2(lo, hi);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void acc_to_a_as(uint32_t a[4], const float c0[4],
+                                            const float c1[4]) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    acc_to_a(a, c0, c1);
+  } else {
+    a[0] = pack2_as<T>(c0[0], c0[1]);
+    a[1] = pack2_as<T>(c0[2], c0[3]);
+    a[2] = pack2_as<T>(c1[0], c1[1]);
+    a[3] = pack2_as<T>(c1[2], c1[3]);
   }
 }
 
@@ -264,10 +344,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // the swizzled tile at shared address `tile`, 16 bytes a thread. Rows
 // past seq, and columns past D, are zero-filled (src-size 0) and never
 // read.
-template <int D, int ROWS, int THREADS>
+template <int D, int ROWS, int THREADS, typename T>
 __device__ __forceinline__ void load_tile_async(uint32_t tile,
-                                                const bf16* src, int row0,
+                                                const T* src, int row0,
                                                 int seq) {
+  static_assert(sizeof(T) == 2, "16-bit elements: 8 to a chunk");
   constexpr int kChunks = tile_width<D>() / 8;
   static_assert((ROWS * kChunks) % THREADS == 0, "whole chunks per thread");
 #pragma unroll
@@ -287,10 +368,10 @@ __device__ __forceinline__ void load_tile_async(uint32_t tile,
   }
 }
 
-// q * scale in bf16 arithmetic, as load_tile does, in place over the
-// chunks this thread copied with load_tile_async (so its own
-// cp_async_wait is enough before it).
-template <int D, int ROWS, int THREADS>
+// q * scale in T arithmetic (the product of the two T values, rounded
+// to T), as load_tile does, in place over the chunks this thread copied
+// with load_tile_async (so its own cp_async_wait is enough before it).
+template <int D, int ROWS, int THREADS, typename T = bf16>
 __device__ __forceinline__ void scale_tile(unsigned char* tile,
                                            float scale) {
   constexpr int kChunks = tile_width<D>() / 8;
@@ -300,10 +381,14 @@ __device__ __forceinline__ void scale_tile(unsigned char* tile,
     uint4* p = reinterpret_cast<uint4*>(
         tile + sw128<ROWS>(idx / kChunks, idx % kChunks));
     uint4 raw = *p;
-    bf16* e = reinterpret_cast<bf16*>(&raw);
+    T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+      if constexpr (std::is_same<T, bf16>::value) {
+        e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+      } else {
+        e[j] = __float2half(__half2float(e[j]) * scale);
+      }
     }
     *p = raw;
   }

@@ -12,15 +12,27 @@ products, every product accumulates in fp32, ``lse = m + log(max(l,
 1e-30))`` and dQ is multiplied by the fp32 scale once at the end.
 
 Dispatch is by device: CPU tensors take the plain version, CUDA tensors
-launch the kernel or raise. Each kernel wrapper counts its launches in
-``flash_fwd_launches`` / ``flash_dkv_launches`` / ``flash_dq_launches``.
+launch the kernel or raise. Each kernel wrapper counts its launches per
+form (:func:`launch_counts`).
+
+The kernels take bf16, fp16 and fp32 operands, as JAX's kernels take the
+operands' dtype: bf16 and fp16 on the wgmma bodies of
+``csrc/flash_attention.cuh``, fp32 on the SIMT bodies of
+``csrc/flash_attention_fp32.cu`` (fp32 products, as JAX's on fp32). Head
+dims up to ``MAX_HEAD_DIM``: every multiple of 16 (``HEAD_DIMS``) runs on
+the kernels as it is, any other is zero-padded to the next one by
+:func:`fwd_padded` / :func:`bwd_padded` and the outputs cut back, which is
+exact (zero columns add nothing to Q K^T or dO V^T, and the scale stays
+the caller's, of the true head dim).
 
 Each kernel and plain version takes ``out_dtype``, as JAX's ``_flash_fwd``
 and ``_flash_bwd`` do: None (the operands' dtype) or fp32, which ring
 attention asks for so that its merge of n per-block results does not
-stack n bf16 roundings. The plain version casts where JAX's ``_finalize``
-casts; on the card fp32 launches each kernel's fp32-output form, whose
-launches count apart (``flash_*_f32`` in :func:`launch_counts`).
+stack n 16-bit roundings. The plain version casts where JAX's
+``_finalize`` casts; on the card fp32 launches each kernel's fp32-output
+form. A form's launches count apart: ``flash_{fwd,dkv,dq}`` plus its
+suffix in ``FORMS`` (``_f32``: bf16 operands, fp32 outputs; ``_f16``,
+``_f16_f32``: fp16 operands; ``_fp32``: fp32 operands).
 """
 
 from __future__ import annotations
@@ -28,37 +40,35 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ._build import FLASH_FORMS as FORMS
 from ._build import library, ptr, raise_on, stream
 
 NEG_INF = -1e30
 
-flash_fwd_launches = 0
-flash_dkv_launches = 0
-flash_dq_launches = 0
-flash_fwd_f32_launches = 0
-flash_dkv_f32_launches = 0
-flash_dq_f32_launches = 0
+# The head dims the kernels take as they are (BuiltHeadDims in
+# csrc/flash_attention.cuh); others up to MAX_HEAD_DIM are padded.
+MAX_HEAD_DIM = 256
+HEAD_DIMS = tuple(range(16, MAX_HEAD_DIM + 1, 16))
 
-# The head dims csrc/flash_attention.cu is built for (BuiltHeadDims).
-HEAD_DIMS = (32, 64, 80, 96, 128)
+# Each operand dtype's forms: (its own output dtype, fp32 outputs).
+_DTYPE_FORMS = {torch.bfloat16: ("", "_f32"),
+                torch.float16: ("_f16", "_f16_f32"),
+                torch.float32: ("_fp32", "_fp32")}
+
+_launches = {f"flash_{k}{form}": 0 for form in FORMS
+             for k in ("fwd", "dkv", "dq")}
 
 
 def launch_counts() -> dict:
-    return {"flash_fwd": flash_fwd_launches, "flash_dkv": flash_dkv_launches,
-            "flash_dq": flash_dq_launches,
-            "flash_fwd_f32": flash_fwd_f32_launches,
-            "flash_dkv_f32": flash_dkv_f32_launches,
-            "flash_dq_f32": flash_dq_f32_launches}
+    """Launches of each kernel form since the last reset."""
+    return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    global flash_fwd_launches, flash_dkv_launches, flash_dq_launches
-    global flash_fwd_f32_launches, flash_dkv_f32_launches
-    global flash_dq_f32_launches
-    flash_fwd_launches = flash_dkv_launches = flash_dq_launches = 0
-    flash_fwd_f32_launches = flash_dkv_f32_launches = 0
-    flash_dq_f32_launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -115,24 +125,63 @@ def flash_bwd_reference(qb, kb, vb, do, lse, delta, scale: float,
 # Kernel wrappers (one per launch site)
 # --------------------------------------------------------------------------
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: the next multiple of 16.
+    Raises ``ValueError`` above ``MAX_HEAD_DIM``."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention: head_dim must be at most "
+                         f"{MAX_HEAD_DIM} (the widest tile the kernels "
+                         f"hold), got {d}")
+    return -(-d // 16) * 16
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    return F.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+def fwd_padded(fwd, qb, kb, vb, *args):
+    """``fwd(qb, kb, vb, *args)`` -> (o, lse) with the head dim zero-padded
+    to :func:`padded_head_dim` and o cut back to it."""
+    d = qb.shape[-1]
+    width = padded_head_dim(d)
+    if width == d:
+        return fwd(qb, kb, vb, *args)
+    o, lse = fwd(_pad(qb, width), _pad(kb, width), _pad(vb, width), *args)
+    return o[..., :d].contiguous(), lse
+
+
+def bwd_padded(bwd, qb, kb, vb, do, *args):
+    """``bwd(qb, kb, vb, do, *args)`` (a tensor or a tuple of them) with
+    the head dim zero-padded as :func:`fwd_padded` does, each output cut
+    back."""
+    d = qb.shape[-1]
+    width = padded_head_dim(d)
+    if width == d:
+        return bwd(qb, kb, vb, do, *args)
+    outs = bwd(_pad(qb, width), _pad(kb, width), _pad(vb, width),
+               _pad(do, width), *args)
+    if isinstance(outs, torch.Tensor):
+        return outs[..., :d].contiguous()
+    return tuple(o[..., :d].contiguous() for o in outs)
+
+
 def _check(name, *tensors):
     d = tensors[0].shape[-1]
-    dev = tensors[0].device
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: every operand must be on {dev} "
                              f"(CUDA), got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got "
-                            f"{t.dtype}")
+        if t.dtype not in _DTYPE_FORMS or t.dtype != dtype:
+            raise TypeError(f"{name}: the kernels take bfloat16, float16 "
+                            f"or float32 operands of one dtype, got "
+                            f"{t.dtype} with {dtype}")
         if t.dim() != 3 or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous "
                              f"[BH, S, D], got shape {tuple(t.shape)}")
         if t.shape[-1] != d:
             raise ValueError(f"{name}: head dims differ")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim must be one of {HEAD_DIMS}, "
-                         f"got {d}")
+    padded_head_dim(d)
 
 
 def _check_stats(name, bh, sq, *stats):
@@ -143,88 +192,92 @@ def _check_stats(name, bh, sq, *stats):
                              f"[{bh}, {sq}, 1] on CUDA")
 
 
-def _qscale(scale: float) -> float:
-    return float(torch.tensor(scale, dtype=torch.bfloat16))
+def _qscale(scale: float, dtype: torch.dtype = torch.bfloat16) -> float:
+    """The scale rounded to the operands' dtype, as JAX's weak-typed
+    ``q_ref[0] * scale`` rounds it."""
+    return float(torch.tensor(scale, dtype=dtype))
 
 
-def _f32_out(name, out_dtype) -> bool:
-    """Whether ``out_dtype`` asks for the fp32-output form: None and
-    bfloat16 give the bf16 form, float32 the fp32 form; no other output
-    type is built."""
-    if out_dtype in (None, torch.bfloat16):
-        return False
+def _form(name, dtype, out_dtype) -> str:
+    """The entry-point suffix of the form for ``dtype`` operands and
+    ``out_dtype`` outputs: None or the operands' dtype, or float32; no
+    other output type is built."""
+    own, f32 = _DTYPE_FORMS[dtype]
+    if out_dtype in (None, dtype):
+        return own
     if out_dtype == torch.float32:
-        return True
-    raise TypeError(f"{name}: the kernel writes bfloat16 or float32, got "
+        return f32
+    raise TypeError(f"{name}: the kernel writes {dtype} or float32, got "
                     f"out_dtype {out_dtype}")
 
 
-def flash_fwd_cuda(qb, kb, vb, scale: float, causal: bool, out_dtype=None):
-    """K1: (o, lse) from the forward kernel; o in fp32 when ``out_dtype``
-    is fp32."""
-    global flash_fwd_launches, flash_fwd_f32_launches
-    _check("flash_fwd", qb, kb, vb)
-    f32 = _f32_out("flash_fwd", out_dtype)
+def _out(like: torch.Tensor, form: str) -> torch.Tensor:
+    f32 = form in ("_f32", "_f16_f32", "_fp32")
+    return torch.empty_like(like, dtype=torch.float32 if f32 else like.dtype)
+
+
+def _launch(name: str, *args) -> None:
+    err = getattr(library(), f"hvd_{name}")(*args)
+    raise_on(err, name)
+    _launches[name] += 1
+
+
+def _fwd_kernel(qb, kb, vb, scale, causal, form):
     bh, sq, d = qb.shape
-    sk = kb.shape[1]
-    o = torch.empty_like(qb, dtype=torch.float32 if f32 else qb.dtype)
+    o = _out(qb, form)
     lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=qb.device)
-    entry = library().hvd_flash_fwd_f32 if f32 else library().hvd_flash_fwd
-    err = entry(ptr(qb), ptr(kb), ptr(vb), ptr(o), ptr(lse), bh, sq, sk, d,
-                _qscale(scale), int(causal), stream(qb))
-    raise_on(err, "flash_fwd_f32" if f32 else "flash_fwd")
-    if f32:
-        flash_fwd_f32_launches += 1
-    else:
-        flash_fwd_launches += 1
+    _launch("flash_fwd" + form, ptr(qb), ptr(kb), ptr(vb), ptr(o), ptr(lse),
+            bh, sq, kb.shape[1], d, _qscale(scale, qb.dtype), int(causal),
+            stream(qb))
     return o, lse
+
+
+def _dkv_kernel(qb, kb, vb, do, lse, delta, scale, causal, form):
+    bh, sq, d = qb.shape
+    dk, dv = _out(kb, form), _out(vb, form)
+    _launch("flash_dkv" + form, ptr(qb), ptr(kb), ptr(vb), ptr(do),
+            ptr(lse), ptr(delta), ptr(dk), ptr(dv), bh, sq, kb.shape[1], d,
+            _qscale(scale, qb.dtype), int(causal), stream(qb))
+    return dk, dv
+
+
+def _dq_kernel(qb, kb, vb, do, lse, delta, scale, causal, form):
+    bh, sq, d = qb.shape
+    dq = _out(qb, form)
+    _launch("flash_dq" + form, ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse),
+            ptr(delta), ptr(dq), bh, sq, kb.shape[1], d,
+            _qscale(scale, qb.dtype), float(scale), int(causal), stream(qb))
+    return dq
+
+
+def flash_fwd_cuda(qb, kb, vb, scale: float, causal: bool, out_dtype=None):
+    """K1: (o, lse) from the forward kernel of the operands' dtype; o in
+    fp32 when ``out_dtype`` is fp32."""
+    _check("flash_fwd", qb, kb, vb)
+    form = _form("flash_fwd", qb.dtype, out_dtype)
+    return fwd_padded(_fwd_kernel, qb, kb, vb, scale, causal, form)
 
 
 def flash_dkv_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool,
                    out_dtype=None):
     """K2: (dk, dv) from the key-block backward kernel; fp32 when
     ``out_dtype`` is fp32."""
-    global flash_dkv_launches, flash_dkv_f32_launches
     _check("flash_dkv", qb, kb, vb, do)
-    f32 = _f32_out("flash_dkv", out_dtype)
-    bh, sq, d = qb.shape
-    _check_stats("flash_dkv", bh, sq, lse, delta)
-    sk = kb.shape[1]
-    dk = torch.empty_like(kb, dtype=torch.float32 if f32 else kb.dtype)
-    dv = torch.empty_like(vb, dtype=torch.float32 if f32 else vb.dtype)
-    entry = library().hvd_flash_dkv_f32 if f32 else library().hvd_flash_dkv
-    err = entry(ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
-                ptr(dk), ptr(dv), bh, sq, sk, d, _qscale(scale), int(causal),
-                stream(qb))
-    raise_on(err, "flash_dkv_f32" if f32 else "flash_dkv")
-    if f32:
-        flash_dkv_f32_launches += 1
-    else:
-        flash_dkv_launches += 1
-    return dk, dv
+    form = _form("flash_dkv", qb.dtype, out_dtype)
+    _check_stats("flash_dkv", qb.shape[0], qb.shape[1], lse, delta)
+    return bwd_padded(_dkv_kernel, qb, kb, vb, do, lse, delta, scale,
+                      causal, form)
 
 
 def flash_dq_cuda(qb, kb, vb, do, lse, delta, scale: float, causal: bool,
                   out_dtype=None):
     """K3: dq from the query-block backward kernel; fp32 when
     ``out_dtype`` is fp32."""
-    global flash_dq_launches, flash_dq_f32_launches
     _check("flash_dq", qb, kb, vb, do)
-    f32 = _f32_out("flash_dq", out_dtype)
-    bh, sq, d = qb.shape
-    _check_stats("flash_dq", bh, sq, lse, delta)
-    sk = kb.shape[1]
-    dq = torch.empty_like(qb, dtype=torch.float32 if f32 else qb.dtype)
-    entry = library().hvd_flash_dq_f32 if f32 else library().hvd_flash_dq
-    err = entry(ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse), ptr(delta),
-                ptr(dq), bh, sq, sk, d, _qscale(scale), float(scale),
-                int(causal), stream(qb))
-    raise_on(err, "flash_dq_f32" if f32 else "flash_dq")
-    if f32:
-        flash_dq_f32_launches += 1
-    else:
-        flash_dq_launches += 1
-    return dq
+    form = _form("flash_dq", qb.dtype, out_dtype)
+    _check_stats("flash_dq", qb.shape[0], qb.shape[1], lse, delta)
+    return bwd_padded(_dq_kernel, qb, kb, vb, do, lse, delta, scale, causal,
+                      form)
 
 
 def _flash_fwd(qb, kb, vb, scale, causal, out_dtype=None):

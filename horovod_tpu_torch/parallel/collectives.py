@@ -1,7 +1,7 @@
 """Collectives over one axis of a mesh, with JAX's transposes.
 
 Counterparts of the ``jax.lax`` collectives that the JAX package calls
-inside ``shard_map`` (``psum``, ``ppermute``, ``all_to_all``,
+inside ``shard_map`` (``psum``, ``pmean``, ``ppermute``, ``all_to_all``,
 ``all_gather``, ``psum_scatter``, ``axis_index``, ``axis_size``), over
 the process group of one axis of a ``DeviceMesh``
 (``mesh.get_group(axis)``). Each differentiable collective is a
@@ -100,6 +100,15 @@ def psum(x: torch.Tensor, mesh: DeviceMesh, axis: Axes) -> torch.Tensor:
     if not groups:
         return x
     return _Psum.apply(x, groups)
+
+
+def pmean(x: torch.Tensor, mesh: DeviceMesh, axis: Axes) -> torch.Tensor:
+    """The mean of ``x`` over ``axis``, as ``lax.pmean``: the psum over
+    the axis size (a true division, so an integer ``x`` gives a float
+    mean)."""
+    # A division by a device tensor: CUDA turns a division by a Python
+    # number into a multiply by its reciprocal.
+    return psum(x, mesh, axis) / x.new_full((), axis_size(mesh, axis))
 
 
 def _shift(tensors, group, shift: int):

@@ -4,8 +4,8 @@ Counterpart of ``horovod_tpu/parallel/ulysses.py`` (DeepSpeed-Ulysses,
 Jacobs et al. 2023). The inputs arrive sequence-sharded over the axis,
 ``[B, S/n, H, D]`` with every head; one tiled all-to-all reshards them
 to ``[B, S, H/n, D]``, the whole sequence for a subset of heads, where
-attention runs with no communication (the flash kernels, bf16, or the
-plain attention); a second all-to-all reshards the output back. The
+attention runs with no communication (the flash kernels or the plain
+attention); a second all-to-all reshards the output back. The
 head count must divide by the axis size.
 """
 

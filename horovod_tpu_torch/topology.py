@@ -115,14 +115,15 @@ def init(*, device: Union[str, torch.device, None] = None,
             backend = dist.get_backend()
         ctrl = (dist.new_group(backend="gloo")
                 if dist.get_world_size() > 1 else None)
-        _topology = Topology(rank=dist.get_rank(), size=dist.get_world_size(),
-                             local_rank=local_rank, local_size=local_size,
-                             backend=backend, device=dev, owns_group=owns,
-                             control_group=ctrl,
-                             numerics=_env.numerics_enabled())
-        from .ops import collective
-        collective.start_engine(_topology)
-        return _topology
+        _topology = topo = Topology(
+            rank=dist.get_rank(), size=dist.get_world_size(),
+            local_rank=local_rank, local_size=local_size, backend=backend,
+            device=dev, owns_group=owns, control_group=ctrl,
+            numerics=_env.numerics_enabled())
+    # Outside the lock: the engine builds the hierarchical mesh's groups.
+    from .ops import collective
+    collective.start_engine(topo)
+    return topo
 
 
 def shutdown() -> None:
@@ -178,6 +179,15 @@ def process_rank() -> int:
 
 def process_count() -> int:
     return _get().size
+
+
+def mpi_threads_supported() -> bool:
+    """``hvd.mpi_threads_supported()`` of Horovod's API
+    (operations.cc:2462-2468): there is no MPI here, and the engine and
+    ``torch.distributed`` take ops from any thread, so True once
+    initialized."""
+    _get()
+    return True
 
 
 def device() -> torch.device:

@@ -13,6 +13,7 @@ from typing import Optional
 # Horovod's fusion threshold default (64 MiB) and the JAX engine's cycle.
 DEFAULT_FUSION_THRESHOLD_MB = 64
 DEFAULT_CYCLE_TIME_MS = 1.0
+DEFAULT_STALL_WARNING_SECS = 60  # the reference's STALL_WARNING_TIME
 
 
 def _get(name: str) -> Optional[str]:
@@ -80,3 +81,52 @@ def torch_build_dir() -> Optional[str]:
     """Directory the CUDA kernels are built into
     (HOROVOD_TPU_TORCH_BUILD_DIR); None keeps ``ops/_kernels``."""
     return _get("TORCH_BUILD_DIR") or None
+
+
+def hierarchical_allreduce() -> bool:
+    """HOROVOD_HIERARCHICAL_ALLREDUCE: sum fused groups in two stages,
+    within each node ('ici') and across nodes ('dcn'). Rank 0's value
+    rules every rank's execution (the engine stamps it into the plan)."""
+    return _get("HIERARCHICAL_ALLREDUCE") not in (None, "", "0")
+
+
+def hierarchical_allgather() -> bool:
+    """HOROVOD_HIERARCHICAL_ALLGATHER: gather within each node, then
+    across nodes. Rank 0's value rules, as for the allreduce."""
+    return _get("HIERARCHICAL_ALLGATHER") not in (None, "", "0")
+
+
+def stall_warning_secs() -> float:
+    """Seconds an op may wait in flight before the engine warns
+    (HOROVOD_STALL_WARNING, default 60, as the reference's
+    STALL_WARNING_TIME); 0 when HOROVOD_STALL_CHECK_DISABLE is set."""
+    if _get("STALL_CHECK_DISABLE") not in (None, "", "0"):
+        return 0.0
+    v = _get("STALL_WARNING")
+    if v not in (None, ""):
+        return float(v)
+    return DEFAULT_STALL_WARNING_SECS
+
+
+def timeline_path() -> Optional[str]:
+    """HOROVOD_TIMELINE: the Chrome-trace file the engine writes."""
+    return _get("TIMELINE")
+
+
+def resolved_timeline_path(rank: int) -> Optional[str]:
+    """The timeline file this rank writes, or None. A ``{rank}``
+    placeholder in the path makes every rank write its own file;
+    without one only rank 0 writes (a second writer would truncate its
+    file)."""
+    path = timeline_path()
+    if not path:
+        return None
+    if "{rank}" in path:
+        return path.replace("{rank}", str(rank))
+    return path if rank == 0 else None
+
+
+def timeline_mark_cycles() -> bool:
+    """HOROVOD_TIMELINE_MARK_CYCLES: a CYCLE_START instant per engine
+    cycle in the timeline."""
+    return _get("TIMELINE_MARK_CYCLES") not in (None, "", "0")

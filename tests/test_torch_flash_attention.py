@@ -185,6 +185,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
         tfa.flash_fwd_cuda(q, q, q, 0.125, True)
     with pytest.raises(ValueError):
         tfa.flash_fwd_cuda(q, q, q, 0.125, True, out_dtype=torch.float32)
-    assert tfa.launch_counts() == {"flash_fwd": 0, "flash_dkv": 0,
-                                   "flash_dq": 0, "flash_fwd_f32": 0,
-                                   "flash_dkv_f32": 0, "flash_dq_f32": 0}
+    counts = tfa.launch_counts()
+    assert {"flash_fwd", "flash_dkv", "flash_dq", "flash_fwd_f32",
+            "flash_dkv_f32", "flash_dq_f32"} <= set(counts)
+    assert sum(counts.values()) == 0

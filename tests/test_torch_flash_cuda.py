@@ -19,6 +19,14 @@ The fp32-output forms (``out_dtype=torch.float32``, what ring attention
 launches) are held to their plain fp32 versions at the same shapes and
 tolerance, write fp32, repeat bit for bit, count apart from the bf16
 forms, and round to exactly the bf16 forms' outputs.
+
+The fp16 forms (fp16 and fp32 outputs) and the fp32 SIMT forms, and
+every form at head dims {8, 16, 48, 80, 112, 160, 192, 256} (8 padded to
+16 by the wrapper; 160-256 stored 256 wide, in two column chunks), are
+held to their plain versions causal and not, with ragged sq != sk:
+fp16 5e-3 of max |plain| (lse 1e-3 absolute), fp32 2e-5 of max |plain|
+on O and lse, 1e-4 on dQ, dK and dV; each repeats bit for bit, and the
+fp16 form's fp32 outputs round to the fp16 form's bits.
 """
 
 import pytest
@@ -136,17 +144,20 @@ def test_autograd_counts_launches(cuda_kernels):
     fa.reset_launch_counts()
     out = fa.flash_attention(q, k, v, True)
     out.backward(do.detach())
-    assert fa.launch_counts() == {"flash_fwd": 1, "flash_dkv": 1,
-                                  "flash_dq": 1, "flash_fwd_f32": 0,
-                                  "flash_dkv_f32": 0, "flash_dq_f32": 0}
+    assert fa.launch_counts() == _counts(flash_fwd=1, flash_dkv=1,
+                                         flash_dq=1)
     assert out.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
+def _counts(**launched):
+    return {**{n: 0 for n in fa.launch_counts()}, **launched}
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take(cuda_kernels):
-    q = torch.zeros(2, 64, 72, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(2, 64, 264, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd_cuda(q, q, q, 0.1, True)
-    q = torch.zeros(2, 64, 64, dtype=torch.float32, device="cuda")
+    q = torch.zeros(2, 64, 64, dtype=torch.float64, device="cuda")
     with pytest.raises(TypeError):
         fa.flash_fwd_cuda(q, q, q, 0.1, True)
 
@@ -197,12 +208,88 @@ def test_fp32_forms_round_to_the_bf16_forms(cuda_kernels, d):
         assert torch.equal(a, b)
     for a, b in zip(f32, bf):
         assert torch.equal(a.to(b.dtype), b)
-    assert fa.launch_counts() == {"flash_fwd": 1, "flash_dkv": 1,
-                                  "flash_dq": 1, "flash_fwd_f32": 2,
-                                  "flash_dkv_f32": 2, "flash_dq_f32": 2}
+    assert fa.launch_counts() == _counts(
+        flash_fwd=1, flash_dkv=1, flash_dq=1, flash_fwd_f32=2,
+        flash_dkv_f32=2, flash_dq_f32=2)
 
 
 def test_fp32_forms_take_only_fp32_or_bf16_outputs(cuda_kernels):
     q = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(TypeError):
         fa.flash_fwd_cuda(q, q, q, 0.1, True, out_dtype=torch.float16)
+
+
+# The new forms: (operand dtype, out_dtype, tolerance of O and of the
+# gradients as a share of max |plain|, lse tolerance, relative or not).
+FORMS = {
+    "bf16": (torch.bfloat16, None, 2e-2, 2e-2, 1e-3, False),
+    "bf16_f32": (torch.bfloat16, torch.float32, 2e-2, 2e-2, 1e-3, False),
+    "f16": (torch.float16, None, 5e-3, 5e-3, 1e-3, False),
+    "f16_f32": (torch.float16, torch.float32, 5e-3, 5e-3, 1e-3, False),
+    "fp32": (torch.float32, None, 2e-5, 1e-4, 2e-5, True),
+}
+WIDE_DIMS = (8, 16, 48, 80, 112, 160, 192, 256)
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200),
+                                          (False, 130, 250),
+                                          (True, 257, 70)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_every_form_and_head_dim_matches_plain(cuda_kernels, form, d,
+                                               causal, sq, sk):
+    dtype, out, tol, gtol, ltol, lrel = FORMS[form]
+    g = torch.Generator(device="cuda").manual_seed(d + sq)
+    q, do = (torch.randn(3, sq, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(3, sk, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = d ** -0.5
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, causal, out)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    want = fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, scale, causal,
+                                  out)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, out)
+        dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, scale,
+                                   causal, out)
+        dq = fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, scale, causal,
+                              out)
+        runs.append((o, lse, dq, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    o, lse, dq, dk, dv = runs[0]
+    assert o.dtype == o_ref.dtype and dq.dtype == want[0].dtype
+    assert _rel(o, o_ref) <= tol
+    lse_err = float((lse - lse_ref).abs().max())
+    if lrel:
+        lse_err /= float(lse_ref.abs().max())
+    assert lse_err <= ltol
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel(got, ref) <= gtol
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_fp16_fp32_outputs_round_to_the_fp16_forms(cuda_kernels, d):
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v, do = (torch.randn(2, 300, d, generator=g, device="cuda")
+                   .half() for _ in range(4))
+    lse, delta = _stats(q, k, v, do, True)
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    h = (*fa.flash_fwd_cuda(q, k, v, scale, True),
+         *fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale, True),
+         fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, True))
+    f = (*fa.flash_fwd_cuda(q, k, v, scale, True, torch.float32),
+         *fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale, True,
+                            torch.float32),
+         fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, True,
+                          torch.float32))
+    torch.cuda.synchronize()
+    for a, b in zip(f, h):
+        assert torch.equal(a.to(b.dtype), b)
+    assert fa.launch_counts() == _counts(
+        flash_fwd_f16=1, flash_dkv_f16=1, flash_dq_f16=1,
+        flash_fwd_f16_f32=1, flash_dkv_f16_f32=1, flash_dq_f16_f32=1)

@@ -232,7 +232,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_every_c_entry_point_is_declared():
     """Each ``extern "C"`` function of csrc/ gets argtypes of its arity and
-    an int restype in _build._declare."""
+    an int restype in _build._declare: those written out in a source, and
+    those a source defines with ``HVD_FLASH_ENTRIES(SUFFIX, ...)`` (the
+    macro's functions of ``flash_attention.cuh``, their names suffixed)."""
     import re
 
     class Lib:
@@ -244,16 +246,26 @@ def test_every_c_entry_point_is_declared():
 
     lib = Lib()
     _build._declare(lib)
+    header = (_build.CSRC / "flash_attention.cuh").read_text()
+    macro = header[header.index("#define HVD_FLASH_ENTRIES"):]
+    templates = re.findall(r"int (hvd_\w+)##SUFFIX\(([^)]*)\)", macro)
+    assert len(templates) == 3
     found = 0
     for src in _build.sources():
         text = src.read_text()
-        body = text[text.index('extern "C"'):]
-        for name, params in re.findall(r"int (hvd_\w+)\(([^)]*)\)", body):
+        entries = []
+        if 'extern "C"' in text:
+            entries += re.findall(r"int (hvd_\w+)\(([^)]*)\)",
+                                  text[text.index('extern "C"'):])
+        for sfx in re.findall(r"^HVD_FLASH_ENTRIES\((\w*),", text, re.M):
+            entries += [(name + sfx, params) for name, params in templates]
+        assert entries, src.name
+        for name, params in entries:
             found += 1
             fn = lib.fns[name]
             assert len(fn.argtypes) == len(params.split(",")), name
             assert fn.restype is not None, name
-    assert found >= 10
+    assert found >= 20
 
 
 # ------------------------------------------------------- probe scripts
@@ -350,7 +362,7 @@ def test_k3_order_variants_apply_to_the_source(variant):
     source exactly once and changes only what it names."""
     from horovod_tpu_torch.experiments import flash_dq_order as order
     from horovod_tpu_torch.ops import _build
-    text = (_build.CSRC / "flash_attention.cu").read_text()
+    text = (_build.CSRC / "flash_attention.cuh").read_text()
     out = order.cut_source(text, variant, order.VARIANTS)
     stages = "5" if variant == "overlap_lead3" else "4"
     assert f"constexpr int kDqStages = {stages};" in out
