@@ -161,7 +161,26 @@ and prints no result line):
    the step's loss), and tok/s is logged beside phase 5's; the stall
    probe: a request placed in the engine's table of announced ops and
    never planned, with a 1 s warning time, must draw the engine's stall
-   warning within 4 s.
+   warning within 4 s;
+18. the conv zoo's main path (``init`` again, NCCL, world 1): VGG16 at
+   32 x 224² and InceptionV3 at 32 x 299², bf16, 1000 classes, full
+   width and depth, each 5 steps through ``synthetic("image",
+   seed=1234)`` (its one batch materialised once into an
+   ``ArraySource``, so the step does not wait on numpy's RNG; the
+   source's own rate is logged) -> ``build_loader(batch_size=32,
+   seed=0)`` ->
+   ``prefetch_to_device(depth=2)`` -> ``broadcast_parameters`` ->
+   ``DistributedOptimizer(SGD(0.01, momentum=0.9))``: the loss finite
+   and falling, every bucket fired from its hook each step, no port
+   kernel launched; it logs img/s, the model-FLOPs share, the peak
+   memory and the host ms each step waited for its batch;
+19. the MNIST net 20 steps at batch 64 through the loader and
+   prefetcher (loss falling); word2vec 20 NCE steps at
+   ``examples/jax_word2vec.py``'s sizes on its Zipf stream (loss
+   falling, ``nearest`` ids valid); ResNet-50 with
+   ``bn_axis_name="dp"`` on a world-1 mesh, 3 steps at phase 8's batch,
+   weights and images: one ``[2C]`` statistics all-reduce per BN layer
+   per step (53), step 1's loss logged beside phase 8's flax step.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -174,6 +193,14 @@ bit; then the fp16 and fp32 forms timed at the flagship beside their
 plain versions, SDPA at the same dtype as a yardstick, with bounds at
 989 (fp16) and 67 (fp32) TFLOP/s; and each operand dtype's own form at
 D=256 (B=8, H=3, S=2048), logged.
+
+Phase 3c, after 3b: every form of K1-K3 at head dims 272, 320, 384 and
+512 (the ``_wide`` kernels: D zero-padded to a multiple of 128), causal
+and not, ragged, at 3b's tolerances and repeat-exact; then each operand
+dtype's own form timed at B=8, H=3, S=2048, D=512 beside its plain
+version and SDPA (the ``kernels`` rows ``<kernel>_wide``: the flash
+wrappers count the kernels above head dim 256 under those keys, and no
+main path launches one).
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1, and the run's seconds before the last lines. The line before the last is ``{"kernels":
@@ -890,14 +917,15 @@ def lm_main_path(hvd, tfm, fa, fbn, build_train_step, profile):
 
 def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
                      bn_bound_ms, profile):
-    """Phase 8; returns the BN kernels' launch counts of the 5 steps."""
+    """Phase 8; returns the BN kernels' launch counts of the 5 steps and
+    the bn_impl="flax" run's losses."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = torch.randn(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3,
                          generator=gen, device="cuda")
     labels = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
                            device="cuda")
     flops = 3 * 2 * macs
-    img_s, launches = {}, None
+    img_s, launches, all_losses = {}, None, {}
     for bn_impl in ("pallas", "flax"):
         step = build_image_train_step(
             functools.partial(tres.ResNet50, num_classes=1000,
@@ -914,6 +942,7 @@ def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
         fa.reset_launch_counts()
         fbn.reset_launch_counts()
         losses, times = train_steps(step, model, opt, images, labels)
+        all_losses[bn_impl] = losses
         counts = fbn.launch_counts()
         steady = statistics.median(times[1:])
         img_s[bn_impl] = RESNET_BATCH / steady
@@ -945,7 +974,7 @@ def resnet_main_path(hvd, tres, fa, fbn, build_image_train_step, macs,
         torch.cuda.empty_cache()
     log(f"ResNet-50 img/s: pallas {img_s['pallas']:.1f}, flax "
         f"{img_s['flax']:.1f} (ratio {img_s['pallas'] / img_s['flax']:.3f})")
-    return launches
+    return launches, all_losses["flax"]
 
 
 # ---------------------------------------------------------------- probes
@@ -2298,6 +2327,43 @@ def flash_forms_phase(fa):
     return rows
 
 
+WIDE_DIMS = (272, 320, 384, 512)
+WIDE_TIMED = (8, 3, 2048, 512)    # B, H, S, D of the timed wide forms
+
+
+def wide_forms_phase(fa):
+    """Phase 3c: every form of K1-K3 at head dims above 256 (the _wide
+    kernels, D zero-padded to a multiple of 128) against its plain
+    version, causal and not, ragged, repeat-exact; then each operand
+    dtype's own form timed at D=512. Returns those rows of the
+    ``kernels`` line, named by the kernels' launch keys
+    ``<kernel>_wide``."""
+    log(f"flash forms vs plain at head dims {WIDE_DIMS} x (causal, sq, sk) "
+        f"{SWEEP_SHAPES}, phase 3b's tolerances:")
+    t0 = time.perf_counter()
+    for sfx in FORMS:
+        worst = {}
+        for d in WIDE_DIMS:
+            for causal, sq, sk in SWEEP_SHAPES:
+                _, errs, _ = check_form(fa, sfx, 3, sq, sk, d, causal,
+                                        sq + sk + d)
+                for name, err in errs.items():
+                    worst[name] = max(worst.get(name, 0.0), err)
+        log(f"  flash{sfx or '_bf16'}: "
+            f"{len(WIDE_DIMS) * len(SWEEP_SHAPES)} shapes, worst "
+            f"{json.dumps(worst)}; repeats bit-identical")
+    log(f"  sweep {time.perf_counter() - t0:.1f} s")
+    b, h, s, d = WIDE_TIMED
+    log(f"each dtype's own form at D={d} (B={b}, H={h}, S={s}, causal; "
+        "SDPA's flash backend stops at 256, so library_ms is whichever "
+        "backend PyTorch picks):")
+    rows = {}
+    for sfx in ("", "_f16", "_fp32"):
+        rows.update({f"{name}_wide": row for name, row in
+                     time_form(fa, sfx, b, h, s, d).items()})
+    return rows
+
+
 def dtype_lm_phase(hvd, tfm, fa, build_train_step, create_mesh, lm_step_s):
     """Phase 16: the flagship LM of phase 5 in fp16 and in fp32 through
     the automatic flash choice, then the fp16 tp/sp mesh step (ring
@@ -2495,7 +2561,280 @@ def engine_remainder_phase(hvd, tfm, fa, fbn, build_train_step, lm_losses,
         f"phase 5's {8 * 2048 / lm_step_s:.1f} (the timeline's cost)")
 
 
+def base_of(name):
+    """A row's kernel form: ``flash_fwd_f16_wide`` (phase 3c's kernel
+    above head dim 256) is ``flash_fwd_f16``."""
+    return name.removesuffix("_wide")
+
+
+# ---------------------------------------------------------------------------
+# Phases 18 and 19: the conv zoo through the input pipeline, the small
+# models and sync BN.
+# ---------------------------------------------------------------------------
+
+ZOO = (("VGG16", 224), ("InceptionV3", 299))   # (model, image size)
+ZOO_BATCH = 32          # examples/jax_synthetic_benchmark.py's default
+MNIST_STEPS, MNIST_BATCH = 20, 64
+W2V = dict(vocab=5000, dim=128, batch=256, negatives=64, steps=20)
+SYNC_BN_STEPS = 3
+
+
+def zoo_macs(model, image):
+    """Conv and dense multiply-adds of one image through ``model``, from
+    one eval-mode forward (no kernel of the port runs)."""
+    from horovod_tpu_torch.models.layers import Conv
+    macs = [0]
+
+    def on_conv(mod, args, out):
+        macs[0] += out.numel() * mod.weight[0].numel()
+
+    def on_dense(mod, args, out):
+        macs[0] += mod.in_features * mod.out_features
+
+    hooks = [m.register_forward_hook(on_conv) for m in model.modules()
+             if isinstance(m, Conv)]
+    hooks += [m.register_forward_hook(on_dense) for m in model.modules()
+              if isinstance(m, torch.nn.Linear)]
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, image, image, 3, device=model.device))
+    model.train()
+    for h in hooks:
+        h.remove()
+    return macs[0]
+
+
+def pipeline_steps(step, model, opt, it, n):
+    """``n`` steps on batches from the prefetcher ``it``: (losses, step
+    seconds, host ms each step waited for its batch)."""
+    losses, times, waits = [], [], []
+    for _ in range(n):
+        w0 = it.waited_s
+        t0 = time.perf_counter()
+        images, labels = next(it).data
+        waits.append((it.waited_s - w0) * 1e3)
+        loss = step(model, opt, images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    return losses, times, waits
+
+
+def zoo_main_path(hvd, data, zoo, fa, fbn, build_image_train_step, profile):
+    """Phase 18: VGG16 and InceptionV3 at full width and depth, bf16,
+    ImageNet shapes, ``synthetic("image", seed=1234)`` ->
+    ``build_loader(batch_size=32, seed=0)`` -> ``prefetch_to_device(
+    depth=2)`` -> ``DistributedOptimizer(SGD(0.01 n, momentum 0.9))``, 5
+    steps each. The dataset holds one batch, so every step is an epoch of
+    the same 32 images (reshuffled): at 1000 classes 5 steps on new
+    images would show no falling loss, as phase 8 repeats its batch. The
+    synthetic batch is materialised once into an ``ArraySource``: drawn
+    anew each step on the prefetcher's one host thread (numpy's RNG, 2-4
+    ms an image) it would bound the step, and img/s would measure the
+    source. Its own rate is logged apart."""
+    import numpy as np
+    for name, image in ZOO:
+        src = data.synthetic("image", n=ZOO_BATCH, image_size=image,
+                             num_classes=1000, seed=1234)
+        t0 = time.perf_counter()
+        cached = data.ArraySource(*src.take(np.arange(ZOO_BATCH)))
+        src_s = time.perf_counter() - t0
+        log(f"{name}: the synthetic source draws a {ZOO_BATCH} x {image}^2 "
+            f"batch in {src_s * 1e3:.1f} ms on one host thread (alone it "
+            f"would bound the step at {ZOO_BATCH / src_s:.1f} img/s)")
+        loader = data.build_loader(cached, batch_size=ZOO_BATCH, seed=0)
+        step = build_image_train_step(
+            functools.partial(getattr(zoo, name), num_classes=1000),
+            lambda p: torch.optim.SGD(p, lr=0.01 * hvd.size(),
+                                      momentum=0.9))
+        model = step.make_model(generator=torch.Generator().manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        flops = 3 * 2 * zoo_macs(model, image) * ZOO_BATCH
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = step.make_optimizer(model)
+        sync_ms, fires = [], []
+        timed_synchronize(opt, sync_ms, fires)
+        it = data.prefetch_to_device(loader, depth=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        fbn.reset_launch_counts()
+        losses, times, waits = pipeline_steps(step, model, opt, it, STEPS)
+        steady = statistics.median(times[1:])
+        log(f"{name} main path ({n_params} params, bf16, {ZOO_BATCH} x "
+            f"{image}^2 through build_loader -> prefetch_to_device): losses "
+            f"{losses}")
+        log(f"  step seconds {times}; host ms waiting for the batch "
+            f"{[round(w, 3) for w in waits]} (prefetcher h2d "
+            f"{it.h2d_s * 1e3 / STEPS:.3f} ms/batch)")
+        log(f"  {ZOO_BATCH / steady:.1f} img/s (median of steps 2-{STEPS}, "
+            f"{steady * 1e3:.2f} ms/step); model FLOPs (conv + dense, "
+            f"2*MAC x 3) {flops / 1e12:.3f} TFLOP/step: "
+            f"{flops / steady / 1e12:.1f} TFLOP/s, "
+            f"{flops / steady / PEAK_BF16_FLOPS:.2%} of the bf16 peak; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            "GiB")
+        log("  gradient sync: " + bucket_line(opt, sync_ms, fires))
+        n_buckets = len(opt._buckets)
+        if n_buckets < 1 or any(f != (n_buckets, 0) for f in fires):
+            raise AssertionError(f"{name}: buckets did not all fire from "
+                                 f"their hooks: {fires}")
+        if sum(fa.launch_counts().values()) or sum(
+                fbn.launch_counts().values()):
+            raise AssertionError(f"{name} launched a flash or BN kernel")
+        if profile:
+            profile_steps(lambda: step(model, opt, *next(it).data), profile,
+                          f"{name} train step through prefetch_to_device")
+        it.close()
+        del step, model, opt, it
+        torch.cuda.empty_cache()
+
+
+def synthetic_mnist(n=4096, num_classes=10, seed=1234):
+    """``examples/_data.py``'s learnable MNIST stand-in: (images [n, 28,
+    28, 1] in [0, 1], labels [n])."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    protos = rng.rand(num_classes, 28, 28, 1).astype(np.float32)
+    labels = rng.randint(0, num_classes, size=n).astype(np.int32)
+    images = protos[labels] + 0.3 * rng.randn(n, 28, 28, 1).astype(
+        np.float32)
+    return np.clip(images, 0.0, 1.0), labels
+
+
+def text8_like_tokens(n=100_000, vocab=5000, seed=7):
+    """``examples/_data.py``'s Zipf token stream (the word2vec corpus
+    stand-in)."""
+    import numpy as np
+    tokens = np.random.RandomState(seed).zipf(1.3, size=n).astype(np.int64)
+    return np.clip(tokens, 0, vocab - 1).astype(np.int32)
+
+
+def mnist_steps(hvd, data, zoo, build_image_train_step):
+    step = build_image_train_step(
+        zoo.MnistConvNet, lambda p: torch.optim.SGD(
+            p, lr=0.01 * hvd.size(), momentum=0.9))
+    model = step.make_model(generator=torch.Generator().manual_seed(42))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = step.make_optimizer(model)
+    loader = data.build_loader(synthetic_mnist(), batch_size=MNIST_BATCH,
+                               seed=0)
+    it = data.prefetch_to_device(loader, depth=2)
+    losses, times, waits = pipeline_steps(step, model, opt, it, MNIST_STEPS)
+    it.close()
+    log(f"MnistConvNet: {MNIST_STEPS} steps at batch {MNIST_BATCH} through "
+        f"the loader, losses {[round(x, 4) for x in losses]}; "
+        f"{MNIST_BATCH / statistics.median(times[1:]):.1f} img/s (median); "
+        f"host ms waiting per step median "
+        f"{statistics.median(waits):.3f}")
+
+
+def word2vec_steps(hvd):
+    from horovod_tpu_torch.models import word2vec as w2v
+    p = W2V
+    dev = hvd.device()
+    tokens = torch.from_numpy(text8_like_tokens(vocab=p["vocab"])).to(dev)
+    params = w2v.init_params(p["vocab"], p["dim"],
+                             torch.Generator().manual_seed(0), device=dev)
+    named = list(zip(w2v.Word2VecParams._fields, params))
+    hvd.broadcast_parameters(dict(named), root_rank=0)
+    # optax.adagrad(1.0)'s accumulator start and eps, as the JAX example.
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adagrad(params, lr=1.0, initial_accumulator_value=0.1,
+                            eps=1e-7), named_parameters=named)
+    gen = torch.Generator(device=dev)
+    losses, times = [], []
+    for i in range(p["steps"]):
+        t0 = time.perf_counter()
+        gen.manual_seed(i)
+        centers, contexts = w2v.skipgram_batch(
+            tokens, i * hvd.size() + hvd.rank(), p["batch"])
+        opt.zero_grad()
+        loss = w2v.nce_loss(params, centers.long(), contexts.long(), gen,
+                            p["negatives"])
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        times.append(time.perf_counter() - t0)
+    near = w2v.nearest(params, torch.arange(4, device=dev), k=5)
+    log(f"word2vec: {p['steps']} NCE steps (vocab {p['vocab']}, dim "
+        f"{p['dim']}, batch {p['batch']}, {p['negatives']} negatives, "
+        f"Adagrad 1.0), losses {[round(x, 3) for x in losses]}; step ms "
+        f"median {statistics.median(times[1:]) * 1e3:.3f}; nearest(0..3, "
+        f"k=5) {near.tolist()}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"word2vec losses not finite and falling: "
+                             f"{losses}")
+    if tuple(near.shape) != (4, 5) or not bool(
+            ((near >= 0) & (near < p["vocab"])).all()):
+        raise AssertionError(f"nearest returned invalid ids {near}")
+
+
+def sync_bn_steps(hvd, tres, create_mesh, build_image_train_step,
+                  flax_loss1):
+    """ResNet-50 with every BN a SyncBatchNorm over 'dp' of a world-1
+    mesh: SYNC_BN_STEPS steps at phase 8's batch, images and weights."""
+    from horovod_tpu_torch.data import sync_bn
+    mesh = create_mesh(dp=hvd.size())
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3,
+                         generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                           device=dev)
+    step = build_image_train_step(
+        functools.partial(tres.ResNet50, num_classes=1000,
+                          bn_axis_name="dp", mesh=mesh),
+        lambda p: torch.optim.SGD(p, lr=0.01 * hvd.size(), momentum=0.9))
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    n_bn = sum(isinstance(m, sync_bn.SyncBatchNorm) for m in model.modules())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = step.make_optimizer(model)
+    losses, counts, times = [], [], []
+    for _ in range(SYNC_BN_STEPS):
+        sync_bn.reset_allreduce_count()
+        t0 = time.perf_counter()
+        losses.append(float(step(model, opt, images, labels)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(sync_bn.allreduce_count())
+    rel = abs(losses[0] - flax_loss1) / abs(flax_loss1)
+    log(f"ResNet-50 with sync BN (bn_axis_name='dp', world {hvd.size()}): "
+        f"{n_bn} SyncBatchNorm layers, losses {losses}; step seconds "
+        f"{times}; [2C] statistics all-reduces per step {counts}; step 1 "
+        f"loss {losses[0]!r} beside phase 8's bn_impl='flax' "
+        f"{flax_loss1!r} (rel {rel:.3e}: no variance clamp, another "
+        "order of the normalising product)")
+    if n_bn != 53 or counts != [n_bn] * SYNC_BN_STEPS:
+        raise AssertionError(f"{n_bn} SyncBatchNorm layers made {counts} "
+                             "statistics all-reduces per step, expected one "
+                             "each")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"sync-BN ResNet losses {losses}")
+
+
+def small_models_phase(hvd, data, zoo, tres, fa, fbn, create_mesh,
+                       build_image_train_step, flax_loss1):
+    """Phase 19: the MNIST net and word2vec through the engine, and
+    ResNet-50 with sync BN; no hand-written kernel runs."""
+    fa.reset_launch_counts()
+    fbn.reset_launch_counts()
+    mnist_steps(hvd, data, zoo, build_image_train_step)
+    word2vec_steps(hvd)
+    sync_bn_steps(hvd, tres, create_mesh, build_image_train_step,
+                  flax_loss1)
+    if sum(fa.launch_counts().values()) or sum(
+            fbn.launch_counts().values()):
+        raise AssertionError("phase 19 launched a flash or BN kernel")
+    torch.cuda.empty_cache()
+
+
 def source_of(name):
+    name = base_of(name)
     if name in BN_KERNELS:
         return BN_SOURCE
     if name.startswith("flash_ablate"):
@@ -2572,6 +2911,9 @@ def main(argv=None) -> int:
     # 3b. every operand dtype and head dim of the flash forms
     rows.update(flash_forms_phase(fa))
 
+    # 3c. head dims above 256
+    rows.update(wide_forms_phase(fa))
+
     # 4. parity of the LM on the flash kernels
     parity(tfm, fa)
 
@@ -2600,9 +2942,10 @@ def main(argv=None) -> int:
     resnet_parity(tres)
 
     # 8. ResNet-50 main path
-    launches.update(resnet_main_path(hvd, tres, fa, fbn,
-                                     build_image_train_step, macs,
-                                     bn_bound_ms, args.profile))
+    bn_launches, resnet_flax_losses = resnet_main_path(
+        hvd, tres, fa, fbn, build_image_train_step, macs, bn_bound_ms,
+        args.profile)
+    launches.update(bn_launches)
     hvd.shutdown()
 
     # 9. the probes P1-P3
@@ -2650,8 +2993,25 @@ def main(argv=None) -> int:
     engine_remainder_phase(hvd, tfm, fa, fbn, build_train_step, lm_losses,
                            lm_step_s)
 
+    # 18. the conv zoo's main path through the input pipeline
+    from horovod_tpu_torch import data
+    from horovod_tpu_torch import models as zoo
+    t18 = time.perf_counter()
+    hvd.init()
+    zoo_main_path(hvd, data, zoo, fa, fbn, build_image_train_step,
+                  args.profile)
+    log(f"  phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # 19. the small models and sync BN
+    t19 = time.perf_counter()
+    small_models_phase(hvd, data, zoo, tres, fa, fbn, create_mesh,
+                       build_image_train_step, resnet_flax_losses[0])
+    hvd.shutdown()
+    log(f"  phase 19: {time.perf_counter() - t19:.1f} s")
+
     kernels = [dict(name=name, route="cuda", source=source_of(name),
-                    replaces=REPLACES[name], launches=launches[name],
+                    replaces=REPLACES[base_of(name)],
+                    launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])

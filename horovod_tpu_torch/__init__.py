@@ -9,7 +9,10 @@ steps of the flagship transformer, whose attention runs on hand-written
 CUDA flash kernels for Hopper, and of ResNet-50, whose batch norms run
 on hand-written CUDA kernels, and the transformer's tensor- and
 sequence-parallel train step over a mesh (``parallel/``: Megatron tp,
-ring and Ulysses attention).
+ring and Ulysses attention), and the conv zoo (``models``: VGG,
+Inception V3, the MNIST net, word2vec; ResNet with distributed batch
+norm) fed by the input pipeline (``data``: sources, the sharded loader,
+prefetch to the card).
 
     import torch, horovod_tpu_torch as hvd
     hvd.init()                                   # CUDA; device="cpu" for gloo

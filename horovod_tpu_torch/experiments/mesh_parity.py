@@ -40,6 +40,20 @@ and the data-parallel step through the collective engine:
   flat concatenation. Both pairs share one host's NVLink, so this times
   the two-stage algorithm, not a cross-node link.
 
+and distributed batch norm:
+
+- ``sync_bn``: a small fp32 ResNet (``stage_sizes=[1, 1]``, 16 filters,
+  10 classes, TF32 off) with ``bn_axis_name="dp"`` on ``dp=4``, each
+  rank holding a quarter of a 32 x 32 x 32 x 3 batch, against the same
+  weights with local BN on one card on the whole batch (the loss
+  ``sum(logits * g)``, ``g`` seeded): the logits gathered within
+  ``SYNC_BN_FWD_TOL`` (1e-5) of the reference's max, the parameter
+  gradients summed over the ranks within ``SYNC_BN_GRAD_TOL`` (1e-4 of
+  each tensor's max: the weight gradients' batch sums run in another
+  order, a quarter batch on each card then a 4-way all-reduce, and BN's
+  backward cancels most of each sum), and one ``[2C]`` all-reduce per
+  BN layer in the forward (counted).
+
 and the pipelined flagship at its full depth (12 layers, whatever
 ``--layers`` says) on ``pp=4``, 8 x 2048 tokens as m = 8 microbatches of
 1, with NCCL sends and receives between the stages:
@@ -405,6 +419,104 @@ def _hier_engine(layers, device, width):
     return line
 
 
+SYNC_BN = dict(stage_sizes=[1, 1], num_filters=16, num_classes=10)
+SYNC_BN_BATCH, SYNC_BN_IMAGE = 32, 32
+SYNC_BN_FWD_TOL = 1e-5
+SYNC_BN_GRAD_TOL = 1e-4
+
+
+def run_sync_bn_rank(rank, port, outdir, device):
+    """One rank of ``sync_bn``: its quarter of the batch through the
+    sync-BN ResNet on ``dp=4``, beside the local-BN reference on the
+    whole batch."""
+    import horovod_tpu_torch as hvd
+    from ..data import sync_bn
+    from ..models.resnet import ResNet
+    from ..parallel.mesh import create_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device=f"cuda:{rank}" if device == "cuda" else device,
+             init_method=f"tcp://localhost:{port}", rank=rank,
+             world_size=WORLD)
+    dev = hvd.device()
+    mesh = create_mesh(dp=WORLD)
+    gen = torch.Generator().manual_seed(3)
+    images = torch.rand(SYNC_BN_BATCH, SYNC_BN_IMAGE, SYNC_BN_IMAGE, 3,
+                        generator=gen).to(dev)
+    g = torch.randn(SYNC_BN_BATCH, SYNC_BN["num_classes"],
+                    generator=gen).to(dev)
+    kw = dict(SYNC_BN, dtype=torch.float32, device=dev)
+    ref = ResNet(generator=torch.Generator().manual_seed(0), **kw)
+    logits_ref = ref(images)
+    (logits_ref * g).sum().backward()
+    logits_ref = logits_ref.detach()
+    model = ResNet(bn_axis_name="dp", mesh=mesh,
+                   generator=torch.Generator().manual_seed(0), **kw)
+    n = SYNC_BN_BATCH // WORLD
+    mine = slice(rank * n, (rank + 1) * n)
+    calls = []
+    real = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        calls.append(t.numel())
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits = model(images[mine])
+        _sync(dev)
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd_calls = list(calls)
+    finally:
+        dist.all_reduce = real
+    loss = (logits * g[mine]).sum()
+    loss.backward()
+    gathered = [torch.empty_like(logits) for _ in range(WORLD)]
+    dist.all_gather(gathered, logits.detach().contiguous())
+    logits_err = float((torch.cat(gathered) - logits_ref).abs().max()
+                       / logits_ref.abs().max())
+    total = loss.detach().clone()
+    dist.all_reduce(total)
+    ref_grads = dict(ref.named_parameters())
+    err = 0.0
+    for name, p in model.named_parameters():
+        grad = p.grad.clone()
+        dist.all_reduce(grad)
+        want = ref_grads[name].grad
+        err = max(err, float((grad - want).abs().max()
+                             / want.abs().max().clamp_min(1e-30)))
+    bns = [m for m in model.modules()
+           if isinstance(m, sync_bn.SyncBatchNorm)]
+    line = {"mesh": {"dp": WORLD}, "loss": float(total),
+            "reference_loss": float((logits_ref * g).sum()),
+            "logits_rel_err": logits_err, "max_grad_rel_err": err,
+            "bn_layers": len(bns),
+            "allreduces_per_forward": len(fwd_calls),
+            "allreduce_numels": sorted(set(fwd_calls)),
+            "one_2c_allreduce_per_bn": fwd_calls == [
+                2 * m.scale.numel() for m in bns],
+            "forward_ms": fwd_ms, "peak_mib": None}
+    hvd.shutdown()
+    torch.save(line, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _sync_bn(device):
+    """``sync_bn``'s line: rank 0's, with every rank's worst errors."""
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_sync_bn_rank, args=(_free_port(), outdir, device),
+                 nprocs=WORLD)
+        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+                 for r in range(WORLD)]
+    line = dict(ranks[0])
+    for key in ("logits_rel_err", "max_grad_rel_err"):
+        line[key] = max(r[key] for r in ranks)
+    line["one_2c_allreduce_per_bn"] = all(r["one_2c_allreduce_per_bn"]
+                                          for r in ranks)
+    return line
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -415,8 +527,10 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     """{variant: rank 0's line, with the worst gradient error and peak
     memory of all ranks (and, for a pipeline variant, whether every rank
     was bit for bit)}; ``variants`` defaults to all."""
-    variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine"))
-    mesh_variants = [v for v in variants if v != "hier_engine"]
+    variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine",
+                                 "sync_bn"))
+    mesh_variants = [v for v in variants
+                     if v not in ("hier_engine", "sync_bn")]
     ranks = []
     if mesh_variants:
         with tempfile.TemporaryDirectory() as outdir:
@@ -427,6 +541,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     lines = {}
     if "hier_engine" in variants:
         lines["hier_engine"] = _hier_engine(layers, device, width)
+    if "sync_bn" in variants:
+        lines["sync_bn"] = _sync_bn(device)
     for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
@@ -445,7 +561,7 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
-    names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine")
+    names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine", "sync_bn")
     ap.add_argument("--variants", help="comma-separated names (default: "
                     f"all of {', '.join(names)})")
     args = ap.parse_args(argv)
@@ -464,6 +580,10 @@ def main(argv=None) -> int:
                and line["max_grad_rel_err"] <= GRAD_TOL
                and line.get("grad_rel_err_vs_flat", 0.0) <= HIER_TOL
                and line.get("allgather_exact", True))
+        if name == "sync_bn":
+            ok &= (line["logits_rel_err"] <= SYNC_BN_FWD_TOL
+                   and line["max_grad_rel_err"] <= SYNC_BN_GRAD_TOL
+                   and line["one_2c_allreduce_per_bn"])
     return 0 if ok else 1
 
 

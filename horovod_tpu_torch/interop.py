@@ -12,11 +12,16 @@ same mesh coordinate. A tree in JAX's pipeline layout (its
 (:func:`pipeline_from_jax`), and every rank's state gathers back into it
 bit for bit (:func:`pipeline_to_jax`).
 
-The ResNet takes PyTorch's layouts: a conv kernel goes from HWIO to
-OIHW, the head's Dense kernel from ``[in, out]`` to ``[out, in]``; BN
-``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats) are
-copied as they are. The nested flax names join with dots
-(``stage1_block1/conv1/kernel`` is ``stage1_block1.conv1.weight``).
+The conv zoo (ResNet, VGG, Inception V3, the MNIST net) takes PyTorch's
+layouts: a conv kernel goes from HWIO to OIHW, a Dense kernel from
+``[in, out]`` to ``[out, in]``; biases, BN ``scale``/``bias`` (params)
+and ``mean``/``var`` (batch_stats) are copied as they are. The nested
+flax names join with dots (``stage1_block1/conv1/kernel`` is
+``stage1_block1.conv1.weight``, ``InceptionA_0/ConvBN_2/BatchNorm_0/
+mean`` is ``InceptionA_0.ConvBN_2.BatchNorm_0.mean``): the port's
+modules carry flax's names (:func:`image_variables_from_jax`,
+:func:`image_variables_to_jax`). word2vec's parameters are three
+arrays, copied (:func:`word2vec_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -132,20 +137,21 @@ def _flat(tree: Dict, prefix: str = ""):
             yield prefix + key, np.asarray(val, dtype=np.float32)
 
 
-def resnet_variables_from_jax(params: Dict, batch_stats: Dict
-                              ) -> "OrderedDict[str, torch.Tensor]":
-    """A ``ResNet`` state_dict from the JAX model's ``params`` and
-    ``batch_stats`` trees."""
+def image_variables_from_jax(params: Dict, batch_stats: Dict = None
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """The state_dict of a conv-zoo model (``ResNet``, ``VGG``,
+    ``InceptionV3``, ``MnistConvNet``) from the JAX model's ``params`` and
+    ``batch_stats`` trees (None or ``{}`` for a model without BN)."""
     sd = OrderedDict()
-    for key, arr in itertools.chain(_flat(params), _flat(batch_stats)):
-        if key.endswith(".kernel"):
+    for key, arr in itertools.chain(_flat(params), _flat(batch_stats or {})):
+        if key.split(".")[-1] == "kernel":
             key = key[:-len("kernel")] + "weight"
             arr = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
         sd[key] = torch.from_numpy(np.array(arr, order="C"))
     return sd
 
 
-def resnet_variables_to_jax(state_dict: Dict[str, torch.Tensor]):
+def image_variables_to_jax(state_dict: Dict[str, torch.Tensor]):
     """The inverse: ``(params, batch_stats)`` trees of fp32 numpy arrays."""
     params: Dict = {}
     batch_stats: Dict = {}
@@ -160,3 +166,20 @@ def resnet_variables_to_jax(state_dict: Dict[str, torch.Tensor]):
             tree = tree.setdefault(name, {})
         tree[leaf] = np.ascontiguousarray(arr)
     return params, batch_stats
+
+
+
+def word2vec_params_from_jax(params, *, device="cpu"):
+    """``models.word2vec.Word2VecParams`` (fp32 leaves that require grad)
+    from JAX's ``Word2VecParams`` (or any three arrays in its order)."""
+    from .models.word2vec import Word2VecParams
+    return Word2VecParams(*(
+        torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+        .requires_grad_() for a in params))
+
+
+def word2vec_params_to_jax(params):
+    """The inverse: a ``(embeddings, nce_weights, nce_biases)`` tuple of
+    fp32 numpy arrays, which JAX's ``Word2VecParams(*...)`` takes."""
+    return tuple(t.detach().to("cpu", torch.float32).numpy().copy()
+                 for t in params)

@@ -10,7 +10,7 @@ as flax does; the mean-pool accumulates in fp32 and returns ``dtype``;
 the head runs in fp32.
 
 Weights keep PyTorch's layouts (conv ``[O, I, kh, kw]``, head
-``[out, in]``); ``interop.resnet_variables_from_jax`` carries them from
+``[out, in]``); ``interop.image_variables_from_jax`` carries them from
 the JAX tree. Convolutions pad as flax's ``"SAME"`` does, which is
 asymmetric for a 3x3 stride-2 conv on an even input (``(0, 1)``).
 
@@ -19,13 +19,18 @@ numerics, then ReLU and the residual add in ``dtype``); any other string
 routes every BN(+residual)(+ReLU) through ``ops.fused_bn.bn_act`` with
 that impl (``"pallas"`` runs the CUDA kernels). Running statistics use
 flax's convention: ``ra = 0.9 * ra + 0.1 * batch``, biased variance.
-Distributed batch norm (``bn_axis_name``) is a later slice and raises.
+
+``bn_axis_name`` makes every BN a ``data.sync_bn.SyncBatchNorm`` over
+that axis of ``mesh`` (None: the world mesh ``init()`` set up, axis
+'dp'), as the JAX model swaps in its ``SyncBatchNorm``; it needs
+``bn_impl="flax"`` and raises JAX's ``ValueError`` otherwise. Parameter
+and buffer names stay those of the local BN.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,97 +38,11 @@ from torch import nn
 
 from ..ops.fused_bn import IMPLS, bn_act, bn_act_inference
 from ..topology import resolve_device
+from .layers import EPSILON, BatchNorm, Conv, _Norm, init_convs_, \
+    lecun_normal_, same_pads
 
-MOMENTUM = 0.9
-EPSILON = 1e-5
-
-
-def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """(low, high) padding of flax/XLA ``"SAME"`` along one dimension."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _lecun_normal_(t: torch.Tensor, fan_in: int,
-                   generator: torch.Generator) -> None:
-    # flax's default kernel init: truncated normal at +-2 std, the std
-    # corrected for the truncation.
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
-
-
-class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias: fp32 weight ``[O, I, k, k]``, cast
-    to ``dtype`` (channels last) at each use. ``padding`` is ``"SAME"``
-    or an explicit ``(low, high)`` for both spatial dimensions."""
-
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: Union[str, Tuple[int, int]] = "SAME",
-                 dtype: torch.dtype = torch.bfloat16):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
-        self.k, self.stride, self.padding, self.dtype = k, stride, padding, \
-            dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.padding == "SAME":
-            ph = same_pads(x.shape[2], self.k, self.stride)
-            pw = same_pads(x.shape[3], self.k, self.stride)
-        else:
-            ph = pw = self.padding
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            pad = (ph[0], pw[0])
-        else:
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-            pad = (0, 0)
-        w = self.weight.to(self.dtype, memory_format=torch.channels_last)
-        return F.conv2d(x, w, stride=self.stride, padding=pad)
-
-
-class _Norm(nn.Module):
-    """Parameters ``scale``/``bias`` and buffers ``mean``/``var``, all fp32
-    ``[C]``, as flax's ``BatchNorm`` lays them out."""
-
-    def __init__(self, c: int, zero_scale: bool = False):
-        super().__init__()
-        self.scale = nn.Parameter(torch.zeros(c) if zero_scale
-                                  else torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("mean", torch.zeros(c))
-        self.register_buffer("var", torch.ones(c))
-
-    @torch.no_grad()
-    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        m = MOMENTUM
-        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-        self.var.copy_(m * self.var + (1.0 - m) * var)
-
-
-class BatchNorm(_Norm):
-    """flax ``nn.BatchNorm`` (0.12) over the channels of an NCHW tensor:
-    fp32 ``mean(x)`` and ``mean(x^2)``, ``var = max(0, mean(x^2) -
-    mean^2)``, ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in
-    fp32, cast to ``dtype``. Gradients flow through the statistics."""
-
-    def __init__(self, c: int, zero_scale: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
-        super().__init__(c, zero_scale)
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean,
-                                  0.0)
-            self._update(mean, var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + EPSILON) * self.scale
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        return y.to(self.dtype)
+__all__ = ["BatchNorm", "BottleneckBlock", "Conv", "FusedBNAct", "ResNet",
+           "ResNet50", "ResNet101", "ResNet152", "same_pads"]
 
 
 class FusedBNAct(_Norm):
@@ -159,7 +78,7 @@ class BottleneckBlock(nn.Module):
     the flax path applies ReLU and the add after its BN, in ``dtype``."""
 
     def __init__(self, cin: int, filters: int, stride: int, dtype,
-                 bn_impl: str):
+                 bn_impl: str, sync_norm=None):
         super().__init__()
         self.fused = bn_impl != "flax"
         cout = filters * 4
@@ -168,6 +87,8 @@ class BottleneckBlock(nn.Module):
         def norm(c, zero_scale=False, relu=True):
             if self.fused:
                 return FusedBNAct(c, zero_scale, relu, bn_impl)
+            if sync_norm is not None:
+                return sync_norm(c, zero_scale=zero_scale)
             return BatchNorm(c, zero_scale, dtype)
 
         self.conv1 = conv(cin, filters, 1)
@@ -209,23 +130,36 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
                  bn_impl: str = "flax", bn_axis_name: Optional[str] = None,
-                 *, generator: Optional[torch.Generator] = None,
+                 *, mesh=None, generator: Optional[torch.Generator] = None,
                  device: Union[str, torch.device, None] = None):
         super().__init__()
-        if bn_axis_name is not None:
-            raise NotImplementedError(
-                "bn_axis_name (distributed batch norm) is not ported yet")
         if bn_impl != "flax" and bn_impl not in IMPLS:
             raise ValueError(f"unknown bn_impl {bn_impl!r}; expected 'flax' "
                              f"or one of {IMPLS}")
+        if bn_axis_name is not None and bn_impl != "flax":
+            raise ValueError(
+                "bn_axis_name (distributed batch norm) requires "
+                "bn_impl='flax': the fused bn op computes its "
+                "statistics inside its custom VJP and cannot psum "
+                "them (docs/data.md#sync-bn)")
         dev = resolve_device(device)
+        sync_norm = None
+        if bn_axis_name is not None:
+            from ..data.sync_bn import SyncBatchNorm
+            sync_norm = partial(SyncBatchNorm, axis_name=bn_axis_name,
+                                mesh=mesh, eps=EPSILON, dtype=dtype,
+                                channel_dim=1, device=dev)
         self.stage_sizes = list(stage_sizes)
         self.dtype, self.bn_impl = dtype, bn_impl
         self.fused = bn_impl != "flax"
         self.conv_init = Conv(3, num_filters, 7, 2, padding=(3, 3),
                               dtype=dtype)
-        self.bn_init = (FusedBNAct(num_filters, impl=bn_impl) if self.fused
-                        else BatchNorm(num_filters, dtype=dtype))
+        if self.fused:
+            self.bn_init = FusedBNAct(num_filters, impl=bn_impl)
+        elif sync_norm is not None:
+            self.bn_init = sync_norm(num_filters)
+        else:
+            self.bn_init = BatchNorm(num_filters, dtype=dtype)
         self.block_names = []
         cin = num_filters
         for i, count in enumerate(self.stage_sizes):
@@ -234,7 +168,8 @@ class ResNet(nn.Module):
                 filters = num_filters * 2 ** i
                 name = f"stage{i + 1}_block{j + 1}"
                 self.add_module(name, BottleneckBlock(cin, filters, stride,
-                                                      dtype, bn_impl))
+                                                      dtype, bn_impl,
+                                                      sync_norm))
                 self.block_names.append(name)
                 cin = filters * 4
         self.head = nn.Linear(cin, num_classes)
@@ -243,12 +178,8 @@ class ResNet(nn.Module):
 
     @torch.no_grad()
     def _init_weights(self, generator: torch.Generator) -> None:
-        for mod in self.modules():
-            if isinstance(mod, Conv):
-                w = mod.weight
-                _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3],
-                               generator)
-        _lecun_normal_(self.head.weight, self.head.in_features, generator)
+        init_convs_(self, generator)
+        lecun_normal_(self.head.weight, self.head.in_features, generator)
         self.head.bias.zero_()
 
     @property

@@ -17,7 +17,9 @@
 // stores them as float2 pairs where the 16-bit forms pack them (Pair).
 // The fp16 forms are the bf16 bodies with the wgmma type suffix, the
 // packing and the q-scale pass of fp16 (hopper_tile.cuh). D is one of
-// BuiltHeadDims below (every multiple of 16 up to 256); sq and sk take
+// BuiltHeadDims below (every multiple of 16 up to 256), or a multiple of
+// 128 above 256, which the _wide kernels take as a runtime count of
+// 128-column chunks (the section "Head dims above 256"); sq and sk take
 // any length >= 1, causal or not. A head dim short of its stored width
 // (16, 48, 80, 96, 112, and every D above 128) is stored in shared
 // memory at tile_width, zero filled: Q K^T and dO V^T take only D/16
@@ -768,6 +770,534 @@ flash_dq_body(const InT* __restrict__ q, const InT* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 256: K1-K3 on 128-column chunks (the _wide kernels)
+// ---------------------------------------------------------------------------
+//
+// d is a runtime multiple of 128 (the wrapper zero-pads any other head
+// dim above 256 to one) and nc = d / 128 its chunks. Each CTA owns one
+// 128-column chunk c = blockIdx.z of its output (O in K1, dK and dV in
+// K2, dQ in K3), as the 256-wide tiles above do. The products that sum
+// over d (Q K^T, and dO V^T in K2 and K3) stream d through the ring one
+// 128-column k-chunk at a time and accumulate S (and dP) in registers
+// across the chunks, so a stage holds what a D = 128 tile holds whatever
+// d is. One ring item is one k-chunk of one streamed tile: the owned
+// rows' chunk (Q, or K2's K and V) beside the streamed rows' chunk (K,
+// or Qs and dO, and V), re-read from L2 for every streamed tile. K2 and
+// K3 visit the chunks from c + 1 round to c, so the last item of a tile
+// holds the chunk c operand of its RS product (dO and Qs in K2, K in K3)
+// and no extra load is needed; K1 loads V's chunk c with its last item.
+// Three stages, one item ahead in flight; every product retires in the
+// item that issued it. The work grows as nc: each CTA recomputes S (and
+// dP) over the whole d. A correct first form, not a tuned one.
+
+constexpr int kWide = 128;         // columns of one chunk
+constexpr int kWideStages = 3;     // ring items
+constexpr int kWideRows = 64;      // rows a K2/K3 CTA owns: one warpgroup
+constexpr int kWideThreads = 128;
+constexpr int kChunkTile = 64 * kWide * 2;  // a [64, 128] 16-bit chunk
+
+struct FwdWideSmem {                     // byte offsets in one stage
+  static constexpr int kK = kFwdRows * kWide * 2;  // Q chunk [128, 128] at 0
+  static constexpr int kV = kK + kChunkTile;
+  static constexpr int kStage = kV + kChunkTile;
+  static constexpr int kBytes = kWideStages * kStage + 1024;
+};
+
+struct BwdWideSmem {                     // K2 and K3: four [64, 128] chunks
+  static constexpr int kStage = 4 * kChunkTile;
+  static constexpr int kStats = kWideStages * kStage;  // K2: lse, delta
+  static constexpr int kBytes = kStats + kWideStages * 512 + 1024;
+};
+
+template <typename InT, typename OutT>
+__device__ __forceinline__ void
+flash_fwd_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
+                    const InT* __restrict__ v, OutT* __restrict__ o,
+                    float* __restrict__ lse, int sq, int sk, int d,
+                    float qscale, int causal) {
+  using L = FwdWideSmem;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sRing = smem_u32(smem);
+
+  const int nc = d / kWide, c = blockIdx.z;
+  const int bh = blockIdx.x;
+  // Heaviest (last) causal tiles first: they start while the grid fills.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
+  q += (size_t)bh * sq * d;
+  o += (size_t)bh * sq * d + c * kWide;
+  lse += (size_t)bh * sq;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + wg * 64;  // this warpgroup's first q row
+  const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+
+  int n_kt = (sk + kFwdCols - 1) / kFwdCols;
+  int n_mine = r0 < sq ? n_kt : 0;
+  if (causal) {
+    n_kt = min(n_kt, (min(q0 + kFwdRows, sq) - 1) / kFwdCols + 1);
+    if (r0 < sq) n_mine = min(n_kt, (min(r0 + 64, sq) - 1) / kFwdCols + 1);
+  }
+  const int n_items = n_kt * nc;
+
+  // Item it = key tile it / nc, k-chunk it % nc: Q's and K's chunk, and
+  // V's chunk c with the tile's last chunk; one commit group per item.
+  auto issue = [&](int it) {
+    if (it < n_items) {
+      const int kt = it / nc, dc = it % nc;
+      const uint32_t st = sRing + (it % kWideStages) * L::kStage;
+      load_chunk_async<kFwdRows, kFwdThreads>(st, q, q0, sq, d, dc * kWide);
+      load_chunk_async<kFwdCols, kFwdThreads>(st + L::kK, k, kt * kFwdCols,
+                                              sk, d, dc * kWide);
+      if (dc == nc - 1) {
+        load_chunk_async<kFwdCols, kFwdThreads>(st + L::kV, v, kt * kFwdCols,
+                                                sk, d, c * kWide);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+
+  float acc[kWide / 8][4];
+#pragma unroll
+  for (int i = 0; i < kWide / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float s[kFwdCols / 8][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_items; ++it) {
+    // Item it has landed; scale this thread's own Q copies, publish the
+    // stage to wgmma, and refill the stage item it-1 used.
+    const int st_off = (it % kWideStages) * L::kStage;
+    cp_async_wait<1>();
+    scale_tile<kWide, kFwdRows, kFwdThreads, InT>(smem + st_off, qscale);
+    fence_proxy_async();
+    __syncthreads();
+    issue(it + 2);
+    const int kt = it / nc, dc = it % nc;
+    if (kt >= n_mine) continue;  // wholly above this warpgroup's rows
+
+    // S (+)= Qs K^T over this k-chunk; the first chunk overwrites S.
+    const uint32_t sQ = sRing + st_off;
+    fence_acc(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWide / 16; ++kk) {
+      wgmma_ss<kFwdCols, InT>(s, desc_kmajor<kFwdRows>(sQ, wg * 64, kk),
+                              desc_kmajor<kFwdCols>(sQ + L::kK, 0, kk),
+                              dc | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    if (dc != nc - 1) continue;
+
+    // The online softmax and O += P V, as in flash_fwd_body.
+    const int k0 = kt * kFwdCols;
+    const bool edge = k0 + kFwdCols > sk || (causal && k0 + kFwdCols - 1 > r0);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < kFwdCols / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + t * 2 + (e & 1);
+          if (!valid_pair(row[e >> 1], col, sq, sk, causal)) s[j][e] = kNegInf;
+        }
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kFwdCols / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+    float corr[2], mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+      mb[r] = mx[r] * kLog2e;
+    }
+#pragma unroll
+    for (int j = 0; j < kFwdCols / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
+        if (edge && !valid_pair(row[e >> 1], k0 + j * 8 + t * 2 + (e & 1),
+                                sq, sk, causal)) {
+          p = 0.f;
+        }
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+    uint32_t pa[kFwdCols / 16][4];
+#pragma unroll
+    for (int cc = 0; cc < kFwdCols / 16; ++cc) acc_to_a_as<InT>(pa[cc], s[2 * cc], s[2 * cc + 1]);
+#pragma unroll
+    for (int i = 0; i < kWide / 8; ++i) {
+      acc[i][0] *= corr[0];
+      acc[i][1] *= corr[0];
+      acc[i][2] *= corr[1];
+      acc[i][3] *= corr[1];
+    }
+    fence_acc(acc);
+    fence_frag(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < kFwdCols / 16; ++cc) {
+      wgmma_rs<kWide, InT>(acc, pa[cc], desc_mnmajor<kFwdCols>(sQ + L::kV, cc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frag(pa);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= sq) continue;
+    const float inv = 1.f / l[r];
+    OutT* orow = o + (size_t)row[r] * d;
+#pragma unroll
+    for (int i = 0; i < kWide / 8; ++i) {
+      *reinterpret_cast<typename Pair<OutT>::T*>(orow + i * 8 + t * 2) =
+          Pair<OutT>::of(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+    }
+    if (t == 0 && c == 0) lse[row[r]] = m[r] + logf(l[r]);
+  }
+}
+
+template <typename InT, typename OutT>
+__device__ __forceinline__ void
+flash_dkv_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
+                    const InT* __restrict__ v, const InT* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, OutT* __restrict__ dk,
+                    OutT* __restrict__ dv, int sq, int sk, int d,
+                    float qscale, int causal) {
+  using L = BwdWideSmem;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sRing = smem_u32(smem);
+  const uint32_t sStats = sRing + L::kStats;
+
+  const int nc = d / kWide, c = blockIdx.z;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kWideRows;
+  q += (size_t)bh * sq * d;
+  dout += (size_t)bh * sq * d;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+  dk += (size_t)bh * sk * d + c * kWide;
+  dv += (size_t)bh * sk * d + c * kWide;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+
+  const int n_qt = (sq + kDkvCols - 1) / kDkvCols;
+  const int qt0 = causal ? k0 / kDkvCols : 0;
+  const int n_items = (n_qt > qt0 ? n_qt - qt0 : 0) * nc;
+
+  // Item it = q tile qt0 + it / nc, k-chunk (c + 1 + it % nc) % nc: K's,
+  // V's, Qs's and dO's chunks in a stage at 0, 1, 2, 3 chunk tiles, and
+  // the q tile's lse and delta with its last chunk.
+  auto issue = [&](int it) {
+    if (it < n_items) {
+      const int qt = qt0 + it / nc, j = it % nc;
+      const int col = ((c + 1 + j) % nc) * kWide;
+      const int stage = it % kWideStages;
+      const uint32_t st = sRing + stage * L::kStage;
+      load_chunk_async<kWideRows, kWideThreads>(st, k, k0, sk, d, col);
+      load_chunk_async<kWideRows, kWideThreads>(st + kChunkTile, v, k0, sk,
+                                                d, col);
+      load_chunk_async<kDkvCols, kWideThreads>(st + 2 * kChunkTile, q,
+                                               qt * kDkvCols, sq, d, col);
+      load_chunk_async<kDkvCols, kWideThreads>(st + 3 * kChunkTile, dout,
+                                               qt * kDkvCols, sq, d, col);
+      if (j == nc - 1) {
+        const int qi = qt * kDkvCols + threadIdx.x % kDkvCols;
+        const float* src = threadIdx.x < kDkvCols ? lse : delta;
+        cp_async4(sStats + stage * 512 + threadIdx.x * 4,
+                  src + (qi < sq ? qi : 0), qi < sq);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+
+  float dka[kWide / 8][4], dva[kWide / 8][4];
+#pragma unroll
+  for (int i = 0; i < kWide / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  }
+  float st[kDkvCols / 8][4], dpt[kDkvCols / 8][4];
+
+  for (int it = 0; it < n_items; ++it) {
+    const int stage = it % kWideStages;
+    cp_async_wait<1>();
+    scale_tile<kWide, kDkvCols, kWideThreads, InT>(
+        smem + stage * L::kStage + 2 * kChunkTile, qscale);
+    fence_proxy_async();
+    __syncthreads();
+    issue(it + 2);
+    const int qt = qt0 + it / nc, j = it % nc;
+    const uint32_t sK = sRing + stage * L::kStage;
+    const uint32_t sV = sK + kChunkTile;
+    const uint32_t sQ = sK + 2 * kChunkTile;
+    const uint32_t sO = sK + 3 * kChunkTile;
+
+    // S^T (+)= K Qs^T and dP^T (+)= V dO^T over this k-chunk.
+    fence_acc(st);
+    fence_acc(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWide / 16; ++kk) {
+      wgmma_ss<kDkvCols, InT>(st, desc_kmajor<kWideRows>(sK, 0, kk),
+                              desc_kmajor<kDkvCols>(sQ, 0, kk), j | kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kWide / 16; ++kk) {
+      wgmma_ss<kDkvCols, InT>(dpt, desc_kmajor<kWideRows>(sV, 0, kk),
+                              desc_kmajor<kDkvCols>(sO, 0, kk), j | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+    if (j != nc - 1) continue;
+
+    // The stage holds chunk c of Qs and dO: P^T, dV, dS^T and dK as in
+    // flash_dkv_body.
+    const int q0 = qt * kDkvCols;
+    const float* sLse = reinterpret_cast<const float*>(smem + L::kStats + stage * 512);
+    const float* sDel = sLse + kDkvCols;
+    const bool edge = q0 + kDkvCols > sq || (causal && q0 < k0 + 63);
+#pragma unroll
+    for (int jj = 0; jj < kDkvCols / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = jj * 8 + t * 2 + (e & 1);
+        float p = exp2f(fmaf(st[jj][e], kLog2e, -sLse[qc] * kLog2e));
+        if (edge && !valid_pair(q0 + qc, krow[e >> 1], sq, sk, causal)) p = 0.f;
+        st[jj][e] = p;
+      }
+    }
+    uint32_t pa[kDkvCols / 16][4];
+#pragma unroll
+    for (int cc = 0; cc < kDkvCols / 16; ++cc) acc_to_a_as<InT>(pa[cc], st[2 * cc], st[2 * cc + 1]);
+    fence_acc(dva);
+    fence_frag(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < kDkvCols / 16; ++cc) {
+      wgmma_rs<kWide, InT>(dva, pa[cc], desc_mnmajor<kDkvCols>(sO, cc));
+    }
+    wgmma_commit();
+    uint32_t dsa[kDkvCols / 16][4];
+#pragma unroll
+    for (int jj = 0; jj < kDkvCols / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[jj][e] *= dpt[jj][e] - sDel[jj * 8 + t * 2 + (e & 1)];
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < kDkvCols / 16; ++cc) acc_to_a_as<InT>(dsa[cc], st[2 * cc], st[2 * cc + 1]);
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_frag(pa);
+    fence_acc(dka);
+    fence_frag(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < kDkvCols / 16; ++cc) {
+      wgmma_rs<kWide, InT>(dka, dsa[cc], desc_mnmajor<kDkvCols>(sQ, cc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dka);
+    fence_frag(dsa);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (krow[r] >= sk) continue;
+    OutT* dkr = dk + (size_t)krow[r] * d;
+    OutT* dvr = dv + (size_t)krow[r] * d;
+#pragma unroll
+    for (int i = 0; i < kWide / 8; ++i) {
+      *reinterpret_cast<typename Pair<OutT>::T*>(dkr + i * 8 + t * 2) =
+          Pair<OutT>::of(dka[i][2 * r], dka[i][2 * r + 1]);
+      *reinterpret_cast<typename Pair<OutT>::T*>(dvr + i * 8 + t * 2) =
+          Pair<OutT>::of(dva[i][2 * r], dva[i][2 * r + 1]);
+    }
+  }
+}
+
+template <typename InT, typename OutT>
+__device__ __forceinline__ void
+flash_dq_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
+                   const InT* __restrict__ v, const InT* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, OutT* __restrict__ dq,
+                   int sq, int sk, int d, float qscale, float scale,
+                   int causal) {
+  using L = BwdWideSmem;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sRing = smem_u32(smem);
+
+  const int nc = d / kWide, c = blockIdx.z;
+  const int bh = blockIdx.x;
+  // Heaviest (last) causal tiles first: they start while the grid fills.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideRows;
+  q += (size_t)bh * sq * d;
+  dout += (size_t)bh * sq * d;
+  dq += (size_t)bh * sq * d + c * kWide;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float lse2[2], del[2];  // lse in base 2, and delta, of this thread's rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = row[r] < sq ? lse[row[r]] * kLog2e : 0.f;
+    del[r] = row[r] < sq ? delta[row[r]] : 0.f;
+  }
+
+  int n_kt = (sk + kDqCols - 1) / kDqCols;
+  if (causal) n_kt = min(n_kt, (min(q0 + kWideRows, sq) - 1) / kDqCols + 1);
+  const int n_items = n_kt * nc;
+
+  // Item it = key tile it / nc, k-chunk (c + 1 + it % nc) % nc: Qs's,
+  // dO's, K's and V's chunks in a stage at 0, 1, 2, 3 chunk tiles.
+  auto issue = [&](int it) {
+    if (it < n_items) {
+      const int kt = it / nc;
+      const int col = ((c + 1 + it % nc) % nc) * kWide;
+      const uint32_t st = sRing + (it % kWideStages) * L::kStage;
+      load_chunk_async<kWideRows, kWideThreads>(st, q, q0, sq, d, col);
+      load_chunk_async<kWideRows, kWideThreads>(st + kChunkTile, dout, q0, sq,
+                                                d, col);
+      load_chunk_async<kDqCols, kWideThreads>(st + 2 * kChunkTile, k,
+                                              kt * kDqCols, sk, d, col);
+      load_chunk_async<kDqCols, kWideThreads>(st + 3 * kChunkTile, v,
+                                              kt * kDqCols, sk, d, col);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+
+  float dqa[kWide / 8][4];
+#pragma unroll
+  for (int i = 0; i < kWide / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+  float s[kDqCols / 8][4], dp[kDqCols / 8][4];
+
+  for (int it = 0; it < n_items; ++it) {
+    const int st_off = (it % kWideStages) * L::kStage;
+    cp_async_wait<1>();
+    scale_tile<kWide, kWideRows, kWideThreads, InT>(smem + st_off, qscale);
+    fence_proxy_async();
+    __syncthreads();
+    issue(it + 2);
+    const int kt = it / nc, j = it % nc;
+    const uint32_t sQ = sRing + st_off;
+    const uint32_t sO = sQ + kChunkTile;
+    const uint32_t sK = sQ + 2 * kChunkTile;
+    const uint32_t sV = sQ + 3 * kChunkTile;
+
+    // S (+)= Qs K^T and dP (+)= dO V^T over this k-chunk.
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWide / 16; ++kk) {
+      wgmma_ss<kDqCols, InT>(s, desc_kmajor<kWideRows>(sQ, 0, kk),
+                             desc_kmajor<kDqCols>(sK, 0, kk), j | kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kWide / 16; ++kk) {
+      wgmma_ss<kDqCols, InT>(dp, desc_kmajor<kWideRows>(sO, 0, kk),
+                             desc_kmajor<kDqCols>(sV, 0, kk), j | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    if (j != nc - 1) continue;
+
+    // The stage holds chunk c of K: dS and dQ += dS K as in flash_dq_body.
+    const int k0 = kt * kDqCols;
+    const bool edge = k0 + kDqCols > sk || (causal && k0 + kDqCols - 1 > q0);
+#pragma unroll
+    for (int jj = 0; jj < kDqCols / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[jj][e], kLog2e, -lse2[e >> 1]));
+        if (edge && !valid_pair(row[e >> 1], k0 + jj * 8 + t * 2 + (e & 1),
+                                sq, sk, causal)) {
+          p = 0.f;
+        }
+        s[jj][e] = p * (dp[jj][e] - del[e >> 1]);
+      }
+    }
+    uint32_t dsa[kDqCols / 16][4];
+#pragma unroll
+    for (int cc = 0; cc < kDqCols / 16; ++cc) acc_to_a_as<InT>(dsa[cc], s[2 * cc], s[2 * cc + 1]);
+    fence_acc(dqa);
+    fence_frag(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < kDqCols / 16; ++cc) {
+      wgmma_rs<kWide, InT>(dqa, dsa[cc], desc_mnmajor<kDqCols>(sK, cc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dqa);
+    fence_frag(dsa);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= sq) continue;
+    OutT* dqr = dq + (size_t)row[r] * d;
+#pragma unroll
+    for (int i = 0; i < kWide / 8; ++i) {
+      *reinterpret_cast<typename Pair<OutT>::T*>(dqr + i * 8 + t * 2) =
+          Pair<OutT>::of(dqa[i][2 * r] * scale, dqa[i][2 * r + 1] * scale);
+    }
+  }
+}
+
 // The kernels of one form: flash_{fwd,dkv,dq}<PREFIX>_kernel<D> for
 // operands InT and outputs OutT (the bf16 forms keep the names they had
 // before the other forms existed: flash_fwd_kernel, flash_fwd_f32_kernel).
@@ -801,6 +1331,35 @@ flash_dq_body(const InT* __restrict__ q, const InT* __restrict__ k,
     flash_dq_body<D>(q, k, v, dout, lse, delta, dq, sq, sk, qscale, scale,    \
                      causal);                                                 \
   }                                                                           \
+  __global__ void __launch_bounds__(kFwdThreads)                             \
+      flash_fwd##PREFIX##_wide_kernel(                                        \
+          const InT* __restrict__ q, const InT* __restrict__ k,               \
+          const InT* __restrict__ v, OutT* __restrict__ o,                    \
+          float* __restrict__ lse, int sq, int sk, int d, float qscale,       \
+          int causal) {                                                       \
+    flash_fwd_wide_body<InT, OutT>(q, k, v, o, lse, sq, sk, d, qscale,        \
+                                   causal);                                   \
+  }                                                                           \
+  __global__ void __launch_bounds__(kWideThreads)                            \
+      flash_dkv##PREFIX##_wide_kernel(                                        \
+          const InT* __restrict__ q, const InT* __restrict__ k,               \
+          const InT* __restrict__ v, const InT* __restrict__ dout,            \
+          const float* __restrict__ lse, const float* __restrict__ delta,     \
+          OutT* __restrict__ dk, OutT* __restrict__ dv, int sq, int sk,       \
+          int d, float qscale, int causal) {                                  \
+    flash_dkv_wide_body<InT, OutT>(q, k, v, dout, lse, delta, dk, dv, sq, sk, \
+                                   d, qscale, causal);                        \
+  }                                                                           \
+  __global__ void __launch_bounds__(kWideThreads)                            \
+      flash_dq##PREFIX##_wide_kernel(                                         \
+          const InT* __restrict__ q, const InT* __restrict__ k,               \
+          const InT* __restrict__ v, const InT* __restrict__ dout,            \
+          const float* __restrict__ lse, const float* __restrict__ delta,     \
+          OutT* __restrict__ dq, int sq, int sk, int d, float qscale,         \
+          float scale, int causal) {                                          \
+    flash_dq_wide_body<InT, OutT>(q, k, v, dout, lse, delta, dq, sq, sk, d,   \
+                                  qscale, scale, causal);                     \
+  }                                                                           \
   struct FlashKernels##PREFIX {                                               \
     template <int D>                                                          \
     static auto fwd() { return flash_fwd##PREFIX##_kernel<D>; }               \
@@ -808,6 +1367,9 @@ flash_dq_body(const InT* __restrict__ q, const InT* __restrict__ k,
     static auto dkv() { return flash_dkv##PREFIX##_kernel<D>; }               \
     template <int D>                                                          \
     static auto dq() { return flash_dq##PREFIX##_kernel<D>; }                 \
+    static auto fwd_wide() { return flash_fwd##PREFIX##_wide_kernel; }        \
+    static auto dkv_wide() { return flash_dkv##PREFIX##_wide_kernel; }        \
+    static auto dq_wide() { return flash_dq##PREFIX##_wide_kernel; }          \
   };
 
 template <typename K>
@@ -867,6 +1429,56 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Launchers of one form's _wide kernels: d a multiple of kWide above 256,
+// grid z its chunks.
+template <typename Ks, typename InT, typename OutT>
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int bh, int sq, int sk, int d,
+                            float qscale, int causal, cudaStream_t stream) {
+  const auto kernel = Ks::fwd_wide();
+  cudaError_t err = prepare(kernel, FwdWideSmem::kBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (sq + kFwdRows - 1) / kFwdRows, d / kWide);
+  kernel<<<grid, kFwdThreads, FwdWideSmem::kBytes, stream>>>(
+      (const InT*)q, (const InT*)k, (const InT*)v, (OutT*)o, (float*)lse,
+      sq, sk, d, qscale, causal);
+  return cudaGetLastError();
+}
+
+template <typename Ks, typename InT, typename OutT>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int bh,
+                            int sq, int sk, int d, float qscale, int causal,
+                            cudaStream_t stream) {
+  const auto kernel = Ks::dkv_wide();
+  cudaError_t err = prepare(kernel, BwdWideSmem::kBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (sk + kWideRows - 1) / kWideRows, d / kWide);
+  kernel<<<grid, kWideThreads, BwdWideSmem::kBytes, stream>>>(
+      (const InT*)q, (const InT*)k, (const InT*)v, (const InT*)dout,
+      (const float*)lse, (const float*)delta, (OutT*)dk, (OutT*)dv, sq, sk,
+      d, qscale, causal);
+  return cudaGetLastError();
+}
+
+template <typename Ks, typename InT, typename OutT>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int bh, int sq,
+                           int sk, int d, float qscale, float scale,
+                           int causal, cudaStream_t stream) {
+  const auto kernel = Ks::dq_wide();
+  cudaError_t err = prepare(kernel, BwdWideSmem::kBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (sq + kWideRows - 1) / kWideRows, d / kWide);
+  kernel<<<grid, kWideThreads, BwdWideSmem::kBytes, stream>>>(
+      (const InT*)q, (const InT*)k, (const InT*)v, (const InT*)dout,
+      (const float*)lse, (const float*)delta, (OutT*)dq, sq, sk, d, qscale,
+      scale, causal);
+  return cudaGetLastError();
+}
+
 // The head dims the library is built for; flash_attention.py's HEAD_DIMS
 // lists the same values.
 template <int... Ds>
@@ -893,6 +1505,12 @@ cudaError_t dispatch_d(HeadDims<Ds...>, int d, F launch) {
       const void* q, const void* k, const void* v, void* o, void* lse,        \
       int bh, int sq, int sk, int d, float qscale, int causal,                \
       void* stream) {                                                         \
+    if (d > 256) {                                                             \
+      if (d % kWide) return cudaErrorInvalidValue;                             \
+      return launch_fwd_wide<Ks, InT, OutT>(q, k, v, o, lse, bh, sq, sk, d,   \
+                                            qscale, causal,                   \
+                                            (cudaStream_t)stream);            \
+    }                                                                         \
     return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {                       \
       return launch_fwd<decltype(D)::value, Ks, InT, OutT>(                   \
           q, k, v, o, lse, bh, sq, sk, qscale, causal, (cudaStream_t)stream); \
@@ -902,6 +1520,12 @@ cudaError_t dispatch_d(HeadDims<Ds...>, int d, F launch) {
       const void* q, const void* k, const void* v, const void* dout,          \
       const void* lse, const void* delta, void* dk, void* dv, int bh,         \
       int sq, int sk, int d, float qscale, int causal, void* stream) {        \
+    if (d > 256) {                                                             \
+      if (d % kWide) return cudaErrorInvalidValue;                             \
+      return launch_dkv_wide<Ks, InT, OutT>(q, k, v, dout, lse, delta, dk,    \
+                                            dv, bh, sq, sk, d, qscale,        \
+                                            causal, (cudaStream_t)stream);    \
+    }                                                                         \
     return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {                       \
       return launch_dkv<decltype(D)::value, Ks, InT, OutT>(                   \
           q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, qscale, causal,      \
@@ -912,6 +1536,12 @@ cudaError_t dispatch_d(HeadDims<Ds...>, int d, F launch) {
       const void* q, const void* k, const void* v, const void* dout,          \
       const void* lse, const void* delta, void* dq, int bh, int sq, int sk,   \
       int d, float qscale, float scale, int causal, void* stream) {           \
+    if (d > 256) {                                                             \
+      if (d % kWide) return cudaErrorInvalidValue;                             \
+      return launch_dq_wide<Ks, InT, OutT>(q, k, v, dout, lse, delta, dq, bh, \
+                                           sq, sk, d, qscale, scale, causal,  \
+                                           (cudaStream_t)stream);             \
+    }                                                                         \
     return dispatch_d(BuiltHeadDims{}, d, [&](auto D) {                       \
       return launch_dq<decltype(D)::value, Ks, InT, OutT>(                    \
           q, k, v, dout, lse, delta, dq, bh, sq, sk, qscale, scale, causal,   \

@@ -368,6 +368,29 @@ __device__ __forceinline__ void load_tile_async(uint32_t tile,
   }
 }
 
+// Rows row0..row0+ROWS-1 and columns col0..col0+127 of a [seq, ld]
+// matrix into a 128-wide swizzled tile (the D = 128 layout), for head
+// dims above 256 that stream through shared memory 128 columns at a
+// time. Rows past seq are zero-filled. A thread copies the chunks that
+// load_tile_async<128, ROWS, THREADS> gives it, so scale_tile<128, ROWS,
+// THREADS> scales this thread's own copies.
+template <int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void load_chunk_async(uint32_t tile, const T* src,
+                                                 int row0, int seq, int ld,
+                                                 int col0) {
+  static_assert(sizeof(T) == 2, "16-bit elements: 8 to a chunk");
+  constexpr int kChunks = 128 / 8;
+  static_assert((ROWS * kChunks) % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int idx = i * THREADS + threadIdx.x;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = row0 + r < seq;
+    cp_async16(tile + sw128<ROWS>(r, c),
+               src + (size_t)(ok ? row0 + r : 0) * ld + col0 + c * 8, ok);
+  }
+}
+
 // q * scale in T arithmetic (the product of the two T values, rounded
 // to T), as load_tile does, in place over the chunks this thread copied
 // with load_tile_async (so its own cp_async_wait is enough before it).

@@ -18,12 +18,14 @@ form (:func:`launch_counts`).
 The kernels take bf16, fp16 and fp32 operands, as JAX's kernels take the
 operands' dtype: bf16 and fp16 on the wgmma bodies of
 ``csrc/flash_attention.cuh``, fp32 on the SIMT bodies of
-``csrc/flash_attention_fp32.cu`` (fp32 products, as JAX's on fp32). Head
-dims up to ``MAX_HEAD_DIM``: every multiple of 16 (``HEAD_DIMS``) runs on
-the kernels as it is, any other is zero-padded to the next one by
-:func:`fwd_padded` / :func:`bwd_padded` and the outputs cut back, which is
-exact (zero columns add nothing to Q K^T or dO V^T, and the scale stays
-the caller's, of the true head dim).
+``csrc/flash_attention_fp32.cu`` (fp32 products, as JAX's on fp32). Every
+head dim runs, as JAX's kernels take any: a multiple of 16 up to 256
+(``HEAD_DIMS``) on the kernels as it is, and above 256 a multiple of
+``WIDE_CHUNK`` (128) on the ``_wide`` kernels, which take the head dim as
+a runtime count of 128-column chunks; any other head dim is zero-padded
+to the next of these by :func:`fwd_padded` / :func:`bwd_padded` and the
+outputs cut back, which is exact (zero columns add nothing to Q K^T or
+dO V^T, and the scale stays the caller's, of the true head dim).
 
 Each kernel and plain version takes ``out_dtype``, as JAX's ``_flash_fwd``
 and ``_flash_bwd`` do: None (the operands' dtype) or fp32, which ring
@@ -47,22 +49,26 @@ from ._build import library, ptr, raise_on, stream
 
 NEG_INF = -1e30
 
-# The head dims the kernels take as they are (BuiltHeadDims in
-# csrc/flash_attention.cuh); others up to MAX_HEAD_DIM are padded.
-MAX_HEAD_DIM = 256
-HEAD_DIMS = tuple(range(16, MAX_HEAD_DIM + 1, 16))
+# The head dims the templated kernels take as they are (BuiltHeadDims in
+# csrc/flash_attention.cuh); above the last, the _wide kernels take
+# multiples of WIDE_CHUNK. Others are padded.
+HEAD_DIMS = tuple(range(16, 257, 16))
+WIDE_CHUNK = 128
 
 # Each operand dtype's forms: (its own output dtype, fp32 outputs).
 _DTYPE_FORMS = {torch.bfloat16: ("", "_f32"),
                 torch.float16: ("_f16", "_f16_f32"),
                 torch.float32: ("_fp32", "_fp32")}
 
-_launches = {f"flash_{k}{form}": 0 for form in FORMS
-             for k in ("fwd", "dkv", "dq")}
+# Each form's launches, the _wide kernels (head dims above HEAD_DIMS[-1])
+# under their own "_wide" keys.
+_launches = {f"flash_{k}{form}{wide}": 0 for form in FORMS
+             for k in ("fwd", "dkv", "dq") for wide in ("", "_wide")}
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel form since the last reset."""
+    """Launches of each kernel form since the last reset; a ``_wide``
+    key counts that form's kernels above head dim ``HEAD_DIMS[-1]``."""
     return dict(_launches)
 
 
@@ -126,13 +132,14 @@ def flash_bwd_reference(qb, kb, vb, do, lse, delta, scale: float,
 # --------------------------------------------------------------------------
 
 def padded_head_dim(d: int) -> int:
-    """The head dim the kernels run ``d`` at: the next multiple of 16.
-    Raises ``ValueError`` above ``MAX_HEAD_DIM``."""
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash attention: head_dim must be at most "
-                         f"{MAX_HEAD_DIM} (the widest tile the kernels "
-                         f"hold), got {d}")
-    return -(-d // 16) * 16
+    """The head dim the kernels run ``d`` at: the next multiple of 16 up
+    to ``HEAD_DIMS[-1]``, above it the next multiple of ``WIDE_CHUNK``.
+    Raises ``ValueError`` for ``d <= 0``."""
+    if d <= 0:
+        raise ValueError(f"flash attention: head_dim must be positive, "
+                         f"got {d}")
+    step = 16 if d <= HEAD_DIMS[-1] else WIDE_CHUNK
+    return -(-d // step) * step
 
 
 def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -216,26 +223,29 @@ def _out(like: torch.Tensor, form: str) -> torch.Tensor:
     return torch.empty_like(like, dtype=torch.float32 if f32 else like.dtype)
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, d: int, *args) -> None:
+    """Calls entry point ``hvd_<name>`` (which picks the _wide kernels
+    above ``HEAD_DIMS[-1]``) and counts the launch under the kernel's
+    key."""
     err = getattr(library(), f"hvd_{name}")(*args)
     raise_on(err, name)
-    _launches[name] += 1
+    _launches[name + ("_wide" if d > HEAD_DIMS[-1] else "")] += 1
 
 
 def _fwd_kernel(qb, kb, vb, scale, causal, form):
     bh, sq, d = qb.shape
     o = _out(qb, form)
     lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=qb.device)
-    _launch("flash_fwd" + form, ptr(qb), ptr(kb), ptr(vb), ptr(o), ptr(lse),
-            bh, sq, kb.shape[1], d, _qscale(scale, qb.dtype), int(causal),
-            stream(qb))
+    _launch("flash_fwd" + form, d, ptr(qb), ptr(kb), ptr(vb), ptr(o),
+            ptr(lse), bh, sq, kb.shape[1], d, _qscale(scale, qb.dtype),
+            int(causal), stream(qb))
     return o, lse
 
 
 def _dkv_kernel(qb, kb, vb, do, lse, delta, scale, causal, form):
     bh, sq, d = qb.shape
     dk, dv = _out(kb, form), _out(vb, form)
-    _launch("flash_dkv" + form, ptr(qb), ptr(kb), ptr(vb), ptr(do),
+    _launch("flash_dkv" + form, d, ptr(qb), ptr(kb), ptr(vb), ptr(do),
             ptr(lse), ptr(delta), ptr(dk), ptr(dv), bh, sq, kb.shape[1], d,
             _qscale(scale, qb.dtype), int(causal), stream(qb))
     return dk, dv
@@ -244,8 +254,8 @@ def _dkv_kernel(qb, kb, vb, do, lse, delta, scale, causal, form):
 def _dq_kernel(qb, kb, vb, do, lse, delta, scale, causal, form):
     bh, sq, d = qb.shape
     dq = _out(qb, form)
-    _launch("flash_dq" + form, ptr(qb), ptr(kb), ptr(vb), ptr(do), ptr(lse),
-            ptr(delta), ptr(dq), bh, sq, kb.shape[1], d,
+    _launch("flash_dq" + form, d, ptr(qb), ptr(kb), ptr(vb), ptr(do),
+            ptr(lse), ptr(delta), ptr(dq), bh, sq, kb.shape[1], d,
             _qscale(scale, qb.dtype), float(scale), int(causal), stream(qb))
     return dq
 

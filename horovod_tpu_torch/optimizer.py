@@ -475,9 +475,16 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     HOROVOD_TPU_TORCH_SKIP_NONFINITE (default off)."""
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
-    return cls(optimizer.param_groups, named_parameters, compression,
-               backward_passes_per_step, bucket_cap_mb,
-               gradient_as_bucket_view, skip_nonfinite_steps)
+    wrapped = cls(optimizer.param_groups, named_parameters, compression,
+                  backward_passes_per_step, bucket_cap_mb,
+                  gradient_as_bucket_view, skip_nonfinite_steps)
+    # The subclass re-runs the inner class's constructor on the param
+    # groups alone, with that constructor's defaults: state the inner
+    # optimizer made there (Adagrad's accumulators, filled with its
+    # initial_accumulator_value) is taken over as it is.
+    for p, state in optimizer.state.items():
+        wrapped.state[p] = state
+    return wrapped
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

@@ -48,10 +48,16 @@ rank, the schedules of ``parallel/pipeline.py`` in between, every
 gradient written to ``.grad`` and the inner optimizer stepped.
 
 ``build_image_train_step`` is the counterpart of one step of
-``bench.py``'s ``build_step`` (the ResNet-50 headline): mean softmax
-cross-entropy of integer labels over fp32 logits, the BN running stats
-updated from this rank's batch (no cross-rank BN), the gradients
-averaged over the ranks, then the inner step.
+``bench.py``'s ``build_step`` (the ResNet-50 headline) and of
+``examples/jax_synthetic_benchmark.py``'s step, for any classifier of
+the conv zoo: mean softmax cross-entropy of integer labels over fp32
+logits, the BN running stats updated from this rank's batch (a sync-BN
+model's, from the global batch: its ``[2C]`` statistics all-reduce runs
+on its mesh's group inside the forward), the gradients averaged over
+the ranks in the engine's hook-fired buckets, then the inner step.
+Dropout draws from a generator on the step's device seeded from
+``(seed, step)`` each step, as JAX folds the step index into its
+dropout key.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import math
 from collections import defaultdict
 from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -68,6 +75,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import topology as _topo
+from ..models.layers import set_dropout_generator
 from ..models.transformer import Transformer, TransformerConfig, param_specs
 from ..ops import collective as _coll
 from ..optimizer import DistributedOptimizer
@@ -334,25 +342,38 @@ def build_train_step(cfg: TransformerConfig,
     return TrainStep(cfg, optimizer_factory, dev)
 
 
+def _step_seed(seed: int, step: int) -> int:
+    """A generator seed from ``(seed, step)``: every step's dropout masks
+    differ, and a replayed step draws the same ones."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
 class ImageTrainStep:
     """``step(model, optimizer, images, labels) -> loss``.
 
-    ``images`` are this rank's NHWC ``[B_local, H, W, 3]`` shard and
+    ``images`` are this rank's NHWC ``[B_local, H, W, C]`` shard and
     ``labels`` its ``[B_local]`` integer classes. The model is in train
-    mode during the step, so each BN normalises with this rank's batch
-    statistics and updates its running ones. The returned loss is a 0-d
-    fp32 tensor, the mean over every rank's images."""
+    mode during the step, so each BN normalises with the batch
+    statistics (this rank's, or the axis's for sync BN) and updates its
+    running ones. The returned loss is a 0-d fp32 tensor, the mean over
+    every rank's images. ``steps`` counts the steps taken; a model from
+    :meth:`make_model` draws its dropout masks from the step's
+    generator, which step ``i`` reseeds from ``(seed, i)``."""
 
     def __init__(self, model_factory: Callable[..., nn.Module],
                  optimizer_factory: Callable[[Iterable],
                                              torch.optim.Optimizer],
-                 device: torch.device):
+                 device: torch.device, seed: int = 0):
         self.model_factory = model_factory
         self.optimizer_factory = optimizer_factory
         self.device = device
+        self.seed, self.steps = seed, 0
+        self._dropout = torch.Generator(device=device)
 
     def make_model(self, **kwargs) -> nn.Module:
-        return self.model_factory(device=self.device, **kwargs)
+        model = self.model_factory(device=self.device, **kwargs)
+        set_dropout_generator(model, self._dropout)
+        return model
 
     def make_optimizer(self, model: nn.Module):
         return DistributedOptimizer(
@@ -365,7 +386,9 @@ class ImageTrainStep:
             raise TypeError("the train step needs a DistributedOptimizer "
                             "(see ImageTrainStep.make_optimizer)")
         images = images.to(self.device, non_blocking=True)
-        labels = labels.to(self.device, non_blocking=True)
+        labels = labels.to(self.device, non_blocking=True).long()
+        self._dropout.manual_seed(_step_seed(self.seed, self.steps))
+        self.steps += 1
         model.train()
         optimizer.zero_grad()
         loss = F.cross_entropy(model(images).float(), labels)
@@ -378,16 +401,18 @@ class ImageTrainStep:
 def build_image_train_step(model_factory: Callable[..., nn.Module],
                            optimizer_factory: Callable[[Iterable],
                                                        torch.optim.Optimizer],
-                           *, device: Union[str, torch.device, None] = None
-                           ) -> ImageTrainStep:
-    """The dp train step of an image classifier such as ``ResNet50``.
+                           *, device: Union[str, torch.device, None] = None,
+                           seed: int = 0) -> ImageTrainStep:
+    """The dp train step of a conv-zoo classifier (``ResNet50``,
+    ``VGG16``, ``InceptionV3``, ``MnistConvNet``, ...).
     ``model_factory(device=..., **kwargs)`` builds the model (e.g.
     ``functools.partial(ResNet50, num_classes=1000, bn_impl="pallas")``);
     ``optimizer_factory(params)`` the inner optimizer, e.g.
     ``SGD(lr=0.01 * size, momentum=0.9)`` as ``bench.py`` uses. ``device``
-    defaults to the one ``init()`` chose, else CUDA."""
+    defaults to the one ``init()`` chose, else CUDA; ``seed`` seeds the
+    dropout masks."""
     return ImageTrainStep(model_factory, optimizer_factory,
-                          _step_device(device))
+                          _step_device(device), seed)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ seeds and handed to both packages.
 - The head-dim padding (``fwd_padded`` / ``bwd_padded``, the wrappers'
   path for a head dim that is not a multiple of 16) on the plain
   versions: padded then cut is bit for bit the unpadded result, in
-  bf16, fp16 and fp32; widths past 256 raise.
+  bf16, fp16 and fp32. Past 256 the kernels get the head dim padded to
+  a multiple of 128 (the _wide kernels' chunks), and only a head dim
+  <= 0 raises.
 - ``_qscale``: the scale rounded to each operand dtype as JAX's
   weak-typed ``q * scale`` rounds it.
 - The model of JAX's ``tests/test_flash_attention.py``
@@ -105,10 +107,54 @@ def test_head_dim_padding_is_exact(dtype, d):
 
 
 def test_head_dims_past_256_raise():
+    """Head dims past 256 no longer raise (they pad to the _wide
+    kernels' 128-column chunks); only a head dim <= 0 does."""
     assert tfa.HEAD_DIMS == tuple(range(16, 257, 16))
     assert tfa.padded_head_dim(256) == 256
-    with pytest.raises(ValueError, match="at most 256"):
-        tfa.padded_head_dim(257)
+    assert tfa.padded_head_dim(257) == 384
+    for d in (0, -16):
+        with pytest.raises(ValueError, match="positive"):
+            tfa.padded_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [257, 272, 300, 320, 384, 400, 512, 1000])
+def test_wide_head_dims_launch_at_whole_chunks(d):
+    """Above 256 the wrappers hand the kernels the head dim zero-padded
+    to a multiple of ``WIDE_CHUNK`` (the _wide kernels' 128-column
+    chunks) and cut every output back to ``d``."""
+    width = -(-d // tfa.WIDE_CHUNK) * tfa.WIDE_CHUNK
+    assert tfa.padded_head_dim(d) == width
+    q, k, v, do = (torch.randn(2, 5, d) for _ in range(4))
+    seen = []
+
+    def fwd(*args):
+        seen.append(tuple(a.shape for a in args[:3]))
+        return torch.zeros(2, 5, width), torch.zeros(2, 5, 1)
+
+    def bwd(*args):
+        seen.append(tuple(a.shape for a in args[:4]))
+        return tuple(torch.zeros(2, 5, width) for _ in range(3))
+
+    o, _ = tfa.fwd_padded(fwd, q, k, v, 0.1, True)
+    grads = tfa.bwd_padded(bwd, q, k, v, do, None, None, 0.1, True)
+    assert seen == [((2, 5, width),) * 3, ((2, 5, width),) * 4]
+    assert o.shape == (2, 5, d) and o.is_contiguous()
+    assert all(g.shape == (2, 5, d) and g.is_contiguous() for g in grads)
+
+
+@pytest.mark.parametrize("d,key", [(256, "flash_fwd_f16"),
+                                   (384, "flash_fwd_f16_wide"),
+                                   (512, "flash_fwd_f16_wide")])
+def test_wide_launches_count_under_their_own_keys(monkeypatch, d, key):
+    """One entry point serves both kernel families; a launch above
+    ``HEAD_DIMS[-1]`` is counted under the form's ``_wide`` key."""
+    lib = SimpleNamespace(hvd_flash_fwd_f16=lambda *args: 0)
+    monkeypatch.setattr(tfa, "library", lambda: lib)
+    tfa.reset_launch_counts()
+    tfa._launch("flash_fwd_f16", d)
+    counts = tfa.launch_counts()
+    tfa.reset_launch_counts()
+    assert counts == {**{n: 0 for n in counts}, key: 1}
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

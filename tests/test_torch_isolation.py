@@ -49,7 +49,10 @@ def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"flash_attention.py", "transformer.py", "train.py",
             "fused_bn.py", "resnet.py", "probes.py", "shape_probe.py",
-            "mem_probe.py", "flash_ablate_probe.py", "chip_smoke.py"} <= names
+            "mem_probe.py", "flash_ablate_probe.py", "chip_smoke.py",
+            "vgg.py", "inception.py", "mnist.py", "word2vec.py",
+            "layers.py", "sync_bn.py", "loader.py", "prefetch.py",
+            "sources.py", "sharding.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
@@ -88,6 +91,39 @@ def test_model_and_step_without_cuda_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_image_train_step(tres.ResNet50,
                                lambda p: torch.optim.SGD(p, lr=0.1))
+
+
+def test_zoo_data_and_sync_bn_without_cuda_raise(no_cuda):
+    """The conv zoo, word2vec's parameters, ``SyncBatchNorm`` and the
+    prefetcher stay on the card unless the caller passes the CPU."""
+    from horovod_tpu_torch import data
+    from horovod_tpu_torch.data.sync_bn import SyncBatchNorm
+    from horovod_tpu_torch.models import (InceptionV3, MnistConvNet, VGG,
+                                          VGG16)
+    from horovod_tpu_torch.models import word2vec
+    small_vgg = dict(cfg=((1, 4),), num_classes=4, image_size=8)
+    makers = [
+        lambda **kw: VGG(**small_vgg, **kw),
+        lambda **kw: VGG(**small_vgg, use_bn=True, bn_axis_name="dp", **kw),
+        lambda **kw: InceptionV3(num_classes=4, **kw),
+        lambda **kw: MnistConvNet(**kw),
+        lambda **kw: tres.ResNet([1], num_classes=4, num_filters=8,
+                                 bn_axis_name="dp", **kw),
+        lambda **kw: SyncBatchNorm(4, **kw),
+        lambda **kw: word2vec.init_params(16, 4, **kw),
+        lambda **kw: data.prefetch_to_device(
+            data.build_loader(data.synthetic("image", n=8, image_size=4),
+                              batch_size=4, rank=0, world_size=1), **kw),
+    ]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        made = make(device="cpu")
+        if hasattr(made, "close"):
+            assert next(made).data[0].device.type == "cpu"
+            made.close()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_image_train_step(VGG16, lambda p: torch.optim.SGD(p, lr=0.1))
 
 
 def test_rank_before_init_raises(no_cuda):

@@ -1,6 +1,6 @@
 """The port's ResNet and image train step against the JAX package's.
 
-Weights are the JAX model's, carried by ``interop.resnet_variables_from_
+Weights are the JAX model's, carried by ``interop.image_variables_from_
 jax`` with every BN scale drawn uniform in [0.5, 1.5] and every BN bias
 from N(0, 0.1) (at initialisation bn3's scale is 0, and every gradient
 inside a block except bn3's would be 0). Images and labels come from
@@ -96,7 +96,7 @@ def _jax_loss_and_grads(jmodel, params, batch_stats, x, y):
 def _port_model(timpl, params, batch_stats, **kw):
     model = tres.ResNet(dtype=torch.float32, bn_impl=timpl, device="cpu",
                         **{**SMALL, **kw})
-    model.load_state_dict(interop.resnet_variables_from_jax(params,
+    model.load_state_dict(interop.image_variables_from_jax(params,
                                                             batch_stats))
     return model
 
@@ -136,10 +136,10 @@ def test_small_resnet_matches_jax(timpl):
     err = np.max(np.abs(tlogits.detach().numpy() - logits))
     assert err <= TOL * np.max(np.abs(logits))
     assert abs(float(tloss.detach()) - loss) <= TOL * abs(loss)
-    tgrads, _ = interop.resnet_variables_to_jax(
+    tgrads, _ = interop.image_variables_to_jax(
         {n: p.grad for n, p in model.named_parameters()})
     _assert_trees_close(tgrads, grads)
-    _, tbs = interop.resnet_variables_to_jax(model.state_dict())
+    _, tbs = interop.image_variables_to_jax(model.state_dict())
     _assert_trees_close(tbs, new_bs)
 
 
@@ -211,8 +211,10 @@ def test_resnet50_tree_matches_jax():
 
 
 def test_resnet_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tres.ResNet([1], bn_axis_name="dp", device="cpu")
+    # Distributed BN is ported (tests/test_torch_sync_bn.py); as in JAX it
+    # refuses the fused kernels, which compute their own statistics.
+    with pytest.raises(ValueError, match="bn_impl='flax'"):
+        tres.ResNet([1], bn_impl="pallas", bn_axis_name="dp", device="cpu")
     with pytest.raises(ValueError):
         tres.ResNet([1], bn_impl="palas", device="cpu")
 
@@ -241,12 +243,12 @@ def test_three_train_steps_match_bench_step(timpl):
         lambda p: torch.optim.SGD(p, lr=lr * thvd.size(), momentum=0.9),
         device="cpu")
     model = step.make_model()
-    model.load_state_dict(interop.resnet_variables_from_jax(params, bs))
+    model.load_state_dict(interop.image_variables_from_jax(params, bs))
     topt = step.make_optimizer(model)
     losses = [float(step(model, topt, torch.from_numpy(x),
                          torch.from_numpy(y).long())) for _ in range(steps)]
     assert losses[-1] < losses[0]
-    tp, tbs = interop.resnet_variables_to_jax(model.state_dict())
+    tp, tbs = interop.image_variables_to_jax(model.state_dict())
     _assert_trees_close(tp, jax.device_get(jp))
     _assert_trees_close(tbs, jax.device_get(jbs))
 
@@ -267,7 +269,7 @@ def _two_rank_worker(rank, port, x, y, params, bs, want):
         device="cpu")
     model = step.make_model(generator=torch.Generator().manual_seed(rank))
     if rank == 0:
-        model.load_state_dict(interop.resnet_variables_from_jax(params, bs))
+        model.load_state_dict(interop.image_variables_from_jax(params, bs))
     thvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = step.make_optimizer(model)
     half = slice(2 * rank, 2 * rank + 2)
@@ -275,10 +277,10 @@ def _two_rank_worker(rank, port, x, y, params, bs, want):
                 torch.from_numpy(y[half]).long())
     assert abs(float(loss) - want["loss"]) <= TOL * abs(want["loss"])
     # After step() each p.grad holds the gradient averaged over the ranks.
-    grads, _ = interop.resnet_variables_to_jax(
+    grads, _ = interop.image_variables_to_jax(
         {n: p.grad for n, p in model.named_parameters()})
     _assert_trees_close(grads, want["grads"])
-    _, tbs = interop.resnet_variables_to_jax(model.state_dict())
+    _, tbs = interop.image_variables_to_jax(model.state_dict())
     _assert_trees_close(tbs, want["batch_stats"][rank])
     thvd.shutdown()
 
