@@ -181,6 +181,21 @@ and prints no result line):
    ``bn_axis_name="dp"`` on a world-1 mesh, 3 steps at phase 8's batch,
    weights and images: one ``[2C]`` statistics all-reduce per BN layer
    per step (53), step 1's loss logged beside phase 8's flax step.
+20. checkpoint and elastic resume (``init`` again, NCCL, world 1; about
+   30 s): phase 5's flagship fed by ``build_loader(synthetic("tokens",
+   vocab=32000, seq_len=2049))`` -> ``prefetch_to_device(depth=2)``
+   (2049 tokens a row: 2048 inputs and the shifted targets); after step
+   2 ``ElasticState(backend="sharded")`` commits the model, the AdamW
+   state and the prefetcher's consumed cursor (``commit`` returns after
+   the host copy), steps 3-4 run while the writer serializes; a fresh
+   model and optimizer from another seed and a fresh loader restore in
+   place and replay steps 3-4: the losses, every parameter and every
+   moment bit for bit the uninterrupted run's, the loader at offset 2,
+   K1-K3 launched 12 times a step. A second commit with one shard
+   corrupted: ``restore()`` logs the fallback and adopts the first,
+   ``strict=True`` raises ``CorruptShardError``. It logs the commit's
+   bytes (reckoned beside), the ms ``commit`` blocked the loop, the
+   seconds to the durable commit and the restore's, and GB/s.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -2833,6 +2848,175 @@ def small_models_phase(hvd, data, zoo, tres, fa, fbn, create_mesh,
     torch.cuda.empty_cache()
 
 
+ELASTIC_STEPS = 4       # phase 20: commit after step 2, replay 3-4
+ELASTIC_COMMIT = 2
+
+
+def elastic_steps(step, model, opt, it, n):
+    """``n`` flagship steps on batches of ``it`` (a prefetcher of [8,
+    2049] token rows): their losses."""
+    losses = []
+    for _ in range(n):
+        (tok,) = next(it).data
+        tok = tok.long()
+        losses.append(float(step(model, opt, tok[:, :-1], tok[:, 1:])))
+    return losses
+
+
+def moments_of(opt):
+    return [{k: v.clone() for k, v in st.items()}
+            for st in opt.state.values()]
+
+
+def elastic_phase(hvd, tfm, fa, data, build_train_step, smi):
+    """Phase 20: the flagship of phase 5 fed by ``build_loader(synthetic(
+    "tokens"))`` -> ``prefetch_to_device``, committed through
+    ``ElasticState(backend="sharded")`` after step 2 (model, AdamW and
+    the consumed cursor), steps 3-4 taken while the writer runs; a fresh
+    model and optimizer from another seed and a fresh loader restored,
+    and steps 3-4 replayed bit for bit (losses, every parameter and
+    moment), K1-K3 launched 12 times a step in the replay; then a second
+    commit with one shard corrupted: ``restore()`` falls back to the
+    first commit and ``strict=True`` raises ``CorruptShardError``."""
+    import os
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.checkpoint import (CheckpointEngine,
+                                              CorruptShardError,
+                                              read_manifest)
+    from horovod_tpu_torch.elastic import ElasticState
+    hvd.init()
+    cfg = tfm.TransformerConfig(vocab=32000, d_model=768, n_layers=12,
+                                d_ff=3072, max_seq=2048,
+                                dtype=torch.bfloat16, remat=False)
+    step = build_train_step(cfg, adamw)
+    src = data.synthetic("tokens", n=64, vocab=32000, seq_len=2049, seed=7)
+
+    def loader():
+        return data.build_loader(src, batch_size=8, seed=0)
+
+    tmp = tempfile.mkdtemp(prefix="hvd_elastic_")
+    try:
+        model = step.make_model(generator=torch.Generator().manual_seed(0))
+        opt = step.make_optimizer(model)
+        it = data.prefetch_to_device(loader(), depth=2)
+        losses = elastic_steps(step, model, opt, it, ELASTIC_COMMIT)
+        at_commit = {k: v.clone() for k, v in model.state_dict().items()}
+        state = ElasticState(directory=tmp, backend="sharded", model=model,
+                             optimizer=opt, data=it.commit_cursor())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state.commit(ELASTIC_COMMIT)
+        blocked_ms = (time.perf_counter() - t0) * 1e3
+        busy = state.engine.busy
+        engine_ms = state.engine.blocked_s * 1e3
+        losses += elastic_steps(step, model, opt, it,
+                                ELASTIC_STEPS - ELASTIC_COMMIT)
+        state.wait()
+        it.close()
+        save_s = state.engine.save_s
+        want_params = {k: v.clone() for k, v in model.state_dict().items()}
+        want_moments = moments_of(opt)
+        n_params = sum(p.numel() for p in model.parameters())
+        man = read_manifest(tmp, ELASTIC_COMMIT)
+        nbytes = sum(s["nbytes"] for e in man["leaves"] for s in e["shards"])
+        del model, opt, state
+        torch.cuda.empty_cache()
+
+        model = step.make_model(generator=torch.Generator().manual_seed(1))
+        opt = step.make_optimizer(model)
+        fresh = loader()
+        state = ElasticState(directory=tmp, backend="sharded", model=model,
+                             optimizer=opt, data=fresh.cursor())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        fresh.restore(state.data)
+        if state.step != ELASTIC_COMMIT or fresh.offset != ELASTIC_COMMIT:
+            raise AssertionError(f"restored step {state.step}, loader "
+                                 f"offset {fresh.offset}; expected "
+                                 f"{ELASTIC_COMMIT}")
+        it = data.prefetch_to_device(fresh, depth=2)
+        fa.reset_launch_counts()
+        replay = elastic_steps(step, model, opt, it,
+                               ELASTIC_STEPS - ELASTIC_COMMIT)
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()
+        it.close()
+        log(f"elastic resume (phase 20): losses {losses}; replayed steps "
+            f"{ELASTIC_COMMIT + 1}-{ELASTIC_STEPS} {replay}; launches "
+            f"{launches}")
+        if replay != losses[ELASTIC_COMMIT:]:
+            raise AssertionError(f"replayed losses {replay} are not "
+                                 f"{losses[ELASTIC_COMMIT:]}")
+        bad = [k for k, v in model.state_dict().items()
+               if not torch.equal(v, want_params[k])]
+        got_moments = moments_of(opt)
+        bad += [f"moment {i}.{k}" for i, (g, w) in
+                enumerate(zip(got_moments, want_moments))
+                for k in w if not torch.equal(g[k], w[k])]
+        if bad or len(got_moments) != len(want_moments):
+            raise AssertionError(f"after the replay {len(bad)} tensors "
+                                 f"differ, first {bad[:1]}")
+        want = (ELASTIC_STEPS - ELASTIC_COMMIT) * cfg.n_layers
+        for name in BF16_FLASH:
+            if launches[name] != want:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times in the replay, expected {want}")
+
+        # A second commit, one shard of it corrupted: the fallback.
+        state.commit(ELASTIC_STEPS, block=True)
+        sdir = os.path.join(tmp, f"step-{ELASTIC_STEPS}")
+        victim = max((f for f in os.listdir(sdir) if f.endswith(".npy")),
+                     key=lambda f: os.path.getsize(os.path.join(sdir, f)))
+        with open(os.path.join(sdir, victim), "r+b") as f:
+            f.seek(os.path.getsize(os.path.join(sdir, victim)) // 2)
+            f.write(b"\x13\x37\x13\x37")
+        rec = _Records()
+        logger = logging.getLogger("horovod_tpu_torch.checkpoint.engine")
+        logger.addHandler(rec)
+        try:
+            state.restore()
+        finally:
+            logger.removeHandler(rec)
+        if state.step != ELASTIC_COMMIT or not any(
+                "falling back" in m for m in rec.messages):
+            raise AssertionError(f"no logged fallback: step {state.step}, "
+                                 f"log {rec.messages}")
+        bad = [k for k, v in model.state_dict().items()
+               if not torch.equal(v, at_commit[k])]
+        if bad:
+            raise AssertionError(f"the fallback restored {len(bad)} "
+                                 f"parameters other than step "
+                                 f"{ELASTIC_COMMIT}'s, first {bad[0]}")
+        try:
+            CheckpointEngine(tmp).restore(strict=True)
+        except CorruptShardError as e:
+            strict = e.reason
+        else:
+            raise AssertionError("strict restore of the corrupt commit did "
+                                 "not raise CorruptShardError")
+        log(f"  fallback: {rec.messages[0]}; strict=True raised "
+            f"CorruptShardError ({strict})")
+        reckoned = n_params * 4 + 2 * n_params * 4
+        log(f"  commit on {smi}: {nbytes} bytes in "
+            f"{sum(len(e['shards']) for e in man['leaves'])} shard files "
+            f"({len(man['leaves'])} leaves; reckoned {n_params} fp32 "
+            f"parameters {n_params * 4 / 1e9:.3f} GB + AdamW moments "
+            f"{2 * n_params * 4 / 1e9:.3f} GB = {reckoned / 1e9:.3f} GB); "
+            f"commit blocked the loop {blocked_ms:.1f} ms (writer busy "
+            f"after: {busy}; the engine's share {engine_ms:.1f} ms, the "
+            f"rest the elastic state's host snapshot); durable in "
+            f"{save_s:.2f} s "
+            f"({nbytes / save_s / 1e9:.3f} GB/s); restore "
+            f"{restore_s:.2f} s ({nbytes / restore_s / 1e9:.3f} GB/s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        hvd.shutdown()
+
+
 def source_of(name):
     name = base_of(name)
     if name in BN_KERNELS:
@@ -3008,6 +3192,11 @@ def main(argv=None) -> int:
                        build_image_train_step, resnet_flax_losses[0])
     hvd.shutdown()
     log(f"  phase 19: {time.perf_counter() - t19:.1f} s")
+
+    # 20. checkpoint and elastic resume of the flagship
+    t20 = time.perf_counter()
+    elastic_phase(hvd, tfm, fa, data, build_train_step, smi)
+    log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[base_of(name)],

@@ -12,7 +12,9 @@ sequence-parallel train step over a mesh (``parallel/``: Megatron tp,
 ring and Ulysses attention), and the conv zoo (``models``: VGG,
 Inception V3, the MNIST net, word2vec; ResNet with distributed batch
 norm) fed by the input pipeline (``data``: sources, the sharded loader,
-prefetch to the card).
+prefetch to the card), and checkpoint and elastic state
+(``checkpoint``: the sharded engine on the JAX package's format;
+``elastic``: ``ElasticState`` and ``WorkerFailure``).
 
     import torch, horovod_tpu_torch as hvd
     hvd.init()                                   # CUDA; device="cpu" for gloo
@@ -24,10 +26,10 @@ prefetch to the card).
 This package imports neither ``jax`` nor ``horovod_tpu``.
 """
 
-from .topology import (NotInitializedError, device, hierarchical_mesh, init,
-                       is_initialized, local_rank, local_size, mesh,
-                       mpi_threads_supported, process_count, process_rank,
-                       rank, shutdown, size)
+from .topology import (NotInitializedError, device, generation,
+                       hierarchical_mesh, init, is_initialized, local_rank,
+                       local_size, mesh, mpi_threads_supported,
+                       process_count, process_rank, rank, shutdown, size)
 from .topology import topology as get_topology
 from .ops import (Handle, HorovodInternalError, allgather, allgather_async,
                   allreduce, allreduce_, allreduce_async, allreduce_async_,
@@ -37,6 +39,9 @@ from .compression import Compression
 from .optimizer import (DistributedOptimizer, allreduce_gradients,
                         broadcast_object, broadcast_optimizer_state,
                         broadcast_parameters)
+from .checkpoint import CheckpointEngine, CorruptShardError, checkpoint_hook
+from .elastic import ElasticState, SlowRankFailure, WorkerFailure
+from .utils.checkpoint import restore_checkpoint, save_checkpoint
 
 __version__ = "0.1.0"
 
@@ -52,4 +57,7 @@ __all__ = [
     "synchronize", "synchronize_many", "Handle", "HorovodInternalError",
     "Compression", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allreduce_gradients",
+    "generation", "CheckpointEngine", "CorruptShardError", "checkpoint_hook",
+    "save_checkpoint", "restore_checkpoint", "ElasticState",
+    "WorkerFailure", "SlowRankFailure",
 ]

@@ -12,9 +12,20 @@ static through the epoch tail; divide masked sums by the sum of
 Resumability is a cursor, not buffered state: ``(seed, epoch, offset,
 batch_size)`` determines every sample any rank sees next. A loader
 restored from a committed cursor replays no sample and skips none, at
-any world size. The cursor's ride on the elastic state and on the
-checkpoint engine, and the loader's metric families and flight-recorder
-notes, are not ported yet: :func:`_observe` marks where they go.
+any world size. The cursor is a plain dict of ints, so it rides an
+``ElasticState`` commit beside the model on either backend (the pickle
+or the sharded checkpoint engine)::
+
+    state = ElasticState(model=model, optimizer=opt,
+                         data=loader.commit_cursor())
+    ...
+    state.restore()
+    loader.restore(state.data)
+
+Behind ``prefetch_to_device`` the loader runs ahead of the step: commit
+the prefetcher's ``commit_cursor()`` instead. The loader's metric
+families and flight-recorder notes are not ported yet: :func:`_observe`
+marks where they go.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ queues the batch, which times the copy and keeps the pinned buffer
 alive until the copy is done. On the CPU device staging is
 ``torch.as_tensor``.
 
+The loader runs up to ``depth`` batches ahead of the consumer, so its
+own cursor is ahead of the step. ``commit_cursor()`` gives the cursor
+the loader had right after producing the batch the consumer took last:
+the point a resumed job continues from (the tree an ``ElasticState``
+commits beside the model).
+
 ``timer=`` takes any object with ``credit_h2d(seconds)`` and
 ``mark_h2d_done()`` (the duck type of the JAX package's ``StepTimer``):
 when the consumer had to wait, the staged copy of that batch is credited
@@ -42,7 +48,7 @@ import numpy as np
 import torch
 
 from .. import topology as _topo
-from .loader import Batch
+from .loader import Batch, _observe
 
 _SENTINEL = object()
 
@@ -94,6 +100,9 @@ class DevicePrefetcher:
         self.depth = depth
         self.waited_s = 0.0
         self.h2d_s = 0.0
+        # The cursor after the last batch the consumer took (a loader's).
+        self._has_cursor = hasattr(it, "cursor")
+        self._cursor = it.cursor() if self._has_cursor else None
         self._thread = threading.Thread(
             target=self._producer, name="hvd-tpu-torch-data-prefetch",
             daemon=True)
@@ -115,7 +124,8 @@ class DevicePrefetcher:
             for batch in self._it:
                 if self._closed:
                     return
-                self._q.put(self._stage(batch))
+                cursor = self._it.cursor() if self._has_cursor else None
+                self._q.put(self._stage(batch) + (cursor,))
             self._q.put(_SENTINEL)
         except BaseException as e:  # the consumer raises it
             self._q.put(e)
@@ -136,7 +146,7 @@ class DevicePrefetcher:
         if isinstance(item, BaseException):
             self._closed = True
             raise item
-        batch, event, h2d_s = item
+        batch, event, h2d_s, self._cursor = item
         if event is not None:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(event)
@@ -147,6 +157,15 @@ class DevicePrefetcher:
             # h2d share of the stall, the rest was the source.
             self._timer.credit_h2d(min(wait_s, h2d_s))
         return batch
+
+    def commit_cursor(self):
+        """The loader's cursor as of the last batch this iterator handed
+        out, observed as a commit (see the module docstring)."""
+        if not self._has_cursor:
+            raise TypeError("the prefetched iterator has no cursor()")
+        _observe("cursor_commit", int(self._cursor["epoch"]),
+                 int(self._cursor["offset"]), getattr(self._it, "rank", 0))
+        return dict(self._cursor)
 
     def close(self) -> None:
         """Stop the background thread (the loader may be infinite) and

@@ -54,6 +54,22 @@ and distributed batch norm:
   backward cancels most of each sum), and one ``[2C]`` all-reduce per
   BN layer in the forward (counted).
 
+and checkpoints of the sharded optimizer state:
+
+- ``ckpt_zero1``: the flagship (``--layers`` deep) on ``dp=4`` with the
+  ZeRO-1 optimizer, 2 AdamW steps, then an ``ElasticState`` commit on
+  the sharded engine (every rank writes its flat blocks of the
+  shadows and moments, rank 0 the replicated model too) and a third
+  step; a fresh model and optimizer from another seed restore it in
+  place on every rank and take the third step again. Its line holds
+  the resumed step's loss beside the uninterrupted one's, whether the
+  parameters and moments after it are bit for bit, the restored step
+  on every rank, whether every sharded leaf reassembled through
+  ``restore_addressable`` at a dp = 2 layout equals the four ranks'
+  blocks bit for bit, the commit's bytes, the ms ``commit`` blocked
+  rank 0's loop, and the seconds to the durable commit and to the
+  restore (rank 0).
+
 and the pipelined flagship at its full depth (12 layers, whatever
 ``--layers`` says) on ``pp=4``, 8 x 2048 tokens as m = 8 microbatches of
 1, with NCCL sends and receives between the stages:
@@ -517,6 +533,121 @@ def _sync_bn(device):
     return line
 
 
+def run_ckpt_rank(rank, port, layers, outdir, device, width, ckdir):
+    """One rank of ``ckpt_zero1``."""
+    import horovod_tpu_torch as hvd
+    from ..checkpoint import CheckpointEngine, sharded_layout, tree_keys
+    from ..elastic import ElasticState
+    from ..models import transformer as tfm
+    from ..parallel.mesh import create_mesh
+    from ..parallel.train import build_train_step
+    hvd.init(device=f"cuda:{rank}" if device == "cuda" else device,
+             init_method=f"tcp://localhost:{port}", rank=rank,
+             world_size=WORLD)
+    dev = hvd.device()
+    cfg = _config(tfm, width, layers)
+    step = build_train_step(cfg, _factory, mesh=create_mesh(dp=WORLD),
+                            device=dev)
+    tok = torch.randint(0, width["vocab"], (4, width["max_seq"] + 1),
+                        generator=torch.Generator().manual_seed(5))
+    batch = (step.shard_batch(tok[:, :-1].to(dev)),
+             step.shard_batch(tok[:, 1:].to(dev)))
+
+    def fresh(seed):
+        model = step.make_model(generator=torch.Generator().manual_seed(seed))
+        return model, step.make_optimizer(model, zero1=True)
+
+    def tensors(sd):
+        return {k: v.detach().clone() for k, v in tree_keys(sd)
+                if torch.is_tensor(v)}
+
+    model, opt = fresh(0)
+    for _ in range(2):
+        step(model, opt, *batch)
+    state = ElasticState(directory=ckdir, backend="sharded", model=model,
+                         optimizer=opt)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state.commit(2)
+    blocked_ms = (time.perf_counter() - t0) * 1e3
+    state.wait()
+    line = {"blocks": {k: v.cpu() for k, v in
+                       tensors(opt.state_dict()).items()},
+            "held": {k: ll.held for k, ll in
+                     opt.checkpoint_layouts().items()},
+            "blocked_ms": blocked_ms, "save_s": state.engine.save_s}
+    line["reference_loss"] = float(step(model, opt, *batch))
+    want = {**tensors(model.state_dict()), **tensors(opt.state_dict())}
+    del model, opt, state
+    model, opt = fresh(1)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state = ElasticState(directory=ckdir, backend="sharded", model=model,
+                         optimizer=opt)
+    state.restore()
+    _sync(dev)
+    line["restore_s"] = time.perf_counter() - t0
+    line["restored_step"] = state.step
+    line["loss"] = float(step(model, opt, *batch))
+    got = {**tensors(model.state_dict()), **tensors(opt.state_dict())}
+    line["resumed_bitwise"] = got.keys() == want.keys() and all(
+        torch.equal(got[k], want[k]) for k in want)
+    line["max_grad_rel_err"] = max(
+        float((got[k].float() - want[k].float()).abs().max()
+              / want[k].float().abs().max().clamp_min(1e-30))
+        for k in want if got[k].numel())
+    if rank == 0:
+        eng = CheckpointEngine(ckdir)
+        man = eng.restore_manifest()
+        line["commit_bytes"] = sum(s["nbytes"] for e in man["leaves"]
+                                   for s in e["shards"])
+        split = {e["key"]: e for e in man["leaves"] if len(e["shards"]) > 1}
+        layouts = {}
+        for key, e in split.items():
+            n = e["shape"][0] // 2
+            layouts[key] = sharded_layout(
+                e["shape"], e["dtype"],
+                [(((k * n, (k + 1) * n),), k) for k in range(2)])
+        dp2 = {k: torch.full(e["shape"], float("nan")) for k, e in
+               split.items()}
+        for p in range(2):
+            for key, blocks in eng.restore_addressable(
+                    layouts, process_index=p).items():
+                for shard, arr in blocks:
+                    dp2[key][shard.slices] = torch.from_numpy(arr)
+        line["dp2"] = dp2
+    hvd.shutdown()
+    torch.save(line, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _ckpt_zero1(layers, device, width):
+    """``ckpt_zero1``'s line: rank 0's, with every rank's restore and
+    the dp = 2 reassembly held to the four ranks' blocks."""
+    with tempfile.TemporaryDirectory() as outdir, \
+            tempfile.TemporaryDirectory() as ckdir:
+        mp.spawn(run_ckpt_rank, args=(_free_port(), layers, outdir, device,
+                                      width, ckdir), nprocs=WORLD)
+        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(WORLD)]
+    dp2 = ranks[0].pop("dp2")
+    exact = bool(dp2)
+    for key, got in dp2.items():
+        local = key[len("['optimizer']"):]
+        want = torch.full_like(got, float("nan"))
+        for r in ranks:
+            (a, b), = r["held"][local]
+            want[a:b] = r["blocks"][local]
+        exact &= torch.equal(got, want)
+    line = {k: v for k, v in ranks[0].items() if k not in ("blocks",
+                                                             "held")}
+    line.update(mesh={"dp": WORLD}, layers=layers, sharded_leaves=len(dp2),
+                restored_steps=[r["restored_step"] for r in ranks],
+                resumed_bitwise=all(r["resumed_bitwise"] for r in ranks),
+                max_grad_rel_err=max(r["max_grad_rel_err"] for r in ranks),
+                dp2_reassembly_bitwise=exact, peak_mib=None)
+    return line
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -528,9 +659,9 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     memory of all ranks (and, for a pipeline variant, whether every rank
     was bit for bit)}; ``variants`` defaults to all."""
     variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine",
-                                 "sync_bn"))
+                                 "sync_bn", "ckpt_zero1"))
     mesh_variants = [v for v in variants
-                     if v not in ("hier_engine", "sync_bn")]
+                     if v not in ("hier_engine", "sync_bn", "ckpt_zero1")]
     ranks = []
     if mesh_variants:
         with tempfile.TemporaryDirectory() as outdir:
@@ -543,6 +674,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         lines["hier_engine"] = _hier_engine(layers, device, width)
     if "sync_bn" in variants:
         lines["sync_bn"] = _sync_bn(device)
+    if "ckpt_zero1" in variants:
+        lines["ckpt_zero1"] = _ckpt_zero1(layers, device, width)
     for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
@@ -561,7 +694,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
-    names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine", "sync_bn")
+    names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine", "sync_bn",
+             "ckpt_zero1")
     ap.add_argument("--variants", help="comma-separated names (default: "
                     f"all of {', '.join(names)})")
     args = ap.parse_args(argv)
@@ -584,6 +718,11 @@ def main(argv=None) -> int:
             ok &= (line["logits_rel_err"] <= SYNC_BN_FWD_TOL
                    and line["max_grad_rel_err"] <= SYNC_BN_GRAD_TOL
                    and line["one_2c_allreduce_per_bn"])
+        if name == "ckpt_zero1":
+            ok &= (line["resumed_bitwise"]
+                   and line["loss"] == line["reference_loss"]
+                   and line["restored_steps"] == [2] * WORLD
+                   and line["dp2_reassembly_bitwise"])
     return 0 if ok else 1
 
 

@@ -342,6 +342,30 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(_Layer(lp) for lp in params["layers"])
         self.to(dev)
 
+    def checkpoint_layouts(self, shapes=None) -> Dict:
+        """``{key in state_dict(): LeafLayout}`` of the parameters a mesh
+        splits across ranks (``parallel.mesh.spec_layout`` under
+        :func:`param_specs`): the sharded checkpoint engine writes each
+        block once and restores this rank's. ``shapes`` is taken for
+        the protocol's sake; every parameter exists from the start."""
+        if self.mesh is None:
+            return {}
+        from ..checkpoint.layout import dtype_name
+        from ..parallel.mesh import place, spec_axes, spec_layout, spec_of
+        sizes = place(self.mesh)[0]
+        specs = param_specs(self.cfg)
+        out = {}
+        for name, p in self.named_parameters():
+            spec = spec_of(specs, name)
+            shape = list(p.shape)
+            for d, entry in enumerate(spec):
+                for a in spec_axes((entry,)):
+                    shape[d] *= sizes[a]
+            ll = spec_layout(shape, dtype_name(p), spec, self.mesh)
+            if not ll.replicated:
+                out[f"[{name!r}]"] = ll
+        return out
+
     @property
     def device(self) -> torch.device:
         return self.embed.device

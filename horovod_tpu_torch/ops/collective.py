@@ -63,7 +63,9 @@ sum within each node's ``ici`` ranks, across nodes, and back
 The stall inspector (``HOROVOD_STALL_WARNING``, 60 s) warns about ops
 in flight past the warning time, each with its op and age and, at more
 than one rank, the ranks that have not announced it, from rank 0's
-coordinator (shipped in the plan). ``HOROVOD_TIMELINE`` writes a Chrome
+coordinator (shipped in the plan); past ``HOROVOD_TPU_FAILURE_TIMEOUT``
+(0, the default, disables it) it fails them with a typed
+``elastic.WorkerFailure``. ``HOROVOD_TIMELINE`` writes a Chrome
 trace (``ops/timeline_py.py``): a ``NEGOTIATE_<OP>`` span per op from its
 enqueue to the plan's arrival, then the op's activity span
 (``NCCL_ALLREDUCE``, ``GLOO_ALLGATHER``, ...) over its group's execution,
@@ -237,6 +239,7 @@ class CollectiveEngine:
         self._coord = Coordinator(topo.size, flags)
         self._init_hierarchy(topo)
         self.stall_warning_s = _env.stall_warning_secs()
+        self.failure_timeout_s = _env.failure_timeout_secs()
         self._last_stall_check = time.monotonic()
         self._missing = {}      # name -> ranks rank 0 still awaits
         self._mark_cycles = _env.timeline_mark_cycles()
@@ -483,6 +486,49 @@ class CollectiveEngine:
             "submitting tensors, which will cause deadlock.\n"
             "Stalled ops:\n%s",
             int(self.stall_warning_s), "\n".join(lines))
+        self._maybe_escalate_stalls(now)
+
+    def _maybe_escalate_stalls(self, now: float) -> None:
+        """Past the failure timeout a stalled op will never complete
+        (some rank is gone): fail its handle with a typed
+        ``WorkerFailure(kind="stall")`` instead of warning forever, so the
+        blocked submitter unblocks with an event an elastic loop can act
+        on. The op leaves this rank's tables; should the missing rank
+        still announce it, rank 0's plan names an op this rank no longer
+        holds and the engine fails every handle (``_execute``), rather
+        than skip a collective the other ranks enter. Off at
+        ``failure_timeout_s == 0``, the default: the stall report only
+        warns, as the reference's does."""
+        if self.failure_timeout_s <= 0:
+            return
+        with self._lock:
+            overdue = [r for r in itertools.chain(self._queue,
+                                                  self._announced.values())
+                       if now - r.enqueued_at > self.failure_timeout_s]
+            for r in overdue:
+                self._announced.pop(r.meta.name, None)
+                self._names.discard(r.meta.name)
+                if r in self._queue:
+                    self._queue.remove(r)
+        if not overdue:
+            return
+        from ..elastic.failure import WorkerFailure
+        with self._cv:
+            for r in overdue:
+                missing = self._missing.get(r.meta.name)
+                r.handle._state = (None, WorkerFailure(
+                    kind="stall",
+                    detail=(f"collective '{r.meta.name}' "
+                            f"({OP_NAMES[r.meta.op]}) incomplete after "
+                            f"{now - r.enqueued_at:.1f}s (> failure timeout "
+                            f"{self.failure_timeout_s:.1f}s)"
+                            + (f"; missing ranks: "
+                               f"{', '.join(map(str, missing))}"
+                               if missing is not None else ""))), None)
+            self._cv.notify_all()
+        _log.error("escalated %d stalled collectives to WorkerFailure "
+                   "after %.1fs: %s", len(overdue), self.failure_timeout_s,
+                   ", ".join(sorted(r.meta.name for r in overdue)))
 
     def _close(self, error: Optional[BaseException]) -> None:
         """Refuse new ops and fail the pending ones with ``error``, or with
@@ -512,6 +558,13 @@ class CollectiveEngine:
 
     def _execute(self, g: Group) -> None:
         with self._lock:
+            missing = [n for n in g.names if n not in self._announced]
+            if missing:
+                raise HorovodInternalError(
+                    f"rank 0's plan names {missing}, which this rank no "
+                    "longer holds (failed past the failure timeout); "
+                    "failing the engine rather than skipping a collective "
+                    "the other ranks enter")
             reqs = [self._announced.pop(n) for n in g.names]
             self._names.difference_update(g.names)
         seq, self._group_seq = self._group_seq, self._group_seq + 1

@@ -29,7 +29,9 @@ import math
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 
@@ -163,3 +165,41 @@ def spec_of(specs, name: str) -> Spec:
     for part in name.split("."):
         node = node[int(part)] if isinstance(node, list) else node[part]
     return node
+
+
+def spec_layout(shape, dtype: str, spec: Spec, mesh: DeviceMesh):
+    """The checkpoint layout of a leaf of global ``shape`` split by
+    ``spec`` over ``mesh`` (``checkpoint.LeafLayout``): one shard per
+    distinct block, written by the lowest rank holding it, and ``held``
+    this rank's block, as JAX derives a layout from a ``NamedSharding``.
+    A spec that splits nothing (or only over axes of size 1) gives the
+    replicated layout of process 0."""
+    from ..checkpoint.layout import (LeafLayout, Shard, full_index,
+                                     sharded_layout)
+    shape = tuple(int(d) for d in shape)
+    names = mesh.mesh_dim_names
+    grid = mesh.mesh.cpu().numpy()
+    sizes = dict(zip(names, grid.shape))
+    dims = [spec_axes((entry,)) for entry in spec]
+    dims += [()] * (len(shape) - len(dims))
+    factors = [math.prod(sizes[a] for a in axes) for axes in dims]
+    if math.prod(factors) == 1:
+        return LeafLayout(shape=shape, dtype=dtype,
+                          shards=(Shard(full_index(shape), 0),),
+                          replicated=True)
+    me = dist.get_rank()
+    blocks, held = [], None
+    for coord in np.ndindex(*grid.shape):
+        at = dict(zip(names, coord))
+        index = []
+        for d, axes in enumerate(dims):
+            k = 0
+            for a in axes:
+                k = k * sizes[a] + at[a]
+            w = shape[d] // factors[d]
+            index.append((k * w, (k + 1) * w))
+        rank = int(grid[coord])
+        blocks.append((tuple(index), rank))
+        if rank == me:
+            held = tuple(index)
+    return sharded_layout(shape, dtype, blocks, held)

@@ -241,7 +241,8 @@ class MeshTrainStep:
         if not zero1:
             return self.optimizer_factory(model.parameters())
         opt = zero1_init(self.optimizer_factory, model,
-                         self.sizes.get("dp", 1), self.mesh)
+                         self.sizes.get("dp", 1), self.mesh,
+                         param_specs=self.specs)
         self._check_zero1(opt)
         return opt
 

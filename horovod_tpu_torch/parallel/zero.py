@@ -24,6 +24,16 @@ by element per parameter (SGD, momentum, Adam, AdamW, RMSprop): it
 steps fp32 flat "shadow" shards, whose ``.grad`` is the gradient shard.
 A global-norm clip needs the whole gradient and goes outside.
 
+Checkpoints: :meth:`Zero1Optimizer.state_dict` holds this rank's flat
+shadow shards and the inner optimizer's state over them, and
+:meth:`Zero1Optimizer.checkpoint_layouts` the layout of each flat leaf
+in JAX's global form (``[m * padded_local]``, this rank's block of it
+``[(b * dp + i) * w, (b * dp + i + 1) * w)``, b its model block and
+``w = padded_local / dp``): the sharded checkpoint engine writes one
+shard per rank and reassembles the padded leaf at any process count.
+``load_state_dict`` refuses a state padded for another 'dp' size, as
+JAX's step does: re-cutting it would be a feature JAX lacks.
+
 Use (``MeshTrainStep`` takes the ZeRO-1 path when it is handed a
 :class:`Zero1Optimizer`)::
 
@@ -36,16 +46,18 @@ Use (``MeshTrainStep`` takes the ZeRO-1 path when it is handed a
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List
+import re
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..checkpoint.layout import dtype_name
 from .collectives import (all_gather, chunk_major, psum_scatter,
                           split_chunk_major)
-from .mesh import Spec, place, spec_axes
+from .mesh import Spec, place, spec_axes, spec_layout
 
 
 def _spec_axes_ordered(spec: Spec) -> List[str]:
@@ -82,7 +94,8 @@ class Zero1Optimizer:
 
     def __init__(self, inner: torch.optim.Optimizer,
                  params: List[nn.Parameter], shadows: List[torch.Tensor],
-                 n_shards: int, mesh: DeviceMesh, axis: str, index: int):
+                 n_shards: int, mesh: DeviceMesh, axis: str, index: int,
+                 specs: Optional[Sequence[Spec]] = None):
         self.inner = inner
         self.params = params
         self.shadows = shadows
@@ -90,6 +103,10 @@ class Zero1Optimizer:
         self.mesh = mesh
         self.axis = axis
         self.index = index
+        # Each parameter's partition spec (() for a replicated one): its
+        # model axes size and place its flat state leaf's blocks.
+        self.specs = list(specs) if specs is not None else \
+            [()] * len(params)
 
     @property
     def state(self):
@@ -99,6 +116,79 @@ class Zero1Optimizer:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+    # ------------------------------------------------------ checkpoints
+
+    def state_dict(self) -> Dict:
+        """This rank's state: the 'dp' size it was padded for, the inner
+        optimizer's ``param_groups`` and per-shadow ``state`` (keyed by
+        the shadow's index), and the flat shadow shards."""
+        inner = self.inner.state_dict()
+        return {"n_shards": self.n_shards,
+                "param_groups": inner["param_groups"],
+                "shadows": [s.detach() for s in self.shadows],
+                "state": inner["state"]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Load a :meth:`state_dict` of this rank's blocks, in place."""
+        n = int(state["n_shards"])
+        if n != self.n_shards:
+            raise ValueError(
+                f"the ZeRO-1 state was built for n_shards={n} but this "
+                f"optimizer shards over {self.n_shards}; the flat-shard "
+                "padding depends on the shard count, so a state restores "
+                "only at the 'dp' size it was saved at")
+        shadows = list(state["shadows"])
+        blocks = [(shadows[i], i) for i in range(len(shadows))] + [
+            (v, int(i)) for i, st in state["state"].items()
+            for v in st.values()
+            if isinstance(v, torch.Tensor) and v.dim() > 0]
+        for v, i in blocks:
+            want = tuple(self.shadows[i].shape) \
+                if i < len(self.shadows) else None
+            if tuple(v.shape) != want:
+                raise ValueError(
+                    f"a ZeRO-1 state block of shape {tuple(v.shape)} for "
+                    f"shadow {i} of shape {want}: the state was padded "
+                    "for another layout")
+        with torch.no_grad():
+            for shadow, v in zip(self.shadows, shadows):
+                shadow.copy_(v)
+        self.inner.load_state_dict({"state": state["state"],
+                                    "param_groups": state["param_groups"]})
+
+    def _flat_layout(self, i: int, dtype: str):
+        """The checkpoint layout of shadow ``i``'s flat state leaf."""
+        spec = self.specs[i]
+        m = _model_factor(spec, self.mesh)
+        length = m * _padded_size(self.params[i].numel(), self.n_shards)
+        return spec_layout((length,), dtype,
+                           (tuple(spec_axes(spec)) + (self.axis,),),
+                           self.mesh)
+
+    def checkpoint_layouts(self, shapes: Optional[Dict[str, tuple]] = None
+                           ) -> Dict:
+        """``{key in state_dict(): LeafLayout}`` of the flat leaves split
+        across ranks: each shadow and each inner state tensor of a
+        shadow's shape. ``shapes`` (a commit's ``{key: global shape}``)
+        adds the state leaves a fresh inner optimizer does not hold yet:
+        its state is made at its first step."""
+        out = {}
+        for i, s in enumerate(self.shadows):
+            out[f"['shadows'][{i}]"] = self._flat_layout(i, dtype_name(s))
+        for i, st in self.inner.state_dict()["state"].items():
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor) \
+                        and v.shape == self.shadows[i].shape:
+                    out[f"['state'][{i}][{k!r}]"] = self._flat_layout(
+                        i, dtype_name(v))
+        for key, shape in (shapes or {}).items():
+            m = re.fullmatch(r"\['state'\]\[(\d+)\]\['[^']*'\]", key)
+            if m and key not in out and int(m.group(1)) < len(self.shadows):
+                ll = self._flat_layout(int(m.group(1)), "float32")
+                if tuple(shape) == ll.shape:
+                    out[key] = ll
+        return {k: ll for k, ll in out.items() if not ll.replicated}
 
     def _padded(self) -> List[int]:
         return [_padded_size(p.numel(), self.n_shards) for p in self.params]
@@ -132,15 +222,21 @@ class Zero1Optimizer:
 def zero1_init(optimizer_factory: Callable[[Iterable],
                                            torch.optim.Optimizer],
                model: nn.Module, n_shards: int, mesh: DeviceMesh,
-               axis: str = "dp") -> Zero1Optimizer:
+               axis: str = "dp", param_specs=None) -> Zero1Optimizer:
     """The ZeRO-1 optimizer of ``model`` (this rank's shard of the
     parameters) for ``n_shards`` shards over ``axis``:
     ``optimizer_factory`` builds the inner optimizer over the fp32 flat
     shadow shards, each this rank's slice of its zero-padded
-    parameter."""
+    parameter. ``param_specs`` (a spec tree, as ``param_specs(cfg)``)
+    places the state's blocks in checkpoints; without it every
+    parameter counts as replicated over the model axes."""
+    from .mesh import spec_of
     index = (mesh.get_local_rank(axis) if axis in mesh.mesh_dim_names
              else 0)
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    specs = None if param_specs is None else [spec_of(param_specs, n)
+                                              for n, _ in named]
     shadows = []
     for p in params:
         width = _padded_size(p.numel(), n_shards) // n_shards
@@ -148,7 +244,7 @@ def zero1_init(optimizer_factory: Callable[[Iterable],
         shadows.append(flat[index * width:(index + 1) * width].clone()
                        .requires_grad_())
     return Zero1Optimizer(optimizer_factory(shadows), params, shadows,
-                          int(n_shards), mesh, axis, index)
+                          int(n_shards), mesh, axis, index, specs)
 
 
 def zero1_state_specs(n_shards: int, model: nn.Module

@@ -49,6 +49,10 @@ class Topology:
                                                         compare=False)
     # HOROVOD_TPU_NUMERICS at init: the buckets count nonfinite gradients.
     numerics: bool = False
+    # Elastic generation: 0 for the first launch (and every non-elastic
+    # job), bumped by an elastic driver on every recovery relaunch
+    # (HOROVOD_TPU_ELASTIC_GENERATION).
+    generation: int = 0
 
 
 _lock = threading.Lock()
@@ -119,7 +123,8 @@ def init(*, device: Union[str, torch.device, None] = None,
             rank=dist.get_rank(), size=dist.get_world_size(),
             local_rank=local_rank, local_size=local_size, backend=backend,
             device=dev, owns_group=owns, control_group=ctrl,
-            numerics=_env.numerics_enabled())
+            numerics=_env.numerics_enabled(),
+            generation=_env_int("HOROVOD_TPU_ELASTIC_GENERATION") or 0)
     # Outside the lock: the engine builds the hierarchical mesh's groups.
     from .ops import collective
     collective.start_engine(topo)
@@ -179,6 +184,13 @@ def process_rank() -> int:
 
 def process_count() -> int:
     return _get().size
+
+
+def generation() -> int:
+    """Elastic generation of this job: 0 on the first launch, one more
+    on every recovery relaunch. A worker tells a cold start from a
+    rejoin by it."""
+    return _get().generation
 
 
 def mpi_threads_supported() -> bool:

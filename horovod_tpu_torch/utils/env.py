@@ -130,3 +130,23 @@ def timeline_mark_cycles() -> bool:
     """HOROVOD_TIMELINE_MARK_CYCLES: a CYCLE_START instant per engine
     cycle in the timeline."""
     return _get("TIMELINE_MARK_CYCLES") not in (None, "", "0")
+
+
+def checkpoint_keep() -> int:
+    """Keep-last-N retention of committed checkpoints, for the sharded
+    engine and ElasticState's pickle backend
+    (HOROVOD_TPU_CHECKPOINT_KEEP, default 10; 0 keeps every step)."""
+    v = _get("CHECKPOINT_KEEP")
+    if v in (None, ""):
+        return 10
+    return int(v)
+
+
+def failure_timeout_secs() -> float:
+    """Seconds after which the engine's stall inspector fails an op in
+    flight with a typed ``WorkerFailure`` instead of only warning
+    (HOROVOD_TPU_FAILURE_TIMEOUT). 0, the default, keeps it warn-only."""
+    v = _get("FAILURE_TIMEOUT")
+    if v in (None, ""):
+        return 0.0
+    return float(v)

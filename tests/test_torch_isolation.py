@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``horovod_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``horovod_tpu``, and its
-entry points refuse to fall back to the CPU when CUDA is absent."""
+``chip_smoke.py`` imports ``jax`` or anything of ``horovod_tpu``, nor
+``ml_dtypes`` (the card's machine has none: the checkpoint format's bf16
+goes through integer views), and its entry points refuse to fall back
+to the CPU when CUDA is absent."""
 
 import ast
 from pathlib import Path
@@ -21,7 +23,8 @@ FILES = sorted((ROOT / "horovod_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+                   "horovod_tpu")
 
 
 def _imports(path: Path):
@@ -52,15 +55,17 @@ def test_scan_sees_the_package():
             "mem_probe.py", "flash_ablate_probe.py", "chip_smoke.py",
             "vgg.py", "inception.py", "mnist.py", "word2vec.py",
             "layers.py", "sync_bn.py", "loader.py", "prefetch.py",
-            "sources.py", "sharding.py"} <= names
+            "sources.py", "sharding.py", "engine.py", "manifest.py",
+            "reader.py", "writer.py", "fingerprint.py", "state.py",
+            "failure.py", "checkpoint.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom horovod_tpu.ops import x\n"
-                 "from horovod_tpu_torch import y\n")
+                 "from horovod_tpu_torch import y\nimport ml_dtypes\n")
     assert [m for m in _imports(f) if _forbidden(m)] == [
-        "jax.numpy", "horovod_tpu.ops"]
+        "jax.numpy", "horovod_tpu.ops", "ml_dtypes"]
 
 
 @pytest.fixture
