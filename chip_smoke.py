@@ -195,7 +195,26 @@ and prints no result line):
    corrupted: ``restore()`` logs the fallback and adopts the first,
    ``strict=True`` raises ``CorruptShardError``. It logs the commit's
    bytes (reckoned beside), the ms ``commit`` blocked the loop, the
-   seconds to the durable commit and the restore's, and GB/s.
+   seconds to the durable commit and the restore's, and GB/s;
+21. serving (about 60 s): the seed-0 bf16 flagship committed through
+   ``checkpoint_hook`` with ``transformer_extra`` and served by ``python
+   -m horovod_tpu_torch.serving`` (8 slots, 16-token blocks, a pool of
+   1025 blocks: 604.6 MB) to 8 concurrent HTTP clients (prompts of 32 to
+   1984 tokens, 64 new tokens each, greedy) and one streamed request,
+   then SIGTERM: the server drains and exits 0. In-process engines on
+   the same loaded weights check (a) the HTTP and streamed tokens, (b)
+   batched against one at a time, (c) each request's prefill row and
+   64th-token logits against ``Transformer.apply`` (3e-2 of max |logit|;
+   K1 launches there from S = 1024), (d) the int8 pool (first tokens
+   equal, 304,128 bytes a block), (e) speculative decoding with the
+   flagship as its drafter, (f) the prefix cache on a shared 512-token
+   system prompt. A divergence in (b), (e) or (f) fails if the full
+   forward's logits of the two tokens differ by more than 3e-2 of max
+   |logit| and is logged otherwise. The serve path launches no
+   hand-written kernel (every count 0). It logs TTFT by prompt length,
+   the decode step's median ms, tok/s batched and sequential, kernels a
+   decode step and the device's busy share (torch.profiler over 20
+   steps), peak memory and the KV bytes resident.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -238,6 +257,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 from horovod_tpu_torch import experiments as px
@@ -3017,6 +3037,467 @@ def elastic_phase(hvd, tfm, fa, data, build_train_step, smi):
         hvd.shutdown()
 
 
+# ------------------------------------------------ phase 21: serving
+
+SERVE_LENS = (32, 128, 256, 512, 768, 1024, 1536, 1984)
+SERVE_NEW = 64
+SERVE_SLOTS, SERVE_BLOCK, SERVE_KV_BLOCKS = 8, 16, 1025
+SERVE_TOL = 3e-2        # logits against the full forward, of max |logit|
+SERVE_TIMEOUT_S = 300   # the server's start, each request, its drain
+SERVE_PROFILED_STEPS = 20
+
+
+def serve_prompts(vocab):
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(0, vocab, n)] for n in SERVE_LENS]
+
+
+def serve_post(port, body):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=SERVE_TIMEOUT_S)
+    conn.request("POST", "/generate", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    if resp.status != 200:
+        raise AssertionError(f"/generate answered {resp.status}: {data!r}")
+    if body.get("stream"):
+        lines = [json.loads(x) for x in data.splitlines() if x.strip()]
+        if not lines[-1].get("done") or lines[-1]["status"] != "completed":
+            raise AssertionError(f"stream ended with {lines[-1]}")
+        return [x["t"] for x in lines[1:-1]]
+    return json.loads(data)
+
+
+def http_serve(ckpt, prompts, extra_args=()):
+    """Start ``python -m horovod_tpu_torch.serving`` on the commit, send
+    the prompts at once from one client thread each, then a streamed
+    copy of the first; SIGTERM, and the server must drain and exit 0.
+    Returns the replies and the streamed tokens."""
+    import queue
+    import signal
+    import subprocess
+    import threading
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.serving",
+           "--checkpoint-dir", ckpt, "--framework", "torch", "--port", "0",
+           "--host", "127.0.0.1", "--slots", str(SERVE_SLOTS),
+           "--block-size", str(SERVE_BLOCK), "--kv-blocks",
+           str(SERVE_KV_BLOCKS), "--max-new-tokens", str(SERVE_NEW),
+           *extra_args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        lines = queue.Queue()
+        threading.Thread(target=lambda: lines.put(proc.stdout.readline()),
+                         daemon=True).start()
+        try:
+            ready = lines.get(timeout=SERVE_TIMEOUT_S)
+        except queue.Empty:
+            raise AssertionError("the server printed no ready line") from None
+        if "[serving] ready on :" not in ready:
+            raise AssertionError(f"no ready line: {ready!r} "
+                                 f"{proc.stderr.read()[-2000:]}")
+        port = int(ready.split("ready on :")[1].split()[0])
+        start_s = time.perf_counter() - t0
+        replies = [None] * len(prompts)
+        errors = []
+
+        def client(i):
+            try:
+                replies[i] = serve_post(port, {"tokens": prompts[i]})
+            except Exception as e:   # re-raised below, in this thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t1
+        if errors or any(r is None for r in replies):
+            raise AssertionError(f"HTTP clients failed: {errors}")
+        streamed = serve_post(port, {"tokens": prompts[0], "stream": True})
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVE_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"the server exited {rc} after SIGTERM: "
+                                 f"{proc.stderr.read()[-2000:]}")
+        return replies, streamed, start_s, wall
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+class _Captured:
+    """Wraps an engine's forwards: keeps each request's prefill row (its
+    last prompt position) and its decode logits for the 64th token, and
+    the seconds of every batched decode step (the step ends in a host
+    copy of the logits, so the host clock covers the device's work)."""
+
+    def __init__(self, eng):
+        self.prefill, self.last, self.step_s = {}, {}, []
+        self.peak_blocks = 0
+        fwd_prefill, fwd, decode = eng._fwd_prefill, eng._fwd, \
+            eng._decode_step
+
+        def on_prefill(toks, starts, tabs):
+            logits = fwd_prefill(toks, starts, tabs)
+            slot = next(i for i, r in enumerate(eng._reqs) if r is not None
+                        and np.array_equal(eng._tables[i], tabs[0]))
+            req = eng._reqs[slot]
+            ns = len(req.prompt) - int(starts[0])
+            self.prefill[req.id] = logits[0, ns - 1].float().cpu()
+            return logits
+
+        def on_decode(toks, lens, tabs):
+            logits = fwd(toks, lens, tabs)
+            for i, r in enumerate(eng._reqs):
+                if r is not None and r.prefill_pos is None \
+                        and len(r.tokens) == r.max_new_tokens - 1:
+                    self.last[r.id] = logits[i, -1].float().cpu()
+            return logits
+
+        def on_step():
+            t0 = time.perf_counter()
+            decode()
+            self.step_s.append(time.perf_counter() - t0)
+            self.peak_blocks = max(self.peak_blocks, eng._alloc.in_use)
+
+        eng._fwd_prefill, eng._fwd, eng._decode_step = \
+            on_prefill, on_decode, on_step
+
+
+def serve_engine(model, prompts, drafter=None, wrap=False, submit=None,
+                 **over):
+    """An in-process engine of phase 21's configuration on the model's
+    device: the prompts submitted at once and run to the end (or as
+    ``submit(engine)`` drives them). Returns (tokens, requests, seconds,
+    the capture or None)."""
+    import gc
+    from horovod_tpu_torch.serving import InferenceEngine, ServingConfig
+    cfg = ServingConfig(**dict(dict(
+        block_size=SERVE_BLOCK, kv_blocks=SERVE_KV_BLOCKS,
+        max_batch_slots=SERVE_SLOTS, max_new_tokens=SERVE_NEW,
+        max_queue=32), **over))
+    eng = InferenceEngine(model, cfg, drafter=drafter, device=model.device)
+    cap = _Captured(eng) if wrap else None
+    sync(model.device)
+    t0 = time.perf_counter()
+    if submit is not None:
+        reqs = submit(eng)
+    else:
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    toks = [r.result(timeout=SERVE_TIMEOUT_S) for r in reqs]
+    del eng
+    gc.collect()
+    empty_cache(model.device)
+    return toks, reqs, wall, cap
+
+
+def serve_divergence(model, prompts, got, want, what):
+    """Token lists that should agree. At the first divergent position of
+    each request, the full forward over the common prefix says how far
+    apart the two chosen tokens' logits are (of max |logit|) and its own
+    top-2 margin: above SERVE_TOL the divergence is a fault, below it a
+    near-tie, logged as a finding."""
+    findings = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        p = next(k for k in range(min(len(g), len(w))) if g[k] != w[k])
+        with torch.inference_mode():
+            row = model.apply(torch.tensor([prompts[i] + w[:p]],
+                                           device=model.device))[0, -1]
+        row = row.float()
+        top = torch.topk(row, 2).values
+        scale = float(row.abs().max())
+        gap = abs(float(row[g[p]] - row[w[p]])) / scale
+        margin = float(top[0] - top[1]) / scale
+        findings.append((i, p, g[p], w[p], gap, margin))
+        log(f"  {what}: request {i} (prompt {len(prompts[i])}) diverges at "
+            f"generated token {p}: {g[p]} against {w[p]}; the full "
+            f"forward's logits of the two differ by {gap:.3e} of max "
+            f"|logit|, its top-2 margin {margin:.3e}")
+        if gap > SERVE_TOL:
+            raise AssertionError(f"{what}: request {i} diverges at token "
+                                 f"{p} with a logit gap of {gap:.3e} of max "
+                                 f"|logit| (> {SERVE_TOL})")
+    return findings
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_profile(model, prompts):
+    """20 batched decode steps of 8 live slots under torch.profiler: the
+    CUDA kernels and copies a step, the share of the window the device
+    was busy (the union of their intervals over the wall), and the six
+    largest by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from horovod_tpu_torch.serving import InferenceEngine, ServingConfig
+    eng = InferenceEngine(model, ServingConfig(
+        block_size=SERVE_BLOCK, kv_blocks=SERVE_KV_BLOCKS,
+        max_batch_slots=SERVE_SLOTS, max_new_tokens=SERVE_NEW),
+        device=model.device)
+    for p in prompts:
+        eng.submit(p)
+    eng.step()   # admits and prefills all eight, one decode step
+    eng.step()
+    sync(model.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILED_STEPS):
+            eng.step()
+        sync(model.device)
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    eng.run_until_idle()
+    del eng
+    empty_cache(model.device)
+    if not spans:
+        return None, None, wall, []
+    by_kind = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, t = by_kind.get(e.name, (0, 0.0))
+            by_kind[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_kind.items(), key=lambda kv: -kv[1][1])[:6]
+    return (len(spans) / SERVE_PROFILED_STEPS, busy / 1e6 / wall, wall,
+            [(name[:60], n // SERVE_PROFILED_STEPS,
+              round(t / 1e3 / SERVE_PROFILED_STEPS, 4))
+             for name, (n, t) in top])
+
+
+def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda"):
+    """Phase 21: the flagship served on one card. The seed-0 bf16
+    flagship is committed through ``checkpoint_hook`` with
+    ``transformer_extra``; ``python -m horovod_tpu_torch.serving`` serves
+    it (8 slots, 16-token blocks, 1025 blocks) to 8 concurrent HTTP
+    clients and one streamed request, then drains on SIGTERM. In-process
+    engines on the same loaded weights check (a) the HTTP tokens and the
+    streamed ones, (b) batched against sequential, (c) the prefill row
+    and the 64th token's logits against ``Transformer.apply`` (3e-2 of
+    max |logit|; K1 runs there from S = 1024), (d) the int8 pool, (e)
+    speculative decoding with the flagship as its drafter, (f) the
+    prefix cache; (b), (e) and (f) divergences are judged by
+    :func:`serve_divergence`. The serve path launches no hand-written
+    kernel: every count is 0 across the in-process runs. ``cfg`` and
+    ``device`` exist for a rehearsal on the CPU at a small width."""
+    import shutil
+    import tempfile
+    import types
+    from horovod_tpu_torch.checkpoint import CheckpointEngine, checkpoint_hook
+    from horovod_tpu_torch.serving import (TORCH_MODEL_PREFIX,
+                                           config_from_manifest,
+                                           load_params, serving_config,
+                                           transformer_extra)
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if cfg is None:
+        cfg = tfm.TransformerConfig(vocab=32000, d_model=768, n_layers=12,
+                                    d_ff=3072, max_seq=2048,
+                                    dtype=torch.bfloat16, remat=False)
+    prompts = serve_prompts(cfg.vocab)
+    tmp = tempfile.mkdtemp(prefix="hvd_serve_")
+    try:
+        trained = tfm.Transformer(
+            cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        save = checkpoint_hook(tmp, model=types.SimpleNamespace(
+            state_dict=trained.params_tree), every=1,
+            extra=transformer_extra(cfg))
+        save(0, block=True)
+        del trained
+        empty_cache(dev)
+        replies, streamed, start_s, http_wall = http_serve(
+            tmp, prompts, [] if on_card else ["--device", "cpu"])
+        http_toks = [r["tokens"] for r in replies]
+
+        man = CheckpointEngine(tmp).restore_manifest()
+        scfg = serving_config(config_from_manifest(man))
+        if scfg != cfg:
+            raise AssertionError(f"the manifest gives {scfg}, not {cfg}")
+        model = tfm.Transformer(scfg, device=dev, params=load_params(
+            tmp, scfg, key_prefix=TORCH_MODEL_PREFIX, device=dev))
+        fa.reset_launch_counts()
+        fbn.reset_launch_counts()
+        # A first pass of every shape (each prefill bucket, the decode
+        # step) loads their kernels, so that (a)'s times are steady.
+        serve_engine(model, prompts, max_new_tokens=2)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+        # (a) the in-process engine on the same weights
+        toks, reqs, wall, cap = serve_engine(model, prompts, wrap=True)
+        peak_mem = torch.cuda.max_memory_allocated() if on_card else 0
+        if toks != http_toks:
+            raise AssertionError("the HTTP tokens are not the in-process "
+                                 "engine's")
+        if streamed != http_toks[0]:
+            raise AssertionError("the streamed tokens are not the unary "
+                                 "reply's")
+        if any(len(t) != SERVE_NEW for t in toks):
+            raise AssertionError(f"lengths {[len(t) for t in toks]}")
+
+        # (b) the same prompts one at a time through the 8-slot engine
+        def one_at_a_time(eng):
+            out = []
+            for p in prompts:
+                out.append(eng.submit(p))
+                eng.run_until_idle()
+            return out
+
+        seq_toks, seq_reqs, seq_wall, _ = serve_engine(
+            model, prompts, submit=one_at_a_time)
+        # (d) the int8 pool
+        q_toks, _, q_wall, _ = serve_engine(model, prompts,
+                                            kv_quant="int8")
+        if [t[0] for t in q_toks] != [t[0] for t in toks]:
+            raise AssertionError("an int8 first token differs from the bf16 "
+                                 "pool's: prefill is not exact")
+        agree = sum(a == b for x, y in zip(q_toks, toks)
+                    for a, b in zip(x, y))
+        qb, bb = (tfm.kv_bytes_per_block(cfg, SERVE_BLOCK, "int8"),
+                  tfm.kv_bytes_per_block(cfg, SERVE_BLOCK))
+        if on_card and (qb, bb) != (304128, 589824):
+            raise AssertionError(f"bytes per block {qb}, {bb}")
+        # (e) speculative decoding, the flagship as its own drafter
+        spec_toks, _, spec_wall, _ = serve_engine(model, prompts,
+                                                  drafter=model,
+                                                  spec_tokens=4)
+        # (f) the prefix cache: 4 requests share a 512-token system prompt
+        shared = [prompts[3] + p[:64] for p in prompts[:4]]
+
+        def first_then_rest(eng):
+            out = [eng.submit(shared[0])]
+            eng.run_until_idle()
+            out += [eng.submit(p) for p in shared[1:]]
+            eng.run_until_idle()
+            return out
+
+        pc_toks, pc_reqs, _, _ = serve_engine(model, shared,
+                                              prefix_cache=True,
+                                              submit=first_then_rest)
+        plain = serve_engine(model, shared)[0]
+        # The serve runs end here: the divergence judgments and (c) run
+        # the full forward, which launches K1 from S = 1024 on the card.
+        serve_launches = {**fa.launch_counts(), **fbn.launch_counts()}
+        if any(serve_launches.values()):
+            raise AssertionError(f"the serve path launched {serve_launches}")
+        hits = [r.cached_tokens for r in pc_reqs]
+        if hits != [0] + [len(prompts[3])] * 3:
+            raise AssertionError(f"prompt tokens from the cache {hits}; "
+                                 f"expected 0, then {len(prompts[3])} each")
+        solo = serve_divergence(model, prompts, toks, seq_toks,
+                                "(b) batched against sequential")
+        spec = serve_divergence(model, prompts, spec_toks, toks,
+                                "(e) speculative against (a)")
+        prefix = serve_divergence(model, shared, pc_toks, plain,
+                                  "(f) prefix-cached against uncached")
+
+        # (c) against the full forward (K1 from S = 1024 on the card)
+        fa.reset_launch_counts()
+        worst = [0.0, 0.0]
+        with torch.inference_mode():
+            for i, r in enumerate(reqs):
+                seq = prompts[i] + toks[i][:SERVE_NEW - 1]
+                full = model.apply(torch.tensor([seq], device=dev))[0]
+                for k, (got, row) in enumerate((
+                        (cap.prefill[r.id], len(prompts[i]) - 1),
+                        (cap.last[r.id], len(seq) - 1))):
+                    want = full[row].float().cpu()
+                    err = float((got - want).abs().max() / want.abs().max())
+                    worst[k] = max(worst[k], err)
+                del full
+        k1 = fa.launch_counts()["flash_fwd"]
+        if max(worst) > SERVE_TOL:
+            raise AssertionError(f"decode logits against the full forward: "
+                                 f"{worst} of max |logit| (> {SERVE_TOL})")
+        probe = torch.empty(0, device=dev)
+        want_k1 = sum(tfm._use_flash(cfg, probe, len(p) + SERVE_NEW - 1)
+                      for p in prompts) * cfg.n_layers
+        if k1 != want_k1:
+            raise AssertionError(f"K1 launched {k1} times in the reference "
+                                 f"forward, expected {want_k1}")
+        launches, busy, prof_wall, top = serve_profile(model, prompts)
+        ttft_http = {len(p): r["ttft_ms"] for p, r in zip(prompts, replies)}
+        ttft_proc = {len(p): round(r.ttft_s * 1e3, 3)
+                     for p, r in zip(prompts, reqs)}
+        ttft_alone = {len(p): round(r.ttft_s * 1e3, 3)
+                      for p, r in zip(prompts, seq_reqs)}
+        step_ms = statistics.median(cap.step_s) * 1e3
+        n_tok = SERVE_SLOTS * SERVE_NEW
+        log(f"serving (phase 21) on {smi}: the seed-0 {cfg.dtype} flagship "
+            f"(d_model {cfg.d_model}, {cfg.n_layers} layers) served by "
+            f"python -m horovod_tpu_torch.serving, {SERVE_SLOTS} slots, "
+            f"pool {SERVE_KV_BLOCKS} blocks of {SERVE_BLOCK} tokens = "
+            f"{SERVE_KV_BLOCKS * bb / 1e6:.1f} MB; server ready in "
+            f"{start_s:.2f} s, 8 HTTP requests in {http_wall:.3f} s; "
+            "SIGTERM drained, exit 0")
+        log(f"  TTFT ms by prompt length: HTTP (the server's first "
+            f"forwards) {ttft_http}; in process, 8 at once {ttft_proc}; "
+            f"one at a time {ttft_alone}")
+        log(f"  decode step at 8 slots: median {step_ms:.3f} ms over "
+            f"{len(cap.step_s)} steps; {n_tok} tokens generated in "
+            f"{wall:.3f} s = {n_tok / wall:.1f} tok/s; sequential "
+            f"{seq_wall:.3f} s = {n_tok / seq_wall:.1f} tok/s (batched "
+            f"{seq_wall / wall:.2f}x); int8 pool {n_tok / q_wall:.1f} "
+            f"tok/s; speculative (k=4, self-drafter) "
+            f"{n_tok / spec_wall:.1f} tok/s")
+        log(f"  {SERVE_PROFILED_STEPS} profiled decode steps: "
+            f"{'not measured' if launches is None else f'{launches:.1f}'} "
+            f"CUDA kernels and copies a step; device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f}'} of "
+            f"{prof_wall * 1e3 / SERVE_PROFILED_STEPS:.3f} ms a step; the "
+            f"largest by device time (name, launches, ms a step): {top}")
+        if on_card:
+            log(f"  peak memory {peak_mem / 1e9:.3f} GB ({base_mem / 1e9:.3f}"
+                f" GB before the engine); KV resident at the peak "
+                f"{cap.peak_blocks} blocks = "
+                f"{cap.peak_blocks * bb / 1e6:.1f} MB")
+        log(f"  (c) prefill rows within {worst[0]:.3e}, 64th-token rows "
+            f"within {worst[1]:.3e} of max |logit| of Transformer.apply; "
+            f"K1 launched {k1} times there (the reference forward); the "
+            f"serve path launched {sum(serve_launches.values())} "
+            "hand-written kernels")
+        log(f"  (d) int8: first tokens equal; {agree}/{n_tok} tokens agree "
+            f"with the bf16 pool; {qb} bytes a block against {bb} "
+            f"({bb / qb:.2f}x)")
+        log(f"  (b) {'identical' if not solo else solo}; (e) "
+            f"{'identical' if not spec else spec}; (f) prompt tokens from "
+            f"the cache {hits}, {'identical' if not prefix else prefix}")
+        log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        empty_cache(dev)
+
+
 def source_of(name):
     name = base_of(name)
     if name in BN_KERNELS:
@@ -3197,6 +3678,9 @@ def main(argv=None) -> int:
     t20 = time.perf_counter()
     elastic_phase(hvd, tfm, fa, data, build_train_step, smi)
     log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
+
+    # 21. the flagship served on the card
+    serving_phase(tfm, fa, fbn, smi)
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[base_of(name)],

@@ -14,7 +14,10 @@ Inception V3, the MNIST net, word2vec; ResNet with distributed batch
 norm) fed by the input pipeline (``data``: sources, the sharded loader,
 prefetch to the card), and checkpoint and elastic state
 (``checkpoint``: the sharded engine on the JAX package's format;
-``elastic``: ``ElasticState`` and ``WorkerFailure``).
+``elastic``: ``ElasticState`` and ``WorkerFailure``), and serving
+(``serving``: the continuous-batching engine over a paged KV pool, its
+HTTP server and ``python -m horovod_tpu_torch.serving``; metrics in
+``metrics_snapshot()``).
 
     import torch, horovod_tpu_torch as hvd
     hvd.init()                                   # CUDA; device="cpu" for gloo
@@ -42,6 +45,7 @@ from .optimizer import (DistributedOptimizer, allreduce_gradients,
 from .checkpoint import CheckpointEngine, CorruptShardError, checkpoint_hook
 from .elastic import ElasticState, SlowRankFailure, WorkerFailure
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
+from .observability import metrics_snapshot
 
 __version__ = "0.1.0"
 
@@ -59,5 +63,5 @@ __all__ = [
     "broadcast_optimizer_state", "broadcast_object", "allreduce_gradients",
     "generation", "CheckpointEngine", "CorruptShardError", "checkpoint_hook",
     "save_checkpoint", "restore_checkpoint", "ElasticState",
-    "WorkerFailure", "SlowRankFailure",
+    "WorkerFailure", "SlowRankFailure", "metrics_snapshot",
 ]

@@ -70,6 +70,21 @@ and checkpoints of the sharded optimizer state:
   rank 0's loop, and the seconds to the durable commit and to the
   restore (rank 0).
 
+and the serving tier's decode path:
+
+- ``decode_tp``: ``dp=2, tp=2``: each dp pair runs a prefill and 16
+  decode steps of a 4-slot pool (16-token blocks, random prompts of its
+  own seed) through ``Transformer.apply_decode`` at tp = 2, each rank
+  holding its 3 heads of the pool, and every rank the same calls at
+  tp = 1 on its own card from the same weights; for the bf16 pool and
+  the int8 one. Its line holds the worst logits error of any call
+  (``DECODE_TOL``, 1e-2 of max |logit|) and whether each layer's pool
+  holds at tp = 2 the bits the same heads hold at tp = 1: layer 0's K
+  and V come from the embeddings through a column slice of the
+  projection (no psum before them), so where the bf16 pool's layer 0
+  agrees, the int8 pool's payload and scales must too (the head-shard
+  promise of the quantized pool).
+
 and the pipelined flagship at its full depth (12 layers, whatever
 ``--layers`` says) on ``pp=4``, 8 x 2048 tokens as m = 8 microbatches of
 1, with NCCL sends and receives between the stages:
@@ -648,6 +663,101 @@ def _ckpt_zero1(layers, device, width):
     return line
 
 
+DECODE_SLOTS, DECODE_STEPS, DECODE_BLOCK = 4, 16, 16
+DECODE_TOL = 1e-2   # tp = 2 logits against tp = 1, of max |logit|
+
+
+def _decode_run(model, kv, tables, prompts, steps, dev):
+    """Prefill of ``prompts`` ([slots, L], row r real up to its length)
+    then ``steps`` [slots, 1] decode calls on a fresh pool: the logits of
+    every call (fp32, host) and the pool."""
+    lens, tok = prompts
+    cache = model.init_cache(int(tables.max()) + 1, DECODE_BLOCK, kv)
+    out = []
+    with torch.inference_mode():
+        lg, _ = model.apply_decode(tok.to(dev), torch.zeros_like(lens).to(dev),
+                                   tables.to(dev), cache, kv_quant=kv,
+                                   exact_chunk=True)
+        out.append(lg.float().cpu())
+        for i, nxt in enumerate(steps):
+            lg, _ = model.apply_decode(nxt.to(dev), (lens + i).to(dev),
+                                       tables.to(dev), cache, kv_quant=kv)
+            out.append(lg.float().cpu())
+    return out, [{k: v.cpu() for k, v in layer.items()} for layer in cache]
+
+
+def run_decode_rank(rank, port, layers, outdir, device, width):
+    """One rank of ``decode_tp``: its dp pair's prefill and decode steps
+    at tp = 2 (this rank's heads) and at tp = 1 on its own card, on the
+    same weights and tokens, for the bf16 and the int8 pool."""
+    import dataclasses
+    import horovod_tpu_torch as hvd
+    from ..models import transformer as tfm
+    from ..parallel.collectives import axis_index
+    from ..parallel.mesh import create_mesh, place, shard_tree
+    hvd.init(device=f"cuda:{rank}" if device == "cuda" else device,
+             init_method=f"tcp://localhost:{port}", rank=rank,
+             world_size=WORLD)
+    dev = hvd.device()
+    mesh = create_mesh(dp=2, tp=2)
+    dp, tp = axis_index(mesh, "dp"), axis_index(mesh, "tp")
+    cfg1 = _config(tfm, width, layers)
+    cfg2 = dataclasses.replace(cfg1, tp_axis="tp")
+    params = tfm.init_params(cfg1, torch.Generator().manual_seed(0))
+    one = tfm.Transformer(cfg1, params=params, device=dev)
+    two = tfm.Transformer(cfg2, device=dev, mesh=mesh, params=shard_tree(
+        params, tfm.param_specs(cfg2), *place(mesh)))
+    gen = torch.Generator().manual_seed(100 + dp)
+    seq = width["max_seq"] // 4
+    lens = torch.randint(seq // 4, seq - DECODE_STEPS, (DECODE_SLOTS,),
+                         generator=gen)
+    tok = torch.randint(0, width["vocab"], (DECODE_SLOTS, seq),
+                        generator=gen)
+    steps = [torch.randint(0, width["vocab"], (DECODE_SLOTS, 1),
+                           generator=gen) for _ in range(DECODE_STEPS)]
+    per = -(-seq // DECODE_BLOCK)
+    tables = 1 + torch.arange(DECODE_SLOTS * per).reshape(DECODE_SLOTS, per)
+    h = cfg1.n_heads // 2
+    line = {"mesh": {"dp": 2, "tp": 2}, "layers": layers, "dp": dp,
+            "tp": tp, "slots": DECODE_SLOTS, "steps": DECODE_STEPS}
+    for kv in (None, "int8"):
+        ref, ref_pool = _decode_run(one, kv, tables, (lens, tok), steps, dev)
+        got, pool = _decode_run(two, kv, tables, (lens, tok), steps, dev)
+        name = kv or "bf16"
+        line[f"{name}_logits_rel_err"] = max(
+            float((g - r).abs().max() / r.abs().max())
+            for g, r in zip(got, ref))
+        mine = [{k: v[:, :, tp * h:(tp + 1) * h] for k, v in layer.items()}
+                for layer in ref_pool]
+        same = [{k: torch.equal(layer[k][1:], full[k][1:]) for k in layer}
+                for layer, full in zip(pool, mine)]
+        line[f"{name}_layer0_bitwise"] = all(same[0].values())
+        line[f"{name}_layers_bitwise"] = [all(s.values()) for s in same]
+    hvd.shutdown()
+    torch.save(line, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _decode_tp(layers, device, width):
+    """``decode_tp``'s line: every rank's worst logits error, and whether
+    layer 0's pools (the K and V of the embeddings, no psum before them)
+    hold the same bits at tp = 2 as the same heads at tp = 1."""
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_decode_rank, args=(_free_port(), layers, outdir,
+                                        device, width), nprocs=WORLD)
+        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(WORLD)]
+    line = {k: v for k, v in ranks[0].items() if k not in ("dp", "tp")}
+    for name in ("bf16", "int8"):
+        line[f"{name}_logits_rel_err"] = max(
+            r[f"{name}_logits_rel_err"] for r in ranks)
+        line[f"{name}_layer0_bitwise"] = all(
+            r[f"{name}_layer0_bitwise"] for r in ranks)
+        line[f"{name}_layers_bitwise"] = [
+            all(r[f"{name}_layers_bitwise"][i] for r in ranks)
+            for i in range(layers)]
+    return line
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -659,9 +769,10 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     memory of all ranks (and, for a pipeline variant, whether every rank
     was bit for bit)}; ``variants`` defaults to all."""
     variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine",
-                                 "sync_bn", "ckpt_zero1"))
+                                 "sync_bn", "ckpt_zero1", "decode_tp"))
     mesh_variants = [v for v in variants
-                     if v not in ("hier_engine", "sync_bn", "ckpt_zero1")]
+                     if v not in ("hier_engine", "sync_bn", "ckpt_zero1",
+                                  "decode_tp")]
     ranks = []
     if mesh_variants:
         with tempfile.TemporaryDirectory() as outdir:
@@ -676,6 +787,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         lines["sync_bn"] = _sync_bn(device)
     if "ckpt_zero1" in variants:
         lines["ckpt_zero1"] = _ckpt_zero1(layers, device, width)
+    if "decode_tp" in variants:
+        lines["decode_tp"] = _decode_tp(layers, device, width)
     for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
@@ -685,9 +798,11 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         if "bitwise" in line:
             line["bitwise"] = all(r[name]["bitwise"] for r in ranks)
         lines[name] = line
-    for line in lines.values():
-        line["loss_rel_err"] = (abs(line["loss"] - line["reference_loss"])
-                                / abs(line["reference_loss"]))
+    for name, line in lines.items():
+        if name != "decode_tp":   # no loss: a forward-only check
+            line["loss_rel_err"] = (abs(line["loss"]
+                                        - line["reference_loss"])
+                                    / abs(line["reference_loss"]))
     return lines
 
 
@@ -695,7 +810,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
     names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine", "sync_bn",
-             "ckpt_zero1")
+             "ckpt_zero1", "decode_tp")
     ap.add_argument("--variants", help="comma-separated names (default: "
                     f"all of {', '.join(names)})")
     args = ap.parse_args(argv)
@@ -710,14 +825,20 @@ def main(argv=None) -> int:
     ok = True
     for name, line in run(args.layers, variants=variants).items():
         print(json.dumps({"variant": name, **line}), flush=True)
-        ok &= (line["loss_rel_err"] <= LOSS_TOL
-               and line["max_grad_rel_err"] <= GRAD_TOL
-               and line.get("grad_rel_err_vs_flat", 0.0) <= HIER_TOL
-               and line.get("allgather_exact", True))
+        if name != "decode_tp":
+            ok &= (line["loss_rel_err"] <= LOSS_TOL
+                   and line["max_grad_rel_err"] <= GRAD_TOL
+                   and line.get("grad_rel_err_vs_flat", 0.0) <= HIER_TOL
+                   and line.get("allgather_exact", True))
         if name == "sync_bn":
             ok &= (line["logits_rel_err"] <= SYNC_BN_FWD_TOL
                    and line["max_grad_rel_err"] <= SYNC_BN_GRAD_TOL
                    and line["one_2c_allreduce_per_bn"])
+        if name == "decode_tp":
+            ok &= (line["bf16_logits_rel_err"] <= DECODE_TOL
+                   and line["int8_logits_rel_err"] <= DECODE_TOL
+                   and (line["int8_layer0_bitwise"]
+                        or not line["bf16_layer0_bitwise"]))
         if name == "ckpt_zero1":
             ok &= (line["resumed_bitwise"]
                    and line["loss"] == line["reference_loss"]

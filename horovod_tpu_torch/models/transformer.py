@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -281,6 +281,200 @@ def project_logits(embed: torch.Tensor, h: torch.Tensor,
     return h.float() @ embed.T
 
 
+# --------------------------------------------------------------------------
+# Incremental decode over a paged KV pool (the serving tier's forward)
+# --------------------------------------------------------------------------
+#
+# The pool is a list (one entry per layer) of {"k", "v"} tensors of shape
+# [n_blocks, block_size, heads, head_dim]: fixed-size token blocks that
+# every sequence shares, addressed through a block table whose entry j
+# names the block holding positions [j*bs, (j+1)*bs). Block 0 is scratch
+# (serving/kv_cache.py never hands it out): padded or inactive slots
+# write there, where no live sequence reads. With ``kv_quant`` the
+# payload is int8 or fp8-e4m3 with fp32 absmax scales {"ks", "vs"} per
+# (block, token, head, head_dim chunk), the chunk
+# ``channel_block(head_dim, 256)``, so a tensor-parallel head shard
+# quantizes as the same head does at tp=1. Under 'tp' a rank's pool
+# holds its heads (:func:`cache_specs`).
+
+
+def _kv_spec(kv_quant):
+    from .. import quantization as q
+    return q.parse(kv_quant)
+
+
+def init_cache(cfg: TransformerConfig, n_blocks: int, block_size: int,
+               kv_quant=None, *, heads: Optional[int] = None,
+               device: Union[str, torch.device, None] = None) -> List[Dict]:
+    """A zeroed KV pool: per layer ``{"k", "v"}`` of [n_blocks,
+    block_size, heads, head_dim] in ``cfg.dtype`` or, with ``kv_quant``
+    ("int8"/"fp8"/a WireSpec), the wire-dtype payload and ``{"ks",
+    "vs"}`` fp32 scales of ones. ``heads`` defaults to every head (the
+    global pool); a tp rank's pool holds ``n_heads // tp``."""
+    from .. import quantization as q
+    dev = resolve_device(device)
+    hd = cfg.d_model // cfg.n_heads
+    shape = (int(n_blocks), int(block_size),
+             cfg.n_heads if heads is None else int(heads), hd)
+    spec = _kv_spec(kv_quant)
+    if spec is None:
+        return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+                for _ in range(cfg.n_layers)]
+    qdt = getattr(torch, spec.wire_dtype)
+    sshape = shape[:3] + (hd // q.channel_block(hd, spec.block_size),)
+    return [{"k": torch.zeros(shape, dtype=qdt, device=dev),
+             "v": torch.zeros(shape, dtype=qdt, device=dev),
+             "ks": torch.ones(sshape, dtype=torch.float32, device=dev),
+             "vs": torch.ones(sshape, dtype=torch.float32, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+def cache_specs(cfg: TransformerConfig, kv_quant=None) -> List[Dict]:
+    """The pool's partition specs: heads over 'tp' (the axis the Q/K/V
+    column splits make the local heads on), block and token dims
+    replicated; a quantized pool's scales split with their payload."""
+    spec = (None, None, cfg.tp_axis, None)
+    names = ("k", "v") if _kv_spec(kv_quant) is None \
+        else ("k", "v", "ks", "vs")
+    return [{n: spec for n in names} for _ in range(cfg.n_layers)]
+
+
+def kv_bytes_per_block(cfg: TransformerConfig, block_size: int,
+                       kv_quant=None) -> int:
+    """Bytes one pool block holds across all layers, K and V, scales
+    included (the engine's ``kv_bytes_resident`` gauge multiplies the
+    blocks in use by it)."""
+    from .. import quantization as q
+    hd = cfg.d_model // cfg.n_heads
+    elems = int(block_size) * cfg.n_heads * hd
+    spec = _kv_spec(kv_quant)
+    if spec is None:
+        per = elems * torch.empty((), dtype=cfg.dtype).element_size()
+    else:
+        scales = elems // q.channel_block(hd, spec.block_size)
+        per = elems * 1 + scales * 4
+    return 2 * per * cfg.n_layers
+
+
+def _bytes_view(t: torch.Tensor) -> torch.Tensor:
+    """fp8 payloads are indexed through their uint8 view (the same
+    bytes; not every indexing kernel takes fp8)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _write(pool: torch.Tensor, blk, off, rows: torch.Tensor) -> None:
+    _bytes_view(pool).index_put_((blk, off), _bytes_view(rows))
+
+
+def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    return _bytes_view(pool)[tables].view(pool.dtype)
+
+
+def _decode_block(p: Dict, x: torch.Tensor, layer_cache: Dict, tables,
+                  pos, cfg: TransformerConfig, mesh: Optional[DeviceMesh],
+                  kv_spec=None, exact_chunk: bool = False) -> torch.Tensor:
+    """One decoder block over the pool, JAX's ``_decode_block`` line for
+    line. x: [B, Q, d] new-token activations; pos: [B, Q] absolute
+    positions; tables: [B, T] block ids. Writes this chunk's K/V into
+    ``layer_cache`` in place, then attends causally over everything
+    cached. With ``kv_spec`` the write quantizes (the folded scale of
+    JAX's compiled program) and the read dequantizes; ``exact_chunk``
+    overwrites this chunk's own rows of the gathered K/V with the exact
+    values (prefill)."""
+    from .. import quantization as quant
+    kc, vc = layer_cache["k"], layer_cache["v"]
+    h = _local_heads(cfg, axis_size(mesh, cfg.tp_axis))
+    hd = cfg.d_model // cfg.n_heads
+    dt = cfg.dtype
+    b, q_len, _ = x.shape
+    bs = kc.shape[1]
+
+    y = _layernorm(x, p["ln1"])
+    q = (y @ p["wq"].to(dt)).reshape(b, q_len, h, hd)
+    k = (y @ p["wk"].to(dt)).reshape(b, q_len, h, hd)
+    v = (y @ p["wv"].to(dt)).reshape(b, q_len, h, hd)
+
+    # Position p lives at (table[p // bs], p % bs). JAX clamps the table
+    # index and sends positions past the table to scratch block 0; an
+    # index out of range would raise here (a device assert on CUDA), so
+    # both are explicit.
+    T = tables.shape[1]
+    blk = torch.gather(tables, 1, torch.clamp(pos // bs, max=T - 1))
+    blk = torch.where(pos < T * bs, blk, torch.zeros_like(blk))
+    off = pos % bs
+    if kv_spec is None:
+        _write(kc, blk, off, k.to(kc.dtype))
+        _write(vc, blk, off, v.to(vc.dtype))
+    else:
+        qk, sk = quant.quantize_channels(k, kv_spec, folded=True)
+        qv, sv = quant.quantize_channels(v, kv_spec, folded=True)
+        _write(kc, blk, off, qk)
+        _write(vc, blk, off, qv)
+        _write(layer_cache["ks"], blk, off, sk)
+        _write(layer_cache["vs"], blk, off, sv)
+
+    # The pages in table order: the flattened page axis is the absolute
+    # position axis, so the causal mask is an arange comparison.
+    s_pad = T * bs
+    if kv_spec is None:
+        keys = _gather(kc, tables).reshape(b, s_pad, h, hd)
+        vals = _gather(vc, tables).reshape(b, s_pad, h, hd)
+    else:
+        keys = quant.dequantize_channels(
+            _gather(kc, tables), layer_cache["ks"][tables],
+            kv_spec).reshape(b, s_pad, h, hd).to(dt)
+        vals = quant.dequantize_channels(
+            _gather(vc, tables), layer_cache["vs"][tables],
+            kv_spec).reshape(b, s_pad, h, hd).to(dt)
+        if exact_chunk:
+            # This chunk's rows at full precision; rows past the pool
+            # are dropped, as JAX's mode="drop" does.
+            live = pos < s_pad
+            rows = torch.arange(b, device=x.device)[:, None].expand_as(pos)
+            keys[rows[live], pos[live]] = k[live]
+            vals[rows[live], pos[live]] = v[live]
+    # fp32 products of the operands, scaled after the product.
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          keys.to(q.dtype).float()) * (hd ** -0.5)
+    visible = (torch.arange(s_pad, device=x.device)[None, None, None, :]
+               <= pos[:, None, :, None])
+    scores = scores.masked_fill(~visible, float("-inf"))
+    prob = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("bhqk,bkhd->bqhd", prob.to(vals.dtype).float(),
+                        vals.float()).to(x.dtype)
+    o = attn.reshape(b, q_len, h * hd) @ p["wo"].to(dt)
+    if cfg.tp_axis:
+        o = psum(o, mesh, cfg.tp_axis)   # row-parallel out-projection
+    x = x + o
+
+    y = _layernorm(x, p["ln2"])
+    hmid = F.gelu(y @ p["wi"].to(dt), approximate="tanh")
+    m = hmid @ p["wo_mlp"].to(dt)
+    if cfg.tp_axis:
+        m = psum(m, mesh, cfg.tp_axis)
+    return x + m
+
+
+def prefill_spans(n_tokens: int, chunk: int, start: int = 0):
+    """``(start, length)`` spans that consume ``n_tokens`` prompt
+    positions from ``start`` in chunks of at most ``chunk``: feed each
+    span to ``apply_decode`` with ``starts`` at the span's start and the
+    same block tables."""
+    if n_tokens < 0:
+        raise ValueError(f"n_tokens must be >= 0, got {n_tokens}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    out = []
+    pos = int(start)
+    end = int(start) + int(n_tokens)
+    while pos < end:
+        n = min(int(chunk), end - pos)
+        out.append((pos, n))
+        pos += n
+    return out
+
+
 class _Layer(nn.Module):
     """A layer's parameters; a subtree (``moe``) is a child module."""
 
@@ -401,6 +595,65 @@ class Transformer(nn.Module):
         return self._project_logits(self.apply_hidden(tokens))
 
     forward = apply
+
+    def params_tree(self) -> Dict:
+        """The parameters (detached) as the nested tree of
+        :func:`init_params`: ``{"embed", "pos", "ln_f", "layers": [...]}``.
+        A checkpoint of this tree has the JAX package's leaf keys."""
+        def detached(t):
+            if isinstance(t, dict):
+                return {k: detached(v) for k, v in t.items()}
+            return t.detach()
+
+        return {"embed": self.embed.detach(), "pos": self.pos.detach(),
+                "ln_f": self.ln_f.detach(),
+                "layers": [detached(layer.tree()) for layer in self.layers]}
+
+    def init_cache(self, n_blocks: int, block_size: int,
+                   kv_quant=None) -> List[Dict]:
+        """This rank's zeroed KV pool on the model's device: every head
+        at tp=1, the local heads under 'tp' (:func:`cache_specs`)."""
+        h = _local_heads(self.cfg, axis_size(self.mesh, self.cfg.tp_axis))
+        return init_cache(self.cfg, n_blocks, block_size, kv_quant,
+                          heads=h, device=self.device)
+
+    def apply_decode(self, tokens: torch.Tensor, starts: torch.Tensor,
+                     block_tables: torch.Tensor, cache: List[Dict],
+                     kv_quant=None, exact_chunk: bool = False):
+        """Incremental forward through the paged KV pool, JAX's
+        ``apply_decode``. tokens: [B, Q] int, the new tokens only (a
+        prompt chunk, one token a live slot, or a speculative chunk);
+        starts: [B] absolute position of ``tokens[:, 0]``;
+        block_tables: [B, T] block ids; cache: from :meth:`init_cache`.
+        Returns ``(logits, cache)``: fp32 [B, Q, vocab] logits, and the
+        same pool tensors, written in place (the caller's pool is
+        updated; JAX donates it). ``kv_quant`` must be the pool's;
+        ``exact_chunk`` (prefill) keeps a from-empty quantized prefill
+        bit-identical to the unquantized pool. Positions past ``max_seq``
+        (a padded bucket) take the last position embedding, as JAX's
+        clamped gather does."""
+        cfg = self.cfg
+        if cfg.sp_axis:
+            raise ValueError(
+                "apply_decode does not support sequence parallelism; build "
+                "the serving config with sp_axis=None (decode is one token "
+                "per sequence — there is no sequence to shard)")
+        if cfg.num_experts:
+            raise ValueError(
+                "apply_decode does not support MoE layers yet; serve a "
+                "dense checkpoint (num_experts=0)")
+        kv_spec = _kv_spec(kv_quant)
+        dt = cfg.dtype
+        q_len = tokens.shape[1]
+        pos = starts.long()[:, None] + torch.arange(
+            q_len, device=tokens.device)[None, :]
+        x = (self.embed.to(dt)[tokens.long()]
+             + self.pos[torch.clamp(pos, max=cfg.max_seq - 1)].to(dt))
+        tables = block_tables.long()
+        for layer, layer_cache in zip(self.layers, cache):
+            x = _decode_block(layer.tree(), x, layer_cache, tables, pos,
+                              cfg, self.mesh, kv_spec, exact_chunk)
+        return self._project_logits(_layernorm(x, self.ln_f)), cache
 
     def loss_fn(self, tokens: torch.Tensor,
                 targets: torch.Tensor) -> torch.Tensor:

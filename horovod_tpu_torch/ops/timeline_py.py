@@ -49,13 +49,17 @@ def write_clock_sidecar(trace_path: str, meta: dict) -> None:
 class PyTimeline:
     """Chrome-trace writer with the reference's phase vocabulary."""
 
-    def __init__(self, path: str, rank: int = 0, world: int = 1):
+    def __init__(self, path: str, rank: int = 0, world: int = 1,
+                 proc: Optional[str] = None):
         self._path = path
         self._f = open(path, "w")
         self._f.write("[\n")
         self._start = time.monotonic()
         self.rank = rank
         self.world = world
+        # A process name for writers that are not ranks (the serving
+        # request traces' "replica1"), shown in place of "rank N".
+        self.proc = proc
         self._pids = {}
         self._name_json = {}   # event name -> pre-escaped JSON string
         self._neg_cache = {}   # op name -> "NEGOTIATE_<OP>"
@@ -89,6 +93,8 @@ class PyTimeline:
                 "offset_to_rank0_us": float(offset_us),
                 "rtt_us": float(rtt_us),
                 "clock_synced": bool(synced)}
+        if self.proc is not None:
+            args["proc"] = self.proc
         self._queue.append({
             "name": TRACE_META_EVENT, "ph": "M", "pid": 0, "tid": 0,
             "args": args})
@@ -171,6 +177,17 @@ class PyTimeline:
         self._queue.append(
             ("X", int((t0 - self._start) * 1e6), self._pid(tensor),
              activity, args, max(0, int((t1 - t0) * 1e6))))
+
+    def request_span(self, row: str, name: str, t0: float, t1: float,
+                     args: Optional[dict] = None):
+        """One complete span on a named row: the serving request traces'
+        emitter (``serving/reqtrace.py``). ``row`` is the request's trace
+        id (each request is a process row, as a tensor is in the
+        engine's trace), ``t0``/``t1`` monotonic seconds, ``args`` a
+        small dict formatted on the drain thread."""
+        self._queue.append(
+            ("X", int((t0 - self._start) * 1e6), self._pid(row), name,
+             args, max(0, int((t1 - t0) * 1e6))))
 
     def mark_cycle(self):
         # A global ("s": "g") instant: drawn across the whole trace, as a

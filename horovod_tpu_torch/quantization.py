@@ -214,17 +214,21 @@ def channel_block(n: int, block: int) -> int:
     return qb
 
 
-def quantize_channels(x: torch.Tensor, spec: Union[str, WireSpec]):
+def quantize_channels(x: torch.Tensor, spec: Union[str, WireSpec],
+                      folded: bool = False):
     """Blockwise absmax quantization along the last axis of ``x``, in
     chunks of ``channel_block(x.shape[-1], spec.block_size)`` elements
     with one fp32 scale each, so blocks never straddle heads. Returns
     ``(payload, scales)``: the payload in the wire dtype and shaped like
-    ``x``, the scales shaped ``x.shape[:-1] + (n_chunks,)``."""
+    ``x``, the scales shaped ``x.shape[:-1] + (n_chunks,)``. ``folded``
+    computes the scales as JAX's compiled program does (``absmax *
+    fl(1/qmax)``): the KV pool's write, which JAX runs inside its jitted
+    decode program, takes that form."""
     spec = parse(spec)
     n = x.shape[-1]
     qb = channel_block(n, spec.block_size)
     xb = x.to(torch.float32).reshape(*x.shape[:-1], n // qb, qb)
-    scale = _absmax_scale(xb, spec)
+    scale = _absmax_scale(xb, spec, folded)
     return _quantize(xb / scale, spec).reshape(x.shape), scale[..., 0]
 
 

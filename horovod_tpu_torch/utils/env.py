@@ -150,3 +150,117 @@ def failure_timeout_secs() -> float:
     if v in (None, ""):
         return 0.0
     return float(v)
+
+
+def fault_spec() -> Optional[str]:
+    """Declarative per-rank fault-injection spec
+    (HOROVOD_TPU_FAULT_SPEC, ``adaptation/faults.py``); None or empty
+    disables injection."""
+    v = _get("FAULT_SPEC")
+    return v or None
+
+
+def metrics_enabled() -> bool:
+    """Metrics registry recording (HOROVOD_TPU_METRICS, default on; 0
+    turns every mutator into one flag check)."""
+    return _get("METRICS") not in ("0", "")
+
+
+def exemplar_ttl_secs() -> float:
+    """Seconds a histogram's exemplar (the trace id of the worst recent
+    observation) stays champion before any newer one may replace it
+    (HOROVOD_TPU_EXEMPLAR_TTL, default 60)."""
+    v = _get("EXEMPLAR_TTL")
+    if v in (None, ""):
+        return 60.0
+    return float(v)
+
+
+def serving_port() -> int:
+    """HTTP port of ``python -m horovod_tpu_torch.serving``
+    (HOROVOD_TPU_SERVING_PORT, default 8400; 0 binds an ephemeral
+    port)."""
+    v = _get("SERVING_PORT")
+    if v in (None, ""):
+        return 8400
+    return int(v)
+
+
+def serving_queue() -> int:
+    """Bounded admission-queue depth of the serving engine
+    (HOROVOD_TPU_SERVING_QUEUE, default 32; past it HTTP 429)."""
+    v = _get("SERVING_QUEUE")
+    if v in (None, ""):
+        return 32
+    return int(v)
+
+
+def serving_tick_budget_ms() -> Optional[float]:
+    """Target decode-tick gap for chunked prefill
+    (HOROVOD_TPU_SERVING_TICK_BUDGET_MS): the engine halves a prefill
+    chunk's bucket while its measured cost exceeds this. None keeps the
+    configured ``prefill_chunk``."""
+    v = _get("SERVING_TICK_BUDGET_MS")
+    if v in (None, ""):
+        return None
+    return float(v)
+
+
+def reqtrace_dir() -> Optional[str]:
+    """Directory of the per-process request traces
+    (HOROVOD_TPU_REQTRACE); None or empty disables request tracing."""
+    v = _get("REQTRACE")
+    return v or None
+
+
+def replica_id() -> Optional[int]:
+    """This process's serving replica id (HOROVOD_TPU_REPLICA_ID): names
+    its request-trace file and the fault spec's ``rank=``. None outside
+    a fleet."""
+    v = _get("REPLICA_ID")
+    if v in (None, ""):
+        return None
+    return int(v)
+
+
+def slo_ttft_ms() -> Optional[float]:
+    """Default time-to-first-token SLO target, ms (HOROVOD_TPU_SLO_TTFT_MS),
+    for requests with no ``slo`` field and no tenant entry."""
+    v = _get("SLO_TTFT_MS")
+    if v in (None, ""):
+        return None
+    return float(v)
+
+
+def slo_tpot_ms() -> Optional[float]:
+    """Default time-per-output-token SLO target, ms
+    (HOROVOD_TPU_SLO_TPOT_MS), resolved as :func:`slo_ttft_ms`."""
+    v = _get("SLO_TPOT_MS")
+    if v in (None, ""):
+        return None
+    return float(v)
+
+
+def slo_config() -> Optional[str]:
+    """Path of the SLO and QoS config file (HOROVOD_TPU_SLO_CONFIG): JSON
+    ``{"tenants": {name: {"ttft_ms", "tpot_ms", ...}}, "default": {...}}``."""
+    v = _get("SLO_CONFIG")
+    return v or None
+
+
+def serving_reserved_slots() -> int:
+    """Decode slots only the top QoS class may hold
+    (HOROVOD_TPU_SERVING_RESERVED_SLOTS, default 0)."""
+    v = _get("SERVING_RESERVED_SLOTS")
+    if v in (None, ""):
+        return 0
+    return max(0, int(v))
+
+
+def max_tenants() -> int:
+    """Distinct tenant label values before later tenants collapse into
+    ``"other"`` (HOROVOD_TPU_MAX_TENANTS, default 16)."""
+    v = _get("MAX_TENANTS")
+    if v in (None, ""):
+        return 16
+    return max(1, int(v))

@@ -57,7 +57,9 @@ def test_scan_sees_the_package():
             "layers.py", "sync_bn.py", "loader.py", "prefetch.py",
             "sources.py", "sharding.py", "engine.py", "manifest.py",
             "reader.py", "writer.py", "fingerprint.py", "state.py",
-            "failure.py", "checkpoint.py"} <= names
+            "failure.py", "checkpoint.py", "kv_cache.py", "qos.py",
+            "slo.py", "reqtrace.py", "server.py", "__main__.py",
+            "registry.py", "faults.py", "spec_adapt.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
@@ -129,6 +131,28 @@ def test_zoo_data_and_sync_bn_without_cuda_raise(no_cuda):
             made.close()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_image_train_step(VGG16, lambda p: torch.optim.SGD(p, lr=0.1))
+
+
+def test_serving_without_cuda_raises(no_cuda, tmp_path):
+    """The inference engine, the checkpoint loader and the serving CLI
+    run on the card unless the caller passes the CPU."""
+    from horovod_tpu_torch.serving import (InferenceEngine, load_params,
+                                           transformer_extra)
+    from horovod_tpu_torch.serving.__main__ import main as serve_main
+    cfg = tfm.TransformerConfig(vocab=16, d_model=16, n_layers=1, d_ff=16,
+                                max_seq=8, dtype=torch.float32)
+    model = tfm.Transformer(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(model)
+    assert InferenceEngine(model, device="cpu").device.type == "cpu"
+    hvd.CheckpointEngine(str(tmp_path)).save(
+        model.params_tree(), 1, block=True, extra=transformer_extra(cfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_params(str(tmp_path), cfg)
+    assert load_params(str(tmp_path), cfg, device="cpu")["embed"].shape \
+        == (16, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_main(["--checkpoint-dir", str(tmp_path)])
 
 
 def test_rank_before_init_raises(no_cuda):
