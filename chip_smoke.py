@@ -215,6 +215,25 @@ and prints no result line):
    the decode step's median ms, tok/s batched and sequential, kernels a
    decode step and the device's busy share (torch.profiler over 20
    steps), peak memory and the KV bytes resident.
+22. the fleet (about 60-90 s): ``python -m horovod_tpu_torch.serving
+   --fleet 2 --device cuda`` on phase 21's commit (each replica phase
+   21's engine), the supervisor's ``HOROVOD_TPU_METRICS_PORT`` and
+   ``HOROVOD_TPU_BLACKBOX`` set, replica 1's first incarnation crashing
+   at its decode tick 150 (``HOROVOD_TPU_FAULT_SPEC``), driven by the
+   port's loadgen: Poisson at 3 requests a second for 20 s, seed 0,
+   prompts of 32-1024 tokens, 64 new each, greedy. It fails on any
+   failed or dropped request; on a token that differs from an in-process
+   engine on the same weights, unless the two tokens' logits in the full
+   forward lie within 3e-2 of max |logit| (a near-tie, logged); without
+   a failover on the supervisor's ``/metrics.json``; unless replica 1 is
+   back in rotation after one restart (generation 1, as its gen-1
+   blackbox says); without ``gen0/blackbox-rank1.jsonl`` ending in the
+   fault; and unless SIGTERM drains the supervisor to exit 0. It logs
+   the loadgen's summary (TTFT and latency p50/p99, goodput), failovers
+   by phase, the seconds from the crash to ready (the supervisor's
+   flight recorder), the fleet's tok/s beside phase 21's one replica,
+   each process's card memory (``nvidia-smi --query-compute-apps``) and
+   the phase's seconds.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -3294,7 +3313,7 @@ def serve_profile(model, prompts):
              for name, (n, t) in top])
 
 
-def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda"):
+def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda", ckpt=None):
     """Phase 21: the flagship served on one card. The seed-0 bf16
     flagship is committed through ``checkpoint_hook`` with
     ``transformer_extra``; ``python -m horovod_tpu_torch.serving`` serves
@@ -3308,7 +3327,9 @@ def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda"):
     prefix cache; (b), (e) and (f) divergences are judged by
     :func:`serve_divergence`. The serve path launches no hand-written
     kernel: every count is 0 across the in-process runs. ``cfg`` and
-    ``device`` exist for a rehearsal on the CPU at a small width."""
+    ``device`` exist for a rehearsal on the CPU at a small width. With
+    ``ckpt`` (a directory) the commit lands there and is kept, for phase
+    22. Returns the in-process engine's tok/s at 8 concurrent requests."""
     import shutil
     import tempfile
     import types
@@ -3325,7 +3346,7 @@ def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda"):
                                     d_ff=3072, max_seq=2048,
                                     dtype=torch.bfloat16, remat=False)
     prompts = serve_prompts(cfg.vocab)
-    tmp = tempfile.mkdtemp(prefix="hvd_serve_")
+    tmp = ckpt or tempfile.mkdtemp(prefix="hvd_serve_")
     try:
         trained = tfm.Transformer(
             cfg, generator=torch.Generator().manual_seed(0), device=dev)
@@ -3493,9 +3514,306 @@ def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda"):
             f"{'identical' if not spec else spec}; (f) prompt tokens from "
             f"the cache {hits}, {'identical' if not prefix else prefix}")
         log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
+        return n_tok / wall
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if ckpt is None:
+            shutil.rmtree(tmp, ignore_errors=True)
         empty_cache(dev)
+
+
+# ------------------------------------------------ phase 22: the fleet
+
+FLEET_REPLICAS = 2
+FLEET_RATE, FLEET_DURATION_S, FLEET_SEED = 3.0, 20.0, 0
+FLEET_PROMPT = (32, 1024)
+# Replica 1's first incarnation crashes at this decode tick, about a
+# quarter into the load: two replicas sharing the card and its host
+# step ~30 times a second each (tick 300 fell 10-11 s in on an H100).
+FLEET_CRASH_TICK = 150
+FLEET_TIMEOUT_S = 300
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def get_json(port, path):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=FLEET_TIMEOUT_S)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def smi_query(*args):
+    """Rows of ``nvidia-smi *args --format=csv,noheader,nounits``, each a
+    list of fields; [] without nvidia-smi."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [[x.strip() for x in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+
+
+def card_memory():
+    """({pid: MiB} of the processes ``nvidia-smi --query-compute-apps``
+    lists, the card's used MiB); ({}, None) without nvidia-smi."""
+    apps = {int(r[0]): int(r[1]) for r in smi_query(
+        "--query-compute-apps=pid,used_memory")
+        if len(r) == 2 and r[0].isdigit() and r[1].isdigit()}
+    used = [int(r[0]) for r in smi_query("--query-gpu=memory.used")
+            if r and r[0].isdigit()]
+    return apps, (used[0] if used else None)
+
+
+def read_dump(path):
+    rows = [json.loads(x) for x in open(path).read().splitlines()
+            if x.strip()]
+    return rows[0], rows[1:]
+
+
+def fleet_values(port, family):
+    status, snap = get_json(port, f"/metrics.json?prefix={family}")
+    if status != 200:
+        raise AssertionError(f"the supervisor's /metrics.json answered "
+                             f"{status}")
+    return snap.get(family, {"values": {}})["values"]
+
+
+def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda"):
+    """Phase 22: the fleet on the card, driven through its CLI.
+    ``python -m horovod_tpu_torch.serving --fleet 2`` serves phase 21's
+    commit (each replica phase 21's engine: 8 slots, 16-token blocks,
+    1025 blocks, 64 new tokens) behind the failover router; replica 1's
+    first incarnation is set to crash at decode tick
+    ``FLEET_CRASH_TICK``. The port's loadgen drives it open-loop:
+    Poisson at 3 requests a second for 20 s, seed 0, prompts of 32-1024
+    tokens, greedy. It fails on any failed request; on a token that
+    differs from an in-process engine on the same weights, unless the
+    full forward's logits of the two tokens lie within 3e-2 of max
+    |logit| (a near-tie, logged); without a failover on the
+    supervisor's ``/metrics.json``; unless replica 1 is back in rotation
+    at generation 1; without ``gen0/blackbox-rank1.jsonl`` ending in the
+    fault; and unless the supervisor drains and exits 0 on SIGTERM.
+    ``device`` exists for a rehearsal on the CPU."""
+    import collections
+    import os
+    import queue
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+    import threading
+    from horovod_tpu_torch.checkpoint import CheckpointEngine
+    from horovod_tpu_torch.serving import (TORCH_MODEL_PREFIX,
+                                           config_from_manifest,
+                                           load_params, loadgen,
+                                           serving_config)
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cfg = serving_config(config_from_manifest(
+        CheckpointEngine(ckpt).restore_manifest()))
+    base_used = card_memory()[1]       # this process's own holdings
+    bb = tempfile.mkdtemp(prefix="hvd_fleet_bb_")
+    mport = free_port()
+    env = dict(os.environ, HOROVOD_TPU_METRICS_PORT=str(mport),
+               HOROVOD_TPU_BLACKBOX=bb, HOROVOD_TPU_BLACKBOX_WINDOW="3600",
+               HOROVOD_TPU_FAULT_SPEC=f"rank=1:replica_crash_at="
+                                      f"{FLEET_CRASH_TICK}:gen=0")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.serving", "--fleet",
+           str(FLEET_REPLICAS), "--device", device, "--checkpoint-dir", ckpt,
+           "--framework", "torch", "--port", "0", "--host", "127.0.0.1",
+           "--slots", str(SERVE_SLOTS), "--block-size", str(SERVE_BLOCK),
+           "--kv-blocks", str(SERVE_KV_BLOCKS), "--max-new-tokens",
+           str(SERVE_NEW)]
+    t0 = time.perf_counter()
+    # Its own process group: the replicas join it, so a supervisor that
+    # dies or is killed leaves none of them behind (the finally below).
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    lines, tail = queue.Queue(), collections.deque(maxlen=60)
+
+    def pump():
+        for line in proc.stderr:
+            tail.append(line)
+            lines.put(line)
+
+    threading.Thread(target=pump, daemon=True).start()
+
+    def fail(msg):
+        raise AssertionError(f"{msg}; the supervisor's last lines:\n"
+                             + "".join(tail))
+
+    try:
+        port, deadline = None, time.monotonic() + FLEET_TIMEOUT_S
+        while port is None:
+            if proc.poll() is not None:
+                fail(f"the supervisor exited {proc.returncode}")
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    fail("the fleet printed no routing line")
+                continue
+            if "[fleet] routing on :" in line:
+                port = int(line.split("routing on :")[1].split()[0])
+        start_s = time.perf_counter() - t0
+
+        arrivals = loadgen.build_schedule(
+            FLEET_RATE, FLEET_DURATION_S, FLEET_SEED,
+            [loadgen.TenantSpec("flagship", prompt_len=FLEET_PROMPT,
+                                max_new_tokens=SERVE_NEW, vocab=cfg.vocab)])
+        index = {id(a): i for i, a in enumerate(arrivals)}
+        replies = [None] * len(arrivals)
+        http_send = loadgen._http_sender("127.0.0.1", port, FLEET_TIMEOUT_S)
+
+        def send(arrival):
+            reply = http_send(arrival)
+            replies[index[id(arrival)]] = reply
+            return reply
+
+        apps, used, stop_sampling = {}, [], threading.Event()
+
+        def sample_memory():
+            while not stop_sampling.wait(2.0):
+                rows, total = card_memory()
+                for pid, mib in rows.items():
+                    apps[pid] = max(apps.get(pid, 0), mib)
+                if total is not None:
+                    used.append(total)
+
+        sampler = threading.Thread(target=sample_memory, daemon=True)
+        sampler.start()
+        t_run = time.monotonic()       # the clock the recorder's t_us reads
+        run = loadgen.run_schedule(arrivals, max_inflight=64,
+                                   timeout_s=FLEET_TIMEOUT_S, sender=send)
+        stop_sampling.set()
+        sampler.join(timeout=60)
+        summary = loadgen.summarize(run)
+        bad = [r for r in run["results"] if r["status"] != "completed"]
+        if run["dropped"] or bad:
+            fail(f"{len(bad)} of {run['offered']} requests failed, "
+                 f"{run['dropped']} dropped: {bad[:3]}")
+        got = [r["tokens"] for r in replies]
+        if any(len(t) != SERVE_NEW for t in got):
+            fail(f"reply lengths {sorted({len(t) for t in got})}")
+        failovers = fleet_values(mport, "hvdtpu_fleet_failovers_total")
+        if sum(failovers.values()) < 1:
+            fail(f"no failover on the supervisor's metrics ({failovers})")
+        key = 'replica="1",why="crash"'
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while True:
+            restarts = fleet_values(mport,
+                                    "hvdtpu_fleet_replica_restarts_total")
+            health = get_json(port, "/healthz")[1]
+            ready = {r["index"] for r in health["replicas"] if r["ready"]}
+            if restarts.get(key) == 1 and ready == {0, 1}:
+                break
+            if time.monotonic() > deadline:
+                fail(f"replica 1 not back in rotation: restarts "
+                     f"{restarts}, ready {sorted(ready)}")
+            time.sleep(0.2)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=FLEET_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail("the supervisor did not exit after SIGTERM")
+        if rc != 0:
+            fail(f"the supervisor exited {rc} after SIGTERM")
+
+        gen0 = os.path.join(bb, "gen0", "blackbox-rank1.jsonl")
+        if not os.path.exists(gen0):
+            fail("no gen0/blackbox-rank1.jsonl")
+        header, events = read_dump(gen0)
+        last = events[-1] if events else {}
+        if header["reason"] != "fault_crash" or last.get("kind") != "fault" \
+                or last.get("fault") != "replica_crash":
+            fail(f"gen0 dump: reason {header['reason']}, last event {last}")
+        gen1, _ = read_dump(os.path.join(bb, "gen1", "blackbox-rank1.jsonl"))
+        if gen1["generation"] != 1:
+            fail(f"replica 1's second incarnation says generation "
+                 f"{gen1['generation']}")
+        _, sup = read_dump(os.path.join(bb, f"blackbox-rank"
+                                            f"{FLEET_REPLICAS}.jsonl"))
+        t_crash = next(e["t_us"] for e in sup if e["kind"] ==
+                       "serving_replica" and e["event"] == "crash"
+                       and e["replica"] == 1)
+        t_back = next(e["t_us"] for e in sup if e["kind"] ==
+                      "serving_replica" and e["event"] == "ready"
+                      and e["replica"] == 1 and e["t_us"] > t_crash)
+
+        # The in-process engine on the same weights, every prompt at once.
+        prompts = [list(a.tokens) for a in arrivals]
+        model = tfm.Transformer(cfg, device=dev, params=load_params(
+            ckpt, cfg, key_prefix=TORCH_MODEL_PREFIX, device=dev))
+        want = serve_engine(model, prompts, max_queue=len(prompts))[0]
+        ties = serve_divergence(model, prompts, got, want,
+                                "(22) the fleet against in-process")
+        del model
+        empty_cache(dev)
+
+        tot = summary["tenants"]["flagship"]
+        n_tok = SERVE_NEW * len(got)
+        ours = os.getpid()
+        log(f"fleet (phase 22) on {smi}: python -m horovod_tpu_torch."
+            f"serving --fleet {FLEET_REPLICAS} --device {device}, each "
+            f"replica phase 21's engine; routing after {start_s:.2f} s; "
+            f"loadgen Poisson {FLEET_RATE} req/s for {FLEET_DURATION_S} s "
+            f"(seed {FLEET_SEED}, prompts {FLEET_PROMPT[0]}-"
+            f"{FLEET_PROMPT[1]} tokens, {SERVE_NEW} new, greedy): "
+            f"{run['offered']} offered, {tot['completed']} completed, "
+            f"0 failed, goodput {summary['totals']['goodput_frac']}")
+        log(f"  TTFT ms p50 {tot['ttft_p50_ms']} p99 {tot['ttft_p99_ms']}; "
+            f"latency ms p50 {tot['latency_p50_ms']} p99 "
+            f"{tot['latency_p99_ms']} (the replica's, on the request's last "
+            f"hop); client wall {run['wall_s']} s")
+        log(f"  replica 1 crashed at its decode tick {FLEET_CRASH_TICK}, "
+            f"{t_crash / 1e6 - t_run:.2f} s into the load; back in rotation at generation 1 after "
+            f"{(t_back - t_crash) / 1e6:.2f} s (crash to ready); failovers "
+            f"by phase {failovers}; gen0/blackbox-rank1.jsonl ends in the "
+            f"fault; SIGTERM drained, exit 0")
+        log(f"  fleet {n_tok / run['wall_s']:.1f} tok/s over the load "
+            f"(open loop: bound by the offered {FLEET_RATE} req/s x "
+            f"{SERVE_NEW}) beside phase 21's one replica "
+            f"{one_replica_tok_s:.1f} tok/s at 8 requests at once")
+        log(f"  card memory, peak over the load (nvidia-smi): MiB by "
+            f"process row of --query-compute-apps "
+            + (", ".join(f"{'this smoke' if pid == ours else pid}: {mib}"
+                         for pid, mib in sorted(apps.items()))
+               or "not measured")
+            + "; the card's memory.used "
+            + (f"{max(used)} MiB, {max(used) - base_used} above this "
+               f"process's {base_used} before the fleet: the replicas "
+               f"together" if used and base_used is not None
+               else "not measured"))
+        log(f"  tokens against the in-process engine: "
+            f"{'identical' if not ties else ties}")
+        log(f"  phase 22: {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)     # drains the replicas
+            try:
+                proc.wait(timeout=FLEET_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)  # whatever is left
+        except ProcessLookupError:
+            pass
+        proc.wait(timeout=60)
+        shutil.rmtree(bb, ignore_errors=True)
 
 
 def source_of(name):
@@ -3679,8 +3997,15 @@ def main(argv=None) -> int:
     elastic_phase(hvd, tfm, fa, data, build_train_step, smi)
     log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
-    # 21. the flagship served on the card
-    serving_phase(tfm, fa, fbn, smi)
+    # 21. the flagship served on the card; 22. the fleet on its commit
+    import shutil
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="hvd_serve_")
+    try:
+        serve_tok_s = serving_phase(tfm, fa, fbn, smi, ckpt=ckpt)
+        fleet_phase(tfm, smi, ckpt, serve_tok_s)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[base_of(name)],

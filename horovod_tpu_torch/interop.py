@@ -169,12 +169,15 @@ def image_variables_to_jax(state_dict: Dict[str, torch.Tensor]):
 
 
 
-def word2vec_params_from_jax(params, *, device="cpu"):
+def word2vec_params_from_jax(params, *, device=None):
     """``models.word2vec.Word2VecParams`` (fp32 leaves that require grad)
-    from JAX's ``Word2VecParams`` (or any three arrays in its order)."""
+    from JAX's ``Word2VecParams`` (or any three arrays in its order), on
+    ``device``: CUDA unless the caller passes ``"cpu"``."""
     from .models.word2vec import Word2VecParams
+    from .topology import resolve_device
+    dev = resolve_device(device)
     return Word2VecParams(*(
-        torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+        torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
         .requires_grad_() for a in params))
 
 

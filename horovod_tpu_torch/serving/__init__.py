@@ -15,9 +15,12 @@ Counterpart of ``horovod_tpu.serving``, one replica. The train -> save
   - :class:`server.ServingServer` fronts it with stdlib HTTP
     (``/generate``, ``/healthz``, ``/readyz``).
 
+  - :class:`fleet.Fleet` supervises N replica processes and
+    :class:`router.Router` fronts them with failover; ``loadgen``
+    drives them open-loop.
+
 ``python -m horovod_tpu_torch.serving --checkpoint-dir ...`` wires it
-up. The fleet (``Fleet``, ``ReplicaEndpoint``, ``Router``,
-``StaticBackends``) is not ported yet: ROADMAP Queue 1 item 4b.
+up (``--fleet N`` for the supervised fleet).
 """
 
 from .engine import (DEADLINE_ERROR, DrainingError, InferenceEngine,
@@ -26,16 +29,19 @@ from .kv_cache import (BlockAllocator, PrefixCache, SessionLeaseTable,
                        blocks_needed, prefix_hashes)
 from .loader import (TORCH_MODEL_PREFIX, config_from_manifest,
                      load_params, serving_config, transformer_extra)
+from .fleet import Fleet, ReplicaEndpoint
 from .qos import (AutoscalerConfig, AutoscalerState, ClassQueues,
                   FleetAutoscaler, QosPolicy, QuotaExceededError,
                   QuotaLedger, TenantQos)
+from .router import Router, StaticBackends
 
 __all__ = [
     "AutoscalerConfig", "AutoscalerState", "BlockAllocator",
-    "ClassQueues", "DEADLINE_ERROR", "DrainingError",
+    "ClassQueues", "DEADLINE_ERROR", "DrainingError", "Fleet",
     "FleetAutoscaler", "InferenceEngine", "PrefixCache",
     "QosPolicy", "QueueFullError", "QuotaExceededError", "QuotaLedger",
-    "Request", "ServingConfig", "SessionLeaseTable", "TORCH_MODEL_PREFIX",
+    "ReplicaEndpoint", "Request", "Router", "ServingConfig",
+    "SessionLeaseTable", "StaticBackends", "TORCH_MODEL_PREFIX",
     "TenantQos", "blocks_needed",
     "config_from_manifest", "load_params", "prefix_hashes",
     "serving_config", "transformer_extra",

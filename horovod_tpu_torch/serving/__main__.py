@@ -1,16 +1,22 @@
 """CLI: ``python -m horovod_tpu_torch.serving --checkpoint-dir DIR``.
 
-Counterpart of ``python -m horovod_tpu.serving``, one replica: the same
-flags and the same ``[serving] ready on :PORT`` line. It rebuilds the
-flagship Transformer from a sharded checkpoint's manifest (the
-architecture rides in its ``extra``, ``loader.transformer_extra``),
-loads its parameters onto the card (``--device``, CUDA by default) and
-serves ``/generate``, ``/healthz`` and ``/readyz`` until SIGTERM drains
-it. ``--framework torch`` serves the model subtree of a
-``checkpoint_hook`` commit; ``jax`` (the default) a params tree at the
-manifest root, as JAX's trainers commit it. ``--fleet`` (the supervised
-replicas behind the failover router) is refused: ROADMAP Queue 1
-item 4b.
+Counterpart of ``python -m horovod_tpu.serving``: the same flags and the
+same ``[serving] ready on :PORT`` line. It rebuilds the flagship
+Transformer from a sharded checkpoint's manifest (the architecture
+rides in its ``extra``, ``loader.transformer_extra``), loads its
+parameters onto the card (``--device``, CUDA by default) and serves
+``/generate``, ``/healthz`` and ``/readyz`` until SIGTERM drains it.
+``--framework torch`` serves the model subtree of a ``checkpoint_hook``
+commit; ``jax`` (the default) a params tree at the manifest root, as
+JAX's trainers commit it.
+
+``--fleet N`` makes this process a supervisor instead: it spawns N
+replica processes of itself (``fleet.py``, each with ``--device``
+forwarded; on one card they share it), fronts them with the failover
+router (``router.py``) on ``--port``, restarts a crashed replica from
+the same checkpoint and, with ``--autoscale-max``, grows and shrinks
+the fleet on the QoS signals. ``--tp`` > 1 is refused: a tp engine is
+ROADMAP Queue 1 item 4c.
 """
 
 from __future__ import annotations
@@ -20,14 +26,128 @@ import os
 import sys
 
 
+def _replica_argv(args) -> list:
+    """The argv tail a fleet replica needs: every model and engine
+    knob, without --fleet/--port/--replica-id (the supervisor owns
+    those)."""
+    argv = ["--checkpoint-dir", args.checkpoint_dir,
+            "--block-size", str(args.block_size),
+            "--kv-blocks", str(args.kv_blocks),
+            "--slots", str(args.slots),
+            "--max-new-tokens", str(args.max_new_tokens),
+            "--temperature", str(args.temperature),
+            "--seed", str(args.seed),
+            "--framework", args.framework,
+            "--host", "127.0.0.1"]
+    if args.device is not None:
+        argv += ["--device", args.device]
+    if args.step is not None:
+        argv += ["--step", str(args.step)]
+    if args.tp is not None:
+        argv += ["--tp", str(args.tp)]
+    if args.max_queue is not None:
+        argv += ["--max-queue", str(args.max_queue)]
+    if args.eos_id is not None:
+        argv += ["--eos-id", str(args.eos_id)]
+    if args.kv_quant is not None:
+        argv += ["--kv-quant", args.kv_quant]
+    if args.prefix_cache:
+        argv += ["--prefix-cache"]
+    if args.prefill_chunk is not None:
+        argv += ["--prefill-chunk", str(args.prefill_chunk)]
+    if args.session_leases is not None:
+        argv += ["--session-leases", str(args.session_leases)]
+    if args.reserved_slots is not None:
+        argv += ["--reserved-slots", str(args.reserved_slots)]
+    if args.draft_checkpoint_dir is not None:
+        argv += ["--draft-checkpoint-dir", args.draft_checkpoint_dir]
+        argv += ["--spec-tokens", str(args.spec_tokens)]
+    return argv
+
+
+def _run_fleet(args, parser) -> int:
+    """Supervisor mode: no model in this process. The replicas own the
+    card; this process owns processes, probes and routing."""
+    from ..observability import flight_recorder as _flight
+    from ..observability.export import maybe_start_exporters
+    from ..utils import env as _env
+    from . import reqtrace as _reqtrace
+    from .fleet import Fleet
+    from .router import Router
+
+    maybe_start_exporters()      # the router's own hvdtpu_fleet_* families
+    _flight.maybe_install_hooks()
+    # The supervisor's blackbox identity: rank n (replicas are 0..n-1),
+    # so its dump never collides with replica 0's in a shared directory.
+    _flight.recorder().configure(rank=args.fleet, world=args.fleet + 1)
+    # The router writes its REQUEST/DISPATCH/FAILOVER spans; replicas
+    # start their own writers from the inherited HOROVOD_TPU_REQTRACE.
+    _reqtrace.maybe_start(role="router")
+
+    fleet = Fleet(args.fleet, _replica_argv(args))
+    router = Router(fleet, port=(args.port if args.port is not None
+                                 else _env.serving_port()),
+                    host=args.host)
+    autoscaler = None
+    if args.autoscale_max is not None:
+        from .qos import AutoscalerConfig, FleetAutoscaler
+        amin = args.autoscale_min if args.autoscale_min is not None \
+            else args.fleet
+        cfg = AutoscalerConfig(
+            amin, args.autoscale_max,
+            high_load=_env.qos_scale_high(),
+            low_load=_env.qos_scale_low(),
+            sustain_s=_env.qos_scale_sustain_s(),
+            cooldown_s=_env.qos_scale_cooldown_s())
+        autoscaler = FleetAutoscaler(
+            fleet, cfg, signals=router.qos_signals,
+            interval_s=_env.qos_scale_interval_s())
+        fleet.on_alert = autoscaler.note_alert
+    print(f"[fleet] spawning {args.fleet} replica(s) from "
+          f"{args.checkpoint_dir}", file=sys.stderr, flush=True)
+    fleet.start()
+    try:
+        fleet.wait_ready(600.0)
+    except TimeoutError as e:
+        fleet.stop()
+        parser.error(str(e))
+    router.start()
+    if autoscaler is not None:
+        autoscaler.start()
+        # The bounds from the config this process built: the autoscaler
+        # keeps it on its state (JAX's CLI reads a `config` attribute the
+        # autoscaler lacks and dies here).
+        print(f"[fleet] autoscaler on: {cfg.min_replicas}"
+              f"..{cfg.max_replicas} replicas",
+              file=sys.stderr, flush=True)
+    print(f"[fleet] routing on :{router.port} across {args.fleet} "
+          "replica(s) (/generate, /healthz, /readyz)",
+          file=sys.stderr, flush=True)
+
+    import signal
+    import threading
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    while not stop.wait(0.2):
+        pass
+    print("[fleet] stopping: draining replicas", file=sys.stderr,
+          flush=True)
+    if autoscaler is not None:
+        autoscaler.stop()
+    router.shutdown()
+    fleet.stop()
+    return 0
+
+
 def main(argv=None) -> int:
     from ..utils import env as _env
 
     parser = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.serving",
         description="Serve a sharded checkpoint: decode with "
-                    "continuous batching on one card (the fleet, "
-                    "--fleet N, is not ported yet).")
+                    "continuous batching — one replica, or a supervised "
+                    "fleet behind the failover router (--fleet N).")
     parser.add_argument("--checkpoint-dir", required=True,
                         help="sharded checkpoint root (the directory "
                              "holding step-N/ + LATEST)")
@@ -40,9 +160,11 @@ def main(argv=None) -> int:
                              "port (replicas bind ephemeral ports)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--fleet", type=int, default=None,
-                        help="supervise N replicas behind the failover "
-                             "router: not ported yet (ROADMAP Queue 1 "
-                             "item 4b); refused")
+                        help="supervise N replica processes behind the "
+                             "failover router (docs/serving.md#fleet): "
+                             "crash detection, restart, queue-depth-"
+                             "aware routing, zero-dropped-request "
+                             "failover")
     parser.add_argument("--replica-id", type=int, default=None,
                         help="(internal, set by the fleet supervisor) "
                              "this replica's index — names its "
@@ -55,10 +177,11 @@ def main(argv=None) -> int:
                              "subtree is served)")
     parser.add_argument("--tp", type=int, default=None,
                         help="tensor-parallel width: 1 (a tp engine is "
-                             "ROADMAP Queue 1 item 4b)")
+                             "ROADMAP Queue 1 item 4c)")
     parser.add_argument("--device", default=None,
                         help="the card to serve on (default: cuda); "
-                             "'cpu' runs on the CPU")
+                             "'cpu' runs on the CPU; with --fleet, every "
+                             "replica's")
     parser.add_argument("--block-size", type=int, default=16,
                         help="KV-cache block size in tokens")
     parser.add_argument("--kv-blocks", type=int, default=128,
@@ -131,15 +254,25 @@ def main(argv=None) -> int:
                              "forward (needs --draft-checkpoint-dir)")
     args = parser.parse_args(argv)
 
-    if args.fleet is not None:
-        raise NotImplementedError(
-            "--fleet (the supervised replica fleet behind the failover "
-            "router) is not ported yet: ROADMAP Queue 1 item 4b")
-    if args.autoscale_max is not None or args.autoscale_min is not None:
-        parser.error("--autoscale-min/--autoscale-max need --fleet")
     if args.tp not in (None, 1):
         parser.error(f"--tp {args.tp}: the port serves at tp=1 (a tp "
-                     "engine is ROADMAP Queue 1 item 4b)")
+                     "engine is ROADMAP Queue 1 item 4c)")
+    if args.fleet is not None:
+        if args.fleet < 1:
+            parser.error(f"--fleet {args.fleet} must be >= 1")
+        if args.replica_id is not None:
+            parser.error("--fleet and --replica-id are mutually "
+                         "exclusive (the supervisor assigns ids)")
+        if args.autoscale_max is not None:
+            amin = args.autoscale_min if args.autoscale_min is not None \
+                else args.fleet
+            if not (1 <= amin <= args.fleet <= args.autoscale_max):
+                parser.error(
+                    f"--autoscale-min {amin} <= --fleet {args.fleet} "
+                    f"<= --autoscale-max {args.autoscale_max} required")
+        return _run_fleet(args, parser)
+    if args.autoscale_max is not None or args.autoscale_min is not None:
+        parser.error("--autoscale-min/--autoscale-max need --fleet")
 
     replica_id = args.replica_id if args.replica_id is not None \
         else _env.replica_id()
@@ -149,6 +282,8 @@ def main(argv=None) -> int:
 
     from ..checkpoint import CheckpointEngine
     from ..models.transformer import Transformer
+    from ..observability import flight_recorder as _flight
+    from ..observability.export import maybe_start_exporters, server_port
     from ..topology import resolve_device
     from . import reqtrace as _reqtrace
     from .engine import InferenceEngine, ServingConfig
@@ -157,6 +292,17 @@ def main(argv=None) -> int:
     from .server import ServingServer
 
     device = resolve_device(args.device)
+    # The telemetry JAX's replica arms through hvd.init(): the metrics
+    # endpoint (HOROVOD_TPU_METRICS_PORT=0 under a fleet: announced on
+    # the ready line, scraped by the router), the crash hooks, and the
+    # recorder's identity, rank = replica id at world 0, generation =
+    # incarnation.
+    maybe_start_exporters()
+    gen = int(os.environ.get("HOROVOD_TPU_ELASTIC_GENERATION", "0") or 0)
+    rank, world = ((replica_id, 0) if replica_id is not None else (0, 1))
+    _flight.recorder().configure(rank=rank, world=world, generation=gen)
+    _flight.recorder().note("init", (rank, world, gen))
+    _flight.maybe_install_hooks()
     # Per-request tracing: one catapult file per replica incarnation
     # under HOROVOD_TPU_REQTRACE.
     _reqtrace.maybe_start()
@@ -206,7 +352,10 @@ def main(argv=None) -> int:
     server = ServingServer(engine, port=args.port, host=args.host)
     server.install_signal_handlers()
     server.start()
-    tail = f" replica={replica_id}" if replica_id is not None else ""
+    mport = server_port()
+    tail = f" metrics=:{mport}" if mport is not None else ""
+    if replica_id is not None:
+        tail += f" replica={replica_id}"
     # "ready on :PORT" is what a supervisor and the tests parse: keep
     # the phrase. On stdout: a supervisor owns that pipe.
     print(f"[serving] ready on :{server.port} (/generate, /healthz, "

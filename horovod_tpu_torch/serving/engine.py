@@ -9,7 +9,7 @@ mesh)``; each forward is ``Transformer.apply_decode`` on the engine's
 pool, written in place, under ``torch.inference_mode()``; and a tp mesh
 of more than one rank is refused (one process drives one card here, so
 a tp engine needs rank 0 to schedule and broadcast every step: ROADMAP
-Queue 1 item 4b).
+Queue 1 item 4c).
 
 The scheduling unit is one *decode step*, not one batch (Orca's
 iteration-level scheduling, OSDI '22): every step the engine
@@ -437,7 +437,7 @@ class InferenceEngine:
             raise ValueError(
                 "the port's engine serves on one rank: a tp mesh of more "
                 "than one rank needs rank 0 to schedule and broadcast each "
-                "step (ROADMAP Queue 1 item 4b)")
+                "step (ROADMAP Queue 1 item 4c)")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())

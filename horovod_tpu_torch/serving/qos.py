@@ -33,8 +33,8 @@ plane against that:
   and applies decisions via ``Fleet.scale_to``.
 
 Everything here is host-side stdlib Python. The autoscaler classes are
-driven only by a fleet supervisor, which the port does not have yet
-(ROADMAP Queue 1 item 4b).
+driven by the fleet supervisor (``python -m horovod_tpu_torch.serving
+--fleet N --autoscale-max M``).
 """
 
 from __future__ import annotations

@@ -45,9 +45,9 @@ clock handshake; the file format already carries the fields.
 
 Hot-path budget: span emission is the PyTimeline pattern — one module
 attribute check when disabled, one tuple append when enabled; all
-formatting happens on the writer's drain thread. The router's spans
-(``REQUEST``, ``DISPATCH``, ``FAILOVER``) come with the router (ROADMAP
-Queue 1 item 4b); this package writes the engine's and the server's.
+formatting happens on the writer's drain thread. The router writes its
+``REQUEST``, ``DISPATCH`` and ``FAILOVER`` spans (``router.py``), the
+engine and the server theirs.
 """
 
 from __future__ import annotations

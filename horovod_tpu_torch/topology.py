@@ -128,7 +128,33 @@ def init(*, device: Union[str, torch.device, None] = None,
     # Outside the lock: the engine builds the hierarchical mesh's groups.
     from .ops import collective
     collective.start_engine(topo)
+    _start_telemetry(topo)
     return topo
+
+
+def _start_telemetry(topo: Topology) -> None:
+    """The exporters, the flight recorder's identity, its ``init`` event
+    and crash hooks, and the history sampler, each from the environment
+    as JAX's ``init`` arms them. A telemetry failure is logged and never
+    fails ``init``; only these calls are guarded."""
+    import logging
+    log = logging.getLogger(__name__)
+    from .observability import export, flight_recorder, history
+    try:
+        export.maybe_start_exporters()
+    except Exception as e:
+        log.warning("metrics exporters not started: %s", e)
+    try:
+        rec = flight_recorder.recorder()
+        rec.configure(topo.rank, topo.size, topo.generation)
+        rec.note("init", (topo.rank, topo.size, topo.generation))
+        flight_recorder.maybe_install_hooks()
+    except Exception as e:
+        log.warning("flight recorder not armed: %s", e)
+    try:
+        history.maybe_start_sampler()
+    except Exception as e:
+        log.warning("history sampler not started: %s", e)
 
 
 def shutdown() -> None:

@@ -264,3 +264,198 @@ def max_tenants() -> int:
     if v in (None, ""):
         return 16
     return max(1, int(v))
+
+
+# ---------------------------------------------------------------- telemetry
+
+def blackbox_dir() -> Optional[str]:
+    """Directory of the flight recorder's dumps (HOROVOD_TPU_BLACKBOX):
+    each process writes ``blackbox-rank{rank}.jsonl`` there on a crash,
+    SIGTERM or an injected fault. None or empty: the ring still records,
+    nothing reaches disk."""
+    v = _get("BLACKBOX")
+    return v or None
+
+
+def blackbox_window_secs() -> float:
+    """Seconds of history a dump carries (HOROVOD_TPU_BLACKBOX_WINDOW,
+    default 120)."""
+    v = _get("BLACKBOX_WINDOW")
+    if v in (None, ""):
+        return 120.0
+    return float(v)
+
+
+def blackbox_interval_secs() -> float:
+    """Cadence of the periodic in-flight dump
+    (HOROVOD_TPU_BLACKBOX_INTERVAL, default 5; 0 keeps the death-path
+    dumps only): a SIGKILLed process leaves its last snapshot."""
+    v = _get("BLACKBOX_INTERVAL")
+    if v in (None, ""):
+        return 5.0
+    return float(v)
+
+
+def blackbox_capacity() -> int:
+    """Events the flight recorder's ring holds
+    (HOROVOD_TPU_BLACKBOX_EVENTS, default 4096)."""
+    v = _get("BLACKBOX_EVENTS")
+    if v in (None, ""):
+        return 4096
+    return int(v)
+
+
+def history_dir() -> Optional[str]:
+    """Directory of the telemetry history (HOROVOD_TPU_HISTORY): a
+    sampler appends windowed registry deltas to ``history-{label}.jsonl``
+    there and the health detectors watch them. None or empty disables
+    the plane."""
+    v = _get("HISTORY")
+    return v or None
+
+
+def history_interval_secs() -> float:
+    """Cadence of the history sampler (HOROVOD_TPU_HISTORY_INTERVAL,
+    default 5 s)."""
+    v = _get("HISTORY_INTERVAL")
+    if v in (None, ""):
+        return 5.0
+    return float(v)
+
+
+def history_max_bytes() -> int:
+    """Size cap of one history segment before it rotates
+    (HOROVOD_TPU_HISTORY_MAX_BYTES, default 4 MiB)."""
+    v = _get("HISTORY_MAX_BYTES")
+    if v in (None, ""):
+        return 4 * 1024 * 1024
+    return int(v)
+
+
+def history_segments() -> int:
+    """Rotated history segments kept beside the live file
+    (HOROVOD_TPU_HISTORY_SEGMENTS, default 4)."""
+    v = _get("HISTORY_SEGMENTS")
+    if v in (None, ""):
+        return 4
+    return int(v)
+
+
+def health_detectors_enabled() -> bool:
+    """The health detectors over the history (HOROVOD_TPU_HEALTH, on
+    unless 0)."""
+    return _get("HEALTH") not in ("0",)
+
+
+def alert_url() -> Optional[str]:
+    """Webhook every health alert is POSTed to (HOROVOD_TPU_ALERT_URL),
+    fire and forget; None disables it."""
+    v = _get("ALERT_URL")
+    return v or None
+
+
+def metrics_file() -> Optional[str]:
+    """Path of the periodic JSON metrics snapshot
+    (HOROVOD_TPU_METRICS_FILE). A ``{rank}`` placeholder expands to the
+    process's rank; without one only rank 0 writes."""
+    return _get("METRICS_FILE")
+
+
+def metrics_port(rank: int = 0) -> Optional[int]:
+    """Port of the Prometheus/JSON endpoint for ``rank``
+    (HOROVOD_TPU_METRICS_PORT; 0 binds an ephemeral port; None disables
+    it). ``9091`` is rank 0's only; ``909{rank}`` and ``9091+rank`` give
+    every rank its own."""
+    v = _get("METRICS_PORT")
+    if v in (None, ""):
+        return None
+    v = v.strip()
+    if "{rank}" in v:
+        return int(v.replace("{rank}", str(rank)))
+    if v.endswith("+rank"):
+        return int(v[: -len("+rank")]) + rank
+    return int(v)
+
+
+def metrics_port_per_rank() -> bool:
+    """True when HOROVOD_TPU_METRICS_PORT has a per-rank form, so every
+    process binds its endpoint."""
+    v = _get("METRICS_PORT")
+    if v in (None, ""):
+        return False
+    v = v.strip()
+    return "{rank}" in v or v.endswith("+rank")
+
+
+def metrics_interval_secs() -> float:
+    """Cadence of the JSON snapshot writer
+    (HOROVOD_TPU_METRICS_INTERVAL, default 15 s)."""
+    v = _get("METRICS_INTERVAL")
+    if v in (None, ""):
+        return 15.0
+    return float(v)
+
+
+# ------------------------------------------------------------------ fleet
+
+def fleet_probe_interval_secs() -> float:
+    """Cadence of the fleet supervisor's ``/healthz`` probes and the
+    router's scrapes (HOROVOD_TPU_FLEET_PROBE_INTERVAL, default 0.25 s)."""
+    v = _get("FLEET_PROBE_INTERVAL")
+    if v in (None, ""):
+        return 0.25
+    return float(v)
+
+
+def fleet_probe_failures() -> int:
+    """Failed probes in a row before the supervisor kills a replica for
+    a restart (HOROVOD_TPU_FLEET_PROBE_FAILURES, default 4)."""
+    v = _get("FLEET_PROBE_FAILURES")
+    if v in (None, ""):
+        return 4
+    return int(v)
+
+
+def qos_scale_high() -> float:
+    """Autoscaler's scale-up threshold, fleet work per decode slot
+    (HOROVOD_TPU_QOS_SCALE_HIGH, default 1.5)."""
+    v = _get("QOS_SCALE_HIGH")
+    if v in (None, ""):
+        return 1.5
+    return float(v)
+
+
+def qos_scale_low() -> float:
+    """Autoscaler's scale-down threshold, work per slot
+    (HOROVOD_TPU_QOS_SCALE_LOW, default 0.25)."""
+    v = _get("QOS_SCALE_LOW")
+    if v in (None, ""):
+        return 0.25
+    return float(v)
+
+
+def qos_scale_sustain_s() -> float:
+    """Seconds scale-up pressure must hold before the autoscaler acts
+    (HOROVOD_TPU_QOS_SCALE_SUSTAIN_S, default 3)."""
+    v = _get("QOS_SCALE_SUSTAIN_S")
+    if v in (None, ""):
+        return 3.0
+    return float(v)
+
+
+def qos_scale_cooldown_s() -> float:
+    """Seconds of low load before a scale-down, and the least gap
+    between two actions (HOROVOD_TPU_QOS_SCALE_COOLDOWN_S, default 15)."""
+    v = _get("QOS_SCALE_COOLDOWN_S")
+    if v in (None, ""):
+        return 15.0
+    return float(v)
+
+
+def qos_scale_interval_s() -> float:
+    """Autoscaler's observation period
+    (HOROVOD_TPU_QOS_SCALE_INTERVAL_S, default 1 s)."""
+    v = _get("QOS_SCALE_INTERVAL_S")
+    if v in (None, ""):
+        return 1.0
+    return float(v)

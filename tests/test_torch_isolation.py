@@ -59,7 +59,9 @@ def test_scan_sees_the_package():
             "reader.py", "writer.py", "fingerprint.py", "state.py",
             "failure.py", "checkpoint.py", "kv_cache.py", "qos.py",
             "slo.py", "reqtrace.py", "server.py", "__main__.py",
-            "registry.py", "faults.py", "spec_adapt.py"} <= names
+            "registry.py", "faults.py", "spec_adapt.py", "fleet.py",
+            "router.py", "loadgen.py", "export.py", "flight_recorder.py",
+            "health.py", "history.py", "ticker.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):

@@ -650,7 +650,7 @@ def test_engine_refuses_tp_mesh_sp_and_wrong_device(flagship):
     tp = types.SimpleNamespace(cfg=dataclasses.replace(
         flagship.model.cfg, tp_axis="tp"), mesh=_Mesh(),
         device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="item 4b"):
+    with pytest.raises(ValueError, match="item 4c"):
         InferenceEngine(tp, device="cpu")
     sp = types.SimpleNamespace(cfg=dataclasses.replace(
         flagship.model.cfg, sp_axis="sp"), mesh=None)

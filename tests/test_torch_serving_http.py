@@ -3,8 +3,8 @@
 ``tests/test_serving.py``'s server classes: JAX's routes, bodies,
 status codes and headers (400, 404, 429 with ``Retry-After``, 503 with
 ``Connection: close`` while draining, 504 past a deadline), streaming,
-the session-id header, and SIGTERM -> drain -> exit 0 of the one-replica
-CLI on a committed checkpoint. The served tokens are JAX's engine's on
+the session-id header, SIGTERM -> drain -> exit 0 of the one-replica
+CLI on a committed checkpoint, and its refusal of ``--tp`` > 1. The served tokens are JAX's engine's on
 the same parameters.
 
 Every socket has a timeout, every thread join and subprocess wait too.
@@ -307,8 +307,7 @@ def test_cli_serves_a_commit_and_drains_on_sigterm(tmp_path, models):
             proc.wait(timeout=CLI_TIMEOUT_S)
 
 
-@pytest.mark.parametrize("args,match", [
-    (["--fleet", "2"], "item 4b"), (["--tp", "2"], "tp=1")])
+@pytest.mark.parametrize("args,match", [(["--tp", "2"], "item 4c")])
 def test_cli_refuses_the_fleet_and_tp(tmp_path, args, match):
     proc = _cli(["--checkpoint-dir", str(tmp_path), "--device", "cpu"]
                 + args)

@@ -53,7 +53,7 @@ def test_nce_loss_and_gradients_match_jax(batch, negatives, seed):
         params, jnp.asarray(centers), jnp.asarray(contexts), rng,
         negatives)
     neg_ids = np.asarray(jax.random.randint(rng, (negatives,), 0, vocab))
-    tp = interop.word2vec_params_from_jax(params)
+    tp = interop.word2vec_params_from_jax(params, device="cpu")
     loss = tw2v._nce_loss(tp, torch.tensor(centers).long(),
                           torch.tensor(contexts).long(),
                           torch.tensor(neg_ids).long())
@@ -84,7 +84,7 @@ def test_skipgram_batch_is_exact(n, step, batch, window):
 def test_nearest_matches_jax_on_untied_data(k):
     params = _params(200, 32, seed=3)
     ids = np.array([0, 5, 17, 199], np.int32)
-    tp = interop.word2vec_params_from_jax(params)
+    tp = interop.word2vec_params_from_jax(params, device="cpu")
     emb = tp.embeddings.detach()
     norm = emb / emb.norm(dim=-1, keepdim=True)
     sims = (norm[torch.tensor(ids).long()] @ norm.T).numpy()
@@ -124,10 +124,19 @@ def test_nce_loss_draws_from_its_generator():
 def test_params_round_trip():
     params = _params()
     back = interop.word2vec_params_to_jax(
-        interop.word2vec_params_from_jax(params))
+        interop.word2vec_params_from_jax(params, device="cpu"))
     for a, b in zip(back, params):
         np.testing.assert_array_equal(a, np.asarray(b))
     jw2v.Word2VecParams(*back)   # JAX's named tuple takes them as they are
+
+
+def test_params_from_jax_default_to_cuda(monkeypatch):
+    """Like every constructor of the port's model state, the interop
+    runs on CUDA unless the caller passes ``device="cpu"``: without a
+    card the default raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.word2vec_params_from_jax(_params())
 
 
 def test_distributed_adagrad_keeps_its_initial_accumulator():
