@@ -234,6 +234,21 @@ and prints no result line):
    flight recorder), the fleet's tok/s beside phase 21's one replica,
    each process's card memory (``nvidia-smi --query-compute-apps``) and
    the phase's seconds.
+23. launch and elastic (about 90 s): ``run_elastic`` drives
+   ``experiments/elastic_lm.py``'s worker (``min_np = max_np = 1``):
+   phase 5's flagship and AdamW trained 6 steps of 8 x 2048 tokens (each
+   step's batch from its own seed), ``ElasticState(backend="sharded")``
+   committing every 2 steps. Generation 0 SIGKILLs itself after step 3
+   (its commit of step 2 durable first); generation 1 restores step 2's
+   commit and finishes. Its parameters and AdamW moments must equal a
+   clean ``run(fn, np=1)`` of 6 steps bit for bit (sha256 of every
+   tensor's bytes), and each step of both must launch K1-K3 12 times.
+   It logs the generations, the seconds from the kill to generation 1's
+   first step, the restore's seconds and the launches.
+   23b: ``python -m horovod_tpu_torch.runner --serve -- --checkpoint-dir
+   <phase 21's commit> --device cuda --tp 1`` serves phase 21's 8
+   prompts at once; its tokens must be phase 21's HTTP tokens, and
+   SIGTERM to the runner must drain it to exit 0.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -3089,16 +3104,18 @@ def serve_post(port, body):
     return json.loads(data)
 
 
-def http_serve(ckpt, prompts, extra_args=()):
-    """Start ``python -m horovod_tpu_torch.serving`` on the commit, send
-    the prompts at once from one client thread each, then a streamed
-    copy of the first; SIGTERM, and the server must drain and exit 0.
-    Returns the replies and the streamed tokens."""
+def http_serve(ckpt, prompts, extra_args=(),
+               launcher=("horovod_tpu_torch.serving",)):
+    """Start ``python -m horovod_tpu_torch.serving`` on the commit (or
+    through ``launcher``: the runner's ``--serve --``), send the prompts
+    at once from one client thread each, then a streamed copy of the
+    first; SIGTERM, and the server must drain and exit 0. Returns the
+    replies and the streamed tokens."""
     import queue
     import signal
     import subprocess
     import threading
-    cmd = [sys.executable, "-m", "horovod_tpu_torch.serving",
+    cmd = [sys.executable, "-m", *launcher,
            "--checkpoint-dir", ckpt, "--framework", "torch", "--port", "0",
            "--host", "127.0.0.1", "--slots", str(SERVE_SLOTS),
            "--block-size", str(SERVE_BLOCK), "--kv-blocks",
@@ -3329,7 +3346,8 @@ def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda", ckpt=None):
     kernel: every count is 0 across the in-process runs. ``cfg`` and
     ``device`` exist for a rehearsal on the CPU at a small width. With
     ``ckpt`` (a directory) the commit lands there and is kept, for phase
-    22. Returns the in-process engine's tok/s at 8 concurrent requests."""
+    22. Returns the in-process engine's tok/s at 8 concurrent requests
+    and the HTTP tokens."""
     import shutil
     import tempfile
     import types
@@ -3514,7 +3532,7 @@ def serving_phase(tfm, fa, fbn, smi, cfg=None, device="cuda", ckpt=None):
             f"{'identical' if not spec else spec}; (f) prompt tokens from "
             f"the cache {hits}, {'identical' if not prefix else prefix}")
         log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
-        return n_tok / wall
+        return n_tok / wall, http_toks
     finally:
         if ckpt is None:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -3816,6 +3834,102 @@ def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda"):
         shutil.rmtree(bb, ignore_errors=True)
 
 
+# ------------------------------------------- phase 23: launch and elastic
+
+LAUNCH_STEPS, LAUNCH_COMMIT, LAUNCH_KILL = 6, 2, 3
+LAUNCH_TIMEOUT_S = 600
+
+
+def launch_phase(smi, ckpt, serve_toks, device="cuda", width=None,
+                 dtype=torch.bfloat16):
+    """Phase 23: the elastic driver over the launcher on the card, and
+    23b: serving through the runner. ``device``, ``width`` and ``dtype``
+    exist for a rehearsal on the CPU at a small width."""
+    import os
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.elastic import FailureConfig, run_elastic
+    from horovod_tpu_torch.experiments import elastic_lm
+    from horovod_tpu_torch.runner import run
+    t_phase = time.perf_counter()
+    empty_cache(torch.device(device))
+    kw = dict(device=device, width=width, dtype=dtype)
+    # One commit kept: a flagship commit is 1.33 GB.
+    env = {"HOROVOD_TPU_CHECKPOINT_KEEP": "1"}
+    state_dir = tempfile.mkdtemp(prefix="hvd_launch_")
+    clean_dir = tempfile.mkdtemp(prefix="hvd_launch_clean_")
+    try:
+        t0 = time.perf_counter()
+        (res,) = run_elastic(
+            elastic_lm.train, args=(LAUNCH_STEPS, LAUNCH_COMMIT, LAUNCH_KILL),
+            kwargs=kw, min_np=1, max_np=1, state_dir=state_dir,
+            config=FailureConfig(max_restarts=1, backoff_s=0.5),
+            extra_env=env, start_timeout=LAUNCH_TIMEOUT_S,
+            run_timeout=LAUNCH_TIMEOUT_S)
+        elastic_s = time.perf_counter() - t0
+        with open(os.path.join(state_dir, "killed_at")) as f:
+            killed_at = float(f.read())
+        t0 = time.perf_counter()
+        (clean,) = run(elastic_lm.train, args=(LAUNCH_STEPS, 0, None),
+                       kwargs=kw, np=1,
+                       extra_env=dict(env, HOROVOD_TPU_ELASTIC_DIR=clean_dir),
+                       start_timeout=LAUNCH_TIMEOUT_S,
+                       run_timeout=LAUNCH_TIMEOUT_S)
+        clean_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(state_dir, ignore_errors=True)
+        shutil.rmtree(clean_dir, ignore_errors=True)
+    if (res["generation"], res["start"]) != (1, LAUNCH_COMMIT):
+        raise AssertionError(f"generation {res['generation']} resumed at "
+                             f"step {res['start']}; expected 1 at "
+                             f"{LAUNCH_COMMIT}")
+    if res["losses"] != clean["losses"][LAUNCH_COMMIT:]:
+        raise AssertionError(f"resumed losses {res['losses']} are not the "
+                             f"clean run's {clean['losses']}")
+    bad = [k for k, v in clean["params"].items() if res["params"][k] != v]
+    if bad or res["moments"] != clean["moments"]:
+        raise AssertionError(f"after the elastic restart {len(bad)} "
+                             f"parameters differ from the clean run "
+                             f"(first {bad[:1]}); moments equal: "
+                             f"{res['moments'] == clean['moments']}")
+    n_layers = (width or elastic_lm.FLAGSHIP)["n_layers"]
+    want = {k: n_layers for k in BF16_FLASH} if device == "cuda" else None
+    if want is not None and any(c != want for c in
+                                res["launches"] + clean["launches"]):
+        raise AssertionError(f"K1-K3 launched {res['launches']} (resumed) "
+                             f"and {clean['launches']} (clean) a step; "
+                             f"expected {want}")
+    log(f"launch and elastic (phase 23) on {smi}: run_elastic of "
+        f"elastic_lm.train, {LAUNCH_STEPS} flagship steps, commits every "
+        f"{LAUNCH_COMMIT}, generation 0 SIGKILLed after step {LAUNCH_KILL}: "
+        f"2 generations, generation 1 restored step {res['start']} in "
+        f"{res['restore_s']:.2f} s, its first step "
+        f"{res['t_first'] - killed_at:.2f} s after the kill; the driver "
+        f"took {elastic_s:.1f} s, the clean run(fn, np=1) {clean_s:.1f} s")
+    log(f"  resumed losses {res['losses']}; clean {clean['losses']}; "
+        f"{len(res['params'])} parameters and {len(res['moments'])} "
+        "moment sets bit for bit the clean run's")
+    log(f"  K1-K3 launches a step: resumed {res['launches'][0]}, every "
+        f"step of both runs alike")
+
+    # 23b. serving through the runner
+    t0 = time.perf_counter()
+    replies, streamed, start_s, wall = http_serve(
+        ckpt, serve_prompts((width or elastic_lm.FLAGSHIP)["vocab"]),
+        ["--device", device, "--tp", "1"],
+        launcher=("horovod_tpu_torch.runner", "--serve", "--"))
+    toks = [r["tokens"] for r in replies]
+    if toks != serve_toks or streamed != serve_toks[0]:
+        raise AssertionError("the runner's --serve tokens are not phase "
+                             "21's")
+    log(f"  23b: python -m horovod_tpu_torch.runner --serve -- --tp 1 on "
+        f"phase 21's commit: ready in {start_s:.2f} s, 8 requests in "
+        f"{wall:.3f} s, tokens identical to phase 21's; SIGTERM to the "
+        f"runner drained the server, exit 0 ({time.perf_counter() - t0:.1f}"
+        " s)")
+    log(f"  phase 23: {time.perf_counter() - t_phase:.1f} s")
+
+
 def source_of(name):
     name = base_of(name)
     if name in BN_KERNELS:
@@ -4002,8 +4116,11 @@ def main(argv=None) -> int:
     import tempfile
     ckpt = tempfile.mkdtemp(prefix="hvd_serve_")
     try:
-        serve_tok_s = serving_phase(tfm, fa, fbn, smi, ckpt=ckpt)
+        serve_tok_s, serve_toks = serving_phase(tfm, fa, fbn, smi,
+                                                ckpt=ckpt)
         fleet_phase(tfm, smi, ckpt, serve_tok_s)
+        # 23. the launcher and the elastic driver; 23b. --serve
+        launch_phase(smi, ckpt, serve_toks)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
 

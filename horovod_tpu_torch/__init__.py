@@ -14,7 +14,9 @@ Inception V3, the MNIST net, word2vec; ResNet with distributed batch
 norm) fed by the input pipeline (``data``: sources, the sharded loader,
 prefetch to the card), and checkpoint and elastic state
 (``checkpoint``: the sharded engine on the JAX package's format;
-``elastic``: ``ElasticState`` and ``WorkerFailure``), and serving
+``elastic``: ``ElasticState``, ``WorkerFailure`` and the elastic driver
+``run_elastic``), the launcher (``runner``: ``run``, ``launch`` and
+``python -m horovod_tpu_torch.runner``), and serving
 (``serving``: the continuous-batching engine over a paged KV pool, its
 HTTP server and ``python -m horovod_tpu_torch.serving``; metrics in
 ``metrics_snapshot()``).
@@ -43,7 +45,8 @@ from .optimizer import (DistributedOptimizer, allreduce_gradients,
                         broadcast_object, broadcast_optimizer_state,
                         broadcast_parameters)
 from .checkpoint import CheckpointEngine, CorruptShardError, checkpoint_hook
-from .elastic import ElasticState, SlowRankFailure, WorkerFailure
+from .elastic import (ElasticState, SlowRankFailure, WorkerFailure,
+                      run_elastic)
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .observability import metrics_snapshot
 
@@ -63,5 +66,5 @@ __all__ = [
     "broadcast_optimizer_state", "broadcast_object", "allreduce_gradients",
     "generation", "CheckpointEngine", "CorruptShardError", "checkpoint_hook",
     "save_checkpoint", "restore_checkpoint", "ElasticState",
-    "WorkerFailure", "SlowRankFailure", "metrics_snapshot",
+    "WorkerFailure", "SlowRankFailure", "run_elastic", "metrics_snapshot",
 ]

@@ -85,6 +85,35 @@ and the serving tier's decode path:
   agrees, the int8 pool's payload and scales must too (the head-shard
   promise of the quantized pool).
 
+and the serving engine over tp ranks:
+
+- ``serve_tp``: the seed-0 bf16 flagship at its full depth (12 layers,
+  whatever ``--layers`` says), committed through ``checkpoint_hook`` and
+  served by ``python -m horovod_tpu_torch.serving --tp 2`` on cards 0-1
+  (``CUDA_VISIBLE_DEVICES=0,1``: rank 0 schedules and broadcasts each
+  forward's step message, rank 1 follows) to ``chip_smoke.py`` phase
+  21's 8 requests at once (prompts of 32-1984 tokens, 64 new each,
+  greedy; 8 slots, 16-token blocks, 1025 blocks), after a warm-up of
+  the same prompts at 2 new tokens; the same at ``--kv-quant int8``.
+  The reference is an in-process tp = 1 engine of the same
+  configuration on card 2, from the same weights. Its line holds
+  whether the tokens are equal, each divergence's logit gap (the full
+  forward's logits of the two tokens at the first divergent position,
+  of max |logit|: past ``SERVE_TOL``, 3e-2, it fails, as phase 21
+  judges), the mean decode step ms of the 8-request run at tp = 2 (the
+  replica's ``hvdtpu_serving_decode_step_seconds`` over
+  ``/metrics.json``) and at tp = 1 (the same family in process), and
+  rank 0's step messages: how many, and its host ms a message. Then two
+  ranks on cards 0-1 split that decode step's cost: the median ms of
+  the flagship's ``[8, 1]`` tp = 2 decode forward (every slot at
+  position 1000 over its whole 128-block table; host clock to rank 0's
+  host copy of the logits, 20 steps) with both ranks given the inputs,
+  the same with rank 0's step message before each (rank 1 following,
+  as the engine does), and the step message alone (20 back to back, to
+  a synchronize on rank 0); then 5 forwards under ``torch.profiler`` on
+  rank 0: the device's busy share, and the host ops that take the most
+  self CPU ms a step.
+
 and the pipelined flagship at its full depth (12 layers, whatever
 ``--layers`` says) on ``pp=4``, 8 x 2048 tokens as m = 8 microbatches of
 1, with NCCL sends and receives between the stages:
@@ -134,6 +163,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -758,6 +788,319 @@ def _decode_tp(layers, device, width):
     return line
 
 
+# serve_tp: chip_smoke.py phase 21's requests and engine.
+SERVE_LENS = (32, 128, 256, 512, 768, 1024, 1536, 1984)
+SERVE_NEW, SERVE_SLOTS, SERVE_BLOCK, SERVE_KV_BLOCKS = 64, 8, 16, 1025
+SERVE_TOL = 3e-2        # a divergence's logit gap, of max |logit|
+SERVE_LAYERS = 12
+SERVE_TIMEOUT_S = 600
+
+
+def _decode_stat(snap):
+    """(sum, count) of the decode step histogram in a registry snapshot."""
+    fam = snap.get("hvdtpu_serving_decode_step_seconds",
+                   {"values": {"": {"sum": 0.0, "count": 0}}})
+    h = fam["values"][""]
+    return float(h["sum"]), int(h["count"])
+
+
+def _decode_ms(before, after):
+    return ((after[0] - before[0]) / max(after[1] - before[1], 1)) * 1e3
+
+
+def _engine_tokens(model, prompts, kv):
+    """The tp = 1 reference: a warm-up engine over every prompt at 2 new
+    tokens, then the 8 requests at once; their tokens and mean decode
+    step ms."""
+    from ..observability import metrics_snapshot
+    from ..serving import InferenceEngine, ServingConfig
+
+    def engine():
+        return InferenceEngine(model, ServingConfig(
+            block_size=SERVE_BLOCK, kv_blocks=SERVE_KV_BLOCKS,
+            max_batch_slots=SERVE_SLOTS, max_new_tokens=SERVE_NEW,
+            max_queue=32, kv_quant=kv), device=model.device)
+
+    eng = engine()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=2)
+    eng.run_until_idle()
+    del eng
+    eng = engine()
+    before = _decode_stat(metrics_snapshot("hvdtpu_serving_decode_step"))
+    reqs = [eng.submit(p) for p in prompts]
+    eng.run_until_idle()
+    after = _decode_stat(metrics_snapshot("hvdtpu_serving_decode_step"))
+    return ([r.result(timeout=SERVE_TIMEOUT_S) for r in reqs],
+            _decode_ms(before, after))
+
+
+def _http(port, method, path, body=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=SERVE_TIMEOUT_S)
+    try:
+        conn.request(method, path, None if body is None else
+                     json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"{path} answered {resp.status}: {data!r}")
+        return json.loads(data)
+    finally:
+        conn.close()
+
+
+def _post_all(port, prompts, new):
+    import threading
+    out = [None] * len(prompts)
+
+    def client(i):
+        out[i] = _http(port, "POST", "/generate",
+                       {"tokens": prompts[i], "max_new_tokens": new})
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_TIMEOUT_S)
+    if any(r is None for r in out):
+        raise AssertionError("an HTTP client failed")
+    return [r["tokens"] for r in out]
+
+
+def _cli_tokens(ckpt, prompts, kv, device):
+    """The CLI at ``--tp 2`` (cards 0-1 on CUDA): a warm-up of every
+    prompt at 2 new tokens, then the 8 requests at once; their tokens,
+    the replica's mean decode step ms over them, and rank 0's line on
+    its step messages. SIGTERM must drain it to exit 0."""
+    import re
+    import signal
+    import subprocess
+    import threading
+    env = dict(os.environ, HOROVOD_TPU_METRICS_PORT="0")
+    if device == "cuda":
+        env["CUDA_VISIBLE_DEVICES"] = "0,1"
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.serving",
+           "--checkpoint-dir", ckpt, "--framework", "torch", "--device",
+           device, "--tp", "2", "--port", "0", "--host", "127.0.0.1",
+           "--slots", str(SERVE_SLOTS), "--block-size", str(SERVE_BLOCK),
+           "--kv-blocks", str(SERVE_KV_BLOCKS), "--max-new-tokens",
+           str(SERVE_NEW)] + (["--kv-quant", kv] if kv else [])
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    err = []
+    threading.Thread(target=lambda: err.extend(proc.stderr),
+                     daemon=True).start()
+    try:
+        ready = proc.stdout.readline()
+        m = re.search(r"ready on :(\d+).*metrics=:(\d+)", ready)
+        if not m:
+            raise AssertionError(f"no ready line: {ready!r} "
+                                 f"{''.join(err)[-3000:]}")
+        port, mport = int(m.group(1)), int(m.group(2))
+        _post_all(port, prompts, 2)
+
+        def stat():
+            return _decode_stat(_http(
+                mport, "GET",
+                "/metrics.json?prefix=hvdtpu_serving_decode_step"))
+
+        before = stat()
+        toks = _post_all(port, prompts, SERVE_NEW)
+        ms = _decode_ms(before, stat())
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVE_TIMEOUT_S)
+        time.sleep(0.5)   # the stderr reader's last lines
+        if rc != 0:
+            raise AssertionError(f"the tp = 2 server exited {rc}: "
+                                 f"{''.join(err)[-3000:]}")
+        msg = next((ln.split("<stderr>:", 1)[-1].strip() for ln in err
+                    if "tp step messages" in ln), None)
+        return toks, ms, msg
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+
+
+def _judge(model, prompts, got, want):
+    """Each request's first divergence between ``got`` and ``want``: the
+    full forward's logits of the two tokens there, their gap of max
+    |logit| (chip_smoke.py phase 21's judgment)."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        p = next(k for k in range(min(len(g), len(w))) if g[k] != w[k])
+        with torch.inference_mode():
+            row = model.apply(torch.tensor([prompts[i] + w[:p]],
+                                           device=model.device))[0, -1]
+        row = row.float()
+        out.append({"request": i, "token": p, "gap": float(
+            (row[g[p]] - row[w[p]]).abs() / row.abs().max())})
+    return out
+
+
+def run_serve_rank(rank, port, outdir, device, width):
+    """One rank of ``serve_tp``'s split: the tp = 2 decode forward
+    without and with the step message, and the message alone."""
+    import dataclasses
+    import statistics
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank))
+    from ..models import transformer as tfm
+    from ..parallel.mesh import place, shard_tree
+    from ..serving import StepChannel, tp_mesh
+    from ..serving.engine import _FWD
+    mesh = tp_mesh(2, device)
+    dev = torch.device("cuda", rank) if device == "cuda" else \
+        torch.device("cpu")
+    cfg1 = _config(tfm, width, SERVE_LAYERS)
+    cfg = dataclasses.replace(cfg1, tp_axis="tp")
+    model = tfm.Transformer(cfg, device=dev, mesh=mesh, params=shard_tree(
+        tfm.init_params(cfg1, torch.Generator().manual_seed(0)),
+        tfm.param_specs(cfg), *place(mesh)))
+    pool = model.init_cache(SERVE_KV_BLOCKS, SERVE_BLOCK)
+    per = -(-cfg.max_seq // SERVE_BLOCK)
+    tables = (1 + np.arange(SERVE_SLOTS * per, dtype=np.int32)).reshape(
+        SERVE_SLOTS, per) % SERVE_KV_BLOCKS
+    starts = np.full(SERVE_SLOTS, min(1000, cfg.max_seq - 1), np.int32)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_SLOTS, 1)).astype(np.int32)
+    ch = StepChannel(mesh, "tp", dev, cfg.max_seq + SERVE_SLOTS
+                     + SERVE_SLOTS * per)
+
+    def fwd(t, s, b):
+        with torch.inference_mode():
+            logits, _ = model.apply_decode(
+                torch.as_tensor(t).to(dev), torch.as_tensor(s).to(dev),
+                torch.as_tensor(b).to(dev), pool)
+        return logits
+
+    def timed(step, n=20):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out) * 1e3
+
+    def plain():
+        lg = fwd(tokens, starts, tables)
+        if rank == 0:
+            lg.float().cpu()
+
+    def messaged():
+        if rank == 0:
+            ch.send(_FWD, tokens, starts, tables)
+            fwd(tokens, starts, tables).float().cpu()
+        else:
+            fwd(*ch.recv()[1:])
+
+    for _ in range(3):
+        plain()
+        messaged()
+    _sync(dev)
+    dist.barrier()
+    line = {"forward_ms": timed(plain)}
+    _sync(dev)
+    dist.barrier()
+    line["messaged_ms"] = timed(messaged)
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        if rank == 0:
+            ch.send(_FWD, tokens, starts, tables)
+        else:
+            ch.recv()
+    _sync(dev)
+    line["message_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    dist.barrier()
+    line["profile"] = _profiled(plain, rank == 0, dev)
+    dist.destroy_process_group()
+    torch.save(line, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _profiled(step, on, dev, n=5):
+    """``n`` calls of ``step``, under ``torch.profiler`` where ``on``:
+    the device's busy share of the window, and the 8 ops with the most
+    self CPU ms a step (name, calls a step, ms a step)."""
+    from torch.profiler import ProfilerActivity, profile
+    if not on:
+        for _ in range(n):
+            step()
+        return None
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"busy": round(busy / 1e6 / wall, 4) if spans else None,
+            "ms_a_step": round(wall / n * 1e3, 3),
+            "top_self_cpu": [(e.key[:60], e.count // n,
+                              round(e.self_cpu_time_total / 1e3 / n, 3))
+                             for e in top[:8]]}
+
+
+def _serve_tp(device, width):
+    """``serve_tp``'s line (see the module docstring)."""
+    import types
+    from ..checkpoint import checkpoint_hook
+    from ..models import transformer as tfm
+    from ..serving import transformer_extra
+    cfg = _config(tfm, width, SERVE_LAYERS)
+    dev = torch.device("cuda", 2) if device == "cuda" else \
+        torch.device("cpu")
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in SERVE_LENS]
+    model = tfm.Transformer(cfg, generator=torch.Generator().manual_seed(0),
+                            device=dev)
+    line = {"layers": SERVE_LAYERS, "requests": len(prompts),
+            "new_tokens": SERVE_NEW, "slots": SERVE_SLOTS}
+    with tempfile.TemporaryDirectory() as ckpt:
+        checkpoint_hook(ckpt, model=types.SimpleNamespace(
+            state_dict=model.params_tree), every=1,
+            extra=transformer_extra(cfg))(0, block=True)
+        for kv in (None, "int8"):
+            name = kv or "bf16"
+            ref, ref_ms = _engine_tokens(model, prompts, kv)
+            got, ms, msg = _cli_tokens(ckpt, prompts, kv, device)
+            ties = _judge(model, prompts, got, ref)
+            line[f"{name}_tokens_equal"] = got == ref
+            line[f"{name}_divergences"] = ties
+            line[f"{name}_judged_ok"] = all(t["gap"] <= SERVE_TOL
+                                            for t in ties)
+            line[f"{name}_decode_ms_tp2"] = round(ms, 3)
+            line[f"{name}_decode_ms_tp1"] = round(ref_ms, 3)
+            line[f"{name}_step_messages"] = msg
+    del model
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_serve_rank, args=(_free_port(), outdir, device, width),
+                 nprocs=2)
+        split = torch.load(os.path.join(outdir, "rank0.pt"))
+    line.update({f"tp2_{k}": v if k == "profile" else round(v, 3)
+                 for k, v in split.items()})
+    return line
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -769,10 +1112,11 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     memory of all ranks (and, for a pipeline variant, whether every rank
     was bit for bit)}; ``variants`` defaults to all."""
     variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine",
-                                 "sync_bn", "ckpt_zero1", "decode_tp"))
+                                 "sync_bn", "ckpt_zero1", "decode_tp",
+                                 "serve_tp"))
     mesh_variants = [v for v in variants
                      if v not in ("hier_engine", "sync_bn", "ckpt_zero1",
-                                  "decode_tp")]
+                                  "decode_tp", "serve_tp")]
     ranks = []
     if mesh_variants:
         with tempfile.TemporaryDirectory() as outdir:
@@ -789,6 +1133,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         lines["ckpt_zero1"] = _ckpt_zero1(layers, device, width)
     if "decode_tp" in variants:
         lines["decode_tp"] = _decode_tp(layers, device, width)
+    if "serve_tp" in variants:
+        lines["serve_tp"] = _serve_tp(device, width)
     for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
@@ -799,7 +1145,7 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
             line["bitwise"] = all(r[name]["bitwise"] for r in ranks)
         lines[name] = line
     for name, line in lines.items():
-        if name != "decode_tp":   # no loss: a forward-only check
+        if name not in ("decode_tp", "serve_tp"):   # forward-only checks
             line["loss_rel_err"] = (abs(line["loss"]
                                         - line["reference_loss"])
                                     / abs(line["reference_loss"]))
@@ -810,7 +1156,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
     names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine", "sync_bn",
-             "ckpt_zero1", "decode_tp")
+             "ckpt_zero1", "decode_tp", "serve_tp")
     ap.add_argument("--variants", help="comma-separated names (default: "
                     f"all of {', '.join(names)})")
     args = ap.parse_args(argv)
@@ -825,7 +1171,9 @@ def main(argv=None) -> int:
     ok = True
     for name, line in run(args.layers, variants=variants).items():
         print(json.dumps({"variant": name, **line}), flush=True)
-        if name != "decode_tp":
+        if name == "serve_tp":
+            ok &= line["bf16_judged_ok"] and line["int8_judged_ok"]
+        elif name != "decode_tp":
             ok &= (line["loss_rel_err"] <= LOSS_TOL
                    and line["max_grad_rel_err"] <= GRAD_TOL
                    and line.get("grad_rel_err_vs_flat", 0.0) <= HIER_TOL

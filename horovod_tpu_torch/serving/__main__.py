@@ -15,8 +15,21 @@ replica processes of itself (``fleet.py``, each with ``--device``
 forwarded; on one card they share it), fronts them with the failover
 router (``router.py``) on ``--port``, restarts a crashed replica from
 the same checkpoint and, with ``--autoscale-max``, grows and shrinks
-the fleet on the QoS signals. ``--tp`` > 1 is refused: a tp engine is
-ROADMAP Queue 1 item 4c.
+the fleet on the QoS signals.
+
+``--tp N`` serves on N ranks, one process a card: JAX's replica is one
+process over N devices, the port's is N processes. Run plainly, this
+process becomes their parent: it starts N ranks of the same command
+through the runner's launcher (``torch.distributed``'s env rendezvous;
+output tagged ``[rank]``), forwards SIGTERM to rank 0, and exits with
+them. A rank runs on ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``)
+and loads only its own shard of the commit. Rank 0 alone binds HTTP
+and metrics, prints ``ready on :PORT`` and schedules; the others follow
+its step messages (``InferenceEngine.follow``). A rank that dies takes
+the replica down with a non-zero exit, the others terminated; a parent
+that dies takes its ranks with it (their parent watchdog). Started in a
+world of N ranks already (``WORLD_SIZE`` = N: the runner's ``-np N``),
+each process is one rank.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 
 def _replica_argv(args) -> list:
@@ -140,8 +154,48 @@ def _run_fleet(args, parser) -> int:
     return 0
 
 
+def _exit_code(rc: int) -> int:
+    """A rank's return code as an exit status: 128 + N for signal N."""
+    return rc if rc >= 0 else 128 - rc
+
+
+def _serve_ranks(argv: list, tp: int, grace_s: float = 30.0) -> int:
+    """``--tp N`` outside a launched world: start N ranks of this very
+    command through the launcher and exit with them. SIGTERM/SIGINT go
+    to rank 0, which drains and stops the followers. The first rank to
+    exit non-zero ends the replica (the others terminated); a rank 0 that
+    exits 0 gives the followers ``grace_s`` to leave."""
+    import signal
+    from ..runner.launcher import launch
+    job = launch([sys.executable, "-m", "horovod_tpu_torch.serving", *argv],
+                 np=tp)
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: job.signal(signal.SIGTERM, [0]))
+    t_lead = None
+    while True:
+        rcs = [w.poll() for w in job.workers]
+        bad = next((rc for rc in rcs if rc not in (None, 0)), None)
+        if bad is None and rcs[0] == 0 and None in rcs:
+            t_lead = t_lead or time.monotonic()
+            if time.monotonic() - t_lead > grace_s:
+                bad = 1
+        if bad is not None or None not in rcs:
+            if bad is not None:
+                print(f"[serving] a rank exited {bad}: stopping the "
+                      f"replica's {tp} ranks", file=sys.stderr, flush=True)
+                job.terminate()
+            for w in job.workers:
+                w.wait(timeout=10.0)   # flush the ranks' last lines
+            return 0 if bad is None else _exit_code(bad)
+        time.sleep(0.1)
+
+
 def main(argv=None) -> int:
+    from ..runner.launcher import watch_launcher
     from ..utils import env as _env
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    watch_launcher()   # a launched process leaves with its launcher
 
     parser = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.serving",
@@ -176,8 +230,9 @@ def main(argv=None) -> int:
                              "checkpoint_hook commit; the model "
                              "subtree is served)")
     parser.add_argument("--tp", type=int, default=None,
-                        help="tensor-parallel width: 1 (a tp engine is "
-                             "ROADMAP Queue 1 item 4c)")
+                        help="tensor-parallel width (default 1): N ranks, "
+                             "one process a card, rank i on "
+                             "cuda:LOCAL_RANK; only rank 0 serves HTTP")
     parser.add_argument("--device", default=None,
                         help="the card to serve on (default: cuda); "
                              "'cpu' runs on the CPU; with --fleet, every "
@@ -254,9 +309,8 @@ def main(argv=None) -> int:
                              "forward (needs --draft-checkpoint-dir)")
     args = parser.parse_args(argv)
 
-    if args.tp not in (None, 1):
-        parser.error(f"--tp {args.tp}: the port serves at tp=1 (a tp "
-                     "engine is ROADMAP Queue 1 item 4c)")
+    if args.tp is not None and args.tp < 1:
+        parser.error(f"--tp {args.tp} must be >= 1")
     if args.fleet is not None:
         if args.fleet < 1:
             parser.error(f"--fleet {args.fleet} must be >= 1")
@@ -273,6 +327,13 @@ def main(argv=None) -> int:
         return _run_fleet(args, parser)
     if args.autoscale_max is not None or args.autoscale_min is not None:
         parser.error("--autoscale-min/--autoscale-max need --fleet")
+    tp = args.tp or 1
+    if tp > 1:
+        if args.device is not None and ":" in args.device:
+            parser.error(f"--device {args.device} at --tp {tp}: each rank "
+                         "takes cuda:LOCAL_RANK; pass --device cuda")
+        if os.environ.get("WORLD_SIZE") != str(tp):
+            return _serve_ranks(argv, tp)
 
     replica_id = args.replica_id if args.replica_id is not None \
         else _env.replica_id()
@@ -280,54 +341,74 @@ def main(argv=None) -> int:
         # Before anything resolves faults: the injector keys on it.
         os.environ["HOROVOD_TPU_REPLICA_ID"] = str(replica_id)
 
+    import torch
     from ..checkpoint import CheckpointEngine
     from ..models.transformer import Transformer
     from ..observability import flight_recorder as _flight
     from ..observability.export import maybe_start_exporters, server_port
     from ..topology import resolve_device
     from . import reqtrace as _reqtrace
-    from .engine import InferenceEngine, ServingConfig
+    from .engine import InferenceEngine, ServingConfig, tp_mesh
     from .loader import (TORCH_MODEL_PREFIX, config_from_manifest,
                          load_params, serving_config)
     from .server import ServingServer
 
     device = resolve_device(args.device)
-    # The telemetry JAX's replica arms through hvd.init(): the metrics
-    # endpoint (HOROVOD_TPU_METRICS_PORT=0 under a fleet: announced on
-    # the ready line, scraped by the router), the crash hooks, and the
-    # recorder's identity, rank = replica id at world 0, generation =
-    # incarnation.
-    maybe_start_exporters()
-    gen = int(os.environ.get("HOROVOD_TPU_ELASTIC_GENERATION", "0") or 0)
-    rank, world = ((replica_id, 0) if replica_id is not None else (0, 1))
-    _flight.recorder().configure(rank=rank, world=world, generation=gen)
-    _flight.recorder().note("init", (rank, world, gen))
-    _flight.maybe_install_hooks()
-    # Per-request tracing: one catapult file per replica incarnation
-    # under HOROVOD_TPU_REQTRACE.
-    _reqtrace.maybe_start()
+    mesh, tp_rank = None, 0
+    if tp > 1:
+        # One rank of tp: its card, the world's 'tp' mesh, its shard.
+        mesh = tp_mesh(tp, device)
+        tp_rank = int(os.environ["RANK"])
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        print(f"[serving] rank {tp_rank} of {tp} pid {os.getpid()} on "
+              f"{device}", file=sys.stderr, flush=True)
+    if tp_rank == 0:
+        # The telemetry JAX's replica arms through hvd.init(): the
+        # metrics endpoint (HOROVOD_TPU_METRICS_PORT=0 under a fleet:
+        # announced on the ready line, scraped by the router), the
+        # crash hooks, and the recorder's identity, rank = replica id at
+        # world 0, generation = incarnation. Rank 0 only: the others
+        # serve nothing.
+        maybe_start_exporters()
+        gen = int(os.environ.get("HOROVOD_TPU_ELASTIC_GENERATION", "0")
+                  or 0)
+        rank, world = ((replica_id, 0) if replica_id is not None
+                       else (0, 1))
+        _flight.recorder().configure(rank=rank, world=world,
+                                     generation=gen)
+        _flight.recorder().note("init", (rank, world, gen))
+        _flight.maybe_install_hooks()
+        # Per-request tracing: one catapult file per replica incarnation
+        # under HOROVOD_TPU_REQTRACE.
+        _reqtrace.maybe_start()
 
-    eng = CheckpointEngine(args.checkpoint_dir)
+    # Each rank reads the shard-file spans of its own blocks.
+    eng = CheckpointEngine(args.checkpoint_dir, process_index=tp_rank,
+                           process_count=tp)
     man = eng.restore_manifest(args.step)
-    cfg = serving_config(config_from_manifest(man))
+    cfg = serving_config(config_from_manifest(man), mesh)
     key_prefix = TORCH_MODEL_PREFIX if args.framework == "torch" else ""
-    params = load_params(args.checkpoint_dir, cfg, step=args.step,
+    params = load_params(args.checkpoint_dir, cfg, mesh, step=args.step,
                          engine=eng, key_prefix=key_prefix, device=device)
-    model = Transformer(cfg, params=params, device=device)
+    model = Transformer(cfg, params=params, device=device, mesh=mesh)
     del params
     print(f"[serving] step {man['step']}: d_model={cfg.d_model} "
           f"layers={cfg.n_layers} heads={cfg.n_heads} "
-          f"vocab={cfg.vocab} tp=1 framework={args.framework} "
+          f"vocab={cfg.vocab} tp={tp} framework={args.framework} "
           f"device={device}", file=sys.stderr)
 
     drafter = None
     if args.draft_checkpoint_dir is not None:
-        deng = CheckpointEngine(args.draft_checkpoint_dir)
+        deng = CheckpointEngine(args.draft_checkpoint_dir,
+                                process_index=tp_rank, process_count=tp)
         dman = deng.restore_manifest(args.draft_step)
-        draft_cfg = serving_config(config_from_manifest(dman))
-        drafter = Transformer(draft_cfg, device=device, params=load_params(
-            args.draft_checkpoint_dir, draft_cfg, step=args.draft_step,
-            engine=deng, device=device))
+        draft_cfg = serving_config(config_from_manifest(dman), mesh)
+        drafter = Transformer(draft_cfg, device=device, mesh=mesh,
+                              params=load_params(
+                                  args.draft_checkpoint_dir, draft_cfg,
+                                  mesh, step=args.draft_step, engine=deng,
+                                  device=device))
         print(f"[serving] drafter step {dman['step']}: "
               f"d_model={draft_cfg.d_model} layers={draft_cfg.n_layers} "
               f"(spec_tokens={args.spec_tokens})", file=sys.stderr)
@@ -349,6 +430,10 @@ def main(argv=None) -> int:
                         if args.reserved_slots is not None
                         else _env.serving_reserved_slots()))
     engine = InferenceEngine(model, config, drafter=drafter, device=device)
+    if not engine.leader:
+        engine.follow()   # until rank 0 drains
+        torch.distributed.destroy_process_group()
+        return 0
     server = ServingServer(engine, port=args.port, host=args.host)
     server.install_signal_handlers()
     server.start()
@@ -360,7 +445,14 @@ def main(argv=None) -> int:
     # the phrase. On stdout: a supervisor owns that pipe.
     print(f"[serving] ready on :{server.port} (/generate, /healthz, "
           f"/readyz){tail}", flush=True)
-    server.serve_forever()
+    server.serve_forever()   # at tp > 1 its drain stops the followers
+    if mesh is not None:
+        ch = engine.step_channel
+        print(f"[serving] tp step messages: {ch.sent} sent; the first "
+              f"{ch.first_s * 1e3:.3f} ms (the group's setup), then "
+              f"{ch.send_s / max(ch.sent - 1, 1) * 1e3:.4f} ms of host "
+              "time a message", file=sys.stderr, flush=True)
+        torch.distributed.destroy_process_group()
     return 0
 
 

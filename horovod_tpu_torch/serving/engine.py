@@ -6,10 +6,20 @@ JAX engine's host Python, copied, and gives the same tokens from the
 same logits. What differs: the engine takes the port's ``Transformer``
 (and a drafter ``Transformer``) where JAX's takes ``(params, cfg,
 mesh)``; each forward is ``Transformer.apply_decode`` on the engine's
-pool, written in place, under ``torch.inference_mode()``; and a tp mesh
-of more than one rank is refused (one process drives one card here, so
-a tp engine needs rank 0 to schedule and broadcast every step: ROADMAP
-Queue 1 item 4c).
+pool, written in place, under ``torch.inference_mode()``.
+
+Tensor parallelism: JAX's engine is one controller over every device
+of its mesh; here one process drives one card, so an engine at tp = N
+is N processes, one engine each over its rank's heads of the model and
+of the pool. Rank 0 alone schedules: the allocator, the prefix cache,
+sessions, QoS, SLOs, request traces and sampling live there. Before
+each forward it runs, rank 0 broadcasts a step message (which forward,
+its tokens, starts and block tables: :class:`StepChannel`) on the tp
+group; ranks > 0 sit in :meth:`InferenceEngine.follow`, which runs the
+same ``apply_decode`` on their shard for each message until the stop
+message that :meth:`InferenceEngine.drain` sends. The row-parallel
+psums inside the forward leave the whole logits on every rank; rank 0
+samples from its copy.
 
 The scheduling unit is one *decode step*, not one batch (Orca's
 iteration-level scheduling, OSDI '22): every step the engine
@@ -411,17 +421,110 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+# Step messages: which of the engine's forwards rank 0 runs next.
+_FWD, _FWD_PREFILL, _DFWD, _DFWD_PREFILL = range(4)
+_STOP = -1
+_HEADER = 4   # kind, rows, columns of the tokens, columns of the tables
+
+
+class StepChannel:
+    """Rank 0's step messages to the other ranks of a tp group: one
+    broadcast per forward of a fixed-size int32 buffer on the engine's
+    device (NCCL on the card, gloo on the CPU). The buffer holds a
+    4-word header (the forward's kind, the tokens' rows and columns, the
+    tables' columns), then the tokens, starts and block tables; ``words``
+    is the largest message the engine can send. A message of kind
+    ``_STOP`` ends the followers' loop."""
+
+    def __init__(self, mesh, axis: str, device: torch.device, words: int):
+        import torch.distributed as dist
+        self._dist = dist
+        self.group = mesh.get_group(axis)
+        self.src = dist.get_global_rank(self.group, 0)
+        self.leader = dist.get_rank() == self.src
+        self._buf = torch.zeros(_HEADER + int(words), dtype=torch.int32,
+                                device=device)
+        self.stopped = False
+        self.sent = 0           # messages rank 0 sent
+        self.first_s = 0.0      # host seconds of the first (NCCL's setup)
+        self.send_s = 0.0       # host seconds of the others
+
+    def send(self, kind: int, tokens=None, starts=None, tables=None
+             ) -> None:
+        t0 = time.perf_counter()
+        if kind == _STOP:
+            msg = np.array([_STOP, 0, 0, 0], np.int32)
+        else:
+            msg = np.concatenate((
+                np.array([kind, *tokens.shape, tables.shape[1]], np.int32),
+                np.asarray(tokens, np.int32).ravel(),
+                np.asarray(starts, np.int32).ravel(),
+                np.asarray(tables, np.int32).ravel()))
+        if msg.size > self._buf.numel():
+            raise ValueError(f"a step message of {msg.size} words exceeds "
+                             f"the channel's {self._buf.numel()}")
+        self._buf[:msg.size].copy_(torch.from_numpy(msg))
+        self._dist.broadcast(self._buf, self.src, group=self.group)
+        dt = time.perf_counter() - t0
+        if self.sent:
+            self.send_s += dt
+        else:
+            self.first_s = dt
+        self.sent += 1
+
+    def recv(self):
+        """The next message: ``(kind, tokens, starts, tables)`` as host
+        int32 arrays, or None for the stop message."""
+        self._dist.broadcast(self._buf, self.src, group=self.group)
+        h = self._buf.cpu().numpy()
+        kind, b, q, t = (int(v) for v in h[:_HEADER])
+        if kind == _STOP:
+            return None
+        n0 = _HEADER + b * q
+        n1 = n0 + b
+        return (kind, h[_HEADER:n0].reshape(b, q), h[n0:n1],
+                h[n1:n1 + b * t].reshape(b, t))
+
+
+def tp_mesh(n: int, device: Union[str, torch.device, None] = None):
+    """A one-axis 'tp' mesh over the ``n`` ranks of this job (CUDA unless
+    "cpu" is passed: NCCL, else gloo), for a tp engine. Initializes the
+    default process group from the launcher's env (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) unless one exists;
+    a rank on CUDA takes ``cuda:LOCAL_RANK``. The group's timeout is
+    long: a follower of an idle server waits in its broadcast until the
+    next request, and a dead rank is its launcher's to detect."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="env://",
+                                timeout=datetime.timedelta(days=365))
+    if dist.get_world_size() != n:
+        raise ValueError(f"a tp mesh of {n} ranks in a world of "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(dev.type, (n,), mesh_dim_names=("tp",))
+
+
 class InferenceEngine:
     """Continuous-batching engine over one model.
 
     ``model`` is the port's ``Transformer`` with the *serving* config
     (``loader.serving_config``: sp, ep and MoE off); ``drafter`` an
     optional smaller ``Transformer`` sharing its vocab, for speculative
-    decoding. The engine runs on ``device`` (CUDA unless "cpu" is
-    passed), where both models must already be. Thread-safe: ``submit``
-    may be called from any thread (the HTTP handlers); ``step`` is the
-    single scheduler entry point, driven by one loop thread (or directly
-    by tests).
+    decoding, on the same mesh. The engine runs on ``device`` (CUDA
+    unless "cpu" is passed), where both models must already be.
+    Thread-safe: ``submit`` may be called from any thread (the HTTP
+    handlers); ``step`` is the single scheduler entry point, driven by
+    one loop thread (or directly by tests).
+
+    On a tp mesh of more than one rank every rank builds the engine
+    with the same config; rank 0 serves (``submit``, ``step``,
+    ``drain``) and the others call :meth:`follow`.
     """
 
     def __init__(self, model: "tfm.Transformer",
@@ -433,11 +536,8 @@ class InferenceEngine:
             raise ValueError(
                 "serving supports dense tensor-parallel decode only; "
                 "build cfg via serving.loader.serving_config()")
-        if cfg.tp_axis and axis_size(model.mesh, cfg.tp_axis) > 1:
-            raise ValueError(
-                "the port's engine serves on one rank: a tp mesh of more "
-                "than one rank needs rank 0 to schedule and broadcast each "
-                "step (ROADMAP Queue 1 item 4c)")
+        self._tp = axis_size(model.mesh, cfg.tp_axis) \
+            if cfg.tp_axis else 1
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -469,7 +569,8 @@ class InferenceEngine:
                     f"drafter vocab ({draft_cfg.vocab}) must equal the "
                     f"flagship's ({cfg.vocab}) — they share the "
                     "tokenizer")
-            if draft_cfg.tp_axis != cfg.tp_axis:
+            if draft_cfg.tp_axis != cfg.tp_axis or (
+                    cfg.tp_axis and drafter.mesh is not model.mesh):
                 raise ValueError(
                     "drafter and flagship must agree on tp_axis (both "
                     "run on the engine's one mesh)")
@@ -567,20 +668,68 @@ class InferenceEngine:
         self._rng = np.random.default_rng(c.seed)
         self._completions: deque = deque()  # perf_counter stamps
 
-        self._fwd = self._build_fwd(model, self._cache, exact_chunk=False)
+        # At tp > 1 rank 0 announces each forward on the step channel;
+        # the largest message: a [1, max_seq] prefill or a [slots, k]
+        # verify, its starts and its block tables.
+        self._channel = None
+        if self._tp > 1:
+            words = (max(cfg.max_seq, slots * max(self._spec_k, 1))
+                     + slots + slots * self._tab_width)
+            self._channel = StepChannel(model.mesh, cfg.tp_axis,
+                                        self.device, words)
+        self._runs: Dict[int, Any] = {}
+        self._fwd = self._build_fwd(model, self._cache, False, _FWD)
         # Prefill reads this chunk at full precision (prefill-exact
         # parity with the unquantized pool); without quantization the
         # flag changes nothing, so the decode forward is reused.
-        self._fwd_prefill = self._build_fwd(model, self._cache,
-                                            exact_chunk=True) \
+        self._fwd_prefill = self._build_fwd(
+            model, self._cache, True, _FWD_PREFILL) \
             if self._kv_spec is not None else self._fwd
         if drafter is not None:
             self._dfwd = self._build_fwd(drafter, self._draft_cache,
-                                         exact_chunk=False)
+                                         False, _DFWD)
             self._dfwd_prefill = self._build_fwd(
-                drafter, self._draft_cache, exact_chunk=True) \
+                drafter, self._draft_cache, True, _DFWD_PREFILL) \
                 if self._kv_spec is not None else self._dfwd
         self._buckets_seen: set = set()
+
+    @property
+    def leader(self) -> bool:
+        """True on the rank that schedules: rank 0 of a tp group, or the
+        one rank of an engine at tp = 1."""
+        return self._channel is None or self._channel.leader
+
+    @property
+    def step_channel(self) -> Optional[StepChannel]:
+        """The tp group's :class:`StepChannel` (None at tp = 1)."""
+        return self._channel
+
+    def follow(self) -> None:
+        """Ranks > 0 of a tp engine: run each forward rank 0 announces,
+        on this rank's shard of the model and the pool, until rank 0's
+        stop message (its drain). Rank 0 never calls this."""
+        if self.leader:
+            raise RuntimeError("rank 0 of a tp engine schedules; only the "
+                               "other ranks follow it")
+        while True:
+            msg = self._channel.recv()
+            if msg is None:
+                return
+            kind, tokens, starts, tables = msg
+            self._runs[kind](tokens, starts, tables)
+
+    def _need_leader(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f"{what} on rank {self._channel.group.rank()} of a tp "
+                "engine: rank 0 schedules, the other ranks follow()")
+
+    def _stop_followers(self) -> None:
+        """Rank 0: end the followers' loop (once)."""
+        ch = self._channel
+        if ch is not None and ch.leader and not ch.stopped:
+            ch.stopped = True
+            ch.send(_STOP)
 
     # ------------------------------------------------------- submission
 
@@ -611,6 +760,7 @@ class InferenceEngine:
         bounded-cardinality label, the targets resolve request-field >
         tenant config > env defaults, and the completed request is
         stamped with a ``slo_verdict``."""
+        self._need_leader("submit")
         c = self.config
         # Resolve SLO attribution before validation: a shed (queue
         # full) request must still be attributable to its tenant.
@@ -772,6 +922,7 @@ class InferenceEngine:
         budget policy sizes it under
         ``HOROVOD_TPU_SERVING_TICK_BUDGET_MS``), not by the longest
         prompt in the mix."""
+        self._need_leader("step")
         with self._lock:
             if self._inj is not None:
                 for plen in self._inj.take_long_prompt_bursts():
@@ -816,6 +967,7 @@ class InferenceEngine:
         phase (the regression test injects a slow_prefill fault to pin
         the window open). Zero requests dropped by a drain is the fleet
         tier's base invariant (docs/serving.md#fleet)."""
+        self._need_leader("drain")
         with self._lock:
             self._draining = True
             waiting = self.active_count + len(self._queue)
@@ -830,20 +982,24 @@ class InferenceEngine:
                 if self._decodable_count:
                     self._decode_step()
                 self._update_gauges()
+        self._stop_followers()
         flight_note("serving", ("drained", 0))
 
     # -------------------------------------------------------- internals
 
     def _build_fwd(self, model: "tfm.Transformer", pool: List[Dict],
-                   exact_chunk: bool):
+                   exact_chunk: bool, kind: int):
         """``fwd(tokens, starts, tables) -> logits`` for ``model`` over
         ``pool``, which the forward writes in place (JAX's engine
         donates its pool to a jitted program). Host arrays go to the
-        device here; logits stay on it."""
+        device here; logits stay on it. This is the only place that
+        runs a forward or writes the pool: at tp > 1 rank 0's ``fwd``
+        first sends its step message of ``kind``, and the followers run
+        the same forward (``self._runs[kind]``) for it."""
         kvq = self._kv_spec
         dev = self.device
 
-        def fwd(tokens, starts, tables):
+        def run(tokens, starts, tables):
             with torch.inference_mode():
                 logits, _ = model.apply_decode(
                     torch.as_tensor(tokens).to(dev),
@@ -851,6 +1007,15 @@ class InferenceEngine:
                     torch.as_tensor(tables).to(dev), pool,
                     kv_quant=kvq, exact_chunk=exact_chunk)
             return logits
+
+        self._runs[kind] = run
+        ch = self._channel
+        if ch is None or not ch.leader:
+            return run
+
+        def fwd(tokens, starts, tables):
+            ch.send(kind, tokens, starts, tables)
+            return run(tokens, starts, tables)
 
         return fwd
 

@@ -61,7 +61,10 @@ def test_scan_sees_the_package():
             "slo.py", "reqtrace.py", "server.py", "__main__.py",
             "registry.py", "faults.py", "spec_adapt.py", "fleet.py",
             "router.py", "loadgen.py", "export.py", "flight_recorder.py",
-            "health.py", "history.py", "ticker.py"} <= names
+            "health.py", "history.py", "ticker.py", "launcher.py",
+            "network.py", "safe_exec.py", "driver_service.py",
+            "task_exec.py", "remote_bootstrap.py", "api.py",
+            "discovery.py", "driver.py", "elastic_lm.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
@@ -160,3 +163,15 @@ def test_serving_without_cuda_raises(no_cuda, tmp_path):
 def test_rank_before_init_raises(no_cuda):
     with pytest.raises(hvd.NotInitializedError):
         hvd.rank()
+
+
+def test_tp_ranks_and_the_elastic_worker_without_cuda_raise(no_cuda):
+    """A tp serving rank and the flagship's elastic worker take the card
+    unless the caller passes the CPU: neither goes on on the CPU."""
+    from horovod_tpu_torch.experiments import elastic_lm
+    from horovod_tpu_torch.serving import tp_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tp_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        elastic_lm.train(1, 0, None)
+    assert not hvd.is_initialized()

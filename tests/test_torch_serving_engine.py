@@ -640,18 +640,27 @@ def test_session_lease_with_chunked_prefill(flagship):
 
 # ----------------------------------------------------- refusals
 
-def test_engine_refuses_tp_mesh_sp_and_wrong_device(flagship):
+def test_engine_refuses_tp_mesh_sp_and_wrong_device(flagship, drafters):
+    """A tp mesh of more than one rank is served (rank 0 schedules, the
+    others follow: tests/test_torch_serving_tp.py); under it the engine
+    refuses a drafter on a mesh other than the flagship's, as JAX's
+    requires one mesh for both."""
     class _Mesh:
         mesh_dim_names = ("tp",)
 
         def size(self, i):
             return 2
 
+    cpu = torch.device("cpu")
     tp = types.SimpleNamespace(cfg=dataclasses.replace(
-        flagship.model.cfg, tp_axis="tp"), mesh=_Mesh(),
-        device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="item 4c"):
-        InferenceEngine(tp, device="cpu")
+        flagship.model.cfg, tp_axis="tp"), mesh=_Mesh(), device=cpu)
+    draft = types.SimpleNamespace(cfg=dataclasses.replace(
+        drafters["random"].model.cfg, tp_axis="tp"), mesh=_Mesh(),
+        device=cpu)
+    with pytest.raises(ValueError, match="one mesh") as e:
+        InferenceEngine(tp, ServingConfig(spec_tokens=2), drafter=draft,
+                        device="cpu")
+    assert "4c" not in str(e.value)
     sp = types.SimpleNamespace(cfg=dataclasses.replace(
         flagship.model.cfg, sp_axis="sp"), mesh=None)
     with pytest.raises(ValueError, match="serving_config"):

@@ -307,8 +307,15 @@ def test_cli_serves_a_commit_and_drains_on_sigterm(tmp_path, models):
             proc.wait(timeout=CLI_TIMEOUT_S)
 
 
-@pytest.mark.parametrize("args,match", [(["--tp", "2"], "item 4c")])
+@pytest.mark.parametrize("args,match", [
+    (["--tp", "0"], "must be >= 1"),
+    (["--fleet", "1", "--tp", "0"], "must be >= 1"),
+    (["--tp", "2", "--device", "cuda:1"], "LOCAL_RANK")])
 def test_cli_refuses_the_fleet_and_tp(tmp_path, args, match):
+    """``--tp 2`` serves (tests/test_torch_serving_tp.py); a width
+    below 1, under ``--fleet`` too, and a card index at tp > 1 (each
+    rank takes ``cuda:LOCAL_RANK``) are refused before any process
+    starts."""
     proc = _cli(["--checkpoint-dir", str(tmp_path), "--device", "cpu"]
                 + args)
     _, err = proc.communicate(timeout=CLI_TIMEOUT_S)
