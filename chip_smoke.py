@@ -249,6 +249,21 @@ and prints no result line):
    <phase 21's commit> --device cuda --tp 1`` serves phase 21's 8
    prompts at once; its tokens must be phase 21's HTTP tokens, and
    SIGTERM to the runner must drain it to exit 0.
+24. step telemetry (about 30 s): ``init`` again (NCCL, world 1), phase
+   5's flagship from its weights and tokens, 5 steps each inside
+   ``StepMetrics(batch_size=8, flops_per_step=...)``. The FLOPs are
+   ``flops_of_step`` of one step of another copy (torch's FLOP counter,
+   the flash op counted by torch's SDPA formulas), which must be within
+   ``FLOPS_TOL`` (1%) of the same step's count through the plain
+   attention (``use_flash=False``, a third copy). Every step must
+   launch K1-K3 12 times each and submit one allreduce request per
+   bucket fired (hook plus flush) and one for the loss
+   (``hvdtpu_ops_total{op="allreduce"}``); the phase shares must sum
+   to 1 within 1e-6; ``hvdtpu_hbm_peak_bytes{device="cuda:N"}`` must
+   equal ``torch.cuda.max_memory_allocated()`` over the same window;
+   and the losses must be phase 5's bit for bit (the telemetry changes
+   no value). It logs each step's phase split, MFU, HBM in use and
+   peak, tok/s beside phase 5's, and the phase's seconds.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -284,6 +299,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import logging
 import math
@@ -347,6 +363,7 @@ RESNET_BATCH, RESNET_IMAGE = 256, 224
 # Buckets at the default 64 MiB cap (the JAX shim's rule): the LM's 99
 # fp32 gradients and ResNet-50's 161.
 LM_BUCKETS, RESNET_BUCKETS = 7, 2
+FLOPS_TOL = 1e-2   # phase 24: the flash count against the plain one
 PROBE_STATS_BM = 1024   # the timed row tile of P2's stats-like and +1 map
 
 
@@ -3944,6 +3961,122 @@ def source_of(name):
     return FLASH_SOURCE
 
 
+def _family(snap, name, labels):
+    return snap[name]["values"][labels]
+
+
+def telemetry_phase(hvd, tfm, fa, build_train_step, lm_losses, lm_step_s):
+    """Phase 24; returns the launch counts of its 5 steps."""
+    from horovod_tpu_torch.observability import registry as treg
+    from horovod_tpu_torch.observability.step_metrics import flops_of_step
+    hvd.init()
+    dev = hvd.device()
+    kw = dict(vocab=32000, d_model=768, n_layers=12, d_ff=3072,
+              max_seq=2048, dtype=torch.bfloat16, remat=False)
+
+    def adamw(p):
+        return torch.optim.AdamW(p, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    b, s = 8, 2048
+    tok = torch.randint(0, kw["vocab"], (b, s + 1),
+                        generator=torch.Generator().manual_seed(1))
+    tokens, targets = tok[:, :-1].cuda(), tok[:, 1:].cuda()
+    counts = {}
+    for flash in (True, False):
+        step = build_train_step(tfm.TransformerConfig(use_flash=flash, **kw),
+                                adamw)
+        model = step.make_model(generator=torch.Generator().manual_seed(0))
+        opt = step.make_optimizer(model)
+        counts[flash] = flops_of_step(step, model, opt, tokens, targets)
+        # The hooks tie the model and its optimizer in a cycle: collect
+        # it, so the timed steps' memory is the flagship's alone.
+        del step, model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    flops, plain = counts[True], counts[False]
+    step = build_train_step(tfm.TransformerConfig(**kw), adamw)
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = step.make_optimizer(model)
+    log(f"  FLOPs a step: {flops:.6e} on the kernels (flash counted by "
+        f"torch's SDPA formulas), {plain:.6e} through the plain "
+        f"attention; 6*N*tokens {6 * n_params * b * s:.6e}")
+    if abs(flops - plain) > FLOPS_TOL * plain:
+        raise AssertionError(f"flops_of_step {flops:.6e} is not within "
+                             f"{FLOPS_TOL:.0%} of the plain step's "
+                             f"{plain:.6e}")
+    metrics = hvd.StepMetrics(batch_size=b, flops_per_step=flops)
+    label = f'device="cuda:{dev.index}"'
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {n: 0 for n in BF16_FLASH}
+    losses, times, lines = [], [], []
+    for i in range(STEPS):
+        fires0 = dict(opt.bucket_fires)
+        snap0 = treg.snapshot("hvdtpu_ops_total")
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with metrics:
+            loss = step(model, opt, tokens, targets)
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        launches = fa.launch_counts()
+        if any(launches[n] != 12 for n in BF16_FLASH):
+            raise AssertionError(f"step {i}: flash launches "
+                                 f"{ {n: launches[n] for n in BF16_FLASH} }, "
+                                 "expected 12 each")
+        for n in BF16_FLASH:
+            total[n] += launches[n]
+        snap = treg.snapshot()
+        fired = sum(opt.bucket_fires.values()) - sum(fires0.values())
+        key = 'op="allreduce"'
+        ops = (_family(snap, "hvdtpu_ops_total", key)
+               - snap0.get("hvdtpu_ops_total", {}).get(
+                   "values", {}).get(key, 0.0))
+        if ops != fired + 1:
+            raise AssertionError(f"step {i}: {ops} allreduce requests, "
+                                 f"expected {fired} buckets + the loss")
+        shares = {p: _family(snap, "hvdtpu_step_phase_share",
+                             f'framework="torch",phase="{p}"')
+                  for p in ("input", "h2d", "compute", "collective")}
+        if abs(sum(shares.values()) - 1.0) > 1e-6:
+            raise AssertionError(f"step {i}: phase shares {shares} sum to "
+                                 f"{sum(shares.values())}")
+        mfu = _family(snap, "hvdtpu_mfu", 'framework="torch"')
+        lines.append(
+            f"step {i}: {times[-1] * 1e3:.2f} ms, phases ms "
+            + ", ".join(f"{p} {v * 1e3:.3f}"
+                        for p, v in metrics.last_phases.items())
+            + f", MFU {mfu:.4f}, HBM in use "
+            f"{_family(snap, 'hvdtpu_hbm_bytes_in_use', label) / 2**30:.3f}"
+            f" GiB, {fired} buckets")
+    peak = _family(treg.snapshot("hvdtpu_hbm_peak_bytes"),
+                   "hvdtpu_hbm_peak_bytes", label)
+    if peak != torch.cuda.max_memory_allocated(dev):
+        raise AssertionError(f"hvdtpu_hbm_peak_bytes {peak} != "
+                             f"max_memory_allocated "
+                             f"{torch.cuda.max_memory_allocated(dev)}")
+    if losses != lm_losses:
+        raise AssertionError(f"losses under StepMetrics {losses} are not "
+                             f"phase 5's {lm_losses}")
+    for line in lines:
+        log("  " + line)
+    steady = statistics.median(times[1:])
+    log(f"  {b * s / steady:.1f} tok/s (median of steps 2-{STEPS}, "
+        f"{steady * 1e3:.2f} ms/step) beside phase 5's "
+        f"{b * s / lm_step_s:.1f} ({lm_step_s * 1e3:.2f} ms/step): "
+        f"{(b * s / steady) / (b * s / lm_step_s) - 1:+.2%}; MFU of the "
+        f"median step {flops / steady / 989e12:.4f}; HBM peak "
+        f"{peak / 2**30:.3f} GiB (= max_memory_allocated); collective "
+        f"share of the last step {metrics.last_collective_share:.4f}; "
+        "losses phase 5's bit for bit")
+    hvd.shutdown()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -4123,6 +4256,13 @@ def main(argv=None) -> int:
         launch_phase(smi, ckpt, serve_toks)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+    # 24. step telemetry on the flagship
+    t24 = time.perf_counter()
+    for name, n in telemetry_phase(hvd, tfm, fa, build_train_step,
+                                   lm_losses, lm_step_s).items():
+        launches[name] += n
+    log(f"  phase 24: {time.perf_counter() - t24:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[base_of(name)],

@@ -18,8 +18,12 @@ prefetch to the card), and checkpoint and elastic state
 ``run_elastic``), the launcher (``runner``: ``run``, ``launch`` and
 ``python -m horovod_tpu_torch.runner``), and serving
 (``serving``: the continuous-batching engine over a paged KV pool, its
-HTTP server and ``python -m horovod_tpu_torch.serving``; metrics in
-``metrics_snapshot()``).
+HTTP server and ``python -m horovod_tpu_torch.serving``), and the
+telemetry and adaptation planes: the engine's, the optimizer's and the
+loaders' metric families in ``metrics_registry()`` (``metrics_snapshot()``,
+``prometheus_text``), per-step telemetry with MFU and device memory
+(``StepMetrics``), and rank 0's adaptation policy
+(``HOROVOD_TPU_ADAPTATION=1``, ``adaptation``).
 
     import torch, horovod_tpu_torch as hvd
     hvd.init()                                   # CUDA; device="cpu" for gloo
@@ -48,7 +52,15 @@ from .checkpoint import CheckpointEngine, CorruptShardError, checkpoint_hook
 from .elastic import (ElasticState, SlowRankFailure, WorkerFailure,
                       run_elastic)
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
-from .observability import metrics_snapshot
+from .observability import get_registry, metrics_snapshot, prometheus_text
+from .observability.step_metrics import StepMetrics
+
+
+def metrics_registry():
+    """The process-global metrics registry, for registering an
+    application's counters beside the framework's."""
+    return get_registry()
+
 
 __version__ = "0.1.0"
 
@@ -67,4 +79,5 @@ __all__ = [
     "generation", "CheckpointEngine", "CorruptShardError", "checkpoint_hook",
     "save_checkpoint", "restore_checkpoint", "ElasticState",
     "WorkerFailure", "SlowRankFailure", "run_elastic", "metrics_snapshot",
+    "metrics_registry", "prometheus_text", "StepMetrics",
 ]

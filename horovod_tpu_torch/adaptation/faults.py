@@ -1,16 +1,17 @@
-"""Declarative fault injection for the serving path.
+"""Declarative fault injection for the training and serving paths.
 
 Counterpart of ``horovod_tpu/adaptation/faults.py``: the same spec
 (``HOROVOD_TPU_FAULT_SPEC``), parsed by the same grammar, so one spec
-string drives both packages. The port wires the serving hooks only —
-``slow_decode``, ``slow_prefill``, ``replica_crash_at``,
-``drop_health`` and ``long_prompt_burst``, consulted by the inference
-engine's scheduler and the HTTP front. The training clauses (``delay``,
-``slow_h2d``, ``crash_at``, ``drop_announce``, ``nan_at``,
-``bitflip_param``) parse, so a spec that names them is valid, but
-nothing of the port acts on them yet: their hooks wait for ROADMAP Queue
-1 item 5 (the engine's enqueue path, the coordinator, the numerics
-plane).
+string drives both packages. The training clauses ``delay``,
+``slow_h2d`` and ``crash_at`` act in the collective engine's enqueue
+(:meth:`FaultInjector.on_enqueue`, one tick per collective submitted)
+and ``drop_announce`` in the engine's announcement to rank 0's
+coordinator (:meth:`FaultInjector.drop_announce_active`); the serving
+clauses ``slow_decode``, ``slow_prefill``, ``replica_crash_at``,
+``drop_health`` and ``long_prompt_burst`` in the inference engine's
+scheduler and the HTTP front. ``nan_at`` and ``bitflip_param`` parse,
+so a spec that names them is valid, but nothing of the port acts on
+them yet: they wait for the numerics plane (ROADMAP Queue 1 item 5d).
 
 Grammar (clauses separated by ``;``, fields by ``:``)::
 
@@ -20,6 +21,13 @@ Grammar (clauses separated by ``;``, fields by ``:``)::
 
     rank=N | rank=*        which process (serving: replica id) the
                            clause targets (required)
+    delay=80ms             sleep per collective enqueued (straggler)
+    slow_h2d=2ms           the same, counted as a slow host-to-device
+                           copy
+    crash_at=N             SIGKILL self at enqueue tick N (after the
+                           flight recorder's final dump)
+    drop_announce          withhold the announcements to rank 0 while
+                           active (the engine keeps joining rounds)
     gen=N                  only in elastic generation / replica
                            incarnation N (default: all)
     from_step=N            first active tick (default 0)
@@ -34,7 +42,8 @@ Grammar (clauses separated by ``;``, fields by ``:``)::
                            through the engine's admission gate (bare
                            ``=L`` means N=1); fires once per clause
 
-The serving tick is one batched decode step. With no spec the
+The training tick is one enqueued collective; the serving tick one
+batched decode step. With no spec the
 process-global injector is ``None`` and each hook site is one ``is
 None`` check. Every injected fault counts into
 ``hvdtpu_fault_injections_total{kind=}``.
@@ -234,6 +243,10 @@ class FaultInjector:
     (rank, generation), and the serving tick their windows are evaluated
     against. Hook points:
 
+      - :meth:`on_enqueue` — the collective engine's enqueue (delay,
+        slow_h2d, crash_at; every enqueued collective is one tick);
+      - :meth:`drop_announce_active` — the engine, before it sends a
+        round's announcements to rank 0 (mute-worker fault);
       - :meth:`on_serving_decode` / :meth:`on_serving_prefill` — the
         inference engine's scheduler (slow_decode / slow_prefill /
         replica_crash_at; decode steps drive the tick);
@@ -249,13 +262,15 @@ class FaultInjector:
         self.generation = int(generation)
         self.clauses = [c for c in clauses
                         if c.matches(self.rank, self.generation)]
+        self._tick = 0
         self._serving_tick = 0
         fam = _obs.registry().counter(
             "hvdtpu_fault_injections_total",
             "Faults injected by the HOROVOD_TPU_FAULT_SPEC harness, "
             "by kind")
         self._m = {k: fam.labels(kind=k)
-                   for k in ("replica_crash", "slow_decode",
+                   for k in ("delay", "slow_h2d", "crash",
+                             "drop_announce", "replica_crash", "slow_decode",
                              "slow_prefill", "drop_health",
                              "long_prompt_burst")}
         self._bursts_fired: set = set()  # clause indices already fired
@@ -269,6 +284,49 @@ class FaultInjector:
         fault."""
         if tick % 50 == 0 or tick == 0:
             flight_note("fault", (kind, tick))
+
+    # ------------------------------------------------ training hook points
+
+    @property
+    def tick(self) -> int:
+        return self._tick
+
+    def on_enqueue(self) -> None:
+        """One collective enqueued: advance the tick and apply the active
+        delay / slow_h2d / crash_at clauses. The crash is a SIGKILL after
+        the flight recorder's final dump (a real kill leaves no such
+        window; the injector knows it is about to die)."""
+        t = self._tick
+        self._tick = t + 1
+        for c in self.clauses:
+            if c.crash_at is not None and t == c.crash_at:
+                self._m["crash"].inc()
+                _log.error("fault injection: crash_at=%d reached on rank "
+                           "%d — SIGKILL self", t, self.rank)
+                flight_note("fault", ("crash", t))
+                flight_dump("fault_crash")
+                os.kill(os.getpid(), signal.SIGKILL)
+            if not c.in_window(t):
+                continue
+            if c.delay_s > 0.0:
+                self._m["delay"].inc()
+                self._note_fault("delay", t)
+                time.sleep(c.delay_s)
+            if c.slow_h2d_s > 0.0:
+                self._m["slow_h2d"].inc()
+                self._note_fault("slow_h2d", t)
+                time.sleep(c.slow_h2d_s)
+
+    def drop_announce_active(self) -> bool:
+        """True while a drop_announce clause's window covers the current
+        tick: the engine then withholds this round's announcements (it
+        still joins the round, so only the coordinator's stall report
+        can name this mute-but-breathing rank)."""
+        for c in self.clauses:
+            if c.drop_announce and c.in_window(self._tick):
+                self._m["drop_announce"].inc()
+                return True
+        return False
 
     # ------------------------------------------------- serving hook points
 

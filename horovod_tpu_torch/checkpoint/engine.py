@@ -41,6 +41,11 @@ layout's blocks.
 Retention: ``keep_last`` committed steps survive (default
 ``HOROVOD_TPU_CHECKPOINT_KEEP``, 0 = unlimited); GC runs on rank 0
 after each commit and never touches the step LATEST names.
+
+The engine records JAX's ``hvdtpu_checkpoint_*`` families (bytes and
+shards written, save and restore seconds, seconds the loop blocked,
+GC'd steps, corrupt shards, the last committed step) and a
+flight-recorder ``checkpoint`` note per commit.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..observability import flight_recorder as _flight
+from ..observability import registry as _obs
 from ..utils import env as _env
 from . import manifest as _manifest
 from .fingerprint import fingerprint_leaf
@@ -67,12 +74,39 @@ _log = logging.getLogger(__name__)
 Layouts = Dict[str, LeafLayout]
 
 
-def _observe(event: str, *fields) -> None:
-    """Hook for the engine's observability (the JAX engine's
-    ``hvdtpu_checkpoint_*`` metric families and flight-recorder notes:
-    bytes and shards written, save and restore seconds, blocked seconds,
-    GC'd steps, corrupt shards, the last committed step). The port has
-    no metric registry yet, so it records nothing."""
+def _metrics():
+    """JAX's ``hvdtpu_checkpoint_*`` families
+    (``horovod_tpu/checkpoint/engine.py:58-88``)."""
+    r = _obs.registry()
+    return {
+        "bytes": r.counter(
+            "hvdtpu_checkpoint_bytes_written_total",
+            "Checkpoint bytes written by this process (payload + "
+            "sidecars + manifest)").labels(),
+        "shards": r.counter(
+            "hvdtpu_checkpoint_shards_written_total",
+            "Shard files written by this process").labels(),
+        "save": r.histogram(
+            "hvdtpu_checkpoint_save_seconds",
+            "End-to-end save duration: snapshot through commit",
+            buckets=_obs.LATENCY_BUCKETS).labels(),
+        "blocked": r.counter(
+            "hvdtpu_checkpoint_blocked_seconds_total",
+            "Seconds the training loop was blocked inside save() — "
+            "snapshot plus joining a previous in-flight write"),
+        "restore": r.histogram(
+            "hvdtpu_checkpoint_restore_seconds",
+            "Restore duration", buckets=_obs.LATENCY_BUCKETS).labels(),
+        "gc": r.counter(
+            "hvdtpu_checkpoint_gc_steps_total",
+            "Committed steps deleted by keep-last-N retention"),
+        "corrupt": r.counter(
+            "hvdtpu_checkpoint_corrupt_shards_total",
+            "Shards that failed crc32/shape verification on restore"),
+        "last_step": r.gauge(
+            "hvdtpu_checkpoint_last_committed_step",
+            "Step of the last commit this process finished"),
+    }
 
 
 def verify_fingerprint(key: str, arr, man: dict, where: str = "") -> None:
@@ -135,6 +169,7 @@ class CheckpointEngine:
         self._writer = AsyncWriter()
         self._inflight: Optional[SaveHandle] = None
         self.blocked_s = 0.0
+        self._m = _metrics()
         self.save_s: Optional[float] = None
         self.restore_s: Optional[float] = None
         self.restored_step: Optional[int] = None
@@ -182,7 +217,7 @@ class CheckpointEngine:
         self._writer.submit(_job)
         blocked = time.perf_counter() - t0
         self.blocked_s += blocked
-        _observe("blocked", blocked)
+        self._m["blocked"].inc(blocked)
         if block:
             self.wait()
         return handle
@@ -202,6 +237,7 @@ class CheckpointEngine:
         for filename, _, arr, _ in mine:
             crc, nbytes = write_shard(handle.directory, filename, arr)
             written += nbytes
+        self._m["shards"].inc(len(mine))
         # Phase boundary: every rank's shards durable before anyone
         # writes (or trusts) a manifest.
         self._barrier(f"ckpt.shards.{handle.step}")
@@ -211,7 +247,11 @@ class CheckpointEngine:
         self._barrier(f"ckpt.commit.{handle.step}")
         handle.committed = True
         self.save_s = time.perf_counter() - t0
-        _observe("commit", handle.step, written, len(mine), self.save_s)
+        self._m["bytes"].inc(written)
+        self._m["last_step"].set(handle.step)
+        self._m["save"].observe(self.save_s)
+        _flight.recorder().note("checkpoint",
+                                ("commit", handle.step, "sharded"))
 
     def _commit_rank0(self, handle: SaveHandle, layouts: Layouts,
                       pcount: int, extra: dict,
@@ -286,7 +326,7 @@ class CheckpointEngine:
                     verify=lambda k, v: verify_fingerprint(k, v, man, sdir))
                 self.restored_step = cand
                 self.restore_s = time.perf_counter() - t0
-                _observe("restore", cand, self.restore_s)
+                self._m["restore"].observe(self.restore_s)
                 return tree
             except CorruptShardError as e:
                 self._corrupt(e, cand, strict or last)
@@ -340,7 +380,7 @@ class CheckpointEngine:
                     out[key] = blocks
                 self.restored_step = cand
                 self.restore_s = time.perf_counter() - t0
-                _observe("restore", cand, self.restore_s)
+                self._m["restore"].observe(self.restore_s)
                 return out
             except CorruptShardError as e:
                 self._corrupt(e, cand, strict or last)
@@ -366,7 +406,7 @@ class CheckpointEngine:
 
     def _corrupt(self, e: CorruptShardError, step: int,
                  is_last: bool) -> None:
-        _observe("corrupt", step, e.path)
+        self._m["corrupt"].inc()
         if is_last:
             raise e
         _log.warning("step %d unrestorable (%s); falling back to the "
@@ -397,7 +437,7 @@ class CheckpointEngine:
             if drop:
                 shutil.rmtree(os.path.join(self.directory, name),
                               ignore_errors=True)
-                _observe("gc", s)
+                self._m["gc"].inc()
 
     # -------------------------------------------------------- plumbing
 

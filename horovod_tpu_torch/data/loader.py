@@ -23,9 +23,10 @@ or the sharded checkpoint engine)::
     loader.restore(state.data)
 
 Behind ``prefetch_to_device`` the loader runs ahead of the step: commit
-the prefetcher's ``commit_cursor()`` instead. The loader's metric
-families and flight-recorder notes are not ported yet: :func:`_observe`
-marks where they go.
+the prefetcher's ``commit_cursor()`` instead. The loader records JAX's
+``hvdtpu_data_*`` families (samples, batches, epochs, load seconds,
+cursor commits, resume skips) and its flight-recorder ``data`` notes
+(epoch boundaries, cursor commits, resumes).
 """
 
 from __future__ import annotations
@@ -35,17 +36,52 @@ from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..observability import flight_recorder as _fr
+from ..observability import registry as _reg
 from . import sharding as _sharding
 from .sources import as_source
 
 _CURSOR_VERSION = 1
 
 
-def _observe(event: str, *fields) -> None:
-    """Hook for the loader's observability (the JAX loader's
-    ``hvdtpu_data_*`` counters and flight-recorder notes: samples,
-    batches, epochs, load seconds, cursor commits, resume skips). The
-    port has no metric registry yet, so it records nothing."""
+def _metrics():
+    r = _reg.registry()
+    return {
+        "samples": r.counter(
+            "hvdtpu_data_samples_total",
+            "Samples delivered by sharded loaders on this process"
+        ).labels(),
+        "batches": r.counter(
+            "hvdtpu_data_batches_total",
+            "Batches delivered by sharded loaders (fillers included)"
+        ).labels(),
+        "epochs": r.counter(
+            "hvdtpu_data_epochs_total",
+            "Epoch boundaries crossed by sharded loaders").labels(),
+        "load": r.counter(
+            "hvdtpu_data_load_seconds_total",
+            "Seconds spent materializing batches from the source "
+            "(take + transform) on this process").labels(),
+        "commits": r.counter(
+            "hvdtpu_data_cursor_commits_total",
+            "Loader cursors handed to a checkpoint commit").labels(),
+        "skips": r.counter(
+            "hvdtpu_data_resume_skips_total",
+            "Samples fast-forwarded past on cursor restore (already "
+            "consumed before the committed cursor — never re-delivered)"
+        ).labels(),
+    }
+
+
+_cached_metrics: Optional[dict] = None
+
+
+def _m() -> dict:
+    """The families' handles, resolved once per process."""
+    global _cached_metrics
+    if _cached_metrics is None:
+        _cached_metrics = _metrics()
+    return _cached_metrics
 
 
 class Batch(NamedTuple):
@@ -133,8 +169,12 @@ class ShardedLoader:
                 "offset": np.int64(self.offset)}
 
     def commit_cursor(self) -> Dict[str, Any]:
-        """:meth:`cursor`, observed as a commit."""
-        _observe("cursor_commit", self.epoch, self.offset, self.rank)
+        """:meth:`cursor`, counted as a commit and noted in the flight
+        recorder, so the postmortem names each rank's last committed
+        cursor."""
+        _m()["commits"].inc()
+        _fr.recorder().note("data", ("cursor_commit", int(self.epoch),
+                                     int(self.offset), self.rank))
         return self.cursor()
 
     def restore(self, cursor: Dict[str, Any]) -> "ShardedLoader":
@@ -152,8 +192,11 @@ class ShardedLoader:
         self.epoch = int(cursor["epoch"])
         self.offset = int(cursor["offset"])
         self._epochs_done = self.epoch
-        _observe("resume", self.epoch, self.offset,
-                 self.offset * self.dataset.batch_size)
+        skipped = self.offset * self.dataset.batch_size
+        if skipped:
+            _m()["skips"].inc(skipped)
+        _fr.recorder().note("data", ("resume", self.epoch, self.offset,
+                                     skipped))
         return self
 
     # --------------------------------------------------------- iteration
@@ -187,7 +230,8 @@ class ShardedLoader:
             self.epoch += 1
             self.offset = 0
             self._epochs_done += 1
-            _observe("epoch", self.epoch, self.rank)
+            _m()["epochs"].inc()
+            _fr.recorder().note("data", ("epoch", self.epoch, 0, self.rank))
         if self.epochs is not None and self._epochs_done >= self.epochs:
             raise StopIteration
         m = _sharding.rank_microbatch(self.offset, self.rank,
@@ -205,7 +249,11 @@ class ShardedLoader:
             if self.transform is not None:
                 arrays = self.transform(arrays)
             weight = int(ids.shape[0])
-        _observe("batch", weight, time.perf_counter() - t0)
+        mt = _m()
+        mt["load"].inc(time.perf_counter() - t0)
+        mt["batches"].inc()
+        if weight:
+            mt["samples"].inc(weight)
         self.offset = _sharding.advance(self.offset, self.world_size,
                                         total)
         return Batch(tuple(np.asarray(a) for a in arrays), ids, weight,

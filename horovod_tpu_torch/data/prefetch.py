@@ -24,9 +24,12 @@ the point a resumed job continues from (the tree an ``ElasticState``
 commits beside the model).
 
 ``timer=`` takes any object with ``credit_h2d(seconds)`` and
-``mark_h2d_done()`` (the duck type of the JAX package's ``StepTimer``):
+``mark_h2d_done()`` (``StepTimer``, ``observability/step_metrics.py``):
 when the consumer had to wait, the staged copy of that batch is credited
-as its h2d share. A source's exception reaches the consumer at the
+as its h2d share. The prefetcher records JAX's families: the configured
+depth, the occupancy at each fetch, the seconds the consumer waited and
+the seconds the copies took (``hvdtpu_data_prefetch_*``,
+``hvdtpu_data_wait_seconds_total``, ``hvdtpu_data_h2d_seconds_total``). A source's exception reaches the consumer at the
 batch where it happened.
 
 Where JAX's ``prefetch_to_device`` takes a ``sharding`` (a mesh meaning
@@ -48,7 +51,44 @@ import numpy as np
 import torch
 
 from .. import topology as _topo
-from .loader import Batch, _observe
+from ..observability import flight_recorder as _fr
+from ..observability import registry as _reg
+from .loader import Batch
+from .loader import _m as _loader_m
+
+
+def _metrics():
+    r = _reg.registry()
+    return {
+        "depth": r.gauge(
+            "hvdtpu_data_prefetch_depth",
+            "Configured device-prefetch depth of the most recently "
+            "built prefetcher").labels(),
+        "occupancy": r.gauge(
+            "hvdtpu_data_prefetch_occupancy",
+            "Batches resident on device ahead of the consumer at the "
+            "last fetch (0 with a starved source: the consumer is "
+            "waiting — the input-bound signature)").labels(),
+        "wait": r.counter(
+            "hvdtpu_data_wait_seconds_total",
+            "Seconds the training loop blocked waiting on the "
+            "prefetcher (input starvation as a number)").labels(),
+        "h2d": r.counter(
+            "hvdtpu_data_h2d_seconds_total",
+            "Seconds spent copying batches host-to-device (on the "
+            "prefetch thread — overlapped with the step unless the "
+            "wait counter is climbing too)").labels(),
+    }
+
+
+_cached = None
+
+
+def _m():
+    global _cached
+    if _cached is None:
+        _cached = _metrics()
+    return _cached
 
 _SENTINEL = object()
 
@@ -100,6 +140,7 @@ class DevicePrefetcher:
         self.depth = depth
         self.waited_s = 0.0
         self.h2d_s = 0.0
+        _m()["depth"].set(depth)
         # The cursor after the last batch the consumer took (a loader's).
         self._has_cursor = hasattr(it, "cursor")
         self._cursor = it.cursor() if self._has_cursor else None
@@ -115,6 +156,7 @@ class DevicePrefetcher:
             event.synchronize()
         h2d_s = time.perf_counter() - t0
         self.h2d_s += h2d_s
+        _m()["h2d"].inc(h2d_s)
         return _with(batch, data), event, h2d_s
 
     def _producer(self):
@@ -140,6 +182,9 @@ class DevicePrefetcher:
         item = self._q.get()
         wait_s = time.perf_counter() - t0
         self.waited_s += wait_s
+        mt = _m()
+        mt["wait"].inc(wait_s)
+        mt["occupancy"].set(self._q.qsize())
         if item is _SENTINEL:
             self._closed = True
             raise StopIteration
@@ -163,8 +208,10 @@ class DevicePrefetcher:
         out, observed as a commit (see the module docstring)."""
         if not self._has_cursor:
             raise TypeError("the prefetched iterator has no cursor()")
-        _observe("cursor_commit", int(self._cursor["epoch"]),
-                 int(self._cursor["offset"]), getattr(self._it, "rank", 0))
+        _loader_m()["commits"].inc()
+        _fr.recorder().note("data", (
+            "cursor_commit", int(self._cursor["epoch"]),
+            int(self._cursor["offset"]), getattr(self._it, "rank", 0)))
         return dict(self._cursor)
 
     def close(self) -> None:
@@ -196,11 +243,13 @@ def stage(batch, device: Union[str, torch.device, None] = None, *,
     it, then ``timer.mark_h2d_done()``. The unprefetched side of a
     prefetch comparison."""
     dev = _device(device)
+    t0 = time.perf_counter()
     data, event = _to_device(_fields(batch), dev,
                              torch.cuda.current_stream(dev)
                              if dev.type == "cuda" else None)
     if event is not None:
         event.synchronize()
+    _m()["h2d"].inc(time.perf_counter() - t0)
     if timer is not None:
         timer.mark_h2d_done()
     return _with(batch, data)

@@ -247,6 +247,9 @@ class ElasticState:
             object.__setattr__(self, "step", int(step))
         snap = self._snapshot()
         object.__setattr__(self, "_committed", snap)
+        from ..observability import flight_recorder as _flight
+        _flight.recorder().note("checkpoint",
+                                ("commit", int(self.step), self._backend))
         if self._backend == "sharded":
             # The engine copies from the host snapshot (memory to
             # memory), not from the device a second time.

@@ -18,7 +18,8 @@ own seed (so a batch does not depend on where a generation started),
 committing after every ``commit_every`` steps. In generation 0, after
 step ``kill_after``, it waits for its commits to be durable, writes the
 time to ``<dir>/killed_at`` and SIGKILLs itself: the apparatus of a
-lost worker (the ``crash_at`` fault clause is ROADMAP Queue 1 item 5c).
+lost worker. (The ``crash_at`` fault clause of ROADMAP Queue 1 item 5c
+kills at an enqueue tick, before the commit need be durable.)
 
 It returns a summary: the generation, the step it started from, the
 restore's seconds, each step's loss and K1-K3 launches, the wall time of

@@ -4,12 +4,11 @@
 
 Spawns a job of ``--ranks`` processes on this host's CPU (gloo over
 localhost), runs one allreduce, then leaves every rank idle for
-``--seconds`` and prints one JSON line: per rank, the control-plane
-gathers of the idle window (``dist.gather_object`` calls; a negotiation
-round makes one) and the CPU seconds the process spent in it
-(``time.process_time``, every thread). It counts calls through
-``torch.distributed`` and uses only public entry points, so it runs on
-any tree of the package that has the engine. Needs no card.
+``--seconds`` and prints one JSON line: per rank, the negotiation
+rounds of the idle window (the engine's ``rounds`` counter) and the CPU
+seconds the process spent in it (``time.process_time``, every thread).
+It reads only the engine's counter, so it runs on any tree of the
+package whose engine counts its rounds. Needs no card.
 """
 
 from __future__ import annotations
@@ -22,26 +21,20 @@ import tempfile
 import time
 
 import torch
-import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
 def _worker(rank, n, port, seconds, outdir):
     import horovod_tpu_torch as hvd
-    calls = [0]
-    inner = dist.gather_object
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return inner(*a, **kw)
-    dist.gather_object = counted
+    from horovod_tpu_torch.ops import collective
     hvd.init(device="cpu", init_method=f"tcp://localhost:{port}", rank=rank,
              world_size=n)
     hvd.allreduce(torch.ones(4), name="warm")
     time.sleep(0.2)
-    c0, t0 = calls[0], time.process_time()
+    eng = collective.engine()
+    c0, t0 = eng.rounds, time.process_time()
     time.sleep(seconds)
-    row = {"rank": rank, "gathers": calls[0] - c0,
+    row = {"rank": rank, "rounds": eng.rounds - c0,
            "cpu_s": time.process_time() - t0}
     hvd.shutdown()
     with open(os.path.join(outdir, f"{rank}.json"), "w") as f:

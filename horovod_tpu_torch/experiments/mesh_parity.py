@@ -70,6 +70,33 @@ and checkpoints of the sharded optimizer state:
   rank 0's loop, and the seconds to the durable commit and to the
   restore (rank 0).
 
+and rank 0's adaptation policy over the engine:
+
+- ``adapt``: the dp step of the flagship (``--layers`` deep) on every
+  rank through the engine's buckets, each rank its own sequence, with
+  ``HOROVOD_TPU_ADAPTATION=1`` (threshold ``ADAPT_KNOBS``, short sustain
+  and cooldown, no failure timeout, so ``evict`` stays gated off) and
+  the last rank delayed ``ADAPT_DELAY_MS`` per enqueued collective for
+  a window of its enqueues (``HOROVOD_TPU_FAULT_SPEC``). The ladder must
+  climb ``shrink``, ``bf16``, ``int8x256``, ``fp8x256`` in that order,
+  the first escalation no earlier than the first step that delayed the
+  last rank, and unwind in reverse, every de-escalation after the last
+  such step; a run of ``ADAPT_QUIET_STEPS`` steps without the fault,
+  first, must not escalate at all. Every rank must move each
+  group on the same wire (``Handle.wire``) and hold the same wire
+  epochs; and every group's reduced gradients must equal, bit for bit,
+  the same tensors reduced again in one group with that wire named
+  explicitly (``Compression.bf16``, ``int8_blockwise``,
+  ``fp8_blockwise``, or none) once the ladder is back at raw. Each rank
+  runs one forward and backward before its optimizer exists and waits
+  for the others at a barrier on the default group, so the kernels'
+  build and first launches put no skew into the lateness. Its line holds
+  the first and last step the fault delayed, the quiet run's steps,
+  median step ms and escalations, each transition's seconds since the first step (and the
+  step), the steps and median step ms on each tier on the way up
+  (``upN``) and down (``downN``), the decayed lateness by rank at the
+  end, and the worst difference.
+
 and the serving tier's decode path:
 
 - ``decode_tp``: ``dp=2, tp=2``: each dp pair runs a prefill and 16
@@ -196,6 +223,16 @@ PIPE_VARIANTS = {"pp_gpipe": ("gpipe", 1), "pp_1f1b": ("1f1b", 1),
                  "pp_zb-h1": ("zb-h1", 1), "pp_interleaved": ("interleaved", 3)}
 PIPE_LAYERS, PIPE_M, PIPE_TIMED = 12, 8, 3
 LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
+# adapt: the ladder's knobs, the straggler's delay and fault window (its
+# enqueue ticks), and the step budget.
+ADAPT_KNOBS = {"ADAPTATION": "1", "ADAPT_THRESHOLD": "0.05",
+               "ADAPT_SUSTAIN": "0.25", "ADAPT_COOLDOWN": "0.25",
+               "ADAPT_INTERVAL": "0", "FAILURE_TIMEOUT": "0"}
+ADAPT_DELAY_MS = 100
+ADAPT_WINDOW = (40, 100)
+ADAPT_MAX_STEPS = 150
+ADAPT_QUIET_STEPS = 20      # the run without the fault
+ADAPT_LADDER = ["shrink", "bf16", "int8x256", "fp8x256"]
 HIER_TOL = 1e-2     # hier_engine's gradients against the flat run's
 ENGINE_TIMED = 3
 
@@ -478,6 +515,201 @@ def _hier_engine(layers, device, width):
         for h, f in zip(runs[True], runs[False])
         for n, g in h["grads"].items())
     return line
+
+
+def _explicit_compression(wire):
+    from ..compression import Compression
+    return {None: Compression.none, "bf16": Compression.bf16,
+            "int8x256": Compression.int8_blockwise,
+            "fp8x256": Compression.fp8_blockwise}[wire]
+
+
+def run_adapt_rank(rank, port, layers, outdir, device, width, world,
+                   fault=True):
+    """One rank of ``adapt``: the dp step under the policy, its groups
+    recorded (inputs, outputs, the wire each moved on), then replayed
+    with the wire named explicitly. Without ``fault`` no rank is delayed
+    and the run takes ``ADAPT_QUIET_STEPS`` steps, recording no group."""
+    for knob, value in ADAPT_KNOBS.items():
+        os.environ["HOROVOD_TPU_" + knob] = value
+    if fault:
+        os.environ["HOROVOD_TPU_FAULT_SPEC"] = (
+            f"rank={world - 1}:delay={ADAPT_DELAY_MS}ms:"
+            f"from_step={ADAPT_WINDOW[0]}:until_step={ADAPT_WINDOW[1]}")
+    else:
+        os.environ.pop("HOROVOD_TPU_FAULT_SPEC", None)
+    if device == "cpu":
+        # The ranks share the host's cores: one thread each keeps a
+        # rank's lateness the fault's, not the scheduler's.
+        torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from ..adaptation import faults as tfaults
+    from ..models import transformer as tfm
+    from ..observability import flight_recorder as tfr
+    from ..observability import registry as treg
+    from ..ops import collective as coll
+    from ..parallel.train import build_train_step
+    hvd.init(device=f"cuda:{rank}" if device == "cuda" else device,
+             init_method=f"tcp://localhost:{port}", rank=rank,
+             world_size=world)
+    dev = hvd.device()
+    tok = torch.randint(0, width["vocab"], (world, width["max_seq"] + 1),
+                        generator=torch.Generator().manual_seed(5))
+    mine = slice(rank, rank + 1)
+    tokens, targets = tok[mine, :-1].to(dev), tok[mine, 1:].to(dev)
+    cfg = _config(tfm, width, layers)
+    step = build_train_step(cfg, _factory, device=dev)
+    model = step.make_model(
+        params=tfm.init_params(cfg, torch.Generator().manual_seed(0)))
+    # Warm up (the kernels' build, the first launches) before the
+    # optimizer's hooks exist, so no collective carries the ranks'
+    # start-up skew into the policy's lateness.
+    model.loss_fn(tokens, targets).backward()
+    for p in model.parameters():
+        p.grad = None
+    _sync(dev)
+    # The ranks leave the warm-up together, on the default group: a
+    # barrier through the engine would feed the skew tracker.
+    dist.barrier(**({"device_ids": [dev.index]} if dev.type == "cuda"
+                    else {}))
+    opt = step.make_optimizer(model)
+    fires = []          # this step's (name, input copy, handle)
+    inner = opt._fire_buckets
+
+    def fire(buckets, trigger):
+        ins = [b.buffer.detach().clone() for b in buckets]
+        inner(buckets, trigger)
+        fires.extend((b.name, x, opt._handles[b.index])
+                      for b, x in zip(buckets, ins))
+    if fault:
+        opt._fire_buckets = fire
+    groups, ms, tiers, events = [], [], [], []
+    ticks = []          # the faulted rank's enqueue ticks at each step
+    inj = tfaults.injector() if fault else None
+    t0 = time.monotonic()
+    seen_t = t0
+    done = torch.zeros(1, dtype=torch.int32, device=dev)
+    for k in range(ADAPT_MAX_STEPS if fault else ADAPT_QUIET_STEPS):
+        fires.clear()
+        tick0 = inj.tick if inj is not None else None
+        _sync(dev)
+        t = time.perf_counter()
+        step(model, opt, tokens, targets)
+        _sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        # Each group's inputs and outputs, kept on the host: at the
+        # flagship's width a step's buckets are ~0.4 GB.
+        by_name = {b.name: b for b in opt._buckets}
+        for g in dict.fromkeys(h.group for _, _, h in fires):
+            members = [(n, x, h) for n, x, h in fires if n in g]
+            groups.append((k, members[0][2].wire,
+                           [x.to("cpu", copy=True) for _, x, _ in members],
+                           [by_name[n].buffer.detach().to("cpu", copy=True)
+                            for n, _, _ in members]))
+        if rank == 0:
+            for ts, kind, payload in list(tfr.recorder()._ring):
+                if kind == "adapt" and ts > seen_t:
+                    events.append((round(ts - t0, 3), payload[0],
+                                   payload[2], k))
+                    seen_t = ts
+            snap = treg.snapshot("hvdtpu_adaptation_tier")
+            tier = int(snap["hvdtpu_adaptation_tier"]["values"][""])
+            tiers.append((tier, any(e[1] == "deescalate" for e in events)))
+            climbed = [e for e in events if e[1] == "escalate"]
+            done[0] = int(tier == 0 and len(climbed) >= len(ADAPT_LADDER))
+            if done[0]:
+                # Disarm the policy: the replay below must run raw. (A
+                # wire epoch takes two more escalations, two sustain
+                # windows, so none can slip in after this read.)
+                coll.engine()._coord._policy = None
+        hvd.broadcast_(done, 0, name=f"adapt.done.{k}")
+        if inj is not None:
+            ticks.append((tick0, inj.tick))
+        if int(done[0]):
+            break
+    epochs = list(coll.engine()._wire_epochs)
+    skew = coll.engine()._coord._skew
+    lateness = ({r: round(v * 1e3, 3) for r, v in
+                 skew.recent_lateness_by_rank().items()} if rank == 0 else {})
+    # The replay needs raw epochs, or the policy's wire would move it too.
+    worst = 0.0 if epochs and epochs[-1][1] == "" else None
+    for i, (k, wire, ins, outs) in enumerate(groups if worst == 0.0
+                                             else ()):
+        # A cast compressor transforms the tensors before the request
+        # and after it (what ``hvd.allreduce(compression=)`` does); a
+        # blockwise one names the request's wire.
+        comp = _explicit_compression(wire)
+        packed = [comp.compress(x.to(dev)) for x in ins]
+        ref = coll.fused_allreduce_async(
+            [t for t, _ in packed], True,
+            names=[f"adapt.ref.{i}.{j}" for j in range(len(ins))],
+            compression=comp).wait()
+        ref = [comp.decompress(r, ctx) for r, (_, ctx) in zip(ref, packed)]
+        for r, o in zip(ref, outs):
+            worst = max(worst, float((r.float().cpu() - o.float())
+                                     .abs().max()))
+    hvd.shutdown()
+    torch.save({"wires": [(k, w) for k, w, _, _ in groups],
+                "epochs": epochs, "ms": ms, "tiers": tiers,
+                "events": events, "worst": worst, "lateness_ms": lateness,
+                "ticks": ticks},
+               os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _adapt_ranks(layers, device, width, world, fault):
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_adapt_rank, args=(_free_port(), layers, outdir, device,
+                                       width, world, fault), nprocs=world)
+        return [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+                for r in range(world)]
+
+
+def _adapt(layers, device, width, world=WORLD):
+    """``adapt``'s line from every rank's record: first the run without
+    the fault, then the one with it. The ladder is held to the fault's
+    window: the first escalation in a step that delayed the last rank or
+    later, every de-escalation after the last such step, and no
+    escalation in the run without the fault."""
+    quiet = _adapt_ranks(layers, device, width, world, False)[0]
+    ranks = _adapt_ranks(layers, device, width, world, True)
+    r0 = ranks[0]
+    lo, hi = ADAPT_WINDOW
+    faulted = [k for k, (a, b) in enumerate(ranks[-1]["ticks"])
+               if a < hi and b > lo]
+    climbed = [name for _, act, name, _ in r0["events"] if act == "escalate"]
+    unwound = [name for _, act, name, _ in r0["events"]
+               if act == "deescalate"]
+    up_steps = [k for _, act, _, k in r0["events"] if act == "escalate"]
+    down_steps = [k for _, act, _, k in r0["events"] if act == "deescalate"]
+    quiet_climbs = [e for e in quiet["events"] if e[1] == "escalate"]
+    by_tier = {}
+    for (tier, down), ms in zip(r0["tiers"], r0["ms"]):
+        by_tier.setdefault(f"{'down' if down else 'up'}{tier}", []).append(ms)
+    wires = sorted({w for _, w in r0["wires"] if w})
+    return {"transitions": r0["events"], "climbed": climbed,
+            "unwound": unwound, "steps": len(r0["ms"]),
+            "ms_by_tier": {t: {"steps": len(v),
+                               "median_ms": sorted(v)[len(v) // 2]}
+                           for t, v in by_tier.items()},
+            "wires_seen": wires, "epochs": r0["epochs"],
+            "final_lateness_ms": r0["lateness_ms"],
+            "same_wires_every_rank": all(r["wires"] == r0["wires"]
+                                         for r in ranks),
+            "same_epochs_every_rank": all(r["epochs"] == r0["epochs"]
+                                          for r in ranks),
+            "max_abs_diff_vs_explicit": (
+                None if any(r["worst"] is None for r in ranks)
+                else max(r["worst"] for r in ranks)),
+            "fault_steps": [faulted[0], faulted[-1]] if faulted else None,
+            "quiet_steps": len(quiet["ms"]),
+            "quiet_median_ms": sorted(quiet["ms"])[len(quiet["ms"]) // 2],
+            "quiet_escalations": quiet_climbs,
+            "ladder_ok": (climbed == ADAPT_LADDER
+                          and unwound == ADAPT_LADDER[::-1]),
+            "ladder_in_window": bool(
+                faulted and up_steps and up_steps[0] >= faulted[0]
+                and all(k > faulted[-1] for k in down_steps)),
+            "quiet_ok": not quiet_climbs}
 
 
 SYNC_BN = dict(stage_sizes=[1, 1], num_filters=16, num_classes=10)
@@ -1113,10 +1345,10 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     was bit for bit)}; ``variants`` defaults to all."""
     variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine",
                                  "sync_bn", "ckpt_zero1", "decode_tp",
-                                 "serve_tp"))
+                                 "serve_tp", "adapt"))
     mesh_variants = [v for v in variants
                      if v not in ("hier_engine", "sync_bn", "ckpt_zero1",
-                                  "decode_tp", "serve_tp")]
+                                  "decode_tp", "serve_tp", "adapt")]
     ranks = []
     if mesh_variants:
         with tempfile.TemporaryDirectory() as outdir:
@@ -1135,6 +1367,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         lines["decode_tp"] = _decode_tp(layers, device, width)
     if "serve_tp" in variants:
         lines["serve_tp"] = _serve_tp(device, width)
+    if "adapt" in variants:
+        lines["adapt"] = _adapt(layers, device, width)
     for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
@@ -1145,7 +1379,7 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
             line["bitwise"] = all(r[name]["bitwise"] for r in ranks)
         lines[name] = line
     for name, line in lines.items():
-        if name not in ("decode_tp", "serve_tp"):   # forward-only checks
+        if name not in ("decode_tp", "serve_tp", "adapt"):
             line["loss_rel_err"] = (abs(line["loss"]
                                         - line["reference_loss"])
                                     / abs(line["reference_loss"]))
@@ -1156,7 +1390,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
     names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine", "sync_bn",
-             "ckpt_zero1", "decode_tp", "serve_tp")
+             "ckpt_zero1", "decode_tp", "serve_tp", "adapt")
     ap.add_argument("--variants", help="comma-separated names (default: "
                     f"all of {', '.join(names)})")
     args = ap.parse_args(argv)
@@ -1173,6 +1407,11 @@ def main(argv=None) -> int:
         print(json.dumps({"variant": name, **line}), flush=True)
         if name == "serve_tp":
             ok &= line["bf16_judged_ok"] and line["int8_judged_ok"]
+        elif name == "adapt":
+            ok &= (line["ladder_ok"] and line["ladder_in_window"]
+                   and line["quiet_ok"] and line["same_wires_every_rank"]
+                   and line["same_epochs_every_rank"]
+                   and line["max_abs_diff_vs_explicit"] == 0.0)
         elif name != "decode_tp":
             ok &= (line["loss_rel_err"] <= LOSS_TOL
                    and line["max_grad_rel_err"] <= GRAD_TOL

@@ -2,7 +2,8 @@
 snapshot, the exporters (:mod:`.export`: Prometheus text, JSON files,
 the HTTP endpoint), the flight recorder (:mod:`.flight_recorder`), the
 history sampler and health detectors (:mod:`.history`, :mod:`.health`),
-all on one telemetry thread (:mod:`.ticker`).
+all on one telemetry thread (:mod:`.ticker`), and per-step telemetry
+(:mod:`.step_metrics`: :class:`StepTimer`, :func:`flops_of_step`).
 
 The three hooks below are what the serving engine, the fault injector,
 the QoS plane, the speculation tuner and the request tracer call: each
@@ -27,6 +28,7 @@ from .registry import (Counter, Gauge, Histogram, MetricsRegistry, enabled,
                        set_enabled)
 from .registry import registry as get_registry
 from .registry import snapshot as metrics_snapshot
+from .step_metrics import StepTimer, flops_of_step
 
 
 def flight_note(kind: str, event: tuple) -> None:
@@ -56,5 +58,5 @@ __all__ = [
     "histogram_percentiles", "load_history", "maybe_start_exporters",
     "metrics_snapshot", "prometheus_text", "register_final_flush",
     "set_enabled", "stop_exporters", "with_percentiles",
-    "write_json_snapshot",
+    "write_json_snapshot", "StepTimer", "flops_of_step",
 ]

@@ -18,9 +18,11 @@ event), ``hvdtpu_health_alerts_total{kind,severity}``, a
 ``health_alert`` log line, an optional sink (the fleet forwards
 ``queue_depth_runaway`` to its autoscaler) and, on rank 0 or the fleet
 supervisor, an optional webhook POST (``HOROVOD_TPU_ALERT_URL``).
-Ladder-input kinds queue for an adaptation policy
-(:func:`drain_policy_alerts`); JAX's forwarding of them to the rank-0
-coordinator waits for the port's policy (ROADMAP Queue 1 item 5).
+Ladder-input kinds queue for rank 0's adaptation policy
+(:func:`drain_policy_alerts`, which rank 0's coordinator drains), and a
+nonzero rank's monitor forwards them to that policy in the engine's
+next negotiation round (:func:`_coordinator_alert_sink`, JAX's
+``AlertNoteRequest``; this ended deviation 34 of ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -383,8 +385,7 @@ def queue_policy_alert(alert: "Alert") -> None:
 
 def drain_policy_alerts() -> List[dict]:
     """Pending ladder-input alerts (``{"kind", "rank", "t_unix"}``),
-    cleared on read (JAX's coordinator policy consumes these; the
-    port's waits for ROADMAP Queue 1 item 5)."""
+    cleared on read (rank 0's coordinator feeds them to its policy)."""
     with _policy_lock:
         out = list(_policy_alerts)
         _policy_alerts.clear()
@@ -531,16 +532,30 @@ class HealthMonitor:
         return alert
 
 
+def _coordinator_alert_sink(alert: Alert) -> None:
+    """Forward a ladder-input alert of a nonzero rank to rank 0's
+    adaptation policy: the engine carries it in its next round
+    (best effort; rank 0's own alerts reach the policy through the local
+    queue)."""
+    if alert.kind not in POLICY_ALERT_KINDS or alert.rank <= 0:
+        return
+    try:
+        from ..ops import collective as _coll
+        eng = _coll._engine
+        if eng is not None:
+            eng.note_alert(alert.kind, alert.rank)
+    except Exception as e:  # pragma: no cover - defensive
+        _log.debug("coordinator alert forward failed: %s", e)
+
+
 def default_monitor() -> HealthMonitor:
     """The live monitor ``init`` hands the history sampler: this
     process's rank, the webhook on rank 0 only (one receiver, not N
-    copies). JAX's monitor also forwards ladder-input alerts to the
-    rank-0 coordinator's adaptation policy; the port has no such policy
-    yet (ROADMAP Queue 1 item 5), so they stay in the local queue
-    (:func:`drain_policy_alerts`)."""
+    copies), ladder-input alerts forwarded to rank 0's policy."""
     from . import flight_recorder as _flight
     from .. import topology as _topo
     rank = (_topo._get().rank if _topo.is_initialized()
             else max(_flight.recorder().rank, 0))
     url = _env.alert_url() if rank == 0 else None
-    return HealthMonitor(rank=rank, webhook_url=url)
+    return HealthMonitor(rank=rank, webhook_url=url,
+                         alert_sink=_coordinator_alert_sink)

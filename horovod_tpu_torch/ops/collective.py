@@ -70,17 +70,45 @@ trace (``ops/timeline_py.py``): a ``NEGOTIATE_<OP>`` span per op from its
 enqueue to the plan's arrival, then the op's activity span
 (``NCCL_ALLREDUCE``, ``GLOO_ALLGATHER``, ...) over its group's execution,
 and with ``HOROVOD_TIMELINE_MARK_CYCLES`` a ``CYCLE_START`` per cycle.
+
+A round's messages are point to point on the control group: each rank
+sends rank 0 its announcements (and the health alerts it forwards to
+the adaptation policy), rank 0 sends each rank the plan. So rank 0 can
+wait for a rank with a deadline: past ``HOROVOD_TPU_FAILURE_TIMEOUT``
+since the rank's last round, the rank is lost and the plan carries a
+``heartbeat_timeout`` event (JAX's coordinator: a rank whose fetches
+stopped). Beside the groups the plan carries rank 0's failure events,
+which every rank raises on its pending handles as a typed
+``elastic.WorkerFailure`` (a policy eviction as ``SlowRankFailure``),
+skipping that round's groups, and the params: the policy's wire epochs
+``[(from_seq, spec)]``, by which every rank moves the eligible fused
+allreduces of group ``seq`` on the same wire (``bf16`` a cast, the
+blockwise specs the quantized wire).
+
+The engine's metric families are JAX's (``_EngineMetrics``): the op
+phases negotiate (enqueue to the plan's arrival), queue (arrival to the
+group's dispatch) and execute (the group's wall time; on CUDA its
+seconds on the card, between events recorded around it on the engine's
+stream, read once the card has passed them: ``collect_timings``), ops, wire bytes by spec, fused group sizes and
+bytes, cycles and their busy and idle seconds, stalled tensors, and
+groups run under a policy wire. The flight recorder gets each group's
+``group_deliver`` and ``group_done`` or ``group_error``. The fault
+injector (``adaptation/faults.py``) sees every enqueue and each round's
+announcement.
 """
 
 from __future__ import annotations
 
 import atexit
+import collections
 import contextlib
+import datetime
 import itertools
 import logging
+import pickle
 import threading
 import time
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -88,6 +116,8 @@ import torch.distributed as dist
 from .. import executor as _exec
 from .. import quantization as _quant
 from .. import topology as _topo
+from ..observability import flight_recorder as _flight
+from ..observability import registry as _obs
 from ..utils import env as _env
 from .control_plane import (ALLGATHER, ALLREDUCE, BROADCAST,
                             FLAG_HIERARCHICAL_ALLGATHER,
@@ -102,13 +132,146 @@ _log = logging.getLogger(__name__)
 # waits for the idle ranks to join a round.
 IDLE_CYCLE_S = 0.1
 
-# Rounds whose clock readings a nonzero rank's timeline takes its offset
-# to rank 0 from (the sample of the shortest round trip wins).
-CLOCK_ROUNDS = 8
+# Pings of the clock handshake each nonzero rank runs with rank 0 when
+# the engine starts (the shortest round trip's estimate wins).
+CLOCK_PINGS = 8
+
 
 
 class HorovodInternalError(RuntimeError):
     pass
+
+
+class _EngineMetrics:
+    """Registry handles of the engine's hot paths, JAX's families
+    (``horovod_tpu/ops/collective.py:57-170``), resolved once at engine
+    construction: the enqueue and dispatch paths do dictionary lookups
+    only. The families are process-global, so they outlive
+    ``stop_engine()``."""
+
+    _OPS = (ALLREDUCE, ALLGATHER, BROADCAST)
+
+    def __init__(self):
+        r = _obs.registry()
+        phase = r.histogram(
+            "hvdtpu_op_phase_seconds",
+            "Per-collective latency by lifecycle phase (negotiate = "
+            "enqueue until the group is agreed/delivered; queue = "
+            "delivery until XLA dispatch; execute = fused program wall "
+            "time)", buckets=_obs.LATENCY_BUCKETS)
+        ops = r.counter("hvdtpu_ops_total", "Collective requests enqueued")
+        exec_total = r.counter(
+            "hvdtpu_op_execute_seconds_total",
+            "Cumulative wall seconds executing fused collective groups")
+        self.phase = {
+            (op, ph): phase.labels(op=OP_NAMES[op], phase=ph)
+            for op in self._OPS
+            for ph in ("negotiate", "queue", "execute")}
+        self.ops = {op: ops.labels(op=OP_NAMES[op]) for op in self._OPS}
+        self.exec_total = {op: exec_total.labels(op=OP_NAMES[op])
+                           for op in self._OPS}
+        self.group_size = r.histogram(
+            "hvdtpu_fused_group_size",
+            "Tensors per executed fusion group",
+            buckets=_obs.SIZE_BUCKETS).labels()
+        self.group_bytes = r.histogram(
+            "hvdtpu_fused_group_bytes",
+            "Wire bytes per executed fusion group",
+            buckets=_obs.BYTE_BUCKETS).labels()
+        self._wire = r.counter(
+            "hvdtpu_wire_bytes_enqueued_total",
+            "Bytes-on-wire enqueued, by compression wire spec ('raw' = "
+            "the tensor's own dtype); matches _Request accounting")
+        self._wire_children = {None: self._wire.labels(spec="raw")}
+        self.cycles = r.counter(
+            "hvdtpu_cycles_total",
+            "Background dispatcher cycles (Python fallback loop)").labels()
+        self.cycle_busy = r.counter(
+            "hvdtpu_cycle_busy_seconds_total",
+            "Dispatcher seconds spent draining/planning/executing").labels()
+        self.cycle_idle = r.counter(
+            "hvdtpu_cycle_idle_seconds_total",
+            "Dispatcher seconds spent waiting for work").labels()
+        self.stalled_count = r.gauge(
+            "hvdtpu_engine_stalled_tensors",
+            "In-flight collectives currently past the stall warning "
+            "window (engine view)").labels()
+        self.stalled_info = r.gauge(
+            "hvdtpu_engine_stalled_tensor_seconds",
+            "Seconds each stalled tensor has waited, labeled with the "
+            "coordinator's missing-ranks report when available")
+        self._adapted = r.counter(
+            "hvdtpu_adaptation_applied_groups_total",
+            "Fused allreduce groups executed under a policy wire "
+            "override, by spec (docs/adaptation.md)")
+        self._adapted_children: Dict[str, object] = {}
+
+    def adapted_group(self, spec: str) -> None:
+        child = self._adapted_children.get(spec)
+        if child is None:
+            child = self._adapted_children[spec] = \
+                self._adapted.labels(spec=spec)
+        child.inc()
+
+    def wire_bytes(self, spec: Optional[str], nbytes: int) -> None:
+        child = self._wire_children.get(spec)
+        if child is None:
+            child = self._wire_children[spec] = self._wire.labels(spec=spec)
+        child.inc(nbytes)
+
+    def group_delivered(self, op: int, reqs, t_deliver: float) -> None:
+        """Close the negotiate phase of every request of a delivered
+        group and record the group's shape."""
+        ph = self.phase[(op, "negotiate")]
+        for r in reqs:
+            ph.observe(t_deliver - r.enqueued_at)
+        self.group_size.observe(len(reqs))
+        self.group_bytes.observe(sum(r.meta.nbytes for r in reqs))
+
+    def group_executed(self, op: int, t_deliver: float, t_start: float,
+                       t_end: float) -> None:
+        self.phase[(op, "queue")].observe(t_start - t_deliver)
+        self.phase[(op, "execute")].observe(t_end - t_start)
+        self.exec_total[op].inc(t_end - t_start)
+
+    def set_stalls(self, entries) -> None:
+        """Replace the stalled-tensor gauges with the current episode,
+        ``entries`` [(tensor, age_s, missing_ranks)]; cleared first, so a
+        resolved stall leaves the export."""
+        self.stalled_info.clear()
+        self.stalled_count.set(len(entries))
+        for tensor, age, missing in entries:
+            self.stalled_info.labels(
+                tensor=tensor, missing_ranks=missing).set(age)
+
+
+class _Plan(NamedTuple):
+    """What rank 0 sends every rank after a round."""
+
+    groups: list
+    stopping: bool
+    idle: bool           # no name awaits a rank's announcement
+    stalls: dict         # name -> ranks that have not announced it
+    failures: list       # failure events (``check_failures``)
+    params: dict         # wire epochs
+
+
+def _send_obj(obj, dst: int, group) -> None:
+    data = bytearray(pickle.dumps(obj))
+    dist.send(torch.tensor([len(data)], dtype=torch.int64), dst, group=group)
+    dist.send(torch.frombuffer(data, dtype=torch.uint8), dst, group=group)
+
+
+def _recv_payload(n: torch.Tensor, src: int, group):
+    buf = torch.empty(int(n), dtype=torch.uint8)
+    dist.recv(buf, src, group=group)
+    return pickle.loads(buf.numpy().tobytes())
+
+
+def _recv_obj(src: int, group):
+    n = torch.empty(1, dtype=torch.int64)
+    dist.recv(n, src, group=group)
+    return _recv_payload(n, src, group)
 
 
 DUPLICATE_NAME_ERROR = (
@@ -130,17 +293,35 @@ class _Done(NamedTuple):
     buffers: tuple
 
 
+class _Ran(NamedTuple):
+    """A group the engine ran: what its execute phase is recorded with.
+    On CUDA ``start`` and ``end`` are the events recorded around it on
+    the engine's stream (its seconds on the card); on the CPU they are
+    None, and the group is recorded as it returns."""
+
+    op: int
+    seq: int
+    activity: str
+    t_deliver: float
+    t_start: float
+    outs: list          # [(name, result shape)]
+    start: Optional[torch.cuda.Event]
+    end: Optional[torch.cuda.Event]
+
+
 class Handle:
     """An async op, set once by the engine with a result or an error
     (``_state``: result, error, :class:`_Done` or None). ``group`` names
-    the requests it was fused with. Waiters sleep on the engine's
+    the requests it was fused with, ``wire`` the adaptation policy's wire
+    the group moved on (None: its own). Waiters sleep on the engine's
     condition, which the engine notifies once per group."""
 
-    __slots__ = ("name", "group", "_cv", "_state")
+    __slots__ = ("name", "group", "wire", "_cv", "_state")
 
     def __init__(self, name: str, cv: threading.Condition):
         self.name = name
         self.group: tuple = ()
+        self.wire: Optional[str] = None
         self._cv = cv
         self._state: Optional[tuple] = None
 
@@ -236,7 +417,10 @@ class CollectiveEngine:
                   if _env.hierarchical_allreduce() else 0)
                  | (FLAG_HIERARCHICAL_ALLGATHER
                     if _env.hierarchical_allgather() else 0))
-        self._coord = Coordinator(topo.size, flags)
+        # Rank 0's coordinator plans for every rank; the others keep the
+        # flags only.
+        self._coord = Coordinator(topo.size, flags,
+                                  primary=self.rank == 0)
         self._init_hierarchy(topo)
         self.stall_warning_s = _env.stall_warning_secs()
         self.failure_timeout_s = _env.failure_timeout_secs()
@@ -244,8 +428,7 @@ class CollectiveEngine:
         self._missing = {}      # name -> ranks rank 0 still awaits
         self._mark_cycles = _env.timeline_mark_cycles()
         self._trace_path: Optional[str] = None
-        self._clock = None      # (rtt, offset) of the best round so far
-        self._clock_rounds = 0
+        self._clock_offset = 0.0    # rank 0's clock minus ours
         self.timeline = self._ensure_timeline()
         self._group_seq = 0     # groups delivered: the same on every rank
         self._t_deliver = 0.0   # when this cycle's plan arrived
@@ -261,8 +444,20 @@ class CollectiveEngine:
         self._closed = False
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        self._clock_handshake()
         self.groups_executed = 0
         self.rounds = 0                 # negotiation rounds run
+        # CUDA groups whose execute phase waits for the card's events.
+        self._ran: collections.deque = collections.deque()
+        self._ran_lock = threading.Lock()
+        self._metrics = _EngineMetrics()
+        # The fault harness, resolved at the first enqueue (None without
+        # HOROVOD_TPU_FAULT_SPEC: one attribute check per enqueue).
+        self._faults = None
+        self._faults_tried = False
+        self._notes: List[tuple] = []   # alerts for rank 0's policy
+        self._wire_epochs: List[tuple] = []     # [(from_seq, spec)]
+        self._fatal: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="hvd-collective-engine")
         self._thread.start()
@@ -280,6 +475,13 @@ class CollectiveEngine:
         each result is written into its input tensor, which is the
         handle's result. On CUDA one event, recorded on the caller's
         stream after the call's tensors were produced, fences them all."""
+        if not self._faults_tried:
+            self._faults_tried = True
+            from ..adaptation import faults as _faults_mod
+            self._faults = _faults_mod.injector()
+        if self._faults is not None:
+            for _ in tensors:
+                self._faults.on_enqueue()
         reqs = []
         attrs = (root_rank, bool(average), float(prescale), float(postscale))
         if wires is None:
@@ -296,6 +498,10 @@ class CollectiveEngine:
                         wire)
             reqs.append(_Request(meta, t, Handle(nm, self._cv), None,
                                  tensor if inplace else None))
+        m = self._metrics
+        for r in reqs:
+            m.wire_bytes(r.meta.wire, r.meta.nbytes)
+            m.ops[op].inc()
         if self._stream is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
@@ -304,6 +510,8 @@ class CollectiveEngine:
         new = [r.meta.name for r in reqs]
         with self._lock:
             if self._closed:
+                if self._fatal is not None:
+                    raise self._fatal
                 raise HorovodInternalError(
                     SHUT_DOWN_ERROR.format(op=OP_NAMES[op]))
             if len(set(new)) < len(new) or not self._names.isdisjoint(new):
@@ -312,6 +520,13 @@ class CollectiveEngine:
             self._queue.extend(reqs)
             self._arrived.set()
         return [r.handle for r in reqs]
+
+    def note_alert(self, kind: str, rank: int) -> None:
+        """Forward one health alert to rank 0's adaptation policy in the
+        next round (JAX's ``AlertNoteRequest``; the health monitor's
+        coordinator sink calls it). Fire and forget."""
+        with self._lock:
+            self._notes.append((str(kind), int(rank)))
 
     def flush_hint(self) -> None:
         """A submitter is about to block: start the next cycle now."""
@@ -334,6 +549,8 @@ class CollectiveEngine:
         if self._stream is not None:
             torch.cuda.set_device(self.device)
         error: Optional[BaseException] = None
+        m = self._metrics
+        t_end = time.monotonic()
         try:
             stopping = idle = False
             while not stopping:
@@ -341,53 +558,168 @@ class CollectiveEngine:
                     self._arrived.wait(IDLE_CYCLE_S)
                 self._wake.wait(_env.cycle_time_ms() / 1e3)
                 self._wake.clear()
+                # Utilization: busy is the round and its groups, idle the
+                # waits above.
+                t_wake = time.monotonic()
+                m.cycles.inc()
+                m.cycle_idle.inc(t_wake - t_end)
                 if self._mark_cycles and self.timeline is not None:
                     self.timeline.mark_cycle()
                 with self._lock:
                     batch, self._queue = self._queue, []
+                    notes, self._notes = self._notes, []
                     self._arrived.clear()
                     for r in batch:
                         self._announced[r.meta.name] = r
-                groups, stopping, idle = self._negotiate(
+                plan = self._negotiate(
                     [r.meta for r in batch], self._stop,
-                    _env.fusion_threshold_bytes())
+                    _env.fusion_threshold_bytes(), notes)
                 self._t_deliver = time.monotonic()
-                for g in groups:
-                    self._execute(g)
+                stopping, idle = plan.stopping, plan.idle
+                if plan.failures:
+                    # Every rank fails its pending ops and skips the
+                    # round's groups alike; a lost rank stops the world.
+                    self._on_failures(plan.failures, plan.stopping)
+                else:
+                    for g in plan.groups:
+                        self._execute(g)
+                self.collect_timings()
                 self._maybe_check_stalls()
+                t_end = time.monotonic()
+                m.cycle_busy.inc(t_end - t_wake)
+            self.collect_timings(block=True)
         except Exception as e:   # the thread's boundary: fail every handle
             _log.exception("collective engine failed")
             error = HorovodInternalError(f"collective engine failed: {e}")
-        self._close(error)
+        self._close(error or self._fatal)
         if self.timeline is not None:
             self.timeline.close()
 
-    def _negotiate(self, metas: List[Meta], stop: bool, threshold: int):
-        """One round with rank 0: gather announcements, broadcast the
-        ordered groups, whether any rank is stopping and whether the
-        world is idle (no name awaits an announcement). The plan also
-        carries rank 0's stall report and its clock. At world size 1 the
-        round sends nothing."""
+    def _negotiate(self, metas: List[Meta], stop: bool, threshold: int,
+                   notes: Sequence[tuple] = ()) -> _Plan:
+        """One round with rank 0: every rank sends its announcements
+        (none while a ``drop_announce`` fault is active) and the alerts
+        it forwards; rank 0 feeds its coordinator, runs the policy, and
+        sends every rank the plan: the ordered groups, whether any rank
+        is stopping, whether the world is idle (no name awaits an
+        announcement), the stall report, the failure events and the
+        params. At world size 1 the round sends nothing."""
         self.rounds += 1
-        got = [(stop, metas)]
+        if metas and self._faults is not None \
+                and self._faults.drop_announce_active():
+            metas = []
         t_sent = time.monotonic()
+        if self.rank != 0:
+            # The send time on rank 0's clock.
+            _send_obj((stop, metas, list(notes), t_sent + self._clock_offset),
+                      0, self._ctrl)
+            plan = _recv_obj(0, self._ctrl)
+        else:
+            plan = self._plan_round((stop, metas, list(notes), t_sent),
+                                    threshold)
+        self._missing = plan.stalls
+        if plan.params:
+            self._apply_params(plan.params)
+        return plan
+
+    def _plan_round(self, msg: tuple, threshold: int) -> _Plan:
+        """Rank 0's half of a round: gather, coordinate, send the plan to
+        every rank heard from."""
+        got = self._gather_round(msg)
+        now = time.monotonic()
+        coord = self._coord
+        for r in sorted(got):
+            (stop, metas, notes, t_sent), t_in = got[r]
+            # Lateness from when the rank sent its round (on rank 0's
+            # clock), the heartbeat from when it came in.
+            coord.announce(r, metas, t_in, sent=t_sent)
+            for kind, rank in notes:
+                coord.note_alert(kind, rank, now)
+        coord.maybe_adapt(now)
+        coord.check_stalls(now)
+        stalls = (coord.stalled(self.stall_warning_s)
+                  if self.stall_warning_s > 0 else {})
+        failures = coord.check_failures(now)
+        lost = len(got) < self.size
+        groups = [] if failures else coord.plan(threshold)
+        plan = _Plan(groups, lost or any(m[0][0] for m in got.values()),
+                     coord.pending() == 0, stalls, failures, coord.params())
         if self.size > 1:
-            got = [None] * self.size if self.rank == 0 else None
-            dist.gather_object((stop, metas), got, dst=0, group=self._ctrl)
-        plan = [None]
-        if self.rank == 0:
-            stalls = (self._coord.stalled(self.stall_warning_s)
-                      if self.stall_warning_s > 0 else {})
-            plan[0] = (self._coord.cycle([m for _, m in got], threshold),
-                       any(s for s, _ in got), self._coord.pending() == 0,
-                       stalls, time.monotonic())
-        if self.size > 1:
-            dist.broadcast_object_list(plan, src=0, group=self._ctrl)
-        groups, stopping, idle, self._missing, clock0 = plan[0]
-        if self.rank != 0 and self._clock_rounds < CLOCK_ROUNDS \
-                and self.timeline is not None:
-            self._clock_sample(t_sent, time.monotonic(), clock0)
-        return groups, stopping, idle
+            data = bytearray(pickle.dumps(plan))
+            n = torch.tensor([len(data)], dtype=torch.int64)
+            payload = torch.frombuffer(data, dtype=torch.uint8)
+            for r in sorted(got):
+                if r:
+                    dist.send(n, r, group=self._ctrl)
+                    dist.send(payload, r, group=self._ctrl)
+        return plan
+
+    def _gather_round(self, msg: tuple):
+        """Every rank's round message, ``{rank: (msg, t)}`` with ``t`` rank
+        0's clock when it came in. With ``failure_timeout_s`` set, rank 0
+        waits for a rank at most that long after the rank's last round;
+        a rank not heard from by then is left out (its coordinator then
+        reports ``heartbeat_timeout``). A rank never heard from is waited
+        for: a rendezvous may take longer."""
+        if self.size == 1:
+            return {0: (msg, time.monotonic())}
+        got = {}
+        sizes = [torch.empty(1, dtype=torch.int64) for _ in range(self.size)]
+        works = [(r, dist.irecv(sizes[r], r, group=self._ctrl))
+                 for r in range(1, self.size)]
+        seen = self._coord._last_seen
+        for r, work in works:
+            last = seen.get(r)
+            if self.failure_timeout_s <= 0 or last is None:
+                work.wait()
+            else:
+                left = last + self.failure_timeout_s - time.monotonic()
+                try:
+                    work.wait(datetime.timedelta(seconds=max(left, 1e-3)))
+                except RuntimeError as e:
+                    _log.error("rank %d sent no round message within the "
+                               "failure timeout (%.1f s): %s", r,
+                               self.failure_timeout_s, e)
+                    continue
+            got[r] = (_recv_payload(sizes[r], r, self._ctrl),
+                      time.monotonic())
+        got[0] = (msg, time.monotonic())     # rank 0 is here now
+        return got
+
+    def _apply_params(self, params: dict) -> None:
+        """The plan's params (JAX's fetch side channel): the wire epochs
+        replace this rank's list whole."""
+        we = params.get("wire_epochs")
+        if we:
+            epochs = [(int(fs), str(sp)) for fs, sp in we]
+            if epochs != self._wire_epochs:
+                _flight.recorder().note("wire_epoch", (";".join(
+                    f"{fs}:{sp or 'raw'}" for fs, sp in epochs),))
+            self._wire_epochs = epochs
+
+    def _on_failures(self, failures: List[dict], fatal: bool) -> None:
+        """Rank 0's failure events: note each, then fail every pending op
+        with the typed event (a ``slow_rank`` one a ``SlowRankFailure``);
+        ``fatal`` (a rank is lost) also closes the engine with it."""
+        from ..elastic.failure import failure_from_event
+        for f in failures:
+            _flight.recorder().note("failure", (
+                int(f.get("rank", -1)), str(f.get("kind", "")),
+                str(f.get("detail", ""))[:300]))
+        f = dict(failures[0])
+        f["detail"] = "; ".join(str(x.get("detail", "")) for x in failures)
+        err = failure_from_event(f)
+        _log.error("coordinator escalated worker failure: %s", err)
+        with self._lock:
+            pending = self._queue + list(self._announced.values())
+            self._queue, self._announced = [], {}
+            self._names.clear()
+            if fatal:
+                self._fatal = err
+        with self._cv:
+            for r in pending:
+                r.handle._state = (None, err, None)
+            self._cv.notify_all()
 
     # ------------------------------------------------------------ tracing
 
@@ -395,9 +727,8 @@ class CollectiveEngine:
         """The timeline writer of this rank, or None: without a
         ``{rank}`` placeholder in ``HOROVOD_TIMELINE`` only rank 0
         writes, with one every rank writes its own file. An unwritable
-        path disables the timeline rather than failing the ops. Rank 0
-        is the reference clock; the others take their offset to it from
-        the first ``CLOCK_ROUNDS`` negotiation rounds."""
+        path disables the timeline rather than failing the ops. Its clock
+        is unsynced until :meth:`_clock_handshake` writes the offset."""
         path = _env.resolved_timeline_path(self.rank)
         if not path:
             return None
@@ -407,11 +738,7 @@ class CollectiveEngine:
             _log.warning("timeline disabled: cannot open %s: %s", path, e)
             return None
         self._trace_path = path
-        if self.rank == 0:
-            tl.set_clock_meta(0.0, 0.0)
-            self._write_clock_sidecar(tl, 0.0, 0.0, True)
-        else:
-            self._write_clock_sidecar(tl, 0.0, 0.0, False)
+        self._write_clock_sidecar(tl, 0.0, 0.0, False)
         return tl
 
     def _write_clock_sidecar(self, tl: PyTimeline, offset_s: float,
@@ -425,18 +752,38 @@ class CollectiveEngine:
         except OSError as e:
             _log.warning("timeline clock sidecar not written: %s", e)
 
-    def _clock_sample(self, t_sent: float, t_got: float,
-                      clock0: float) -> None:
-        """One round's estimate of rank 0's clock minus ours: rank 0 read
-        ``clock0`` between this rank's send and the plan's arrival, taken
-        as the middle of the two; after ``CLOCK_ROUNDS`` rounds the
-        shortest round trip's estimate goes into the trace."""
-        rtt = t_got - t_sent
-        if self._clock is None or rtt < self._clock[0]:
-            self._clock = (rtt, clock0 - (t_sent + t_got) / 2)
-        self._clock_rounds += 1
-        if self._clock_rounds == CLOCK_ROUNDS:
-            rtt, offset = self._clock
+    def _clock_handshake(self) -> None:
+        """Each nonzero rank's offset to rank 0's clock, before the first
+        round: ``CLOCK_PINGS`` pings, each answered at once with rank 0's
+        clock (JAX's ``ClockProbeRequest``); rank 0 read it between the
+        ping's send and the reply's arrival, taken as the middle of the
+        two, and the shortest round trip's estimate wins. Rank 0 is the
+        reference clock. The rounds stamp each rank's send time on rank
+        0's clock with the offset (the skew tracker measures lateness from
+        those stamps), and the timeline, its sidecar and the flight
+        recorder's dump header carry it."""
+        best = (0.0, 0.0)       # (rtt, offset)
+        if self.size > 1:
+            buf = torch.zeros(1, dtype=torch.float64)
+            if self.rank == 0:
+                for r in range(1, self.size):
+                    for _ in range(CLOCK_PINGS):
+                        dist.recv(buf, r, group=self._ctrl)
+                        buf[0] = time.monotonic()
+                        dist.send(buf, r, group=self._ctrl)
+            else:
+                best = (float("inf"), 0.0)
+                for _ in range(CLOCK_PINGS):
+                    t0 = time.monotonic()
+                    dist.send(buf, 0, group=self._ctrl)
+                    dist.recv(buf, 0, group=self._ctrl)
+                    t1 = time.monotonic()
+                    if t1 - t0 < best[0]:
+                        best = (t1 - t0, float(buf[0]) - (t0 + t1) / 2)
+                self._clock_offset = best[1]
+        rtt, offset = best
+        _flight.recorder().set_clock_meta(offset, rtt, True)
+        if self.timeline is not None:
             self.timeline.set_clock_meta(offset, rtt)
             self._write_clock_sidecar(self.timeline, offset, rtt, True)
 
@@ -461,22 +808,28 @@ class CollectiveEngine:
                                          self._announced.values())
                 if now - r.enqueued_at > self.stall_warning_s)
         if not stalled:
+            # The episode resolved: no gauge names a finished op.
+            self._metrics.set_stalls([])
             return
-        lines = []
+        lines, entries = [], []
         for name, op, age in stalled:
             missing = self._missing.get(name)
             if missing is not None:
                 lines.append(f"{name} [missing ranks: "
                              f"{', '.join(map(str, missing))}] "
                              f"[{op}, waiting {int(age)}s]")
+                entries.append((name, age, ",".join(map(str, missing))))
             elif self.size > 1:
                 lines.append(f"{name} [{op}, waiting {int(age)}s; "
                              "announced, awaiting the coordinator's "
                              "grouping]")
+                entries.append((name, age, "unknown"))
             else:
                 lines.append(f"{name} [{op}, waiting {int(age)}s; one "
                              "rank, so no rank is missing: likely a "
                              "wedged engine or an op never announced]")
+                entries.append((name, age, "none(single-process)"))
+        self._metrics.set_stalls(entries)
         _log.warning(
             "One or more tensors were submitted to be reduced, gathered "
             "or broadcasted by subset of ranks and are waiting for "
@@ -526,9 +879,14 @@ class CollectiveEngine:
                                f"{', '.join(map(str, missing))}"
                                if missing is not None else ""))), None)
             self._cv.notify_all()
+        names = ", ".join(sorted(r.meta.name for r in overdue))
         _log.error("escalated %d stalled collectives to WorkerFailure "
                    "after %.1fs: %s", len(overdue), self.failure_timeout_s,
-                   ", ".join(sorted(r.meta.name for r in overdue)))
+                   names)
+        # The evidence, while the engine still remembers the episode.
+        _flight.recorder().note("stall", (names, round(max(
+            now - r.enqueued_at for r in overdue), 3)))
+        _flight.dump_on("stall_escalation")
 
     def _close(self, error: Optional[BaseException]) -> None:
         """Refuse new ops and fail the pending ones with ``error``, or with
@@ -545,11 +903,13 @@ class CollectiveEngine:
             self._cv.notify_all()
 
     def _fulfill(self, reqs: List[_Request], outs=None, error=None,
-                 done: Optional[_Done] = None, group: tuple = ()) -> None:
+                 done: Optional[_Done] = None, group: tuple = (),
+                 wire: Optional[str] = None) -> None:
         """Set every request's handle, then wake the waiters once."""
         with self._cv:
             for i, r in enumerate(reqs):
                 r.handle.group = group
+                r.handle.wire = wire
                 r.handle._state = (None if outs is None else outs[i], error,
                                    done)
             self._cv.notify_all()
@@ -568,67 +928,150 @@ class CollectiveEngine:
             reqs = [self._announced.pop(n) for n in g.names]
             self._names.difference_update(g.names)
         seq, self._group_seq = self._group_seq, self._group_seq + 1
+        op_name = OP_NAMES[g.op]
+        self._metrics.group_delivered(g.op, reqs, self._t_deliver)
+        _flight.recorder().group_deliver(seq, op_name, len(reqs))
         tl = self.timeline
         if tl is not None:
             for r in reqs:
-                tl.negotiate_span(r.meta.name, OP_NAMES[g.op], r.enqueued_at,
+                tl.negotiate_span(r.meta.name, op_name, r.enqueued_at,
                                   self._t_deliver, group=seq)
         if g.error:
+            _flight.recorder().group_error(seq, op_name, len(reqs), g.error)
             self._fulfill(reqs, error=HorovodInternalError(g.error))
             return
+        # On CUDA the engine's stream waits on the events the submitters
+        # recorded (the host does not), and events recorded on it around
+        # the group time it on the card: execute is the group's seconds
+        # there, never the enqueue time of an asynchronous NCCL call. The
+        # card's figure is read in a later cycle (``collect_timings``).
         t_start = time.monotonic()
-        activity = self._activity + OP_NAMES[g.op].upper()
+        activity = self._activity + op_name.upper()
+        wire = (self._wire_override_for(seq, reqs)
+                if self._wire_epochs and g.op == ALLREDUCE else None)
         try:
             ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                    else contextlib.nullcontext())
             with ctx:
-                done = None
+                done = start = None
                 if self._stream is not None:
                     for ev in {id(r.ready): r.ready for r in reqs}.values():
                         self._stream.wait_event(ev)
                     for r in reqs:
                         r.tensor.record_stream(self._stream)
-                outs = self._run_group(g, reqs)
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(self._stream)
+                outs = self._run_group(g, reqs, wire)
                 for i, r in enumerate(reqs):
                     if r.target is not None:
                         r.target.detach().copy_(outs[i])
                         outs[i] = r.target
                 if self._stream is not None:
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record(self._stream)
                     # Results are views of a few buffers: one per dtype.
                     bases = {}
                     for o in outs:
                         b = o if o._base is None else o._base
                         bases[id(b)] = b
-                    done = _Done(event, tuple(bases.values()))
+                    done = _Done(end, tuple(bases.values()))
         except Exception as e:
+            t_end = time.monotonic()
             if tl is not None:
-                t_end = time.monotonic()
                 for r in reqs:
                     tl.execute_span(r.meta.name, activity, t_start, t_end)
+            _flight.recorder().group_error(seq, op_name, len(reqs), str(e))
             self._fulfill(reqs, error=HorovodInternalError(
-                f"{OP_NAMES[g.op]} of {g.names} failed: {e}"))
+                f"{op_name} of {g.names} failed: {e}"))
             return
-        if tl is not None:
-            t_end = time.monotonic()
-            for r, o in zip(reqs, outs):
-                tl.execute_span(r.meta.name, activity, t_start, t_end,
-                                o.shape)
+        ran = _Ran(g.op, seq, activity, self._t_deliver, t_start,
+                   [(r.meta.name, tuple(o.shape)) for r, o in zip(reqs, outs)],
+                   start, None if done is None else done.event)
+        if done is None:
+            self._record_executed(ran, time.monotonic())
+        else:
+            with self._ran_lock:
+                self._ran.append(ran)
         self.groups_executed += 1
-        self._fulfill(reqs, outs, done=done, group=tuple(g.names))
+        self._fulfill(reqs, outs, done=done, group=tuple(g.names),
+                      wire=wire)
 
-    def _run_group(self, g: Group, reqs: List[_Request]):
+    def collect_timings(self, block: bool = False) -> None:
+        """Record the execute phase of the CUDA groups the card has
+        finished, oldest first (with ``block``, of every group run so
+        far, waiting for the card): the seconds between the events
+        recorded before and after each on the engine's stream, from the
+        group's dispatch on the host clock. The engine calls it every
+        cycle, ``StepTimer`` at a step's end; a group the card has not
+        finished by then counts in a later step."""
+        with self._ran_lock:
+            while self._ran:
+                ran = self._ran[0]
+                if block:
+                    ran.end.synchronize()
+                elif not ran.end.query():
+                    return
+                self._ran.popleft()
+                self._record_executed(
+                    ran, ran.t_start + ran.start.elapsed_time(ran.end) / 1e3)
+
+    def _record_executed(self, ran: "_Ran", t_end: float) -> None:
+        """A group's queue and execute phases, its ``group_done`` and its
+        activity spans."""
+        op_name = OP_NAMES[ran.op]
+        self._metrics.group_executed(ran.op, ran.t_deliver, ran.t_start,
+                                     t_end)
+        _flight.recorder().group_done(ran.seq, op_name, len(ran.outs),
+                                      ran.t_deliver, ran.t_start, t_end)
+        tl = self.timeline
+        if tl is not None:
+            for name, shape in ran.outs:
+                tl.execute_span(name, ran.activity, ran.t_start, t_end, shape)
+
+    def _wire_override_for(self, seq: int, reqs: List[_Request]
+                           ) -> Optional[str]:
+        """The wire the policy's epochs put on fused allreduce group
+        ``seq``, or None: the last epoch at or below ``seq`` wins ("" is
+        raw again). Only groups of floating tensors with no wire of their
+        own are eligible."""
+        spec = None
+        for fs, sp in self._wire_epochs:
+            if seq >= fs:
+                spec = sp
+            else:
+                break
+        if not spec:
+            return None
+        for r in reqs:
+            if r.meta.wire is not None or not r.tensor.is_floating_point():
+                return None
+        self._metrics.adapted_group(spec)
+        return spec
+
+    def _run_group(self, g: Group, reqs: List[_Request],
+                   override: Optional[str] = None):
         m = reqs[0].meta
         ts = [r.tensor for r in reqs]
         if g.op == ALLREDUCE:
             post = m.postscale / self.size if m.average else m.postscale
             wire = _quant.parse(m.wire)
-            hier = g.flags & FLAG_HIERARCHICAL_ALLREDUCE and wire is None
-            return _exec.fused_allreduce(ts,
+            restore = None
+            # The policy's wire: "bf16" moves a cast, the blockwise specs
+            # ride the quantized wire.
+            if override == "bf16":
+                restore = [t.dtype for t in ts]
+                ts = [t.to(torch.bfloat16) for t in ts]
+            elif override:
+                wire = _quant.parse(override)
+            hier = g.flags & FLAG_HIERARCHICAL_ALLREDUCE and wire is None \
+                and restore is None
+            outs = _exec.fused_allreduce(ts,
                                          self._hier_sum if hier else self._sum,
                                          m.prescale, post, wire, self.size,
                                          self._all_to_all, self._all_gather)
+            if restore is not None:
+                outs = [o.to(dt) for o, dt in zip(outs, restore)]
+            return outs
         if g.op == BROADCAST:
             return _exec.fused_broadcast(
                 ts, lambda b: self._broadcast(b, m.root_rank))

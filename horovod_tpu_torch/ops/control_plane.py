@@ -1,19 +1,24 @@
 """The collective engine's decisions: cross-rank validation and fusion.
 
 Counterpart of the coordinator half of ``horovod_tpu/ops/control_plane.py``
-(``_validate``) and of the engine's planner in
-``horovod_tpu/ops/collective.py`` (``_fusion_key``, ``_plan_fusion``), in
-plain Python with no I/O. Every rank announces the metadata of its
-requests (:class:`Meta`); the :class:`Coordinator` (rank 0's, or the
-process's own at world size 1) collects them per name until every rank
-has announced it, validates the entry and plans the ready entries into
-ordered groups. The engine (``ops/collective.py``) carries the
-announcements and the plan between ranks.
+(``_validate``, ``CoordinatorService``'s skew tracker, wire-epoch
+arbiter, stall blame, failure events and adaptation glue) and of the
+engine's planner in ``horovod_tpu/ops/collective.py`` (``_fusion_key``,
+``_plan_fusion``), in plain Python with no I/O. Every rank announces the
+metadata of its requests (:class:`Meta`); the :class:`Coordinator`
+(rank 0's, or the process's own at world size 1) collects them per name
+until every rank has announced it, validates the entry and plans the
+ready entries into ordered groups. The engine (``ops/collective.py``)
+carries the announcements, the ranks' alert notes and the plan between
+ranks in its negotiation rounds; the plan also carries the failure
+events and the params (the wire epochs) that JAX's coordinator ships in
+its fetch responses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import time
 import zlib
@@ -22,6 +27,10 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from .. import quantization as _quant
+from ..observability import registry as _obs
+from ..utils import env as _env
+
+_log = logging.getLogger(__name__)
 
 ALLREDUCE, ALLGATHER, BROADCAST = 0, 1, 2
 OP_NAMES = {ALLREDUCE: "allreduce", ALLGATHER: "allgather",
@@ -230,15 +239,194 @@ class Group:
     flags: int = 0      # FLAG_HIERARCHICAL_*
 
 
+
+
+class _SkewTracker:
+    """Per-rank negotiate-lateness accounting from the coordinator's
+    announce ticks (the live half of the cross-rank tracing subsystem,
+    docs/tracing.md): the coordinator is the one place that sees WHEN
+    each rank announced each tensor, so it can quantify skew without any
+    trace files. For every tensor that reaches quorum, each rank's
+    lateness is its announce tick minus the first rank's; the per-rank
+    distribution goes to ``hvdtpu_negotiate_lateness_seconds{rank=}``
+    and an exponentially-decayed accumulator elects the current
+    straggler (``hvdtpu_straggler_rank``). The MLPerf pod study (arxiv
+    1909.09756) attributes most scaling loss to exactly this skew; this
+    makes it a scrapeable number instead of a "ranks N,M not ready"
+    log line."""
+
+    # Decay per completed tensor: ~0.99^400 ≈ 0.02, so the straggler
+    # election follows the last few hundred collectives (a few training
+    # steps), not the whole job history.
+    DECAY = 0.99
+
+    def __init__(self, nproc: int):
+        self._nproc = nproc
+        self._pending: Dict[str, Dict[int, float]] = {}
+        r = _obs.registry()
+        self._m_lateness = r.histogram(
+            "hvdtpu_negotiate_lateness_seconds",
+            "Per-rank announce lateness behind the first-announcing rank, "
+            "per fully-announced tensor (rank-0 coordinator view)",
+            buckets=_obs.LATENCY_BUCKETS)
+        self._m_lateness_total = r.counter(
+            "hvdtpu_negotiate_lateness_seconds_total",
+            "Cumulative announce-lateness seconds by rank")
+        # Re-key on (re-)rendezvous: these families are labeled by rank
+        # under the CURRENT world size. A new tracker means a new world
+        # (elastic shrink/grow, or a reset coordinator in tests) — an
+        # evicted rank's per-rank children lingering in the export would
+        # keep naming it as the straggler forever, so the rank-keyed
+        # series are dropped and rebuilt rather than accumulated across
+        # worlds (unlike the world-agnostic totals elsewhere).
+        self._m_lateness.clear()
+        self._m_lateness_total.clear()
+        self._m_straggler = r.gauge(
+            "hvdtpu_straggler_rank",
+            "Rank with the highest recent negotiate lateness "
+            "(exponentially decayed; -1 until any skew is observed)"
+        ).labels()
+        self._m_straggler_lateness = r.gauge(
+            "hvdtpu_straggler_lateness_seconds",
+            "Decay-weighted mean negotiate lateness of the current "
+            "straggler rank").labels()
+        self._m_straggler_lateness.set(0.0)
+        self._hist_children = {
+            rk: self._m_lateness.labels(rank=str(rk))
+            for rk in range(nproc)}
+        self._total_children = {
+            rk: self._m_lateness_total.labels(rank=str(rk))
+            for rk in range(nproc)}
+        self._acc = [0.0] * nproc
+        self._weight = [0.0] * nproc
+        self._m_straggler.set(-1)
+
+    def note(self, rank: int, names, now: float) -> None:
+        """Record ``rank``'s announce tick for each tensor name; on
+        quorum, fold the per-rank lateness into the metrics."""
+        for name in names:
+            entry = self._pending.setdefault(name, {})
+            if rank in entry:
+                continue  # duplicate announce (client retry)
+            entry[rank] = now
+            if len(entry) < self._nproc:
+                continue
+            del self._pending[name]
+            t0 = min(entry.values())
+            for rk, t in entry.items():
+                late = t - t0
+                self._hist_children[rk].observe(late)
+                self._total_children[rk].inc(late)
+                self._acc[rk] = self._acc[rk] * self.DECAY + late
+                self._weight[rk] = self._weight[rk] * self.DECAY + 1.0
+            worst = max(range(self._nproc), key=lambda rk: self._acc[rk])
+            if self._acc[worst] > 0.0:
+                self._m_straggler.set(worst)
+                self._m_straggler_lateness.set(
+                    self._acc[worst] / self._weight[worst])
+
+    def recent_lateness_by_rank(self) -> Dict[int, float]:
+        """Decay-weighted mean lateness per rank — the quantitative tail
+        for the stall warning."""
+        return {rk: self._acc[rk] / self._weight[rk]
+                for rk in range(self._nproc) if self._weight[rk] > 0.0}
+
+    def prune(self, older_than: float) -> None:
+        """Drop partially-announced entries whose newest tick is older
+        than ``older_than`` (monotonic seconds): tensors stuck past the
+        stall window are the stall detector's story; keeping their ticks
+        forever would grow coordinator memory on misbehaving jobs."""
+        stale = [n for n, e in self._pending.items()
+                 if max(e.values()) < older_than]
+        for n in stale:
+            del self._pending[n]
+
+
+class WireEpochArbiter:
+    """The one place wire epochs are stamped (JAX's ``WireEpochArbiter``,
+    ``control_plane.py:372``): an epoch ``(from_seq, spec)`` declares
+    that the groups planned from ``from_seq`` on move on ``spec`` (""
+    raw). The coordinator stamps it at the next group it plans, before
+    planning it, and ships the whole list in every plan, so every rank
+    maps each group's sequence to the same wire. The port has one
+    producer, the adaptation ladder; the global tuner (item 5e) brings
+    JAX's precedence between the two."""
+
+    def __init__(self, next_seq):
+        self._next_seq = next_seq    # () -> the next group's sequence
+        self.wire_epochs: List[Tuple[int, str]] = []
+
+    def propose_wire(self, spec: Optional[str]) -> dict:
+        seq = int(self._next_seq())
+        value = spec or ""
+        current = self.wire_epochs[-1][1] if self.wire_epochs else ""
+        if value == current:
+            return {"accepted": False, "from_seq": seq, "reason": "noop"}
+        self.wire_epochs.append((seq, value))
+        return {"accepted": True, "from_seq": seq, "reason": "ok"}
+
+
 class Coordinator:
     """Collects announcements per name and, once every rank announced a
     name, validates and plans it. Entries complete in the order their
-    names were first announced. ``flags`` go into every group."""
+    names were first announced. ``flags`` go into every group.
 
-    def __init__(self, size: int, flags: int = 0):
+    Rank 0's coordinator also does what JAX's ``CoordinatorService``
+    does beside planning: the skew tracker (each rank's announce
+    lateness, from the round each rank's announcement of a name came
+    in), the heartbeat (the last round each rank joined), the stall
+    report's blame ledger, the failure events past
+    ``HOROVOD_TPU_FAILURE_TIMEOUT``, and with
+    ``HOROVOD_TPU_ADAPTATION=1`` the adaptation policy, whose knobs
+    (the shrunk fusion threshold, the wire epochs keyed on the group
+    sequence) reach every rank in the plan's params. The other ranks'
+    coordinators (``primary=False``) hold the flags only and register no
+    metrics, as JAX's workers host no coordinator service."""
+
+    def __init__(self, size: int, flags: int = 0,
+                 stall_warning_s: Optional[float] = None,
+                 primary: bool = True):
         self.size = size
         self.flags = flags
         self._table: Dict[str, Entry] = {}
+        self.next_seq = 0             # the sequence of the next group
+        self.stall_warning_s = (stall_warning_s if stall_warning_s
+                                is not None else _env.stall_warning_secs())
+        self.failure_timeout_s = _env.failure_timeout_secs()
+        self._last_seen: Dict[int, float] = {}
+        self._last_stall_check = time.monotonic()
+        self._stall_blame: Dict[int, float] = {}
+        self._escalated_stalls: Dict[int, str] = {}
+        self._failures_reported: set = set()
+        self._arbiter = WireEpochArbiter(lambda: self.next_seq)
+        self._policy = None
+        self._policy_failures: List[dict] = []
+        self._skew = _SkewTracker(size) if primary and size > 1 else None
+        if not primary:
+            return
+        r = _obs.registry()
+        self._m_stalled_count = r.gauge(
+            "hvdtpu_coordinator_stalled_tensors",
+            "Tensors announced by only a subset of ranks past the stall "
+            "warning window (rank-0 coordinator view)").labels()
+        self._m_stalled_info = r.gauge(
+            "hvdtpu_coordinator_stalled_tensor_seconds",
+            "Per stalled tensor: seconds since first announce, labeled "
+            "with the ranks that have not announced it")
+        self._m_failures = r.counter(
+            "hvdtpu_coordinator_failure_events_total",
+            "Escalated worker-failure events, by kind")
+        self._m_alert_notes = r.counter(
+            "hvdtpu_coordinator_alert_notes_total",
+            "Health alerts forwarded by remote ranks as adaptation "
+            "ladder inputs, by alert kind (docs/health.md#adaptation)")
+        if _env.adaptation_enabled():
+            from ..adaptation.policy import (AdaptationConfig,
+                                             AdaptationPolicy)
+            self._policy = AdaptationPolicy(
+                AdaptationConfig.from_env(),
+                allow_evict=self.failure_timeout_s > 0)
+            self._last_policy_tick = time.monotonic()
 
     def pending(self) -> int:
         return len(self._table)
@@ -252,13 +440,38 @@ class Coordinator:
                 for nm, e in self._table.items()
                 if now - e.first_seen > older_than}
 
-    def cycle(self, announcements: Sequence[Sequence[Meta]],
-              threshold: int) -> List[Group]:
-        """``announcements[r]``: rank r's new requests this cycle. Returns
-        the groups to execute, in order."""
-        for rank, metas in enumerate(announcements):
-            for m in metas:
-                self._table.setdefault(m.name, Entry()).add(rank, m)
+    # ------------------------------------------------------------ rounds
+
+    def announce(self, rank: int, metas: Sequence[Meta],
+                 now: Optional[float] = None,
+                 sent: Optional[float] = None) -> None:
+        """Rank ``rank`` joined a round (its heartbeat) with ``metas``,
+        received at ``now``, sent at ``sent`` (on this clock; default
+        ``now``): the skew tracker takes each rank's lateness from it."""
+        now = time.monotonic() if now is None else now
+        self._last_seen[rank] = now
+        for m in metas:
+            self._table.setdefault(m.name, Entry()).add(rank, m)
+        if self._skew is not None and metas:
+            self._skew.note(rank, [m.name for m in metas],
+                            now if sent is None else sent)
+
+    def threshold(self, base: int) -> int:
+        """The fusion threshold the planner cuts with: ``base`` divided by
+        the policy's ``shrink_factor`` while its ``shrink`` tier is
+        active."""
+        if self._policy is not None and self._policy.shrink_active():
+            return base // self._policy.config.shrink_factor
+        return base
+
+    def plan(self, threshold: int) -> List[Group]:
+        """Plan every name all ranks have announced; groups are numbered
+        from :attr:`next_seq` on, as every rank executes them."""
+        groups = self._plan(self.threshold(threshold))
+        self.next_seq += len(groups)
+        return groups
+
+    def _plan(self, threshold: int) -> List[Group]:
         done = [(nm, e) for nm, e in self._table.items()
                 if len(e.by_rank) == self.size]
         for nm, _ in done:
@@ -295,3 +508,145 @@ class Coordinator:
                                     {n: rows[n] for n in names if n in rows},
                                     self.flags))
         return groups
+
+    # ------------------------------------------------- stalls and failures
+
+    def check_stalls(self, now: Optional[float] = None
+                     ) -> Dict[str, List[int]]:
+        """At most once every ``stall_warning_s``: export the stall report
+        as the coordinator's gauges and keep the blame ledger, so that a
+        rank named missing by stall reports for more than
+        ``failure_timeout_s`` becomes a ``stall`` failure event (the
+        ``drop_announce`` fault's shape: the rank keeps joining rounds,
+        so only the stall report names it). A rank the report no longer
+        names is cleared. Returns the report, or {} between checks."""
+        now = time.monotonic() if now is None else now
+        if (self.stall_warning_s <= 0
+                or now - self._last_stall_check < self.stall_warning_s):
+            return {}
+        self._last_stall_check = now
+        if self._skew is not None:
+            self._skew.prune(now - 2.0 * self.stall_warning_s)
+        report = {nm: [r for r in range(self.size) if r not in e.by_rank]
+                  for nm, e in sorted(self._table.items())
+                  if now - e.first_seen > self.stall_warning_s}
+        if self.failure_timeout_s > 0:
+            named = {r for missing in report.values() for r in missing}
+            for rk in named:
+                first = self._stall_blame.setdefault(rk, now)
+                if now - first > self.failure_timeout_s \
+                        and rk not in self._escalated_stalls:
+                    self._escalated_stalls[rk] = (
+                        f"rank {rk} named missing by stall reports for "
+                        f"{now - first:.1f}s (> failure timeout "
+                        f"{self.failure_timeout_s:.1f}s)")
+            for rk in list(self._stall_blame):
+                if rk not in named:
+                    del self._stall_blame[rk]
+        self._m_stalled_info.clear()
+        self._m_stalled_count.set(len(report))
+        for nm, missing in report.items():
+            self._m_stalled_info.labels(
+                tensor=nm, missing_ranks=",".join(map(str, missing))).set(
+                now - self._table[nm].first_seen)
+        return report
+
+    def check_failures(self, now: Optional[float] = None) -> List[dict]:
+        """Failure events past ``failure_timeout_s`` (none when it is 0,
+        the default): the policy's evictions (kept until the world
+        re-forms, so an idle rank still learns of them), the stall
+        blame's escalations, ranks that joined a round once and have
+        been silent since past the timeout (``heartbeat_timeout``; a rank
+        never seen is not flagged: a rendezvous may take longer), and
+        names stuck partially announced past it, blamed on their first
+        missing rank. Each (rank, kind) is counted once."""
+        if self.failure_timeout_s <= 0:
+            return []
+        now = time.monotonic() if now is None else now
+        failures = list(self._policy_failures)
+        for rank, detail in sorted(self._escalated_stalls.items()):
+            failures.append({"rank": rank, "kind": "stall",
+                             "detail": detail})
+        for rank, t in sorted(self._last_seen.items()):
+            if now - t > self.failure_timeout_s:
+                failures.append({
+                    "rank": rank, "kind": "heartbeat_timeout",
+                    "detail": (f"rank {rank} last joined a negotiation "
+                               f"round {now - t:.1f}s ago (failure "
+                               f"timeout {self.failure_timeout_s:.1f}s)")})
+        for nm, e in sorted(self._table.items()):
+            age = now - e.first_seen
+            if age > self.failure_timeout_s:
+                missing = [r for r in range(self.size) if r not in e.by_rank]
+                failures.append({
+                    "rank": missing[0] if missing else -1, "kind": "stall",
+                    "detail": (f"tensor {nm} waited {age:.1f}s (> failure "
+                               f"timeout) for ranks {missing}")})
+        for f in failures:
+            key = (f["rank"], f["kind"])
+            if key not in self._failures_reported:
+                self._failures_reported.add(key)
+                self._m_failures.labels(kind=f["kind"]).inc()
+        return failures
+
+    # ---------------------------------------------------------- adaptation
+
+    def note_alert(self, kind: str, rank: int,
+                   now: Optional[float] = None) -> None:
+        """A remote rank's health alert, carried in its round: counted,
+        and pressure on the policy's ladder when one is armed."""
+        self._m_alert_notes.labels(kind=str(kind)).inc()
+        if self._policy is not None:
+            self._policy.note_alert(kind, int(rank), time.monotonic()
+                                    if now is None else now)
+
+    @property
+    def wire_epochs(self) -> List[Tuple[int, str]]:
+        return self._arbiter.wire_epochs
+
+    def maybe_adapt(self, now: Optional[float] = None) -> None:
+        """One policy evaluation (every ``interval_s``), applied as JAX's
+        coordinator applies it (``control_plane.py:1006-1051``): the
+        planner's threshold (:meth:`threshold`), a wire epoch from the
+        next group on when the wire tier changed, and a ``slow_rank``
+        failure event at the top of the ladder. Rank 0's own health
+        alerts come from the local queue; the others' through
+        :meth:`note_alert`."""
+        if self._policy is None:
+            return
+        now = time.monotonic() if now is None else now
+        if now - self._last_policy_tick < self._policy.config.interval_s:
+            return
+        self._last_policy_tick = now
+        from ..observability import health as _health
+        for a in _health.drain_policy_alerts():
+            self._policy.note_alert(a["kind"], a["rank"], now)
+        prev_wire = self._policy.wire_spec()
+        events = self._policy.observe(
+            self._skew.recent_lateness_by_rank()
+            if self._skew is not None else {}, now)
+        if not events:
+            return
+        wire = self._policy.wire_spec()
+        if wire != prev_wire:
+            self._arbiter.propose_wire(wire)
+        for ev in events:
+            if ev["name"] == "evict" and ev["action"] == "escalate":
+                self._policy_failures.append({
+                    "rank": ev["rank"], "kind": "slow_rank",
+                    "detail": (
+                        f"rank {ev['rank']} evicted by the adaptation "
+                        f"policy: negotiate lateness "
+                        f"{ev['lateness_s'] * 1e3:.1f} ms sustained above "
+                        f"{self._policy.config.threshold_s * 1e3:.1f} ms "
+                        "through every degradation tier "
+                        f"({', '.join(self._policy.config.tiers[:-1])})")})
+
+    def params(self) -> dict:
+        """What every engine needs beside the groups (JAX's
+        ``_adapted_params``): the wire epochs, or {} while none exists.
+        JAX's fusion threshold is not among them: rank 0 plans every
+        rank's groups, so only its planner cuts with it."""
+        if not self._arbiter.wire_epochs:
+            return {}
+        return {"wire_epochs": [list(e) for e in self._arbiter.wire_epochs]}

@@ -39,6 +39,7 @@ suffix in ``FORMS`` (``_f32``: bf16 operands, fp32 outputs; ``_f16``,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -320,13 +321,50 @@ def _from_bh(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
     return x.reshape(b, h, s, d).transpose(1, 2)
 
 
+# Model-FLOP counting (``observability.step_metrics.flops_of_step``):
+# torch's FlopCounterMode sees aten ops only, not the kernels, so while a
+# counter is active the flash op adds its work by torch's own SDPA
+# formulas (the full S x S products, as the plain attention's batched
+# matmuls count) and hides its inner ops from the counter. torch's
+# backward formula also counts the scores' recompute (Q K^T again), work
+# a flash backward does but the model does not: it is left out, so a
+# step counts what the same step through the plain attention counts.
+FLOP_COUNTERS: list = []
+
+
+def _count_flops(backward: bool, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor):
+    """Add one flash call's FLOPs (``q``, ``k``, ``v`` in ``[b, s, h,
+    d]``) to every active counter; returns the context that hides the
+    call's own ops from them."""
+    from torch.utils import flop_counter as _fc
+    from torch.utils._python_dispatch import _disable_current_modes
+    b, sq, h, d = q.shape
+    qs, ks, vs = (b, h, sq, d), (b, h, k.shape[1], d), \
+        (b, h, v.shape[1], v.shape[3])
+    if backward:
+        key = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        n = (_fc.sdpa_backward_flop_count(qs, qs, ks, vs)
+             - 2 * b * h * sq * k.shape[1] * d)     # the recompute
+    else:
+        key = torch.ops.aten._scaled_dot_product_flash_attention
+        n = _fc.sdpa_flop_count(qs, ks, vs)
+    for mode in FLOP_COUNTERS:
+        tracker = getattr(mode, "mod_tracker", None)
+        for par in set(getattr(tracker, "parents", None) or ("Global",)):
+            mode.flop_counts[par][key] += n
+    return _disable_current_modes()
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        b, _, h, _ = q.shape
-        qb, kb, vb = _to_bh(q), _to_bh(k), _to_bh(v)
-        ob, lse = _flash_fwd(qb, kb, vb, scale, causal)
+        with (_count_flops(False, q, k, v) if FLOP_COUNTERS
+              else contextlib.nullcontext()):
+            b, _, h, _ = q.shape
+            qb, kb, vb = _to_bh(q), _to_bh(k), _to_bh(v)
+            ob, lse = _flash_fwd(qb, kb, vb, scale, causal)
         ctx.save_for_backward(qb, kb, vb, ob, lse)
         ctx.causal, ctx.scale, ctx.bh = causal, scale, (b, h)
         return _from_bh(ob, b, h)
@@ -335,13 +373,17 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         qb, kb, vb, ob, lse = ctx.saved_tensors
         b, h = ctx.bh
-        gb = _to_bh(g.to(qb.dtype))
-        # delta = rowsum(dO * O), the softmax-jacobian diagonal term.
-        delta = (gb.float() * ob.float()).sum(-1, keepdim=True)
-        dq, dk, dv = _flash_bwd(qb, kb, vb, gb, lse, delta, ctx.scale,
-                                ctx.causal)
-        return (_from_bh(dq, b, h), _from_bh(dk, b, h), _from_bh(dv, b, h),
-                None, None)
+        with (_count_flops(True, _from_bh(qb, b, h), _from_bh(kb, b, h),
+                           _from_bh(vb, b, h)) if FLOP_COUNTERS
+              else contextlib.nullcontext()):
+            gb = _to_bh(g.to(qb.dtype))
+            # delta = rowsum(dO * O), the softmax-jacobian diagonal term.
+            delta = (gb.float() * ob.float()).sum(-1, keepdim=True)
+            dq, dk, dv = _flash_bwd(qb, kb, vb, gb, lse, delta, ctx.scale,
+                                    ctx.causal)
+            out = (_from_bh(dq, b, h), _from_bh(dk, b, h),
+                   _from_bh(dv, b, h))
+        return out + (None, None)
 
 
 def flash_attention(q, k, v, causal: bool = True,

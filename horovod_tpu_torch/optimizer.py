@@ -26,6 +26,11 @@ ones, keeps one hook and one request per gradient (named
 
 The broadcasts go through the engine too: only its thread issues
 collectives.
+
+The bucket plane's metric families are the JAX shim's
+(``_ShimMetrics``): fires by trigger, bucket bytes, the configured
+buckets and gradient views, view rebinds and skipped steps; a
+re-partition (``set_bucket_cap_mb``) is a flight-recorder note.
 """
 
 from __future__ import annotations
@@ -42,8 +47,60 @@ import torch
 from . import quantization as _quant
 from . import topology as _topo
 from .compression import Compression
+from .observability import flight_recorder as _flight
+from .observability import registry as _obs
 from .ops import collective as _coll
 from .utils import env as _env
+
+
+class _ShimMetrics:
+    """Registry handles of the bucket plane, resolved once per process
+    (``horovod_tpu/torch/__init__.py:79-130``)."""
+
+    _instance = None
+
+    def __init__(self):
+        r = _obs.registry()
+        fires = r.counter(
+            "hvdtpu_torch_bucket_fires_total",
+            "Torch gradient buckets submitted to the engine, by trigger "
+            "(hook = last grad hook landed during backward — the "
+            "overlap path; flush = synchronize() drained a bucket whose "
+            "hooks had not all fired)")
+        self.fires = {t: fires.labels(trigger=t) for t in ("hook", "flush")}
+        self.bucket_bytes = r.counter(
+            "hvdtpu_torch_bucket_bytes_total",
+            "Bytes of bucketed gradient payload submitted to the "
+            "engine (bucket-buffer bytes at the wire dtype)").labels()
+        self.buckets = r.gauge(
+            "hvdtpu_torch_buckets",
+            "Gradient buckets configured by the most recently "
+            "constructed DistributedOptimizer (0 = per-tensor "
+            "mode)").labels()
+        self.view_rebinds = r.counter(
+            "hvdtpu_torch_grad_view_rebinds_total",
+            "gradient_as_bucket_view repairs: autograd (or user code) "
+            "replaced an aliased p.grad with a fresh tensor — e.g. "
+            "zero_grad(set_to_none=True) outside the optimizer — and "
+            "the hook copied it back into the bucket buffer and "
+            "re-aliased. A steadily climbing count means the zero-copy "
+            "pack is silently degrading to the memcpy path "
+            "(docs/torch.md)").labels()
+        self.view_params = r.gauge(
+            "hvdtpu_torch_grad_view_params",
+            "Parameters whose .grad is aliased into a bucket buffer by "
+            "the most recently constructed DistributedOptimizer").labels()
+        self.skipped_steps = r.counter(
+            "hvdtpu_torch_skipped_steps_total",
+            "Optimizer steps skipped by skip_nonfinite_steps because "
+            "the bucket pack observed nonfinite gradient elements "
+            "(docs/numerics.md#torch)").labels()
+
+    @classmethod
+    def get(cls) -> "_ShimMetrics":
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
 
 
 def allreduce_gradients(grads, *, average: bool = True,
@@ -171,6 +228,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             gradient_as_bucket_view = _env.torch_grad_view()
         if gradient_as_bucket_view and self._buckets:
             self._install_grad_views()
+        self._metrics = _ShimMetrics.get()
+        self._metrics.buckets.set(len(self._buckets))
+        self._metrics.view_params.set(len(self._grad_views))
         self._register_hooks()
 
     # ------------------------------------------------------------- buckets
@@ -232,6 +292,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 for p in b.params:
                     if p.grad is not None and id(p) in self._grad_views:
                         p.grad = p.grad.detach().clone()
+        old_n = len(self._buckets)
         self._buckets = []
         self._param_bucket = {}
         self._bucket_residuals = {}
@@ -239,6 +300,37 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._build_buckets(float(bucket_cap_mb) * 2 ** 20)
         if had_views:
             self._install_grad_views()
+        self._metrics.buckets.set(len(self._buckets))
+        self._metrics.view_params.set(len(self._grad_views))
+        _flight.recorder().note("autotune", (
+            "bucket_repartition", "torch_bucket_mb", str(bucket_cap_mb),
+            None, None, f"buckets {old_n} -> {len(self._buckets)}"))
+
+    def set_compression(self, compression) -> None:
+        """Switch the wire compressor at a step boundary (JAX's
+        ``set_compression``, the optimizer-level hook of the adaptation
+        ladder). The error-feedback residuals measured the old wire's
+        quantizer, so they restart from zero: carried across the switch
+        they would correct for what the new wire never dropped. The
+        buckets keep their wire dtype and hooks, so a bucketed optimizer
+        switches only among compressors with the same wire dtype that
+        it could bucket (none and the blockwise ones)."""
+        if self._handles:
+            raise RuntimeError(
+                "set_compression while collectives are in flight; call "
+                "synchronize() or step() first")
+        if self._buckets and (
+                not _bucketable(compression)
+                or getattr(compression, "wire_dtype", None)
+                != getattr(self._compression, "wire_dtype", None)):
+            raise ValueError(
+                "set_compression on a bucketed optimizer keeps the "
+                "buckets' wire dtype: switch among none, int8_blockwise "
+                "and fp8_blockwise")
+        self._compression = compression
+        self._blockwise = compression if getattr(
+            compression, "wire_spec", None) is not None else None
+        self._bucket_residuals = {}
 
     def _install_grad_views(self) -> None:
         """Make each ``p.grad`` whose dtype is its bucket's a view of the
@@ -278,6 +370,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 self._nonfinite = nf if self._nonfinite is None \
                     else self._nonfinite + nf
             self.bucket_fires[trigger] += 1
+            self._metrics.fires[trigger].inc()
+            self._metrics.bucket_bytes.inc(b.numel * b.buffer.element_size())
         h = _coll.fused_allreduce_async_(
             [b.buffer for b in buckets], True,
             names=[b.name for b in buckets], compression=self._blockwise)
@@ -325,6 +419,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                         b.fill(p)
                         with torch.no_grad():
                             p.grad = view
+                        self._metrics.view_rebinds.inc()
                     b.ready.add(id(p))
                     if len(b.ready) == len(b.params):
                         # The bucket's last gradient landed: fire it now,
@@ -432,6 +527,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 and int(nonfinite):
             # Every rank ran the same collectives; only the update is
             # skipped, so the averaged NaN/Inf never reach the weights.
+            self._metrics.skipped_steps.inc()
             warnings.warn("skip_nonfinite_steps: nonfinite gradient "
                           "elements this step; optimizer update skipped")
             return None

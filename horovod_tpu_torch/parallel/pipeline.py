@@ -43,7 +43,10 @@ and receives in the same order.
 Static accounting (:class:`PipelineSchedule`, :func:`schedule_info`) is
 a copy of JAX's: every tick costs wall time on every rank, so the bubble
 share is the fraction of the schedule's compute budget not spent on
-microbatch work.
+microbatch work. Each distinct schedule a process runs sets JAX's
+``hvdtpu_pipeline_bubble_share`` and ``hvdtpu_pipeline_ticks`` gauges
+and is a flight-recorder ``pipeline`` note, as JAX records each
+pipeline program it builds.
 """
 
 from __future__ import annotations
@@ -142,6 +145,56 @@ def schedule_info(schedule: str, num_stages: int, num_microbatches: int,
     _validate(schedule, num_stages, num_microbatches, v)
     return PipelineSchedule(schedule, num_stages, num_microbatches, v,
                             cost_fwd, cost_bwd)
+
+
+class _PipelineMetrics:
+    _instance = None
+
+    def __init__(self):
+        from ..observability import registry as _obs
+        r = _obs.registry()
+        self.bubble = r.gauge(
+            "hvdtpu_pipeline_bubble_share",
+            "Static bubble share of the most recently built pipeline "
+            "program per schedule: the fraction of the schedule's "
+            "compute-cost budget spent on masked (non-microbatch) work, "
+            "from the tick budget — compare against the measured step "
+            "phases to see how much of a comm-bound verdict is schedule "
+            "bubble (docs/pipeline.md)")
+        self.ticks = r.gauge(
+            "hvdtpu_pipeline_ticks",
+            "Scan trip counts of the most recently built pipeline "
+            "program, by schedule and phase (warmup/steady/drain)")
+
+    @classmethod
+    def get(cls) -> "_PipelineMetrics":
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
+
+
+_recorded_schedules: set = set()
+
+
+def _record_schedule(sched: PipelineSchedule) -> None:
+    """The static bubble and tick gauges and a flight-recorder note for a
+    schedule, once per distinct schedule in this process (JAX records
+    each pipeline program when it is built)."""
+    key = dataclasses.astuple(sched)
+    if key in _recorded_schedules:
+        return
+    _recorded_schedules.add(key)
+    metrics = _PipelineMetrics.get()
+    metrics.bubble.labels(schedule=sched.name).set(
+        round(sched.bubble_share, 6))
+    for phase, count in sched.ticks.items():
+        metrics.ticks.labels(schedule=sched.name, phase=phase).set(
+            float(count))
+    from ..observability import flight_recorder as _fr
+    _fr.recorder().note("pipeline", (
+        sched.name, sched.num_stages, sched.num_microbatches,
+        sched.num_virtual, sched.ticks["warmup"], sched.ticks["steady"],
+        sched.ticks["drain"], round(sched.bubble_share, 6)))
 
 
 def _validate(schedule: str, n: int, m: int, v: int) -> None:
@@ -607,7 +660,8 @@ def _zb_program(idx, n, stage_fn, call, params, x_mb, lp, want_xg):
 
 def _value_and_grad_chunks(ring, stage_fn, loss_fn, chunks, x_mb, *,
                            schedule="1f1b", num_virtual=1, loss_aux=None,
-                           loss_params=None, return_input_grads=False):
+                           loss_params=None, return_input_grads=False,
+                           cost_backward=2.0):
     """The schedule on every rank ``ring`` drives. ``chunks``: per rank,
     its V chunk trees (V = 1 but for interleaved); ``x_mb``,
     ``loss_aux`` and ``loss_params``: per rank (or None). Returns per
@@ -620,6 +674,8 @@ def _value_and_grad_chunks(ring, stage_fn, loss_fn, chunks, x_mb, *,
     m = x_mb[0].shape[0]
     v = num_virtual if schedule == "interleaved" else 1
     _validate(schedule, n, m, v)
+    _record_schedule(PipelineSchedule(schedule, n, m, v, 1.0,
+                                      float(cost_backward)))
     k = len(ring.ranks)
     loss_aux = loss_aux if loss_aux is not None else [None] * k
     lps = (loss_params if loss_params is not None else [None] * k)
@@ -646,7 +702,8 @@ def _value_and_grad_chunks(ring, stage_fn, loss_fn, chunks, x_mb, *,
 
 def _value_and_grad(ring, stage_fn, loss_fn, params, x_mb, *,
                     schedule="1f1b", num_virtual=1, loss_aux=None,
-                    loss_params=None, return_input_grads=False):
+                    loss_params=None, return_input_grads=False,
+                    cost_backward=2.0):
     """:func:`pipeline_value_and_grad` of every rank ``ring`` drives
     (``params``, ``x_mb``, ``loss_aux``, ``loss_params``: one entry per
     rank); a list of their results."""
@@ -661,7 +718,8 @@ def _value_and_grad(ring, stage_fn, loss_fn, params, x_mb, *,
     results = _value_and_grad_chunks(
         ring, stage_fn, loss_fn, chunks, x_mb, schedule=schedule,
         num_virtual=num_virtual, loss_aux=loss_aux,
-        loss_params=loss_params, return_input_grads=return_input_grads)
+        loss_params=loss_params, return_input_grads=return_input_grads,
+        cost_backward=cost_backward)
     out = []
     for p, lp, (loss, grads, lp_grads, xg) in zip(
             params, loss_params or [None] * len(params), results):
@@ -709,7 +767,7 @@ def pipeline_value_and_grad(stage_fn: Callable, loss_fn: Callable, params,
     the last stage and is summed over the axis. ``return_input_grads``:
     also ``d loss / d x_microbatches``, collected on stage 0 and summed
     over the axis. ``cost_backward`` changes only the accounting
-    (:func:`schedule_info`).
+    (:func:`schedule_info`, the bubble gauge).
 
     Returns ``(loss, grads)`` — the loss (0-d fp32, on every rank) and
     the gradient of this rank's ``params`` — or, with ``loss_params`` or
@@ -717,13 +775,13 @@ def pipeline_value_and_grad(stage_fn: Callable, loss_fn: Callable, params,
     ``"loss_params_grads"`` and/or ``"input_grads"``, the same on every
     rank. Every rank of the axis calls it with the same schedule and
     shapes."""
-    del cost_backward
     return _value_and_grad(
         _GroupRing(mesh, axis), stage_fn, loss_fn, [params],
         [x_microbatches], schedule=schedule, num_virtual=num_virtual,
         loss_aux=None if loss_aux is None else [loss_aux],
         loss_params=None if loss_params is None else [loss_params],
-        return_input_grads=return_input_grads)[0]
+        return_input_grads=return_input_grads,
+        cost_backward=cost_backward)[0]
 
 
 def _virtual_value_and_grad(n: int, stage_fn, loss_fn,

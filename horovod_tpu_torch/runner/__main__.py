@@ -17,9 +17,9 @@ replacements appear (docs/elastic.md).
 ``--serve`` runs ``python -m horovod_tpu_torch.serving`` (one process;
 at ``--tp N`` it starts its own N ranks). SIGTERM is forwarded to the
 workers, which drain and exit on their own (a server's graceful drain).
-``--adaptation`` and ``--autotune`` are refused: the port has no
-adaptation policy (ROADMAP Queue 1 item 5c) and no global tuner (item
-5e) yet.
+``--adaptation`` arms rank 0's adaptation policy in every worker
+(``HOROVOD_TPU_ADAPTATION=1``, ROADMAP Queue 1 item 5c). ``--autotune``
+is refused: the port has no global tuner (item 5e) yet.
 """
 
 from __future__ import annotations
@@ -88,9 +88,13 @@ def main(argv=None) -> int:
                              "HOROVOD_TPU_FAULT_SPEC to every worker "
                              "generation")
     parser.add_argument("--adaptation", action="store_true",
-                        help="the rank-0 adaptation policy "
-                             "(docs/adaptation.md); refused: the port "
-                             "has none yet (ROADMAP Queue 1 item 5c)")
+                        help="arm the rank-0 adaptation policy "
+                             "(docs/adaptation.md): on sustained "
+                             "straggler lateness the coordinator shrinks "
+                             "fusion groups, then moves allreduces on "
+                             "bf16, int8 and fp8 wires, then evicts the "
+                             "straggler (elastic); exported as "
+                             "HOROVOD_TPU_ADAPTATION=1")
     parser.add_argument("--autotune", action="store_true",
                         help="the GLOBAL online autotuner "
                              "(docs/autotune.md); refused: the port has "
@@ -153,9 +157,6 @@ def main(argv=None) -> int:
     elif not command:
         parser.error("missing worker command")
 
-    if args.adaptation:
-        parser.error("--adaptation: the port has no adaptation policy "
-                     "yet (ROADMAP Queue 1 item 5c)")
     if args.autotune:
         parser.error("--autotune: the port has no global autotuner yet "
                      "(ROADMAP Queue 1 item 5e)")
@@ -167,6 +168,8 @@ def main(argv=None) -> int:
         from ..adaptation.faults import parse_spec
         parse_spec(args.fault_spec)
         extra_env["HOROVOD_TPU_FAULT_SPEC"] = args.fault_spec
+    if args.adaptation:
+        extra_env["HOROVOD_TPU_ADAPTATION"] = "1"
     if args.timeline:
         # Propagated UNEXPANDED: each worker resolves its own {rank}
         # (utils/env.resolved_timeline_path), so the same value serves

@@ -37,9 +37,10 @@ means the replica died mid-generation — that is exactly the signal the
 fleet router's mid-stream failover keys on.
 
 Metrics get no route here: they go to the registry
-(``horovod_tpu_torch.metrics_snapshot()``), whose exporter endpoint
-waits for ROADMAP Queue 1 item 5, as in the JAX package, where one
-scrape target serves every family.
+(``horovod_tpu_torch.metrics_snapshot()``), which the exporter
+(``observability/export.py``, ``HOROVOD_TPU_METRICS_PORT``) serves on a
+port of its own, as in the JAX package, where one scrape target serves
+every family.
 
 Shutdown: ``install_signal_handlers`` makes SIGTERM/SIGINT request a
 graceful drain — admission stops (``/readyz`` flips 503), every

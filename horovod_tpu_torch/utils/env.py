@@ -459,3 +459,58 @@ def qos_scale_interval_s() -> float:
     if v in (None, ""):
         return 1.0
     return float(v)
+
+
+def adaptation_enabled() -> bool:
+    """The rank-0 adaptation policy (HOROVOD_TPU_ADAPTATION=1): the
+    coordinator climbs the degradation ladder on sustained straggler
+    lateness. Default off."""
+    return _get("ADAPTATION") in ("1",)
+
+
+def _float(name: str, default: float) -> float:
+    v = _get(name)
+    return float(v) if v not in (None, "") else default
+
+
+def adapt_threshold_s() -> float:
+    """Straggler lateness (decay-weighted mean seconds) that starts the
+    policy's sustain clock (HOROVOD_TPU_ADAPT_THRESHOLD, default 0.1)."""
+    return _float("ADAPT_THRESHOLD", 0.1)
+
+
+def adapt_sustain_s() -> float:
+    """Seconds above the threshold before each escalation
+    (HOROVOD_TPU_ADAPT_SUSTAIN, default 5)."""
+    return _float("ADAPT_SUSTAIN", 5.0)
+
+
+def adapt_cooldown_s() -> float:
+    """Seconds below threshold x de-escalation ratio before each
+    de-escalation (HOROVOD_TPU_ADAPT_COOLDOWN, default 30)."""
+    return _float("ADAPT_COOLDOWN", 30.0)
+
+
+def adapt_interval_s() -> float:
+    """The policy's evaluation period (HOROVOD_TPU_ADAPT_INTERVAL,
+    default 1 s)."""
+    return _float("ADAPT_INTERVAL", 1.0)
+
+
+def adapt_tiers() -> Optional[str]:
+    """Comma-separated ladder override (HOROVOD_TPU_ADAPT_TIERS); None
+    keeps shrink, bf16, int8x256, fp8x256, evict."""
+    return _get("ADAPT_TIERS")
+
+
+def adapt_alert_hold_s() -> float:
+    """Seconds a health alert keeps pressure on the ladder
+    (HOROVOD_TPU_ADAPT_ALERT_HOLD, default 30)."""
+    return _float("ADAPT_ALERT_HOLD", 30.0)
+
+
+def peak_flops() -> Optional[float]:
+    """Peak FLOP/s of this process's devices for the MFU gauge
+    (HOROVOD_TPU_PEAK_FLOPS); None: from the device name's table."""
+    v = _get("PEAK_FLOPS")
+    return float(v) if v not in (None, "") else None

@@ -66,6 +66,56 @@ def quadratic(total_steps, commit_every, kill_at, replay_from=None):
     return {"w": w.tolist(), "gen": gen, "size": size, "start": start}
 
 
+def adaptive_quadratic(total_steps, commit_every, outdir):
+    """:func:`quadratic` under the adaptation policy
+    (``tests/test_torch_adaptation.py``): every step's allreduce goes
+    through the engine, a commit every ``commit_every`` steps. When the
+    policy's eviction fails this rank's op, rank 0 writes its
+    ``hvdtpu_adaptation_*`` families and the typed error to
+    ``outdir/gen<G>_rank0.pkl`` and the error ends the generation."""
+    import pickle
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.elastic import SlowRankFailure
+    from horovod_tpu_torch.observability import registry as treg
+
+    torch.set_num_threads(1)
+    hvd.init(device="cpu")
+    r = hvd.process_rank()
+    gen = hvd.generation()
+    state = hvd.ElasticState(params={"w": torch.zeros(4)})
+    state.restore()
+    w = state.params["w"].clone()
+    start = int(state.step)
+    target = torch.tensor([1.0, -2.0, 3.0, 0.5])
+    steps = []
+    try:
+        for step in range(start, total_steps):
+            scale = 1.0 + 0.1 * ((step * 7 + r * 3) % 5)
+            grad = hvd.allreduce(scale * (w - target), average=True,
+                                 name=f"g.{step}")
+            w = w - 0.1 * grad
+            state.params = {"w": w}
+            if (step + 1) % commit_every == 0:
+                state.commit(step + 1)
+            steps.append(step)
+    except SlowRankFailure as e:
+        if r == 0:
+            out = {k: v["values"] for k, v in
+                   treg.snapshot("hvdtpu_adaptation_").items()}
+            out["error"] = (type(e).__name__, e.rank)
+            with open(os.path.join(outdir, f"gen{gen}_rank0.pkl"),
+                      "wb") as f:
+                pickle.dump(out, f)
+        raise
+    size = hvd.size()
+    hvd.shutdown()
+    return {"w": w.tolist(), "gen": gen, "size": size, "start": start,
+            "steps": steps}
+
+
 def serve_tp(params, model_kw, engine_kw, prompts, max_new_tokens):
     """The port's engine at tp = world size on gloo ranks: every rank
     builds it over its heads of ``params`` (a numpy tree); rank 0 submits

@@ -777,6 +777,14 @@ def test_meta_counts_wire_bytes_as_jax(wire, n):
     assert m.nbytes == _jax_req("t", n=n, wire=wire).nbytes
 
 
+def _round(coord, announcements, threshold):
+    """One round: ``announcements[r]`` is rank r's new requests; returns
+    the groups planned, in order."""
+    for rank, metas in enumerate(announcements):
+        coord.announce(rank, metas)
+    return coord.plan(threshold)
+
+
 def test_planner_cuts_on_wire_bytes():
     """Eight fp32 tensors of 256 elements: 1 KiB each, 260 bytes on the
     int8x256 wire. At a 600-byte threshold the wire requests fuse in
@@ -784,7 +792,7 @@ def test_planner_cuts_on_wire_bytes():
     c = tcp.Coordinator(1)
     metas = [tcp.Meta(f"w{i}", tcp.ALLREDUCE, "float32", (256,),
                       wire="int8x256" if i % 2 else None) for i in range(8)]
-    got = [g.names for g in c.cycle([metas], 600)]
+    got = [g.names for g in _round(c, [metas], 600)]
     assert got == [["w0"], ["w1", "w3"], ["w2"], ["w4"], ["w5", "w7"],
                    ["w6"]]
     _, want = _plans([_jax_req(m.name, n=256, wire=m.wire) for m in metas],
@@ -813,13 +821,13 @@ def test_coordinator_waits_for_every_rank_and_keeps_order():
     alone with every rank's rows."""
     c = tcp.Coordinator(2)
     meta = [tcp.Meta(f"x{i}", 0, "float32", (4,)) for i in range(3)]
-    assert c.cycle([[meta[2], meta[0]], [meta[1]]], 1 << 20) == []
-    groups = c.cycle([[meta[1]], [meta[2], meta[0]]], 1 << 20)
+    assert _round(c, [[meta[2], meta[0]], [meta[1]]], 1 << 20) == []
+    groups = _round(c, [[meta[1]], [meta[2], meta[0]]], 1 << 20)
     assert [g.names for g in groups] == [["x2", "x0", "x1"]]
     assert c.pending() == 0
     g0 = tcp.Meta("g", tcp.ALLGATHER, "float32", (2, 3))
     g1 = tcp.Meta("g", tcp.ALLGATHER, "float32", (5, 3))
-    (group,) = c.cycle([[g0], [g1]], 1 << 20)
+    (group,) = _round(c, [[g0], [g1]], 1 << 20)
     assert group.names == ["g"] and group.rows == {"g": [2, 5]}
 
 

@@ -107,13 +107,21 @@ def test_stall_warning_env(monkeypatch):
     assert tenv.stall_warning_secs() == 0.0
 
 
+def _round(coord, announcements, threshold):
+    """One round: ``announcements[r]`` is rank r's new requests; returns
+    the groups planned, in order."""
+    for rank, metas in enumerate(announcements):
+        coord.announce(rank, metas)
+    return coord.plan(threshold)
+
+
 def test_coordinator_names_the_ranks_not_heard_from():
     coord = tcp.Coordinator(3)
     meta = tcp.Meta("stuck", tcp.ALLREDUCE, "float32", (2,))
-    assert coord.cycle([[meta], [], [meta]], 1 << 20) == []
+    assert _round(coord, [[meta], [], [meta]], 1 << 20) == []
     assert coord.stalled(3600.0) == {}
     assert coord.stalled(0.0) == {"stuck": [1]}
-    groups = coord.cycle([[], [meta], []], 1 << 20)
+    groups = _round(coord, [[], [meta], []], 1 << 20)
     assert [g.names for g in groups] == [["stuck"]]
     assert coord.stalled(0.0) == {}
 

@@ -64,7 +64,8 @@ def test_scan_sees_the_package():
             "health.py", "history.py", "ticker.py", "launcher.py",
             "network.py", "safe_exec.py", "driver_service.py",
             "task_exec.py", "remote_bootstrap.py", "api.py",
-            "discovery.py", "driver.py", "elastic_lm.py"} <= names
+            "discovery.py", "driver.py", "elastic_lm.py", "policy.py",
+            "step_metrics.py"} <= names
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
@@ -175,3 +176,12 @@ def test_tp_ranks_and_the_elastic_worker_without_cuda_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         elastic_lm.train(1, 0, None)
     assert not hvd.is_initialized()
+
+
+def test_step_metrics_without_cuda_raises(no_cuda):
+    """The step timer reads the card's memory unless the caller passes
+    the CPU: without a card and before ``init`` it refuses to guess."""
+    assert not hvd.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hvd.StepMetrics()
+    assert hvd.StepMetrics(device="cpu").device.type == "cpu"

@@ -237,15 +237,24 @@ class TestCLI:
         assert proc.returncode == 3
 
 
-@pytest.mark.parametrize("flag,item", [("--adaptation", "item 5c"),
-                                       ("--autotune", "item 5e")])
+@pytest.mark.parametrize("flag,item", [("--autotune", "item 5e")])
 def test_cli_refuses_what_the_port_lacks(flag, item, capsys):
-    """No adaptation policy and no global tuner yet: the flags fail at
-    launch instead of exporting a variable nothing reads."""
+    """No global tuner yet: the flag fails at launch instead of
+    exporting a variable nothing reads."""
     from horovod_tpu_torch.runner.__main__ import main
     with pytest.raises(SystemExit):
         main([flag, "-np", "1", "--", sys.executable, "-c", "pass"])
     assert item in capsys.readouterr().err
+
+
+def test_cli_exports_adaptation():
+    """--adaptation (item 5c) reaches every worker as JAX's runner
+    exports it."""
+    from horovod_tpu_torch.runner.__main__ import main
+    assert main(["--adaptation", "-np", "1", "--no-tag-output", "--",
+                 sys.executable, "-c",
+                 "import os; assert os.environ['HOROVOD_TPU_ADAPTATION']"
+                 " == '1'"]) == 0
 
 
 def test_cli_forwards_sigterm_to_the_workers():
