@@ -264,6 +264,25 @@ and prints no result line):
    and the losses must be phase 5's bit for bit (the telemetry changes
    no value). It logs each step's phase split, MFU, HBM in use and
    peak, tok/s beside phase 5's, and the phase's seconds.
+25. the numerics plane and the autotuners (about 60 s): ``init`` again
+   (NCCL, world 1); phase 5's flagship, weights and tokens on a
+   world-1 mesh through ``build_train_step``, 5 steps with the plane
+   off, then 5 with ``HOROVOD_TPU_NUMERICS=1`` (K1-K3 12 launches a
+   step in each): the armed step's parameters after step 5 must equal
+   the plane-off step's bit for bit; step 5's grad norm and update
+   ratio (read one step late, through ``hvdtpu_numerics_*``) within
+   1e-3 relative of an fp64 computation from that step's gradients and
+   parameters; tok/s of both beside phase 5's; the fingerprint probe's
+   host ms over the 111M parameters. Then phase 5's dp step under a
+   ``nan_at`` clause: exactly one ``nonfinite_rate`` alert, naming rank
+   0 and a scan tick of the poisoned step. ``init`` again under
+   ``HOROVOD_AUTOTUNE=1``: phase 5's dp step until the legacy tuner has
+   logged 4 points (at least 3 distinct (fusion, cycle) points in its
+   CSV), its first 5 losses phase 5's bit for bit. ``init`` again: an
+   ``AutoTuner`` over ``fusion_threshold_mb``, ``torch_bucket_mb`` and
+   ``cycle_time_ms`` makes its online moves on the dp step (each a
+   guarded move through the coordinator or the optimizer), each move's
+   verdict and step ms logged; the losses stay finite.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -4077,6 +4096,277 @@ def telemetry_phase(hvd, tfm, fa, build_train_step, lm_losses, lm_step_s):
     return total
 
 
+NUMERICS_TOL = 1e-3     # phase 25: grad norm, update ratio vs fp64
+LEGACY_POINTS = 4       # phase 25: CSV rows the legacy tuner must log
+LEGACY_MAX_STEPS = 150
+
+
+def lm_setup(tfm, build_train_step, **kw):
+    """Phase 5's flagship config, AdamW and tokens."""
+    cfg = tfm.TransformerConfig(vocab=32000, d_model=768, n_layers=12,
+                                d_ff=3072, max_seq=2048,
+                                dtype=torch.bfloat16, remat=False)
+
+    def adamw(p):
+        return torch.optim.AdamW(p, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+    tok = torch.randint(0, cfg.vocab, (8, 2049),
+                        generator=torch.Generator().manual_seed(1))
+    step = build_train_step(cfg, adamw, **kw)
+    return step, tok[:, :-1].cuda(), tok[:, 1:].cuda()
+
+
+def timed_steps(step, model, opt, tokens, targets, n, fa=None):
+    """n steps; (losses, seconds, launches a step) on the host clock."""
+    losses, times, launches = [], [], []
+    for _ in range(n):
+        if fa is not None:
+            fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = step(model, opt, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if fa is not None:
+            launches.append({n_: fa.launch_counts()[n_] for n_ in BF16_FLASH})
+    return losses, times, launches
+
+
+def numerics_mesh_runs(hvd, tfm, fa, build_train_step, create_mesh, tnum,
+                       lm_step_s):
+    """Phase 25a: the world-1 mesh step plane off, then armed; returns
+    the armed steps' launch counts."""
+    from horovod_tpu_torch.observability import registry as treg
+    runs = {}
+    for armed in (False, True):
+        tnum.set_enabled(armed)
+        step, tokens, targets = lm_setup(tfm, build_train_step,
+                                         mesh=create_mesh(dp=1))
+        model = step.make_model(generator=torch.Generator().manual_seed(0))
+        opt = step.make_optimizer(model)
+        losses, times, launches = timed_steps(step, model, opt, tokens,
+                                              targets, STEPS - 1, fa)
+        old = [p.detach().double() for p in model.parameters()]
+        more, t, ln = timed_steps(step, model, opt, tokens, targets, 1, fa)
+        losses += more
+        times += t
+        launches += ln
+        if any(v != 12 for lc in launches for v in lc.values()):
+            raise AssertionError(f"phase 25 launches {launches}, expected "
+                                 "12 of each a step")
+        params = [p.detach().clone() for p in model.parameters()]
+        run = {"losses": losses, "times": times, "params": params,
+               "launches": {n: sum(lc[n] for lc in launches)
+                            for n in BF16_FLASH}}
+        if armed:
+            tnum.step_stats().flush()
+            snap = treg.snapshot("hvdtpu_numerics_")
+            got_gn = _family(snap, "hvdtpu_numerics_grad_norm", "")
+            got_ur = _family(snap, "hvdtpu_numerics_update_ratio", "")
+            g = sum(float(p.grad.double().square().sum())
+                    for p in model.parameters())
+            u = sum(float((p.detach().double() - o).square().sum())
+                    for p, o in zip(model.parameters(), old))
+            w = sum(float(o.square().sum()) for o in old)
+            want_gn, want_ur = math.sqrt(g), math.sqrt(u) / math.sqrt(w)
+            for what, got, want in (("grad norm", got_gn, want_gn),
+                                    ("update ratio", got_ur, want_ur)):
+                rel = abs(got - want) / abs(want)
+                log(f"  step 5 {what}: {got!r} against fp64 {want!r}, rel "
+                    f"{rel:.3e} (tolerance {NUMERICS_TOL})")
+                if rel > NUMERICS_TOL:
+                    raise AssertionError(f"phase 25 {what} {got} is not "
+                                         f"within {NUMERICS_TOL} of {want}")
+            t0 = time.perf_counter()
+            digests = tnum.fingerprint_tree(model)
+            run["fp_ms"] = (time.perf_counter() - t0) * 1e3
+            run["n_params"] = sum(d[2] for d in digests.values())
+        del step, model, opt, old
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[armed] = run
+    tnum.set_enabled(False)
+    off, on = runs[False], runs[True]
+    if any(not torch.equal(a, b) for a, b in zip(off["params"],
+                                                  on["params"])):
+        raise AssertionError("phase 25: the armed step's parameters are not "
+                             "the plane-off step's bit for bit")
+    if off["losses"] != on["losses"]:
+        raise AssertionError(f"phase 25: armed losses {on['losses']} != "
+                             f"plane-off {off['losses']}")
+    tok = 8 * 2048
+    for what, r in (("plane off", off), ("armed", on)):
+        steady = statistics.median(r["times"][1:])
+        log(f"  mesh step {what}: {tok / steady:.1f} tok/s (median of steps "
+            f"2-{STEPS}, {steady * 1e3:.2f} ms/step), losses {r['losses']}")
+    a, b = (statistics.median(r["times"][1:]) for r in (off, on))
+    log(f"  armed {tok / b:.1f} tok/s: {(a / b) - 1:+.2%} against the "
+        f"plane-off mesh step, {lm_step_s / b - 1:+.2%} against phase 5's "
+        f"{tok / lm_step_s:.1f}; parameters after step 5 bit for bit")
+    log(f"  fingerprint probe: {on['fp_ms']:.1f} host ms over "
+        f"{on['n_params']} parameters ({on['fp_ms'] / 50 / (b * 1e3):.2%} of "
+        "the step time at the default interval of 50)")
+    return on["launches"]
+
+
+def nan_at_run(tfm, build_train_step, tnum, tfaults, tcoll):
+    """Phase 25b: phase 5's dp step, armed, under a nan_at clause."""
+    import os
+    step, tokens, targets = lm_setup(tfm, build_train_step)
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model)
+    # An armed step enqueues its buckets, the loss and the numerics
+    # vector: the clause poisons step 1's third bucket.
+    nan_tick = (len(opt._buckets) + 2) + 2
+    os.environ["HOROVOD_TPU_FAULT_SPEC"] = f"rank=0:nan_at={nan_tick}"
+    tfaults.reset()
+    eng = tcoll.engine()
+    eng._faults_tried = False       # the engine resolves the clause anew
+    tnum.set_enabled(True)
+    tnum._monitor = None
+    scan = []
+    try:
+        for _ in range(2):
+            t0 = tnum._scan_tick
+            step(model, opt, tokens, targets)
+            torch.cuda.synchronize()
+            eng.collect_timings(block=True)
+            scan.append((t0, tnum._scan_tick))
+        tnum.step_stats().flush()
+        alerts = [a for a in tnum._alert_monitor().alerts
+                  if a.kind == "nonfinite_rate"]
+    finally:
+        os.environ.pop("HOROVOD_TPU_FAULT_SPEC", None)
+        tfaults.reset()
+        eng._faults_tried = False
+        eng._faults = None
+        tnum.set_enabled(False)
+    if len(alerts) != 1:
+        raise AssertionError(f"phase 25: nan_at gave {len(alerts)} "
+                             f"nonfinite_rate alerts: "
+                             f"{[a.evidence for a in alerts]}")
+    ev = alerts[0].evidence
+    lo, hi = scan[1]
+    if ev["rank"] != 0 or not lo <= ev["step"] < hi:
+        raise AssertionError(f"phase 25: the alert {ev} does not name rank "
+                             f"0 and a scan tick of step 1 ({lo}-{hi - 1})")
+    log(f"  nan_at={nan_tick}: one nonfinite_rate alert, rank {ev['rank']}, "
+        f"source {ev['source']}, scan tick {ev['step']} (step 1's ticks "
+        f"{lo}-{hi - 1})")
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def legacy_tuner_run(hvd, tfm, build_train_step, tcoll, lm_losses):
+    """Phase 25c: phase 5's dp step under HOROVOD_AUTOTUNE=1."""
+    import os
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix="hvd_autotune_"),
+                        "autotune.csv")
+    os.environ["HOROVOD_AUTOTUNE"] = "1"
+    os.environ["HOROVOD_AUTOTUNE_LOG"] = path
+    try:
+        hvd.init()
+        step, tokens, targets = lm_setup(tfm, build_train_step)
+        model = step.make_model(generator=torch.Generator().manual_seed(0))
+        opt = step.make_optimizer(model)
+        pm = tcoll.engine()._coord._pm
+        losses, n, t0 = [], 0, time.perf_counter()
+        while pm.steps < LEGACY_POINTS and n < LEGACY_MAX_STEPS:
+            losses.append(float(step(model, opt, tokens, targets)))
+            n += 1
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rounds = tcoll.engine().rounds
+        hvd.shutdown()
+    finally:
+        os.environ.pop("HOROVOD_AUTOTUNE", None)
+        os.environ.pop("HOROVOD_AUTOTUNE_LOG", None)
+    with open(path) as f:
+        lines = f.read().strip().splitlines()
+    rows = [tuple(float(v) for v in ln.split(",")) for ln in lines[1:]]
+    points = {(r[0], r[1]) for r in rows}
+    log(f"  legacy tuner: {n} steps, {rounds} rounds, {secs:.1f} s; "
+        f"CSV {lines[0]!r}, rows {rows}")
+    if lines[0] != "fusion_mb,cycle_ms,hier_allreduce,hier_allgather,score" \
+            or len(points) < 3:
+        raise AssertionError(f"phase 25: the legacy tuner logged "
+                             f"{len(points)} distinct points: {lines}")
+    if losses[:STEPS] != lm_losses:
+        raise AssertionError(f"phase 25: losses under the legacy tuner "
+                             f"{losses[:STEPS]} are not phase 5's "
+                             f"{lm_losses}")
+    log(f"  losses of the first {STEPS} steps phase 5's bit for bit; "
+        f"{len(points)} distinct (fusion, cycle) points")
+
+
+def global_tuner_run(hvd, tfm, build_train_step, tcoll):
+    """Phase 25d: the AutoTuner's online moves on phase 5's dp step."""
+    from horovod_tpu_torch.autotune import (ApplyPlane, AutoTuner,
+                                            default_registry)
+    hvd.init()
+    step, tokens, targets = lm_setup(tfm, build_train_step)
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model)
+    eng = tcoll.engine()
+    verdicts, losses = [], []
+
+    def move(knob, value):
+        v = eng.tuner_move(knob, value)
+        verdicts.append((knob, value, v))
+        if not v["accepted"] and v["reason"] != "noop":
+            raise AssertionError(f"phase 25: tuner move {knob}={value} "
+                                 f"refused: {v}")
+
+    def measure(budget):
+        times = []
+        for _ in range(2 * budget):
+            t0 = time.perf_counter()
+            losses.append(float(step(model, opt, tokens, targets)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+    plane = ApplyPlane(set_fusion=lambda mb: move("fusion_threshold_mb", mb),
+                       set_bucket_mb=opt.set_bucket_cap_mb,
+                       set_engine_param=move)
+    tuner = AutoTuner(default_registry(include=(
+        "fusion_threshold_mb", "torch_bucket_mb", "cycle_time_ms")),
+        plane=plane, measure=measure, trial_budget=1)
+    measure(1)      # warm-up
+    moves = tuner.run()
+    for m in moves:
+        log(f"  move {m.knob} {m.old!r} -> {m.new!r}: {m.outcome} "
+            f"{m.detail}; step ms {m.baseline_s * 1e3:.2f} -> "
+            f"{m.after_s * 1e3:.2f}")
+    log(f"  coordinator verdicts: {[(k, v['reason']) for k, _, v in verdicts]}"
+        f"; final {tuner.current}")
+    # Every value of each knob's domain but the current one (a kept move
+    # makes the old value a candidate too), and one GP move.
+    if len(moves) < 8 or not all(math.isfinite(x) for x in losses) \
+            or any(m.outcome not in ("kept", "reverted", "rolled_back")
+                   for m in moves):
+        raise AssertionError(f"phase 25: {len(moves)} tuner moves, losses "
+                             f"{losses}")
+    hvd.shutdown()
+
+
+def numerics_autotune_phase(hvd, tfm, fa, build_train_step, create_mesh,
+                            lm_losses, lm_step_s):
+    """Phase 25; returns the launch counts of the armed mesh steps."""
+    from horovod_tpu_torch.adaptation import faults as tfaults
+    from horovod_tpu_torch.observability import numerics as tnum
+    from horovod_tpu_torch.ops import collective as tcoll
+    hvd.init()
+    launches = numerics_mesh_runs(hvd, tfm, fa, build_train_step,
+                                  create_mesh, tnum, lm_step_s)
+    nan_at_run(tfm, build_train_step, tnum, tfaults, tcoll)
+    hvd.shutdown()
+    legacy_tuner_run(hvd, tfm, build_train_step, tcoll, lm_losses)
+    global_tuner_run(hvd, tfm, build_train_step, tcoll)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -4263,6 +4553,14 @@ def main(argv=None) -> int:
                                    lm_losses, lm_step_s).items():
         launches[name] += n
     log(f"  phase 24: {time.perf_counter() - t24:.1f} s")
+
+    # 25. the numerics plane and the autotuners
+    t25 = time.perf_counter()
+    for name, n in numerics_autotune_phase(hvd, tfm, fa, build_train_step,
+                                           create_mesh, lm_losses,
+                                           lm_step_s).items():
+        launches[name] += n
+    log(f"  phase 25: {time.perf_counter() - t25:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[base_of(name)],

@@ -3,15 +3,16 @@
 Counterpart of ``horovod_tpu/adaptation/faults.py``: the same spec
 (``HOROVOD_TPU_FAULT_SPEC``), parsed by the same grammar, so one spec
 string drives both packages. The training clauses ``delay``,
-``slow_h2d`` and ``crash_at`` act in the collective engine's enqueue
-(:meth:`FaultInjector.on_enqueue`, one tick per collective submitted)
-and ``drop_announce`` in the engine's announcement to rank 0's
-coordinator (:meth:`FaultInjector.drop_announce_active`); the serving
-clauses ``slow_decode``, ``slow_prefill``, ``replica_crash_at``,
-``drop_health`` and ``long_prompt_burst`` in the inference engine's
-scheduler and the HTTP front. ``nan_at`` and ``bitflip_param`` parse,
-so a spec that names them is valid, but nothing of the port acts on
-them yet: they wait for the numerics plane (ROADMAP Queue 1 item 5d).
+``slow_h2d``, ``crash_at`` and ``nan_at`` act in the collective
+engine's enqueue (:meth:`FaultInjector.on_enqueue`, one tick per
+collective submitted), ``drop_announce`` in the engine's announcement
+to rank 0's coordinator (:meth:`FaultInjector.drop_announce_active`)
+and ``bitflip_param`` in the train steps' numerics hook
+(:meth:`FaultInjector.take_bitflips`, ``observability/numerics.py``
+``maybe_bitflip``); the serving clauses ``slow_decode``,
+``slow_prefill``, ``replica_crash_at``, ``drop_health`` and
+``long_prompt_burst`` in the inference engine's scheduler and the HTTP
+front.
 
 Grammar (clauses separated by ``;``, fields by ``:``)::
 
@@ -28,6 +29,15 @@ Grammar (clauses separated by ``;``, fields by ``:``)::
                            flight recorder's final dump)
     drop_announce          withhold the announcements to rank 0 while
                            active (the engine keeps joining rounds)
+    nan_at=N               the tensor enqueued at tick N goes on with
+                           its element 0 set to NaN (a copy; the
+                           numerics plane's sentinels must name this
+                           rank); fires once per clause
+    bitflip_param=N        flip one mantissa bit of element 0 of a
+                           parameter at training step N (once per
+                           clause); ``leaf=NAME`` picks the first leaf
+                           whose JAX keypath holds NAME (default: the
+                           first leaf)
     gen=N                  only in elastic generation / replica
                            incarnation N (default: all)
     from_step=N            first active tick (default 0)
@@ -56,6 +66,8 @@ import os
 import signal
 import time
 from typing import List, Optional, Tuple
+
+import torch
 
 from ..observability import flight_dump, flight_note
 from ..observability import registry as _obs
@@ -238,6 +250,16 @@ def parse_spec(text: str) -> List[FaultClause]:
     return clauses
 
 
+def _poison_one_nan(tensor: torch.Tensor) -> Optional[torch.Tensor]:
+    """A copy of ``tensor`` with element 0 set to NaN, on its device;
+    None for an integer tensor, which cannot carry one."""
+    if not tensor.is_floating_point() or tensor.numel() == 0:
+        return None
+    out = tensor.detach().clone()
+    out.view(-1)[0] = float("nan")
+    return out
+
+
 class FaultInjector:
     """Per-process injector: the clauses of the spec that target this
     (rank, generation), and the serving tick their windows are evaluated
@@ -272,8 +294,10 @@ class FaultInjector:
                    for k in ("delay", "slow_h2d", "crash",
                              "drop_announce", "replica_crash", "slow_decode",
                              "slow_prefill", "drop_health",
-                             "long_prompt_burst")}
+                             "long_prompt_burst", "nan", "bitflip")}
         self._bursts_fired: set = set()  # clause indices already fired
+        self._nans_fired: set = set()    # nan_at clause indices fired
+        self._flips_fired: set = set()   # bitflip clause indices fired
         if self.clauses:
             _log.warning("fault injection ARMED for rank %d gen %d: %s",
                          self.rank, self.generation,
@@ -291,13 +315,27 @@ class FaultInjector:
     def tick(self) -> int:
         return self._tick
 
-    def on_enqueue(self) -> None:
+    def on_enqueue(self, tensor: Optional[torch.Tensor] = None
+                   ) -> Optional[torch.Tensor]:
         """One collective enqueued: advance the tick and apply the active
-        delay / slow_h2d / crash_at clauses. The crash is a SIGKILL after
-        the flight recorder's final dump (a real kill leaves no such
-        window; the injector knows it is about to die)."""
+        delay / slow_h2d / crash_at / nan_at clauses. The crash is a
+        SIGKILL after the flight recorder's final dump (a real kill
+        leaves no such window; the injector knows it is about to die).
+        When a ``nan_at`` clause fires on a floating ``tensor``, returns
+        a copy of it with element 0 set to NaN, which the engine carries
+        on instead; else None."""
         t = self._tick
         self._tick = t + 1
+        poisoned = None
+        for i, c in enumerate(self.clauses):
+            if (c.nan_at is not None and t == c.nan_at
+                    and i not in self._nans_fired and tensor is not None):
+                self._nans_fired.add(i)
+                self._m["nan"].inc()
+                _log.error("fault injection: nan_at=%d reached on rank %d "
+                           "— poisoning one gradient element", t, self.rank)
+                flight_note("fault", ("nan", t))
+                poisoned = _poison_one_nan(tensor)
         for c in self.clauses:
             if c.crash_at is not None and t == c.crash_at:
                 self._m["crash"].inc()
@@ -316,6 +354,22 @@ class FaultInjector:
                 self._m["slow_h2d"].inc()
                 self._note_fault("slow_h2d", t)
                 time.sleep(c.slow_h2d_s)
+        return poisoned
+
+    def take_bitflips(self, step: int) -> List[str]:
+        """The ``leaf=`` patterns of the ``bitflip_param`` clauses that
+        fire at training ``step``, each once; the numerics plane's hook
+        (``maybe_bitflip``) flips, since only it holds the parameters."""
+        out: List[str] = []
+        for i, c in enumerate(self.clauses):
+            if c.bitflip_param is None or i in self._flips_fired \
+                    or step != c.bitflip_param:
+                continue
+            self._flips_fired.add(i)
+            self._m["bitflip"].inc()
+            flight_note("fault", ("bitflip", step))
+            out.append(c.leaf)
+        return out
 
     def drop_announce_active(self) -> bool:
         """True while a drop_announce clause's window covers the current

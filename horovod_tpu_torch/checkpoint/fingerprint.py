@@ -1,15 +1,15 @@
 """Per-leaf value fingerprints of a checkpoint manifest.
 
-The port's copy of ``fingerprint_leaf`` and ``_sample_indices`` of
-``horovod_tpu/observability/numerics.py`` (the port has no
-``observability`` package yet). A fingerprint is ``[norm, crc, n]``:
-the float64 L2 norm of the leaf's values, accumulated by numpy on the
-host, the crc32 of the raw bytes of a seeded ``k``-element subsample,
-and the element count. Restore compares the norm with ``!=``, so it
-must be numpy's own sum in numpy's order: a bf16 leaf goes exactly to
-float32 and then to numpy, and its subsample's bytes are its 2-byte
-bits, as numpy with ``ml_dtypes`` holds them. Never ``torch.sum``,
-which adds in another order.
+The port's one copy of ``fingerprint_leaf`` and ``_sample_indices`` of
+``horovod_tpu/observability/numerics.py``; the numerics plane
+(``observability/numerics.py``) imports them from here. A fingerprint
+is ``[norm, crc, n]``: the float64 L2 norm of the leaf's values, accumulated by numpy on the host, the crc32 of the raw bytes
+of a seeded ``k``-element subsample, and the element count. Restore
+compares the norm with ``!=``, so it must be numpy's own sum in
+numpy's order: a bf16 leaf goes exactly to float32 and then to numpy,
+and its subsample's bytes are its 2-byte bits, as numpy with
+``ml_dtypes`` holds them. Never ``torch.sum``, which adds in another
+order.
 """
 
 from __future__ import annotations

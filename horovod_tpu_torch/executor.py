@@ -87,13 +87,16 @@ def fused_allreduce(tensors: Sequence[torch.Tensor],
                     wire: Optional[_quant.WireSpec] = None,
                     world: int = 1,
                     all_to_all_fn: Optional[Collective] = None,
-                    all_gather_fn: Optional[Collective] = None
+                    all_gather_fn: Optional[Collective] = None,
+                    scan: Optional[Callable[[torch.Tensor], None]] = None
                     ) -> List[torch.Tensor]:
     """Sum ``tensors`` over the ranks with ``reduce_fn`` (flat buffer in,
     its sum over the ranks out): one call per dtype. With ``wire``, a
     floating dtype goes through :func:`quantization.allreduce_blocks`
-    over ``world`` ranks with the two collectives instead. Returns new
-    tensors in input order, each of its input's shape and dtype."""
+    over ``world`` ranks with the two collectives instead. ``scan``, the
+    numerics sentinel, sees each floating dtype's packed local buffer
+    before the reduction. Returns new tensors in input order, each of
+    its input's shape and dtype."""
     by_dtype = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
@@ -104,7 +107,7 @@ def fused_allreduce(tensors: Sequence[torch.Tensor],
                 and sum(t.numel() for t in group) > 0):
             reds = _fused_reduce_quantized(group, wire, world, prescale,
                                            postscale, all_to_all_fn,
-                                           all_gather_fn)
+                                           all_gather_fn, scan)
             for i, o in zip(idx, reds):
                 out[i] = o
             continue
@@ -115,6 +118,8 @@ def fused_allreduce(tensors: Sequence[torch.Tensor],
         acc = accum_dtype(dt)
         if acc is not None:
             buf = buf.to(acc)
+        if scan is not None and buf.is_floating_point():
+            scan(buf)
         if prescale != 1.0:
             buf = _scaled(buf, prescale)
         red = reduce_fn(buf)
@@ -131,7 +136,9 @@ def _fused_reduce_quantized(group: Sequence[torch.Tensor],
                             wire: _quant.WireSpec, world: int,
                             prescale: float, postscale: float,
                             all_to_all_fn: Collective,
-                            all_gather_fn: Collective) -> List[torch.Tensor]:
+                            all_gather_fn: Collective,
+                            scan: Optional[Callable[[torch.Tensor], None]]
+                            = None) -> List[torch.Tensor]:
     """The quantized wire's fusion buffer for one dtype: per-tensor block
     padding, the dual-quantized allreduce, the split back out."""
     bs = wire.block_size
@@ -150,8 +157,11 @@ def _fused_reduce_quantized(group: Sequence[torch.Tensor],
     extra = (-off) % (world * bs)
     if extra:
         pieces.append(pieces[0].new_zeros(extra))
-    red = _quant.allreduce_blocks(torch.cat(pieces), wire, world,
-                                  all_to_all_fn, all_gather_fn)
+    buf = torch.cat(pieces)
+    if scan is not None:
+        scan(buf)
+    red = _quant.allreduce_blocks(buf, wire, world, all_to_all_fn,
+                                  all_gather_fn)
     if postscale != 1.0:
         red = red * postscale
     # Elementwise, so cast back once; the results are views of it.

@@ -97,6 +97,36 @@ and rank 0's adaptation policy over the engine:
   (``upN``) and down (``downN``), the decayed lateness by rank at the
   end, and the worst difference.
 
+and the numerics plane and the autotuners:
+
+- ``numerics``: ``HOROVOD_TPU_NUMERICS=1``, the fingerprint probe every
+  step of the dp step. A clean run (the mesh step at dp = 4 plain and under
+  ZeRO-1, then the dp step through the engine, ``NUMERICS_STEPS`` steps
+  each) must fire no alert on any rank, every rank must hold the same
+  aux values, bit for bit, and ZeRO-1's grad norm must be the plain
+  step's within ``ZERO1_NORM_TOL`` (first step, same weights). Then the
+  dp step again under ``rank=1:bitflip_param=1:leaf=wq;rank=2:nan_at=T``
+  (T: the first bucket of the last step): rank 0's compare must name
+  rank 1 and ``['layers'][0]['wq']`` at step 1 and nothing else, and
+  only rank 2 must alert ``nonfinite_rate`` on a payload, naming rank 2.
+- ``autotune``: ``AutoTuner.tune_rebuild`` over pipeline schedule x
+  microbatches (4, 8, 16, 32) on the pipelined step at pp = 4 of
+  ``AUTOTUNE_LAYERS`` layers, ``AUTOTUNE_BATCH`` sequences of
+  ``AUTOTUNE_SEQ`` tokens: JAX's cold-start search
+  (``bench_engine.py:1443-1540``), each trial's median step time the
+  largest of the ranks' (so every rank halves alike); its line holds the
+  trials and the winner. Then the dp step through the engine,
+  ``LIVE_STEPS`` steps twice from the same weights: without moves, and
+  with rank 0's tuner moving ``fusion_threshold_mb`` to 16 before step
+  ``FUSION_AT`` and ``dcn_wire_spec`` to ``bf16`` before step
+  ``WIRE_AT``. Rank 0's planner, which cuts every rank's groups, must
+  hold the fusion epoch at the verdict's ``from_seq``, every rank the
+  same wire epochs and the same groups; the groups before the wire
+  epoch must move raw and those from it on bf16 on every rank; the
+  losses must equal the run without the moves bit for bit up to the
+  wire epoch (the fusion flip changes the grouping, not the sums; the
+  bf16 wire changes the numbers by design, within 1e-2 after it).
+
 and the serving tier's decode path:
 
 - ``decode_tp``: ``dp=2, tp=2``: each dp pair runs a prefill and 16
@@ -710,6 +740,279 @@ def _adapt(layers, device, width, world=WORLD):
                 faulted and up_steps and up_steps[0] >= faulted[0]
                 and all(k > faulted[-1] for k in down_steps)),
             "quiet_ok": not quiet_climbs}
+
+
+NUMERICS_STEPS = 3
+ZERO1_NORM_TOL = 1e-4
+FLIP_LEAF = "['layers'][0]['wq']"
+AUTOTUNE_LAYERS, AUTOTUNE_BATCH, AUTOTUNE_SEQ = 8, 32, 512
+LIVE_STEPS, FUSION_AT, WIRE_AT = 8, 2, 5
+
+
+def _init_rank(rank, port, device):
+    import horovod_tpu_torch as hvd
+    if device == "cpu":
+        torch.set_num_threads(1)
+    hvd.init(device=f"cuda:{rank}" if device == "cuda" else device,
+             init_method=f"tcp://localhost:{port}", rank=rank,
+             world_size=WORLD)
+    return hvd, hvd.device()
+
+
+def _dp_run(hvd, tfm, width, layers, dev, steps, before_step=None,
+            barrier=False):
+    """The dp step through the engine on this rank's sequence from seed-0
+    weights: (losses, the numerics aux of each step, the step object,
+    the optimizer)."""
+    from ..parallel.train import build_train_step
+    rank = hvd.rank()
+    tok = torch.randint(0, width["vocab"], (WORLD, width["max_seq"] + 1),
+                        generator=torch.Generator().manual_seed(5))
+    tokens, targets = tok[rank:rank + 1, :-1].to(dev), \
+        tok[rank:rank + 1, 1:].to(dev)
+    cfg = _config(tfm, width, layers)
+    step = build_train_step(cfg, _factory, device=dev)
+    model = step.make_model(
+        params=tfm.init_params(cfg, torch.Generator().manual_seed(0)))
+    opt = step.make_optimizer(model)
+    losses, auxes = [], []
+    for k in range(steps):
+        if before_step is not None:
+            before_step(k, opt)
+        losses.append(float(step(model, opt, tokens, targets)))
+        if step.last_aux is not None:
+            auxes.append({n: v.cpu() for n, v in step.last_aux.items()})
+        if barrier:
+            hvd.allreduce(torch.zeros(1, device=dev), name=f"bar.{k}")
+    return losses, auxes, step, opt
+
+
+def run_numerics_rank(rank, port, layers, outdir, device, width):
+    """One rank of ``numerics``."""
+    os.environ["HOROVOD_TPU_NUMERICS"] = "1"
+    # The mesh steps take no probe: two step objects count their steps
+    # from 0 alike, and rank 0 would mix their digests.
+    os.environ["HOROVOD_TPU_NUMERICS_FP_INTERVAL"] = "0"
+    os.environ.pop("HOROVOD_TPU_FAULT_SPEC", None)
+    hvd, dev = _init_rank(rank, port, device)
+    from ..adaptation import faults as tfaults
+    from ..models import transformer as tfm
+    from ..observability import numerics as tnum
+    from ..ops import collective as coll
+    from ..parallel.mesh import create_mesh
+    from ..parallel.train import build_train_step
+    tok = torch.randint(0, width["vocab"], (WORLD, width["max_seq"] + 1),
+                        generator=torch.Generator().manual_seed(5))
+    tokens, targets = tok[:, :-1].to(dev), tok[:, 1:].to(dev)
+    cfg = _config(tfm, width, layers)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    out = {"aux": {}}
+    for zero1 in (False, True):
+        step = build_train_step(cfg, _factory, mesh=create_mesh(dp=WORLD))
+        model = step.make_model(params=step.shard_params(params))
+        opt = step.make_optimizer(model, zero1=zero1)
+        auxes = []
+        for _ in range(NUMERICS_STEPS):
+            step(model, opt, step.shard_batch(tokens),
+                 step.shard_batch(targets))
+            auxes.append({n: v.cpu() for n, v in step.last_aux.items()})
+        out["aux"]["zero1" if zero1 else "dp4"] = auxes
+        del model, opt
+    os.environ["HOROVOD_TPU_NUMERICS_FP_INTERVAL"] = "1"
+    _, out["aux"]["engine"], _, _ = _dp_run(hvd, tfm, width, layers, dev,
+                                            NUMERICS_STEPS, barrier=True)
+    tnum.step_stats().flush()
+    hvd.allreduce(torch.zeros(1, device=dev), name="clean.end")
+    out["clean_alerts"] = [(a.kind, a.evidence)
+                           for a in tnum._alert_monitor().alerts]
+    # The faults: the engine resolves the spec at its next enqueue.
+    n_buckets = len(_dp_run(hvd, tfm, width, layers, dev, 0)[3]._buckets)
+    nan_tick = (NUMERICS_STEPS - 1) * (n_buckets + 3)
+    os.environ["HOROVOD_TPU_FAULT_SPEC"] = (
+        f"rank=1:bitflip_param=1:leaf=wq;rank=2:nan_at={nan_tick}")
+    tfaults.reset()
+    coll.engine()._faults_tried = False
+    tnum._monitor = None
+    tnum.reset_fingerprints()
+    _dp_run(hvd, tfm, width, layers, dev, NUMERICS_STEPS, barrier=True)
+    tnum.step_stats().flush()
+    time.sleep(0.2)
+    hvd.allreduce(torch.zeros(1, device=dev), name="fault.end")
+    out["fault_alerts"] = [(a.kind, a.evidence)
+                           for a in tnum._alert_monitor().alerts]
+    out["nan_tick"] = nan_tick
+    hvd.shutdown()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _numerics(layers, device, width):
+    """``numerics``'s line from every rank's record."""
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_numerics_rank, args=(_free_port(), layers, outdir,
+                                          device, width), nprocs=WORLD)
+        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+                 for r in range(WORLD)]
+    same = all(all(torch.equal(a[k], b[k]) for a, b in
+                   zip(r["aux"][name], ranks[0]["aux"][name]) for k in a)
+               for r in ranks for name in ranks[0]["aux"])
+    gn = float(ranks[0]["aux"]["dp4"][0]["grad_norm"])
+    gz = float(ranks[0]["aux"]["zero1"][0]["grad_norm"])
+    flips = sorted({(ev["rank"], ev["leaf"], ev["step"])
+                    for kind, ev in ranks[0]["fault_alerts"]
+                    if kind == "rank_divergence" and ev["step"] == 1})
+    nans = {r: [(ev["rank"], ev["source"], ev["step"])
+                for kind, ev in out["fault_alerts"]
+                if kind == "nonfinite_rate" and ev["source"] == "collective"]
+            for r, out in enumerate(ranks)}
+    line = {"mesh": {"dp": WORLD}, "steps": NUMERICS_STEPS,
+            "clean_alerts": sum(len(r["clean_alerts"]) for r in ranks),
+            "aux_same_every_rank": same,
+            "grad_norm": gn, "grad_norm_zero1": gz,
+            "zero1_grad_norm_rel_err": abs(gz - gn) / gn,
+            "aux_engine_last": {k: v.tolist() for k, v in
+                                ranks[0]["aux"]["engine"][-1].items()},
+            "bitflip_named": flips, "nan_tick": ranks[2]["nan_tick"],
+            "nan_alerts_by_rank": nans}
+    line["ok"] = (line["clean_alerts"] == 0 and same
+                  and line["zero1_grad_norm_rel_err"] <= ZERO1_NORM_TOL
+                  and flips == [(1, FLIP_LEAF, 1)]
+                  and len(nans[2]) == 1 and nans[2][0][0] == 2
+                  and not any(nans[r] for r in (0, 1, 3)))
+    return line
+
+
+def run_autotune_rank(rank, port, layers, outdir, device, width):
+    """One rank of ``autotune``."""
+    import torch.distributed as dist
+    hvd, dev = _init_rank(rank, port, device)
+    from ..autotune import AutoTuner, default_registry, enumerate_configs
+    from ..models import transformer as tfm
+    from ..ops import collective as coll
+    from ..parallel import train as ttrain
+    from ..parallel.mesh import create_mesh
+    mesh = create_mesh(pp=WORLD)
+    cfg = _config(tfm, dict(width, max_seq=AUTOTUNE_SEQ), AUTOTUNE_LAYERS)
+    full = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.randint(0, width["vocab"], (AUTOTUNE_BATCH, AUTOTUNE_SEQ + 1),
+                        generator=torch.Generator().manual_seed(3))
+
+    def measure_s(config, budget):
+        schedule, m = config["pipeline_schedule"], config["num_microbatches"]
+        v = 2 if schedule == "interleaved" else 1
+        step = ttrain.build_pipeline_train_step(
+            cfg, mesh, lambda p: torch.optim.SGD(p, lr=1e-2),
+            schedule=schedule, num_virtual=v, device=dev)
+        model = step.make_model(params=step.shard_params(
+            ttrain.to_pipeline_params(cfg, full, WORLD, v)))
+        opt = step.make_optimizer(model)
+        mb = AUTOTUNE_BATCH // m
+        tok_mb = tok[:, :-1].reshape(m, mb, -1).to(dev)
+        tgt_mb = tok[:, 1:].reshape(m, mb, -1).to(dev)
+        step(model, opt, tok_mb, tgt_mb)        # warm-up
+        times = []
+        for _ in range(max(2, int(budget))):
+            _sync(dev)
+            t0 = time.perf_counter()
+            step(model, opt, tok_mb, tgt_mb)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        # Every rank scores the slowest rank's median, so every rank's
+        # search halves alike.
+        t = torch.tensor([sorted(times)[len(times) // 2]], device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
+
+    def constraint(c):
+        return (c["pipeline_schedule"] != "zb-h1"
+                or c["num_microbatches"] >= WORLD)
+    reg = default_registry(include=("pipeline_schedule", "num_microbatches"))
+    tuner = AutoTuner(reg, trial_budget=1)
+    t0 = time.perf_counter()
+    best, trials = tuner.tune_rebuild(lambda c, b: -measure_s(c, b),
+                                      constraint=constraint)
+    out = {"search_s": time.perf_counter() - t0, "best": best,
+           "trials": [(t.config["pipeline_schedule"],
+                       t.config["num_microbatches"], t.rung, t.budget,
+                       round(-t.score * 1e3, 3)) for t in trials],
+           "candidates": len(enumerate_configs(
+               [reg.get("pipeline_schedule"), reg.get("num_microbatches")],
+               constraint=constraint))}
+    eng = coll.engine()
+    base, _, _, _ = _dp_run(hvd, tfm, width, layers, dev, LIVE_STEPS)
+    verdicts, wires, at = {}, [], [0]
+
+    def moves(k, opt):
+        if rank == 0 and k == FUSION_AT:
+            verdicts["fusion"] = eng.tuner_move("fusion_threshold_mb", 16)
+        if rank == 0 and k == WIRE_AT:
+            verdicts["wire"] = eng.tuner_move("dcn_wire_spec", "bf16")
+        # Every rank enters the step after rank 0's moves.
+        hvd.broadcast(torch.zeros(1, device=dev), 0, name=f"live.{k}")
+        at[0] = k
+        if k == 0:
+            inner = opt._fire_buckets
+
+            def fire(buckets, trigger):
+                inner(buckets, trigger)
+                wires.extend((at[0], opt._handles[b.index])
+                             for b in buckets)
+            opt._fire_buckets = fire
+    moved, _, _, _ = _dp_run(hvd, tfm, width, layers, dev, LIVE_STEPS,
+                             before_step=moves)
+    out.update(base=base, moved=moved, verdicts=verdicts,
+               wires=[(k, h.wire) for k, h in wires],
+               groups=[(k, h.group) for k, h in wires],
+               fusion_epochs=[list(e)
+                              for e in eng._coord._arbiter.fusion_epochs],
+               wire_epochs=[list(e) for e in eng._wire_epochs])
+    hvd.shutdown()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _autotune(layers, device, width):
+    """``autotune``'s line from every rank's record."""
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_autotune_rank, args=(_free_port(), layers, outdir,
+                                          device, width), nprocs=WORLD)
+        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+                 for r in range(WORLD)]
+    r0 = ranks[0]
+    v = r0["verdicts"]
+    wire_from = v.get("wire", {}).get("from_seq", -1)
+    moved, base = r0["moved"], r0["base"]
+    prefix = all(a == b for a, b in zip(moved[:WIRE_AT], base[:WIRE_AT]))
+    after = max(abs(a - b) / abs(b) for a, b in zip(moved[WIRE_AT:],
+                                                    base[WIRE_AT:]))
+    wires_ok = all(r["wires"] == r0["wires"] for r in ranks) and all(
+        (w == "bf16") == (k >= WIRE_AT) for k, w in r0["wires"])
+    line = {"mesh": {"pp": WORLD}, "layers": AUTOTUNE_LAYERS,
+            "batch": AUTOTUNE_BATCH, "seq": AUTOTUNE_SEQ,
+            "candidates": r0["candidates"], "trials": r0["trials"],
+            "best": r0["best"], "search_s": r0["search_s"],
+            "same_best_every_rank": all(r["best"] == r0["best"]
+                                        for r in ranks),
+            "verdicts": v, "fusion_epochs": r0["fusion_epochs"],
+            "wire_epochs": r0["wire_epochs"],
+            "groups_per_step": [len({g for k, g in r0["groups"] if k == s})
+                                for s in range(LIVE_STEPS)],
+            "same_groups_every_rank": all(r["groups"] == r0["groups"]
+                                          for r in ranks),
+            "same_epochs_every_rank": all(r["wire_epochs"]
+                                          == r0["wire_epochs"]
+                                          for r in ranks),
+            "losses_base": base, "losses_moved": moved,
+            "bitwise_before_wire": prefix,
+            "rel_err_after_wire": after, "wires_ok": wires_ok}
+    line["ok"] = (line["same_best_every_rank"]
+                  and line["same_epochs_every_rank"]
+                  and line["same_groups_every_rank"]
+                  and v.get("fusion", {}).get("accepted", False)
+                  and v.get("wire", {}).get("accepted", False)
+                  and r0["fusion_epochs"][-1] == [
+                      v["fusion"]["from_seq"], 16 << 20]
+                  and r0["wire_epochs"] == [[wire_from, "bf16"]]
+                  and prefix and after <= 1e-2 and wires_ok)
+    return line
 
 
 SYNC_BN = dict(stage_sizes=[1, 1], num_filters=16, num_classes=10)
@@ -1333,6 +1636,11 @@ def _serve_tp(device, width):
     return line
 
 
+# The variants that run their own spawned jobs.
+OWN_JOBS = ("hier_engine", "sync_bn", "ckpt_zero1", "decode_tp", "serve_tp",
+            "adapt", "numerics", "autotune")
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1343,12 +1651,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
     """{variant: rank 0's line, with the worst gradient error and peak
     memory of all ranks (and, for a pipeline variant, whether every rank
     was bit for bit)}; ``variants`` defaults to all."""
-    variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, "hier_engine",
-                                 "sync_bn", "ckpt_zero1", "decode_tp",
-                                 "serve_tp", "adapt"))
-    mesh_variants = [v for v in variants
-                     if v not in ("hier_engine", "sync_bn", "ckpt_zero1",
-                                  "decode_tp", "serve_tp", "adapt")]
+    variants = list(variants or (*VARIANTS, *PIPE_VARIANTS, *OWN_JOBS))
+    mesh_variants = [v for v in variants if v not in OWN_JOBS]
     ranks = []
     if mesh_variants:
         with tempfile.TemporaryDirectory() as outdir:
@@ -1369,6 +1673,10 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         lines["serve_tp"] = _serve_tp(device, width)
     if "adapt" in variants:
         lines["adapt"] = _adapt(layers, device, width)
+    if "numerics" in variants:
+        lines["numerics"] = _numerics(layers, device, width)
+    if "autotune" in variants:
+        lines["autotune"] = _autotune(layers, device, width)
     for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
@@ -1379,7 +1687,8 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
             line["bitwise"] = all(r[name]["bitwise"] for r in ranks)
         lines[name] = line
     for name, line in lines.items():
-        if name not in ("decode_tp", "serve_tp", "adapt"):
+        if name not in ("decode_tp", "serve_tp", "adapt", "numerics",
+                        "autotune"):
             line["loss_rel_err"] = (abs(line["loss"]
                                         - line["reference_loss"])
                                     / abs(line["reference_loss"]))
@@ -1389,8 +1698,7 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2)
-    names = (*VARIANTS, *PIPE_VARIANTS, "hier_engine", "sync_bn",
-             "ckpt_zero1", "decode_tp", "serve_tp", "adapt")
+    names = (*VARIANTS, *PIPE_VARIANTS, *OWN_JOBS)
     ap.add_argument("--variants", help="comma-separated names (default: "
                     f"all of {', '.join(names)})")
     args = ap.parse_args(argv)
@@ -1412,6 +1720,8 @@ def main(argv=None) -> int:
                    and line["quiet_ok"] and line["same_wires_every_rank"]
                    and line["same_epochs_every_rank"]
                    and line["max_abs_diff_vs_explicit"] == 0.0)
+        elif name in ("numerics", "autotune"):
+            ok &= line["ok"]
         elif name != "decode_tp":
             ok &= (line["loss_rel_err"] <= LOSS_TOL
                    and line["max_grad_rel_err"] <= GRAD_TOL

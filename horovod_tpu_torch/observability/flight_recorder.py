@@ -18,13 +18,13 @@ process leaves its last snapshot).
   - The header carries the clock fields (``offset_to_rank0_us``), so
     the postmortem tool aligns ranks on rank 0's clock.
 
-The port records every kind below but ``numerics`` (ROADMAP Queue 1
-item 5d), ``coord_error`` (the port's rounds have no TCP client to give
-up) and ``elastic`` (neither package's driver writes it): the engine's
-group events, the step timer's, the policy's ``adapt`` moves, the wire
-epochs, failure events, the loader's ``data`` and the checkpoint
-notes beside ``init``, ``fault``, ``serving``, ``request``,
-``serving_replica``, ``alert`` and ``autotune``.
+The port records every kind below but ``coord_error`` (the port's
+rounds have no TCP client to give up) and ``elastic`` (neither
+package's driver writes it): the engine's group events, the step
+timer's, the policy's ``adapt`` moves, the wire epochs, failure events,
+the loader's ``data``, the checkpoint notes and the numerics plane's
+``numerics`` evidence beside ``init``, ``fault``, ``serving``,
+``request``, ``serving_replica``, ``alert`` and ``autotune``.
 
 Event kinds (payload fields):
 

@@ -117,6 +117,7 @@ from .. import executor as _exec
 from .. import quantization as _quant
 from .. import topology as _topo
 from ..observability import flight_recorder as _flight
+from ..observability import numerics as _numerics
 from ..observability import registry as _obs
 from ..utils import env as _env
 from .control_plane import (ALLGATHER, ALLREDUCE, BROADCAST,
@@ -253,7 +254,8 @@ class _Plan(NamedTuple):
     idle: bool           # no name awaits a rank's announcement
     stalls: dict         # name -> ranks that have not announced it
     failures: list       # failure events (``check_failures``)
-    params: dict         # wire epochs
+    params: dict         # epochs and tuned knobs (``Coordinator.params``)
+    verdicts: dict = {}  # rank -> its tuner moves' verdicts, in order
 
 
 def _send_obj(obj, dst: int, group) -> None:
@@ -307,6 +309,7 @@ class _Ran(NamedTuple):
     outs: list          # [(name, result shape)]
     start: Optional[torch.cuda.Event]
     end: Optional[torch.cuda.Event]
+    scans: tuple = ()   # [(scan tick, pinned nonfinite count)]
 
 
 class Handle:
@@ -456,7 +459,16 @@ class CollectiveEngine:
         self._faults = None
         self._faults_tried = False
         self._notes: List[tuple] = []   # alerts for rank 0's policy
+        self._moves: List[list] = []    # [knob, value, event, verdict]
+        self._fingerprints: List[tuple] = []    # [(step, digests)]
         self._wire_epochs: List[tuple] = []     # [(from_seq, spec)]
+        # The plan's params: the cycle time every rank waits (None:
+        # HOROVOD_CYCLE_TIME) and the legacy tuner's state (JAX's
+        # ``autotune_active()``/``autotune_done()``).
+        self.cycle_time_ms: Optional[float] = None
+        self.autotune_active = False
+        self.autotune_done = False
+        self._scans: list = []      # this group's (tick, count) on CUDA
         self._fatal: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="hvd-collective-engine")
@@ -479,15 +491,22 @@ class CollectiveEngine:
             self._faults_tried = True
             from ..adaptation import faults as _faults_mod
             self._faults = _faults_mod.injector()
+        payloads = list(tensors)
         if self._faults is not None:
-            for _ in tensors:
-                self._faults.on_enqueue()
+            for i, tensor in enumerate(tensors):
+                poisoned = self._faults.on_enqueue(tensor=tensor.detach())
+                if poisoned is not None:
+                    # nan_at: the engine carries the poisoned payload on,
+                    # as if the producer had computed a NaN; the sentinels
+                    # downstream must catch it.
+                    payloads[i] = poisoned
         reqs = []
         attrs = (root_rank, bool(average), float(prescale), float(postscale))
         if wires is None:
             wires = [None] * len(tensors)
-        for tensor, name, wire in zip(tensors, names, wires):
-            t = tensor.detach()
+        for tensor, payload, name, wire in zip(tensors, payloads, names,
+                                               wires):
+            t = payload.detach()
             if t.device != self.device:
                 raise ValueError(f"{OP_NAMES[op]}: the tensor is on "
                                  f"{t.device}; this process's collectives "
@@ -528,6 +547,33 @@ class CollectiveEngine:
         with self._lock:
             self._notes.append((str(kind), int(rank)))
 
+    def note_fingerprint(self, step: int, digests: dict) -> None:
+        """Send this rank's parameter digests of ``step`` to rank 0 in the
+        next round (JAX's ``FingerprintRequest``); rank 0's
+        ``numerics.record_fingerprint`` compares them. Fire and forget."""
+        with self._lock:
+            self._fingerprints.append((int(step), dict(digests)))
+
+    def tuner_move(self, knob: str, value, timeout: float = 60.0) -> dict:
+        """Propose one global-tuner move to rank 0's coordinator (JAX's
+        ``TunerMoveRequest``): it rides this rank's next round, and the
+        verdict ``{"accepted", "from_seq", "reason"}`` comes back with the
+        plan. A wire spec or fusion threshold takes effect at
+        ``from_seq`` on every rank, a cycle time live. An engine that
+        stops first gives a rejected move (``unreachable``)."""
+        slot = [str(knob), value, threading.Event(), None]
+        with self._lock:
+            if self._closed:
+                return {"accepted": False, "from_seq": -1,
+                        "reason": "unreachable"}
+            self._moves.append(slot)
+            self._arrived.set()
+        self._wake.set()
+        if not slot[2].wait(timeout) or slot[3] is None:
+            return {"accepted": False, "from_seq": -1,
+                    "reason": "unreachable"}
+        return slot[3]
+
     def flush_hint(self) -> None:
         """A submitter is about to block: start the next cycle now."""
         self._wake.set()
@@ -556,7 +602,8 @@ class CollectiveEngine:
             while not stopping:
                 if idle:
                     self._arrived.wait(IDLE_CYCLE_S)
-                self._wake.wait(_env.cycle_time_ms() / 1e3)
+                self._wake.wait((self.cycle_time_ms
+                                 or _env.cycle_time_ms()) / 1e3)
                 self._wake.clear()
                 # Utilization: busy is the round and its groups, idle the
                 # waits above.
@@ -568,12 +615,14 @@ class CollectiveEngine:
                 with self._lock:
                     batch, self._queue = self._queue, []
                     notes, self._notes = self._notes, []
+                    moves, self._moves = self._moves, []
+                    fps, self._fingerprints = self._fingerprints, []
                     self._arrived.clear()
                     for r in batch:
                         self._announced[r.meta.name] = r
                 plan = self._negotiate(
                     [r.meta for r in batch], self._stop,
-                    _env.fusion_threshold_bytes(), notes)
+                    _env.fusion_threshold_bytes(), notes, moves, fps)
                 self._t_deliver = time.monotonic()
                 stopping, idle = plan.stopping, plan.idle
                 if plan.failures:
@@ -592,34 +641,42 @@ class CollectiveEngine:
             _log.exception("collective engine failed")
             error = HorovodInternalError(f"collective engine failed: {e}")
         self._close(error or self._fatal)
+        if self._coord._pm is not None:
+            self._coord._pm.close()
         if self.timeline is not None:
             self.timeline.close()
 
     def _negotiate(self, metas: List[Meta], stop: bool, threshold: int,
-                   notes: Sequence[tuple] = ()) -> _Plan:
+                   notes: Sequence[tuple] = (), moves: Sequence[list] = (),
+                   fps: Sequence[tuple] = ()) -> _Plan:
         """One round with rank 0: every rank sends its announcements
-        (none while a ``drop_announce`` fault is active) and the alerts
-        it forwards; rank 0 feeds its coordinator, runs the policy, and
-        sends every rank the plan: the ordered groups, whether any rank
-        is stopping, whether the world is idle (no name awaits an
-        announcement), the stall report, the failure events and the
-        params. At world size 1 the round sends nothing."""
+        (none while a ``drop_announce`` fault is active), the alerts it
+        forwards, its tuner moves and its parameter fingerprints; rank 0
+        feeds its coordinator, runs the policy, and sends every rank the
+        plan: the ordered groups, whether any rank is stopping, whether
+        the world is idle (no name awaits an announcement), the stall
+        report, the failure events, the params and the moves' verdicts.
+        At world size 1 the round sends nothing."""
         self.rounds += 1
         if metas and self._faults is not None \
                 and self._faults.drop_announce_active():
             metas = []
         t_sent = time.monotonic()
+        msg = [stop, metas, list(notes), t_sent,
+               [(k, v) for k, v, _, _ in moves], list(fps)]
         if self.rank != 0:
             # The send time on rank 0's clock.
-            _send_obj((stop, metas, list(notes), t_sent + self._clock_offset),
-                      0, self._ctrl)
+            msg[3] = t_sent + self._clock_offset
+            _send_obj(tuple(msg), 0, self._ctrl)
             plan = _recv_obj(0, self._ctrl)
         else:
-            plan = self._plan_round((stop, metas, list(notes), t_sent),
-                                    threshold)
+            plan = self._plan_round(tuple(msg), threshold)
         self._missing = plan.stalls
         if plan.params:
             self._apply_params(plan.params)
+        for slot, verdict in zip(moves, plan.verdicts.get(self.rank, ())):
+            slot[3] = verdict
+            slot[2].set()
         return plan
 
     def _plan_round(self, msg: tuple, threshold: int) -> _Plan:
@@ -628,13 +685,20 @@ class CollectiveEngine:
         got = self._gather_round(msg)
         now = time.monotonic()
         coord = self._coord
+        verdicts = {}
         for r in sorted(got):
-            (stop, metas, notes, t_sent), t_in = got[r]
+            (stop, metas, notes, t_sent, moves, fps), t_in = got[r]
             # Lateness from when the rank sent its round (on rank 0's
             # clock), the heartbeat from when it came in.
             coord.announce(r, metas, t_in, sent=t_sent)
             for kind, rank in notes:
                 coord.note_alert(kind, rank, now)
+            # Before planning, so an accepted epoch starts at the first
+            # group this round plans.
+            if moves:
+                verdicts[r] = [coord.tuner_move(k, v) for k, v in moves]
+            for step, digests in fps:
+                _numerics.record_fingerprint(r, step, digests, self.size)
         coord.maybe_adapt(now)
         coord.check_stalls(now)
         stalls = (coord.stalled(self.stall_warning_s)
@@ -643,7 +707,8 @@ class CollectiveEngine:
         lost = len(got) < self.size
         groups = [] if failures else coord.plan(threshold)
         plan = _Plan(groups, lost or any(m[0][0] for m in got.values()),
-                     coord.pending() == 0, stalls, failures, coord.params())
+                     coord.pending() == 0, stalls, failures, coord.params(),
+                     verdicts)
         if self.size > 1:
             data = bytearray(pickle.dumps(plan))
             n = torch.tensor([len(data)], dtype=torch.int64)
@@ -688,7 +753,8 @@ class CollectiveEngine:
 
     def _apply_params(self, params: dict) -> None:
         """The plan's params (JAX's fetch side channel): the wire epochs
-        replace this rank's list whole."""
+        replace this rank's list whole, the cycle time applies from the
+        next cycle, the legacy tuner's state is kept."""
         we = params.get("wire_epochs")
         if we:
             epochs = [(int(fs), str(sp)) for fs, sp in we]
@@ -696,6 +762,12 @@ class CollectiveEngine:
                 _flight.recorder().note("wire_epoch", (";".join(
                     f"{fs}:{sp or 'raw'}" for fs, sp in epochs),))
             self._wire_epochs = epochs
+        cyc = params.get("cycle_time_ms")
+        if cyc:
+            self.cycle_time_ms = float(cyc)
+        if "autotune_active" in params:
+            self.autotune_active = bool(params["autotune_active"])
+            self.autotune_done = bool(params["autotune_done"])
 
     def _on_failures(self, failures: List[dict], fatal: bool) -> None:
         """Rank 0's failure events: note each, then fail every pending op
@@ -896,6 +968,9 @@ class CollectiveEngine:
             pending = self._queue + list(self._announced.values())
             self._queue, self._announced = [], {}
             self._names.clear()
+            moves, self._moves = self._moves, []
+        for slot in moves:
+            slot[2].set()
         with self._cv:
             for r in pending:
                 r.handle._state = (None, error or HorovodInternalError(
@@ -954,6 +1029,7 @@ class CollectiveEngine:
                    else contextlib.nullcontext())
             with ctx:
                 done = start = None
+                self._scans = []
                 if self._stream is not None:
                     for ev in {id(r.ready): r.ready for r in reqs}.values():
                         self._stream.wait_event(ev)
@@ -986,7 +1062,7 @@ class CollectiveEngine:
             return
         ran = _Ran(g.op, seq, activity, self._t_deliver, t_start,
                    [(r.meta.name, tuple(o.shape)) for r, o in zip(reqs, outs)],
-                   start, None if done is None else done.event)
+                   start, None if done is None else done.event, self._scans)
         if done is None:
             self._record_executed(ran, time.monotonic())
         else:
@@ -1016,8 +1092,13 @@ class CollectiveEngine:
                     ran, ran.t_start + ran.start.elapsed_time(ran.end) / 1e3)
 
     def _record_executed(self, ran: "_Ran", t_end: float) -> None:
-        """A group's queue and execute phases, its ``group_done`` and its
-        activity spans."""
+        """A group's queue and execute phases, its ``group_done``, its
+        activity spans, and on CUDA its nonfinite counts (their pinned
+        copies landed before the group's end event)."""
+        for tick, count in ran.scans:
+            n = int(count)
+            if n:
+                _numerics.note_nonfinite(n, source="collective", step=tick)
         op_name = OP_NAMES[ran.op]
         self._metrics.group_executed(ran.op, ran.t_deliver, ran.t_start,
                                      t_end)
@@ -1068,7 +1149,9 @@ class CollectiveEngine:
             outs = _exec.fused_allreduce(ts,
                                          self._hier_sum if hier else self._sum,
                                          m.prescale, post, wire, self.size,
-                                         self._all_to_all, self._all_gather)
+                                         self._all_to_all, self._all_gather,
+                                         self._scan if self._scanned(g)
+                                         else None)
             if restore is not None:
                 outs = [o.to(dt) for o, dt in zip(outs, restore)]
             return outs
@@ -1079,6 +1162,28 @@ class CollectiveEngine:
         return _exec.fused_allgather(ts, [g.rows[n] for n in g.names],
                                      self._hier_gather if hier
                                      else self._gather)
+
+    @staticmethod
+    def _scanned(g: Group) -> bool:
+        """Whether the sentinel scans the group: with the plane armed,
+        every group but one holding only the train step's own numerics
+        vector (its norms are the telemetry of a NaN, not a payload)."""
+        return _numerics.enabled() and not all(
+            n.startswith(_numerics.AUX_NAME) for n in g.names)
+
+    def _scan(self, buf: torch.Tensor) -> None:
+        """The numerics sentinel on a group's packed LOCAL buffer, before
+        the reduction (JAX's executor, ``executor.py:971-977``). On the
+        CPU the count is read now; on CUDA it stays on the engine's
+        stream, copied into pinned memory, and is read once the group's
+        end event has passed (``collect_timings``): no host wait."""
+        if buf.is_cuda:
+            count = buf.numel() - torch.isfinite(buf).sum()
+            host = torch.empty((), dtype=torch.int64, pin_memory=True)
+            host.copy_(count, non_blocking=True)
+            self._scans.append((_numerics.next_scan_tick(), host))
+        else:
+            _numerics.scan_payload(buf)
 
     # The two-level layout: ``ici`` ranks to a node, ``dcn`` nodes, rank
     # d * ici + i. A level of one rank is the identity; a level of every

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import threading
 import time
 import zlib
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -343,27 +344,67 @@ class _SkewTracker:
 
 
 class WireEpochArbiter:
-    """The one place wire epochs are stamped (JAX's ``WireEpochArbiter``,
-    ``control_plane.py:372``): an epoch ``(from_seq, spec)`` declares
-    that the groups planned from ``from_seq`` on move on ``spec`` (""
-    raw). The coordinator stamps it at the next group it plans, before
-    planning it, and ships the whole list in every plan, so every rank
-    maps each group's sequence to the same wire. The port has one
-    producer, the adaptation ladder; the global tuner (item 5e) brings
-    JAX's precedence between the two."""
+    """The one place epochs are stamped (JAX's ``WireEpochArbiter``,
+    ``control_plane.py:372``): an epoch ``(from_seq, value)`` declares
+    that the groups planned from ``from_seq`` on use ``value``: a wire
+    spec ("" raw) or a fusion threshold in bytes. The coordinator stamps
+    it at the next group it plans, before planning it, and ships the
+    whole lists in every plan, so every rank maps each group's sequence
+    to the same value. Two producers propose: the adaptation ladder
+    (``"ladder"``) and the global tuner (``"tuner"``), with JAX's
+    precedence when both land in one planning gap:
 
-    def __init__(self, next_seq):
+      - a proposal equal to the current value is rejected (``noop``);
+      - one producer restamping its pending seq appends (later entries
+        win on every rank);
+      - the ladder replaces a pending tuner move at the same seq (a
+        health reaction outranks an optimization);
+      - a tuner move against a pending ladder epoch is rejected.
+
+    The fusion list is independent of the wire list."""
+
+    def __init__(self, mu, next_seq):
+        self._mu = mu                # held while reading the seq and appending
         self._next_seq = next_seq    # () -> the next group's sequence
         self.wire_epochs: List[Tuple[int, str]] = []
+        self.fusion_epochs: List[Tuple[int, int]] = []
+        self._wire_src: List[str] = []
+        self._fusion_src: List[str] = []
 
-    def propose_wire(self, spec: Optional[str]) -> dict:
+    def _propose(self, epochs, srcs, source: str, value, initial) -> dict:
         seq = int(self._next_seq())
-        value = spec or ""
-        current = self.wire_epochs[-1][1] if self.wire_epochs else ""
+        current = epochs[-1][1] if epochs else initial
         if value == current:
             return {"accepted": False, "from_seq": seq, "reason": "noop"}
-        self.wire_epochs.append((seq, value))
+        if epochs and epochs[-1][0] == seq:
+            pending = {s for (fs, _), s in zip(epochs, srcs) if fs == seq}
+            if source == "tuner" and "ladder" in pending:
+                return {"accepted": False, "from_seq": seq,
+                        "reason": "conflict_with_ladder"}
+            if source == "ladder" and "tuner" in pending:
+                # No group at ``seq`` is planned yet, so no rank has seen
+                # the tuner's entries: drop them, stamp the ladder's.
+                kept = [(e, s) for e, s in zip(epochs, srcs)
+                        if not (e[0] == seq and s == "tuner")]
+                epochs[:] = [e for e, _ in kept]
+                srcs[:] = [s for _, s in kept]
+                epochs.append((seq, value))
+                srcs.append(source)
+                return {"accepted": True, "from_seq": seq,
+                        "reason": "replaced_tuner"}
+        epochs.append((seq, value))
+        srcs.append(source)
         return {"accepted": True, "from_seq": seq, "reason": "ok"}
+
+    def propose_wire(self, source: str, spec: Optional[str]) -> dict:
+        with self._mu:
+            return self._propose(self.wire_epochs, self._wire_src, source,
+                                 spec or "", "")
+
+    def propose_fusion(self, source: str, threshold_bytes: int) -> dict:
+        with self._mu:
+            return self._propose(self.fusion_epochs, self._fusion_src,
+                                 source, int(threshold_bytes), None)
 
 
 class Coordinator:
@@ -389,6 +430,7 @@ class Coordinator:
         self.size = size
         self.flags = flags
         self._table: Dict[str, Entry] = {}
+        self._planned_bytes = 0       # since the legacy tuner's last cycle
         self.next_seq = 0             # the sequence of the next group
         self.stall_warning_s = (stall_warning_s if stall_warning_s
                                 is not None else _env.stall_warning_secs())
@@ -398,7 +440,12 @@ class Coordinator:
         self._stall_blame: Dict[int, float] = {}
         self._escalated_stalls: Dict[int, str] = {}
         self._failures_reported: set = set()
-        self._arbiter = WireEpochArbiter(lambda: self.next_seq)
+        self._arbiter = WireEpochArbiter(threading.Lock(),
+                                         lambda: self.next_seq)
+        # The global tuner's live cycle time (None until a move lands);
+        # its fusion cap is the arbiter's last fusion epoch.
+        self._tuner_cycle_ms: Optional[float] = None
+        self._pm = None
         self._policy = None
         self._policy_failures: List[dict] = []
         self._skew = _SkewTracker(size) if primary and size > 1 else None
@@ -420,6 +467,10 @@ class Coordinator:
             "hvdtpu_coordinator_alert_notes_total",
             "Health alerts forwarded by remote ranks as adaptation "
             "ladder inputs, by alert kind (docs/health.md#adaptation)")
+        self._m_tuner_moves = r.counter(
+            "hvdtpu_autotune_coord_moves_total",
+            "Global-autotuner move proposals arbitrated by the "
+            "coordinator, by knob and verdict (docs/autotune.md)")
         if _env.adaptation_enabled():
             from ..adaptation.policy import (AdaptationConfig,
                                              AdaptationPolicy)
@@ -427,6 +478,13 @@ class Coordinator:
                 AdaptationConfig.from_env(),
                 allow_evict=self.failure_timeout_s > 0)
             self._last_policy_tick = time.monotonic()
+        if _env.autotune_engine():
+            from ..autotune.parameter_manager import ParameterManager
+            self._pm = ParameterManager(
+                _env.fusion_threshold_bytes() / (1 << 20),
+                _env.cycle_time_ms(), _env.autotune_log())
+            self._base_flags = flags
+            self._last_plan_t = time.monotonic()
 
     def pending(self) -> int:
         return len(self._table)
@@ -457,18 +515,34 @@ class Coordinator:
                             now if sent is None else sent)
 
     def threshold(self, base: int) -> int:
-        """The fusion threshold the planner cuts with: ``base`` divided by
-        the policy's ``shrink_factor`` while its ``shrink`` tier is
-        active."""
+        """The fusion threshold the planner cuts with: the legacy tuner's
+        point or the global tuner's last fusion epoch in place of
+        ``base`` when one is set, divided by the policy's
+        ``shrink_factor`` while its ``shrink`` tier is active. Only rank
+        0 plans, so this one value cuts every rank's groups."""
+        if self._pm is not None:
+            base = self._pm.fusion_bytes
+        elif self._arbiter.fusion_epochs:
+            base = self._arbiter.fusion_epochs[-1][1]
         if self._policy is not None and self._policy.shrink_active():
             return base // self._policy.config.shrink_factor
         return base
 
     def plan(self, threshold: int) -> List[Group]:
         """Plan every name all ranks have announced; groups are numbered
-        from :attr:`next_seq` on, as every rank executes them."""
+        from :attr:`next_seq` on, as every rank executes them. With the
+        legacy tuner armed, each plan is one of its cycles: the bytes
+        planned over the seconds since the last plan."""
         groups = self._plan(self.threshold(threshold))
         self.next_seq += len(groups)
+        nbytes, self._planned_bytes = self._planned_bytes, 0
+        if self._pm is not None:
+            now = time.monotonic()
+            if self._pm.update(nbytes, now - self._last_plan_t):
+                self.flags = self._base_flags & ~(
+                    FLAG_HIERARCHICAL_ALLREDUCE | FLAG_HIERARCHICAL_ALLGATHER
+                ) | self._pm.flags()
+            self._last_plan_t = now
         return groups
 
     def _plan(self, threshold: int) -> List[Group]:
@@ -495,6 +569,7 @@ class Coordinator:
             item = Ready(nm, fusion_key(m.op, m.dtype, m.wire, m.root_rank,
                                         m.average, m.prescale, m.postscale),
                          e.nbytes, ragged)
+            self._planned_bytes += e.nbytes
             batch.append(item)
             slots.append(item)
         first_of = {id(g[0]): g for g in plan_fusion(batch, threshold)}
@@ -629,7 +704,7 @@ class Coordinator:
             return
         wire = self._policy.wire_spec()
         if wire != prev_wire:
-            self._arbiter.propose_wire(wire)
+            self._arbiter.propose_wire("ladder", wire)
         for ev in events:
             if ev["name"] == "evict" and ev["action"] == "escalate":
                 self._policy_failures.append({
@@ -642,11 +717,55 @@ class Coordinator:
                         "through every degradation tier "
                         f"({', '.join(self._policy.config.tiers[:-1])})")})
 
+    def tuner_move(self, knob: str, value) -> dict:
+        """Arbitrate one global-tuner move (JAX's ``_tuner_move``): the
+        wire spec and the fusion threshold stamp epochs through the
+        arbiter the ladder uses, the cycle time applies live. While the
+        legacy tuner is armed it owns the fusion threshold and the cycle
+        time, and a move of either is rejected (``legacy_tuner_active``).
+        A rejected move (the ladder holds the seq, a no-op, an unknown
+        knob) is a verdict, never an error."""
+        knob = str(knob)
+        if self._pm is not None and knob in ("fusion_threshold_mb",
+                                             "cycle_time_ms"):
+            res = {"accepted": False, "from_seq": -1,
+                   "reason": "legacy_tuner_active"}
+        elif knob == "dcn_wire_spec":
+            res = self._arbiter.propose_wire("tuner", str(value or ""))
+        elif knob == "fusion_threshold_mb":
+            # The planner cuts the groups from ``from_seq`` on with it;
+            # the ladder's shrink still scales it (threshold()).
+            res = self._arbiter.propose_fusion(
+                "tuner", int(float(value) * (1 << 20)))
+        elif knob == "cycle_time_ms":
+            self._tuner_cycle_ms = float(value)
+            res = {"accepted": True, "from_seq": -1, "reason": "live"}
+        else:
+            res = {"accepted": False, "from_seq": -1,
+                   "reason": "unknown_knob"}
+        self._m_tuner_moves.labels(
+            knob=knob, verdict=("accepted" if res["accepted"]
+                                else res["reason"])).inc()
+        from ..observability import flight_recorder as _flight
+        _flight.recorder().note("autotune", (
+            "coord_move", knob, str(value), None, None,
+            f"{res['reason']} from_seq={res['from_seq']}"))
+        return res
+
     def params(self) -> dict:
         """What every engine needs beside the groups (JAX's
-        ``_adapted_params``): the wire epochs, or {} while none exists.
-        JAX's fusion threshold is not among them: rank 0 plans every
-        rank's groups, so only its planner cuts with it."""
-        if not self._arbiter.wire_epochs:
-            return {}
-        return {"wire_epochs": [list(e) for e in self._arbiter.wire_epochs]}
+        ``_adapted_params``): the wire epochs, the cycle time every
+        rank waits (the global tuner's move or the legacy tuner's
+        point) and, with the legacy tuner armed,
+        ``autotune_active``/``autotune_done``. Empty while none of them
+        exists. The fusion threshold and the hierarchical flags are not
+        here: rank 0's planner cuts every rank's groups, and each group
+        carries its flags."""
+        out = {}
+        if self._arbiter.wire_epochs:
+            out["wire_epochs"] = [list(e) for e in self._arbiter.wire_epochs]
+        if self._pm is not None:
+            out.update(self._pm.params())
+        if self._tuner_cycle_ms is not None:
+            out["cycle_time_ms"] = self._tuner_cycle_ms
+        return out

@@ -48,6 +48,7 @@ from . import quantization as _quant
 from . import topology as _topo
 from .compression import Compression
 from .observability import flight_recorder as _flight
+from .observability import numerics as _numerics
 from .observability import registry as _obs
 from .ops import collective as _coll
 from .utils import env as _env
@@ -194,8 +195,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if skip_nonfinite_steps is None:
             skip_nonfinite_steps = _env.torch_skip_nonfinite()
         self._skip_nonfinite = bool(skip_nonfinite_steps)
-        # Nonfinite gradient elements packed this step, on the device.
+        # Nonfinite gradient elements packed this step, on the device;
+        # the last step's (``last_nonfinite``: the train step's local,
+        # pre-reduction count), the error feedback's residual norms by
+        # bucket, and the numerics report one step late.
         self._nonfinite: Optional[torch.Tensor] = None
+        self.last_nonfinite: Optional[torch.Tensor] = None
+        self._ef_norms: Dict[str, torch.Tensor] = {}
+        self._report: Optional[tuple] = None
+        self._steps = 0
         named_parameters = list(named_parameters or [])
         all_ids = {id(v) for group in self.param_groups
                    for v in group["params"]}
@@ -358,17 +366,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         """Submit the buckets' in-place allreduces in one call, after the
         error feedback and the nonfinite count (both on the caller's
         stream, before the engine's fence)."""
-        count = _topo.topology().numerics
+        count = _numerics.enabled()
         for b in buckets:
             if self._blockwise is not None \
                     and b.buffer.dtype == torch.float32:
                 self._apply_error_feedback(b, self._blockwise.wire_spec)
             if count and b.buffer.dtype.is_floating_point:
-                # On the device: read once, in step(), where the skip
-                # decision needs it; a read here would stall backward.
-                nf = b.numel - torch.isfinite(b.buffer).sum()
-                self._nonfinite = nf if self._nonfinite is None \
-                    else self._nonfinite + nf
+                self._count_nonfinite(b.buffer)
             self.bucket_fires[trigger] += 1
             self._metrics.fires[trigger].inc()
             self._metrics.bucket_bytes.inc(b.numel * b.buffer.element_size())
@@ -377,6 +381,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             names=[b.name for b in buckets], compression=self._blockwise)
         for b, handle in zip(buckets, h.handles):
             self._handles[b.index] = handle
+
+    def _count_nonfinite(self, buf: torch.Tensor) -> None:
+        """The sentinel on a local payload, on the device: read once a
+        step, in step() (where the skip decision needs it) or a step
+        later; a read here would stall backward."""
+        nf = buf.numel() - torch.isfinite(buf).sum()
+        self._nonfinite = nf if self._nonfinite is None \
+            else self._nonfinite + nf
 
     def _apply_error_feedback(self, b: _GradBucket, spec: str) -> None:
         """The bucket's residual: the wire's input is the gradients plus
@@ -392,6 +404,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             b.buffer.add_(res)
             torch.sub(b.buffer, _quant.local_roundtrip(b.buffer, spec),
                       out=res)
+            if _numerics.enabled():
+                # The quantization-drift signal: what the wire dropped.
+                self._ef_norms[b.name] = torch.linalg.vector_norm(res)
 
     # --------------------------------------------------------------- hooks
 
@@ -436,6 +451,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return hook
 
     def _allreduce_grad_async(self, p):
+        if _numerics.enabled() and p.grad.is_floating_point():
+            self._count_nonfinite(p.grad)
         wire, ctx = self._compression.compress(p.grad)
         self._wire_ctx[id(p)] = ctx
         name = self._names[id(p)]
@@ -523,8 +540,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self.synchronize()
         self._synchronized = False
         nonfinite, self._nonfinite = self._nonfinite, None
-        if self._skip_nonfinite and nonfinite is not None \
-                and int(nonfinite):
+        self.last_nonfinite = nonfinite
+        skip = self._skip_nonfinite and nonfinite is not None \
+            and int(nonfinite)
+        self._report_numerics(nonfinite, now=self._skip_nonfinite)
+        if skip:
             # Every rank ran the same collectives; only the update is
             # skipped, so the averaged NaN/Inf never reach the weights.
             self._metrics.skipped_steps.inc()
@@ -532,6 +552,36 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                           "elements this step; optimizer update skipped")
             return None
         return super(self.__class__, self).step(closure)
+
+    def _report_numerics(self, nonfinite: Optional[torch.Tensor],
+                         now: bool) -> None:
+        """The step's bucket sentinel (``torch_bucket``, naming this
+        rank) and residual norms to the numerics plane, once a step: at
+        once when ``now`` (skip_nonfinite_steps read the count anyway),
+        else one step late, so the step adds no wait on the card."""
+        step, self._steps = self._steps, self._steps + 1
+        prev, self._report = self._report, None
+        norms, self._ef_norms = self._ef_norms, {}
+        current = None
+        if _numerics.enabled() and (nonfinite is not None or norms):
+            counts = [] if nonfinite is None else [nonfinite]
+            current = (step, len(counts), list(norms),
+                       _numerics.Deferred(counts + list(norms.values())))
+        if not now:
+            self._report, current = current, None
+        for report in (prev, current):
+            if report is not None:
+                self._materialize_report(*report)
+
+    def _materialize_report(self, step: int, n_counts: int, names: list,
+                            deferred) -> None:
+        vals = deferred.read()
+        rank = _topo.rank() if _topo.is_initialized() else 0
+        if n_counts:
+            _numerics.note_nonfinite(int(vals[0][0]), source="torch_bucket",
+                                     step=step, rank=rank)
+        for name, v in zip(names, vals[n_counts:]):
+            _numerics.note_ef_residual(name, float(v[0]))
 
     def zero_grad(self, *args, **kwargs):
         if self._handles:

@@ -58,6 +58,30 @@ the ranks in the engine's hook-fired buckets, then the inner step.
 Dropout draws from a generator on the step's device seeded from
 ``(seed, step)`` each step, as JAX folds the step index into its
 dropout key.
+
+With the numerics plane armed (``HOROVOD_TPU_NUMERICS=1``), the dp and
+mesh transformer steps carry JAX's in-step telemetry
+(``horovod_tpu/parallel/train.py:130-167``): before the step an armed
+``bitflip_param`` clause flips its leaf (``numerics.maybe_bitflip``);
+after the backward each rank counts its LOCAL gradients' nonfinite
+elements (the dp step: the optimizer's count of the payloads it
+submitted, before the engine reduced them); after the update one
+``all_reduce`` of a ``[3 + world]`` fp32 vector over the whole world
+carries the squared norms of the reduced gradients, of the update (the
+parameters after less before) and of the parameters before, each leaf's
+divided by its replication factor (the product of the mesh axes its
+spec does not name, JAX's ``_dedup_sq``), and each rank's count at its
+linear mesh index. The step hands the global norm, the update ratio and
+the count vector, still on the device, to ``numerics.step_stats()``
+(read one step late) and runs the fingerprint probe
+(``maybe_send_fingerprint``: a mesh step digests the leaves no mesh axis
+of size > 1 splits, which every rank holds whole). The parameters are
+those of the plane-off step bit for bit; with the plane off none of
+this runs. Under ZeRO-1 the gradient norm sums the squares of each
+rank's reduce-scattered chunk (``Zero1Optimizer.shadows[i].grad``,
+which covers each element once over 'dp') inside the same vector,
+where JAX all-reduces the gradients over 'dp' again to take it
+(deviation 44).
 """
 
 from __future__ import annotations
@@ -77,6 +101,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from .. import topology as _topo
 from ..models.layers import set_dropout_generator
 from ..models.transformer import Transformer, TransformerConfig, param_specs
+from ..observability import numerics as _numerics
 from ..ops import collective as _coll
 from ..optimizer import DistributedOptimizer
 from .collectives import axis_size, hierarchical_psum_tree, psum
@@ -86,6 +111,71 @@ from .zero import Zero1Optimizer, zero1_init
 
 DATA_AXES = ("dp", "sp")
 MODEL_AXES = ("tp", "ep")
+
+
+def _sq_norm(tensors, factors: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """``sum_i ||t_i||^2 / factors[i]`` in fp32, on the tensors' device
+    (JAX's per-leaf ``sum(square(x.astype(f32))) / d``); ``factors`` a
+    tensor on that device, so nothing is copied from the host."""
+    sq = torch.stack(torch._foreach_norm(tensors, 2,
+                                         dtype=torch.float32)).square()
+    if factors is not None:
+        sq = sq / factors
+    return sq.sum()
+
+
+def _count_nonfinite(tensors) -> torch.Tensor:
+    """The nonfinite elements of ``tensors``, as an fp32 0-d tensor: one
+    concatenation and one count, not a count a tensor."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    return (flat.numel() - torch.isfinite(flat).sum()).float()
+
+
+class _Telemetry:
+    """The armed step's reusable buffers: a snapshot of the parameters
+    before the update (which becomes the update, in place, after it) and
+    each parameter's replication factor, on the device."""
+
+    def __init__(self, params, factors=(), zero1_factors=()):
+        self.key = [id(p) for p in params]
+        self.snap = [torch.empty_like(p, memory_format=torch.contiguous_format)
+                     for p in params]
+        dev = params[0].device
+        self.factors = (torch.tensor(factors, dtype=torch.float32,
+                                     device=dev) if factors else None)
+        self.zero1_factors = (torch.tensor(zero1_factors,
+                                           dtype=torch.float32, device=dev)
+                              if zero1_factors else None)
+
+    def before(self, params) -> torch.Tensor:
+        """Snapshot the parameters; their squared norm."""
+        torch._foreach_copy_(self.snap, [p.detach() for p in params])
+        return _sq_norm(self.snap, self.factors)
+
+    def update_sq(self, params) -> torch.Tensor:
+        """The squared norm of the update (before less after)."""
+        torch._foreach_sub_(self.snap, [p.detach() for p in params])
+        return _sq_norm(self.snap, self.factors)
+
+
+def _numerics_vector(g_sq, u_sq, p_sq, nf_local, world: int,
+                     index: int) -> torch.Tensor:
+    """JAX's ``[3 + world]`` aux vector before its psum: the three
+    squared norms, then the local count at this rank's index."""
+    nf = torch.zeros(world, dtype=torch.float32, device=g_sq.device)
+    nf[index] = nf_local
+    return torch.cat([torch.stack([g_sq, u_sq, p_sq]), nf])
+
+
+def _numerics_aux(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The aux dict of the reduced vector, as JAX's step returns it."""
+    return {"grad_norm": packed[0].sqrt(),
+            "update_ratio": packed[1].sqrt()
+            / packed[2].sqrt().clamp_min(1e-12),
+            "nonfinite_by_rank": packed[3:]}
+
+
 
 
 class TrainStep:
@@ -102,6 +192,9 @@ class TrainStep:
         self.cfg = cfg
         self.optimizer_factory = optimizer_factory
         self.device = device
+        self.steps = 0
+        self.last_aux: Optional[Dict[str, torch.Tensor]] = None
+        self._telemetry: Optional[_Telemetry] = None
 
     def make_model(self, **kwargs) -> Transformer:
         return Transformer(self.cfg, device=self.device, **kwargs)
@@ -116,14 +209,39 @@ class TrainStep:
         if not hasattr(optimizer, "synchronize"):
             raise TypeError("the train step needs a DistributedOptimizer "
                             "(see TrainStep.make_optimizer)")
+        step, self.steps = self.steps, self.steps + 1
+        numerics = _numerics.enabled()
+        if numerics:
+            _numerics.maybe_bitflip(model, step)
         tokens = tokens.to(model.device, non_blocking=True)
         targets = targets.to(model.device, non_blocking=True)
         optimizer.zero_grad()
         loss = model.loss_fn(tokens, targets)
         loss.backward()
+        if numerics:
+            params = [p for p in model.parameters() if p.requires_grad]
+            tel = self._telemetry
+            if tel is None or tel.key != [id(p) for p in params]:
+                tel = self._telemetry = _Telemetry(params)
+            p_sq = tel.before(params)
         optimizer.step()
-        return _coll.allreduce(loss.detach().float(), average=True,
+        loss = _coll.allreduce(loss.detach().float(), average=True,
                                name="train_step.loss")
+        if numerics:
+            # Every parameter is replicated over the world: each rank's
+            # squares count 1/world of the sum.
+            n = _topo.size() if _topo.is_initialized() else 1
+            grads = [p.grad for p in params if p.grad is not None]
+            nf = optimizer.last_nonfinite
+            vec = _numerics_vector(
+                _sq_norm(grads) / n, tel.update_sq(params) / n, p_sq / n,
+                nf if nf is not None else loss.new_zeros(()), n,
+                _topo.rank() if _topo.is_initialized() else 0)
+            self.last_aux = _numerics_aux(_coll.allreduce(
+                vec, average=False, name=_numerics.AUX_NAME))
+            _numerics.step_stats().note(step, loss, self.last_aux)
+            _numerics.maybe_send_fingerprint(model, step)
+        return loss
 
 
 def _step_device(device) -> torch.device:
@@ -215,6 +333,15 @@ class MeshTrainStep:
                              else None)
         self.specs = param_specs(cfg)
         self.sizes, self.coords = place(mesh)
+        self.steps = 0
+        self.last_aux: Optional[Dict[str, torch.Tensor]] = None
+        self._telemetry: Optional[_Telemetry] = None
+        # The numerics vector's size and this rank's place in it (the
+        # linear mesh index).
+        self.world = mesh.mesh.numel()
+        self.index = 0
+        for a in mesh.mesh_dim_names:
+            self.index = self.index * self.sizes[a] + self.coords[a]
         self.n_data = math.prod(self.sizes.get(a, 1) for a in DATA_AXES)
         if dcn_axis is not None:
             self.n_data *= self.sizes[dcn_axis]
@@ -270,11 +397,38 @@ class MeshTrainStep:
                     f"dp-replicated parameters; spec {spec} already uses "
                     "'dp'")
 
+    def _factor(self, name: str, skip: Tuple[str, ...] = ()) -> int:
+        """The replication factor of parameter ``name``: the product of
+        the mesh axes its spec does not split over, less ``skip``."""
+        have = set(spec_axes(spec_of(self.specs, name)))
+        return math.prod(n for a, n in self.sizes.items()
+                         if a not in have and a not in skip)
+
+    def _replicated(self, model: Transformer) -> Dict:
+        """The tree of the leaves every rank holds whole (no mesh axis of
+        size > 1 splits them), under their JAX paths: what the
+        fingerprint probe compares across ranks."""
+        tree: Dict = {}
+        for key, t in model.state_dict(keep_vars=True).items():
+            if any(self.sizes[a] > 1
+                   for a in spec_axes(spec_of(self.specs, key))):
+                continue
+            path = [int(s) if s.isdigit() else s for s in key.split(".")]
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = t
+        return tree
+
     def __call__(self, model: Transformer, optimizer, tokens: torch.Tensor,
                  targets: torch.Tensor) -> torch.Tensor:
         zero1 = isinstance(optimizer, Zero1Optimizer)
         if zero1:
             self._check_zero1(optimizer)
+        step, self.steps = self.steps, self.steps + 1
+        numerics = _numerics.enabled()
+        if numerics:
+            _numerics.maybe_bitflip(model, step)
         tokens = tokens.to(model.device, non_blocking=True)
         targets = targets.to(model.device, non_blocking=True)
         optimizer.zero_grad()
@@ -286,15 +440,47 @@ class MeshTrainStep:
             loss = torch.where(loss.new_zeros((), dtype=torch.bool), loss,
                                0.0)
         loss.backward()
+        if numerics:
+            named = [(n, p) for n, p in model.named_parameters()
+                     if p.requires_grad]
+            # Counted on the LOCAL gradients: after the reduction a NaN
+            # is on every rank and the producer cannot be named.
+            nf_local = _count_nonfinite([p.grad for _, p in named
+                                         if p.grad is not None])
         if zero1:
             reduce_gradients(model, self.specs, self.mesh, skip=("dp",))
         else:
             reduce_gradients(model, self.specs, self.mesh,
                              hierarchical=self.hierarchical,
                              dcn_wire=self.dcn_wire)
+        if numerics:
+            params = [p for _, p in named]
+            tel = self._telemetry
+            if tel is None or tel.key != [id(p) for p in params]:
+                tel = self._telemetry = _Telemetry(
+                    params, [self._factor(n) for n, _ in named],
+                    [self._factor(n, skip=("dp",)) for n, _ in named])
+            p_sq = tel.before(params)
         optimizer.step()
-        return psum(loss.detach().float(), self.mesh,
+        loss = psum(loss.detach().float(), self.mesh,
                     self.mesh.mesh_dim_names)
+        if numerics:
+            if zero1:
+                g_sq = _sq_norm([s.grad for s in optimizer.shadows],
+                                tel.zero1_factors)
+            else:
+                g_sq = _sq_norm([p.grad for p in params], tel.factors)
+            vec = _numerics_vector(g_sq, tel.update_sq(params), p_sq,
+                                   nf_local, self.world, self.index)
+            if self.world == dist.get_world_size():
+                dist.all_reduce(vec)
+            else:       # a mesh over part of the world: axis by axis
+                vec = psum(vec, self.mesh, self.mesh.mesh_dim_names)
+            self.last_aux = _numerics_aux(vec)
+            _numerics.step_stats().note(step, loss, self.last_aux)
+            _numerics.maybe_send_fingerprint(
+                model if self.world == 1 else self._replicated(model), step)
+        return loss
 
 
 def _spec_leaves(tree):

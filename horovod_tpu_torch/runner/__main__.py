@@ -18,8 +18,9 @@ replacements appear (docs/elastic.md).
 at ``--tp N`` it starts its own N ranks). SIGTERM is forwarded to the
 workers, which drain and exit on their own (a server's graceful drain).
 ``--adaptation`` arms rank 0's adaptation policy in every worker
-(``HOROVOD_TPU_ADAPTATION=1``, ROADMAP Queue 1 item 5c). ``--autotune``
-is refused: the port has no global tuner (item 5e) yet.
+(``HOROVOD_TPU_ADAPTATION=1``) and ``--autotune`` the engine's Bayesian
+tuner in rank 0's coordinator (``HOROVOD_TPU_AUTOTUNE=1``), as JAX's
+runner exports them and JAX's core reads the second.
 """
 
 from __future__ import annotations
@@ -96,9 +97,13 @@ def main(argv=None) -> int:
                              "straggler (elastic); exported as "
                              "HOROVOD_TPU_ADAPTATION=1")
     parser.add_argument("--autotune", action="store_true",
-                        help="the GLOBAL online autotuner "
-                             "(docs/autotune.md); refused: the port has "
-                             "none yet (ROADMAP Queue 1 item 5e)")
+                        help="arm the engine's Bayesian tuner on "
+                             "rank 0 (fusion MB, cycle ms and the "
+                             "hierarchical flags, scored in bytes per "
+                             "microsecond of a cycle, frozen at its best "
+                             "point); exported as HOROVOD_TPU_AUTOTUNE=1, "
+                             "which the coordinator reads before "
+                             "HOROVOD_AUTOTUNE, as JAX's core does")
     parser.add_argument("--blackbox-dir", default=None,
                         help="flight-recorder crash-dump directory "
                              "(docs/postmortem.md): on a crash, "
@@ -157,10 +162,6 @@ def main(argv=None) -> int:
     elif not command:
         parser.error("missing worker command")
 
-    if args.autotune:
-        parser.error("--autotune: the port has no global autotuner yet "
-                     "(ROADMAP Queue 1 item 5e)")
-
     extra_env = {}
     if args.fault_spec:
         # Validate at launch: a typo'd fault harness must fail here, not
@@ -170,6 +171,8 @@ def main(argv=None) -> int:
         extra_env["HOROVOD_TPU_FAULT_SPEC"] = args.fault_spec
     if args.adaptation:
         extra_env["HOROVOD_TPU_ADAPTATION"] = "1"
+    if args.autotune:
+        extra_env["HOROVOD_TPU_AUTOTUNE"] = "1"
     if args.timeline:
         # Propagated UNEXPANDED: each worker resolves its own {rank}
         # (utils/env.resolved_timeline_path), so the same value serves

@@ -47,12 +47,18 @@ class Topology:
     # The collective engine's negotiation group (gloo); None at size 1.
     control_group: Optional[object] = dataclasses.field(default=None,
                                                         compare=False)
-    # HOROVOD_TPU_NUMERICS at init: the buckets count nonfinite gradients.
-    numerics: bool = False
     # Elastic generation: 0 for the first launch (and every non-elastic
     # job), bumped by an elastic driver on every recovery relaunch
     # (HOROVOD_TPU_ELASTIC_GENERATION).
     generation: int = 0
+
+    @property
+    def numerics(self) -> bool:
+        """Whether the numerics plane is armed (``HOROVOD_TPU_NUMERICS``
+        at ``init``, or ``observability.numerics.set_enabled``): the one
+        switch, read from the plane."""
+        from .observability import numerics
+        return numerics.enabled()
 
 
 _lock = threading.Lock()
@@ -123,7 +129,6 @@ def init(*, device: Union[str, torch.device, None] = None,
             rank=dist.get_rank(), size=dist.get_world_size(),
             local_rank=local_rank, local_size=local_size, backend=backend,
             device=dev, owns_group=owns, control_group=ctrl,
-            numerics=_env.numerics_enabled(),
             generation=_env_int("HOROVOD_TPU_ELASTIC_GENERATION") or 0)
     # Outside the lock: the engine builds the hierarchical mesh's groups.
     from .ops import collective
@@ -133,13 +138,16 @@ def init(*, device: Union[str, torch.device, None] = None,
 
 
 def _start_telemetry(topo: Topology) -> None:
-    """The exporters, the flight recorder's identity, its ``init`` event
-    and crash hooks, and the history sampler, each from the environment
-    as JAX's ``init`` arms them. A telemetry failure is logged and never
-    fails ``init``; only these calls are guarded."""
+    """The numerics plane, the exporters, the flight recorder's identity,
+    its ``init`` event and crash hooks, and the history sampler, each
+    from the environment as JAX's ``init`` arms them. Arming the
+    numerics plane is not guarded: a plane asked for is armed or
+    ``init`` fails. The other telemetry's failures are logged and never
+    fail ``init``."""
     import logging
     log = logging.getLogger(__name__)
-    from .observability import export, flight_recorder, history
+    from .observability import export, flight_recorder, history, numerics
+    numerics.maybe_enable_from_env()
     try:
         export.maybe_start_exporters()
     except Exception as e:
@@ -162,7 +170,10 @@ def shutdown() -> None:
     ``SHUT_DOWN_ERROR``), then destroy the groups ``init`` created."""
     global _topology
     from .ops import collective
+    from .observability import numerics
     collective.stop_engine()
+    numerics.step_stats().flush()
+    numerics.disarm_from_shutdown()
     with _lock:
         if _topology is not None and dist.is_initialized():
             if _topology.control_group is not None:

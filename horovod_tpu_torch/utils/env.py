@@ -59,9 +59,63 @@ def torch_skip_nonfinite() -> bool:
 
 
 def numerics_enabled() -> bool:
-    """HOROVOD_TPU_NUMERICS=1 arms the nonfinite sentinel of the
-    gradient buckets; ``init`` reads it."""
+    """HOROVOD_TPU_NUMERICS=1 arms the numerics plane at ``init``: the
+    nonfinite sentinels, the train steps' telemetry and the fingerprint
+    probes (``observability/numerics.py``)."""
     return _get("NUMERICS") in ("1",)
+
+
+def numerics_fp_interval() -> int:
+    """Cross-rank parameter-fingerprint cadence in training steps
+    (HOROVOD_TPU_NUMERICS_FP_INTERVAL, default 50); 0 turns the probe
+    off and keeps the rest of the plane armed."""
+    v = _get("NUMERICS_FP_INTERVAL")
+    if v in (None, ""):
+        return 50
+    return int(v)
+
+
+def autotune() -> bool:
+    """``HOROVOD_AUTOTUNE``, the legacy tuner's own switch. Reads only
+    that name, not the ``HOROVOD_TPU_`` override, which is
+    :func:`autotune_global`."""
+    return os.environ.get("HOROVOD_AUTOTUNE") not in (None, "", "0")
+
+
+def autotune_global() -> bool:
+    """``HOROVOD_TPU_AUTOTUNE``, which the runner's ``--autotune``
+    exports."""
+    return os.environ.get("HOROVOD_TPU_AUTOTUNE") not in (None, "", "0")
+
+
+def autotune_engine() -> bool:
+    """Whether rank 0's coordinator arms the engine's Bayesian tuner, as
+    JAX's core reads it (``EnvOr("HOROVOD_TPU_AUTOTUNE",
+    "HOROVOD_AUTOTUNE")``): ``HOROVOD_TPU_AUTOTUNE`` where it is set,
+    else ``HOROVOD_AUTOTUNE``. An empty value is off."""
+    if "HOROVOD_TPU_AUTOTUNE" in os.environ:
+        return autotune_global()
+    return autotune()
+
+
+def autotune_log() -> Optional[str]:
+    """CSV log of the engine tuner's samples (HOROVOD_AUTOTUNE_LOG)."""
+    return _get("AUTOTUNE_LOG")
+
+
+def autotune_guard_rel() -> float:
+    """``AutoTuner``'s default rollback guard: a window after a move
+    worse than the one before by more than this fraction rolls it back
+    (HOROVOD_TPU_AUTOTUNE_GUARD_REL, default 0.10)."""
+    v = _get("AUTOTUNE_GUARD_REL")
+    return float(v) if v is not None else 0.10
+
+
+def autotune_trial_budget() -> int:
+    """``AutoTuner``'s default count of measurement windows a candidate
+    is scored on (HOROVOD_TPU_AUTOTUNE_TRIAL_BUDGET, default 2)."""
+    v = _get("AUTOTUNE_TRIAL_BUDGET")
+    return int(v) if v is not None else 2
 
 
 def cycle_time_ms() -> float:

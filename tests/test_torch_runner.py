@@ -237,14 +237,37 @@ class TestCLI:
         assert proc.returncode == 3
 
 
-@pytest.mark.parametrize("flag,item", [("--autotune", "item 5e")])
-def test_cli_refuses_what_the_port_lacks(flag, item, capsys):
-    """No global tuner yet: the flag fails at launch instead of
-    exporting a variable nothing reads."""
+def test_cli_exports_autotune():
+    """--autotune reaches every worker as JAX's runner exports it."""
     from horovod_tpu_torch.runner.__main__ import main
-    with pytest.raises(SystemExit):
-        main([flag, "-np", "1", "--", sys.executable, "-c", "pass"])
-    assert item in capsys.readouterr().err
+    assert main(["--autotune", "-np", "1", "--no-tag-output", "--",
+                 sys.executable, "-c",
+                 "import os; assert os.environ['HOROVOD_TPU_AUTOTUNE']"
+                 " == '1'"]) == 0
+
+
+def test_cli_autotune_arms_the_engine_tuner_on_rank_0():
+    """--autotune's export arms the engine's Bayesian tuner in rank 0's
+    coordinator, as JAX's core reads HOROVOD_TPU_AUTOTUNE; no other
+    rank holds one."""
+    script = (
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch.ops import collective as c\n"
+        "hvd.init(device='cpu')\n"
+        "pm = c.engine()._coord._pm\n"
+        "print('armed', hvd.rank(), pm is not None, flush=True)\n"
+        "hvd.shutdown()\n")
+    env = {k: v for k, v in os.environ.items()
+           if "AUTOTUNE" not in k}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "--autotune",
+         "-np", "2", sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=RUN_TIMEOUT_S, env=env,
+        cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "[0]<stdout>:armed 0 True" in proc.stdout, proc.stdout
+    assert "[1]<stdout>:armed 1 False" in proc.stdout, proc.stdout
 
 
 def test_cli_exports_adaptation():
