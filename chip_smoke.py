@@ -283,6 +283,42 @@ and prints no result line):
    ``cycle_time_ms`` makes its online moves on the dp step (each a
    guarded move through the coordinator or the optimizer), each move's
    verdict and step ms logged; the losses stay finite.
+26. the offline tools (about 50 s): first a cold window, logged and not
+   gated: ``init`` with ``HOROVOD_TIMELINE`` set, 3 flagship steps
+   under ``StepMetrics`` whose first collective sets the communicator
+   up inside the timeline, and ``trace report``'s shares beside
+   StepMetrics' (the report sums overlapping spans, so it over-counts
+   comm there). Then the gated steady window: a process group of its
+   own (NCCL, world 1) whose communicator one all-reduce sets up, then
+   ``init``, which adopts it, so the first collective's set-up falls
+   outside the timeline; phase 5's flagship, AdamW and tokens, 20 steps inside
+   ``StepMetrics(batch_size=8)`` with ``HOROVOD_TIMELINE``,
+   ``HOROVOD_TPU_HISTORY`` (every 0.25 s) and ``HOROVOD_TPU_BLACKBOX``
+   set (K1-K3 12 launches a step; the loss finite and falling); then
+   each tool as ``python -m horovod_tpu_torch.tools.<name>``, each of
+   which must exit 0 with a JSON report: ``trace report`` over the
+   timeline (execute seconds > 0: the ``NCCL_*`` spans, deviation 47;
+   its input / compute / comm shares within ``TOOLS_SHARE_TOL``, 0.10,
+   of StepMetrics' input + h2d / compute / collective sums), ``health``
+   over the history and ``--baseline`` against itself (no regression),
+   ``postmortem`` over phase 22's ``gen0`` dumps (replica 1 first, in
+   its serving replica crash, with its requests in flight) and over
+   this phase's own dump (no divergence), and ``slo`` over phase 22's
+   loadgen run (every offered request, none dropped). It logs the trace
+   report's shares beside StepMetrics' and each tool's host seconds;
+27. the mxnet shim on the card (about 20 s): ``init`` again (NCCL, world
+   1); ``tests/test_mxnet.py``'s sweeps (uint8 ... float32, 1-3 dims of
+   17) of allreduce (sum and average), allgather and broadcast over
+   NDArrays on the card, the in-place forms, ``allreduce_multi_`` and
+   the 64-bit payloads, each equal to its input bit for bit; then
+   NDArrays of the flagship's 111,102,720 parameters (fp32) and seeded
+   gradients: ``broadcast_parameters`` leaves them unchanged, and
+   ``DistributedOptimizer(SGD).update`` over all of them (the fused
+   allreduce, then ``w -= lr * g`` on the card) equals numpy's
+   ``w - lr * g`` bit for bit. It logs the update's ms and the SGD's
+   beside the bytes bound of 3 passes over the 0.44 GB.
+
+No phase imports keras or tensorflow: the card's machine has neither.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
 each with its own and fp32 outputs, and fp32 operands on the SIMT
@@ -317,6 +353,7 @@ each main path to PATH.
 from __future__ import annotations
 
 import argparse
+import atexit
 import functools
 import gc
 import json
@@ -3645,7 +3682,7 @@ def fleet_values(port, family):
     return snap.get(family, {"values": {}})["values"]
 
 
-def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda"):
+def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda", bb=None):
     """Phase 22: the fleet on the card, driven through its CLI.
     ``python -m horovod_tpu_torch.serving --fleet 2`` serves phase 21's
     commit (each replica phase 21's engine: 8 slots, 16-token blocks,
@@ -3660,6 +3697,8 @@ def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda"):
     supervisor's ``/metrics.json``; unless replica 1 is back in rotation
     at generation 1; without ``gen0/blackbox-rank1.jsonl`` ending in the
     fault; and unless the supervisor drains and exits 0 on SIGTERM.
+    ``bb``: the blackbox directory to use and leave in place (phase 26
+    reads it), else a temporary one. Returns the loadgen's run.
     ``device`` exists for a rehearsal on the CPU."""
     import collections
     import os
@@ -3679,7 +3718,8 @@ def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda"):
     cfg = serving_config(config_from_manifest(
         CheckpointEngine(ckpt).restore_manifest()))
     base_used = card_memory()[1]       # this process's own holdings
-    bb = tempfile.mkdtemp(prefix="hvd_fleet_bb_")
+    keep = bb is not None
+    bb = bb if keep else tempfile.mkdtemp(prefix="hvd_fleet_bb_")
     mport = free_port()
     env = dict(os.environ, HOROVOD_TPU_METRICS_PORT=str(mport),
                HOROVOD_TPU_BLACKBOX=bb, HOROVOD_TPU_BLACKBOX_WINDOW="3600",
@@ -3855,6 +3895,7 @@ def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda"):
         log(f"  tokens against the in-process engine: "
             f"{'identical' if not ties else ties}")
         log(f"  phase 22: {time.perf_counter() - t_phase:.1f} s")
+        return run
     finally:
         if proc.poll() is None:
             proc.send_signal(signal.SIGTERM)     # drains the replicas
@@ -3867,7 +3908,8 @@ def fleet_phase(tfm, smi, ckpt, one_replica_tok_s, device="cuda"):
         except ProcessLookupError:
             pass
         proc.wait(timeout=60)
-        shutil.rmtree(bb, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(bb, ignore_errors=True)
 
 
 # ------------------------------------------- phase 23: launch and elastic
@@ -4367,6 +4409,367 @@ def numerics_autotune_phase(hvd, tfm, fa, build_train_step, create_mesh,
     return launches
 
 
+# ------------------------------------------ phase 26: the offline tools
+
+TOOLS_STEPS = 20
+TOOLS_COLD_STEPS = 3     # the cold window: logged, not gated
+TOOLS_SHARE_TOL = 0.10   # trace report's shares against StepMetrics'
+TOOLS_TIMEOUT_S = 300
+
+
+def run_tool(name, *argv):
+    """``horovod_tpu_torch.tools.run``: (stdout, host seconds); fails on a
+    nonzero exit code."""
+    from horovod_tpu_torch.tools import run
+    rc, out, err, secs = run(name, *argv, timeout=TOOLS_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError(f"tools.{name} {' '.join(argv)} exited "
+                             f"{rc}:\n{err[-3000:]}")
+    return out, secs
+
+
+def tools_steps(hvd, tfm, fa, build_train_step, steps):
+    """``steps`` of phase 5's flagship under ``StepMetrics`` (K1-K3 12
+    times each): (StepMetrics' phase sums, the launches, the losses)."""
+    step, tokens, targets = lm_setup(tfm, build_train_step)
+    model = step.make_model(generator=torch.Generator().manual_seed(0))
+    opt = step.make_optimizer(model)
+    metrics = hvd.StepMetrics(batch_size=8)
+    sums = {p: 0.0 for p in ("input", "h2d", "compute", "collective")}
+    total = {n: 0 for n in BF16_FLASH}
+    losses = []
+    for i in range(steps):
+        fa.reset_launch_counts()
+        with metrics:
+            losses.append(float(step(model, opt, tokens, targets)))
+        launches = fa.launch_counts()
+        if any(launches[n] != 12 for n in BF16_FLASH):
+            raise AssertionError(f"step {i}: flash launches "
+                                 f"{ {n: launches[n] for n in BF16_FLASH} }")
+        for n in BF16_FLASH:
+            total[n] += launches[n]
+        for p, v in metrics.last_phases.items():
+            sums[p] += v
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"losses {losses}")
+    return sums, total, losses
+
+
+def tools_shares(d, sums):
+    """``trace report`` over the timeline in ``d``: (rank 0's report,
+    StepMetrics' shares from ``sums`` in its buckets, the gaps, the
+    tool's host seconds)."""
+    import os
+    rep = os.path.join(d, "trace.json")
+    _, secs = run_tool("trace", "report",
+                       os.path.join(d, "timeline.{rank}.json"),
+                       "--report", rep)
+    with open(rep) as f:
+        trace = json.load(f)["per_rank"]["0"]
+    cycle = sum(sums.values())
+    ours = {"input": (sums["input"] + sums["h2d"]) / cycle,
+            "compute": sums["compute"] / cycle,
+            "comm": sums["collective"] / cycle}
+    gaps = {b: abs(trace["phase_share"][b] - ours[b]) for b in ours}
+    return trace, ours, gaps, secs
+
+
+def fmt_shares(shares):
+    return "{" + ", ".join(f"'{b}': {v:.4f}" for b, v in shares.items()) + "}"
+
+
+def tools_phase(hvd, tfm, fa, build_train_step, fleet_bb, fleet_run, smi):
+    """Phase 26; returns the launch counts of its gated steps."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    from horovod_tpu_torch.observability import flight_recorder, history
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="hvd_tools_")
+    # The cold window, logged and not gated: a few steps with the
+    # timeline armed on a communicator that init makes, so its set-up
+    # (the first collective) falls inside the window. The trace report
+    # (JAX's arithmetic) sums that step's overlapping NEGOTIATE and NCCL
+    # spans as they are, while StepMetrics caps a step's collective at
+    # its wall time: the report over-counts comm there.
+    cold_dir = os.path.join(d, "cold")
+    os.makedirs(cold_dir)
+    os.environ["HOROVOD_TIMELINE"] = os.path.join(cold_dir,
+                                                  "timeline.{rank}.json")
+    try:
+        hvd.init()
+        cold_sums, _, _ = tools_steps(hvd, tfm, fa, build_train_step,
+                                      TOOLS_COLD_STEPS)
+        hvd.shutdown()
+    finally:
+        os.environ.pop("HOROVOD_TIMELINE", None)
+    env = {"HOROVOD_TIMELINE": os.path.join(d, "timeline.{rank}.json"),
+           "HOROVOD_TPU_HISTORY": os.path.join(d, "history"),
+           "HOROVOD_TPU_HISTORY_INTERVAL": "0.25",
+           "HOROVOD_TPU_BLACKBOX": os.path.join(d, "bb"),
+           "HOROVOD_TPU_BLACKBOX_INTERVAL": "0"}
+    # The gated window is the steady state: the communicator's set-up
+    # (~1.9 s on the first collective) happens before the timeline
+    # opens, on a process group this phase makes, which init adopts.
+    import torch.distributed as dist
+    dist.init_process_group("nccl" if torch.cuda.is_available() else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    warm = torch.zeros(1, device="cuda" if torch.cuda.is_available()
+                       else "cpu")
+    dist.all_reduce(warm)
+    float(warm)
+    os.environ.update(env)
+    try:
+        hvd.init()
+        if hvd.get_topology().owns_group:
+            raise AssertionError("init made a group of its own")
+        sums, total, losses = tools_steps(hvd, tfm, fa, build_train_step,
+                                          TOOLS_STEPS)
+        flight_recorder.recorder().dump("exit")
+        history.stop_sampler()
+        hvd.shutdown()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    try:
+        secs = {}
+        # trace report over the port's own timeline: the cold window
+        # logged, the steady one gated
+        cold, cold_ours, cold_gaps, secs["trace report (cold)"] = \
+            tools_shares(cold_dir, cold_sums)
+        trace, ours, gaps, secs["trace report"] = tools_shares(d, sums)
+        log(f"  trace report, rank 0: phase means (s) "
+            f"{trace['phase_mean_s']}; StepMetrics' sums (s) "
+            + "{" + ", ".join(f"'{p}': {v:.6f}" for p, v in sums.items())
+            + "}")
+        if trace["phase_mean_s"]["execute"] <= 0:
+            raise AssertionError(f"trace report: no execute seconds "
+                                 f"({trace['phase_mean_s']})")
+        if max(gaps.values()) > TOOLS_SHARE_TOL:
+            raise AssertionError(
+                f"trace report's shares {trace['phase_share']} against "
+                f"StepMetrics' {ours}: gaps {gaps}")
+        # health over the history, and against itself
+        hdir = os.path.join(d, "history")
+        out, secs["health"] = run_tool("health", hdir, "--json")
+        health = json.loads(out)
+        out, secs["health --baseline"] = run_tool(
+            "health", hdir, "--baseline", hdir, "--json")
+        base = json.loads(out)["baseline"]
+        if base["verdict"] != "no_regressions" or not base["series_compared"]:
+            raise AssertionError(f"health --baseline against itself: {base}")
+        # postmortem over phase 22's replica dumps, and this phase's own
+        pm = os.path.join(d, "pm.json")
+        _, secs["postmortem"] = run_tool(
+            "postmortem", os.path.join(fleet_bb, "gen0"), "--json", pm)
+        with open(pm) as f:
+            post = json.load(f)
+        died = post["died_first"]
+        if died["rank"] != 1 or "serving replica crash" not in died["phase"] \
+                or not post["per_rank"]["1"]["inflight_requests"]:
+            raise AssertionError(f"postmortem of phase 22: {died}, "
+                                 f"{post['per_rank'].get('1')}")
+        own = os.path.join(d, "pm26.json")
+        _, secs["postmortem (phase 26)"] = run_tool(
+            "postmortem", os.path.join(d, "bb"), "--json", own)
+        with open(own) as f:
+            own = json.load(f)
+        if own["first_divergent_group_seq"] is not None \
+                or own["per_rank"]["0"]["reason"] != "exit":
+            raise AssertionError(f"postmortem of a clean run: {own}")
+        # what every tool pays before its own work: the package's import
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import horovod_tpu_torch"],
+                       check=True, timeout=TOOLS_TIMEOUT_S)
+        import_s = time.perf_counter() - t0
+        # slo over phase 22's loadgen rows
+        runf = os.path.join(d, "loadgen.json")
+        with open(runf, "w") as f:
+            json.dump(dict(fleet_run, name="fleet"), f)
+        sj = os.path.join(d, "slo.json")
+        _, secs["slo"] = run_tool("slo", runf, "--json", sj)
+        with open(sj) as f:
+            slo = json.load(f)
+        arm = slo["arms"][0]
+        if arm["offered"] != fleet_run["offered"] or arm["dropped"] != 0:
+            raise AssertionError(f"slo report of phase 22's run: {arm}")
+        log(f"tools (phase 26) on {smi}: phase 5's flagship, {TOOLS_STEPS} "
+            f"steps under StepMetrics with the timeline, the history "
+            f"sampler (0.25 s) and the blackbox armed; losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        log("  trace report, steady window (gated): execute mean "
+            f"{trace['phase_mean_s']['execute'] * 1e3:.3f} ms a span, "
+            f"negotiate {trace['phase_mean_s']['negotiate'] * 1e3:.3f} ms; "
+            f"shares {trace['phase_share']} against StepMetrics' "
+            f"{fmt_shares(ours)} (largest gap {max(gaps.values()):.4f}, "
+            f"tolerance {TOOLS_SHARE_TOL}); verdict {trace['verdict']}")
+        log(f"  trace report, cold window ({TOOLS_COLD_STEPS} steps, the "
+            "communicator's set-up inside; logged, not gated): execute "
+            f"mean {cold['phase_mean_s']['execute'] * 1e3:.3f} ms a span, "
+            f"negotiate {cold['phase_mean_s']['negotiate'] * 1e3:.3f} ms; "
+            f"shares {cold['phase_share']} against StepMetrics' "
+            f"{fmt_shares(cold_ours)} (largest gap "
+            f"{max(cold_gaps.values()):.4f}); verdict {cold['verdict']}")
+        log(f"  health: {len(health['labels'])} label(s), "
+            f"{health['labels'][0]['samples']} samples, "
+            f"{len(health['alerts'])} alert(s); --baseline against itself: "
+            f"{base['verdict']} over {base['series_compared']} series")
+        log(f"  postmortem of phase 22's gen0 dumps: rank {died['rank']} "
+            f"went first ({died['how']}), {died['phase']}; in flight "
+            f"{len(post['per_rank']['1']['inflight_requests'])} request(s); "
+            f"of this phase's own dump: reason "
+            f"{own['per_rank']['0']['reason']}, no divergence")
+        log(f"  slo of phase 22's loadgen: {arm['offered']} offered, "
+            f"goodput {arm['goodput']} ({arm['goodput_frac']}), TTFT p99 "
+            f"{arm['ttft_p99_ms']} ms")
+        log("  host seconds by tool (subprocess, imports included): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+            + f"; python -c 'import horovod_tpu_torch' alone {import_s:.2f}")
+        log(f"  phase 26: {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return total
+
+
+# ------------------------------------------ phase 27: the mxnet shim
+
+MX_DTYPES = (np.uint8, np.int8, np.int32, np.float16, np.float32)
+FLAGSHIP_PARAMS = 111_102_720
+MX_LR = 0.1
+MX_TIMED = 5
+
+
+class MxSGD:
+    """The shape of ``tests/test_mxnet.py``'s optimizer stub
+    (``update(index, weight, grad, state)`` for one index or a list),
+    its arithmetic on the NDArrays' card: ``weight -= lr * grad``."""
+
+    def __init__(self, learning_rate):
+        self.learning_rate = learning_rate
+
+    def update(self, index, weight, grad, state):
+        if isinstance(index, (tuple, list)):
+            for w, g in zip(weight, grad):
+                w -= self.learning_rate * g
+        else:
+            weight -= self.learning_rate * grad
+
+
+def mx_collectives(mx, nd, dev):
+    """test_mxnet.py's sweeps over NDArrays on ``dev`` (the card) at
+    n = 1, against numpy: every result is its input, bit for bit."""
+    n = 0
+    for dtype in MX_DTYPES:
+        for dim in (1, 2, 3):
+            rs = np.random.RandomState(dim)
+            x = (rs.randint(0, 10, [17] * dim) if np.dtype(dtype).kind
+                 in "iu" else rs.rand(*[17] * dim)).astype(dtype)
+            t = nd.array(x, dtype=dtype)
+            if t.context != dev:
+                raise AssertionError(f"NDArray on {t.context}, not {dev}")
+            for what, out in (("sum", mx.allreduce(t, average=False)),
+                              ("average", mx.allreduce(t)),
+                              ("allgather", mx.allgather(t)),
+                              ("broadcast", mx.broadcast(t, 0))):
+                if out.dtype != dtype or not np.array_equal(out.asnumpy(), x):
+                    raise AssertionError(f"mxnet {what} {np.dtype(dtype)} "
+                                         f"dim {dim} is not its input")
+                n += 1
+    t = nd.array(np.arange(12.0).reshape(3, 4), dtype=np.float32)
+    if mx.allreduce_(t, average=False) is not t \
+            or mx.broadcast_(t, 0) is not t \
+            or not np.array_equal(t.asnumpy(), np.arange(12.0).reshape(3, 4)):
+        raise AssertionError("mxnet in-place ops")
+    ts = [nd.array(np.full(8, i + 1.0), dtype=np.float32) for i in range(5)]
+    mx.allreduce_multi_(ts, average=False)
+    if any(not np.array_equal(t_.asnumpy(), np.full(8, i + 1.0))
+           for i, t_ in enumerate(ts)):
+        raise AssertionError("mxnet allreduce_multi_")
+    big = np.array([[2 ** 40 + 3, -7], [1, 2 ** 52 + 1]], dtype=np.int64)
+    f64 = np.array([1e300, -2.5e-308, 3.14], dtype=np.float64)
+    if not np.array_equal(mx.allgather(nd.array(big, dtype=np.int64))
+                          .asnumpy(), big) \
+            or not np.array_equal(mx.broadcast(nd.array(f64, dtype=np.float64),
+                                               0).asnumpy(), f64):
+        raise AssertionError("mxnet 64-bit payloads")
+    return n + 4
+
+
+def mxnet_phase(hvd, tfm, smi):
+    """Phase 27."""
+    t_phase = time.perf_counter()
+    hvd.init()
+    import horovod_tpu_torch.mxnet as mx
+    from horovod_tpu_torch.mxnet import nd
+    n_checked = mx_collectives(mx, nd, hvd.device())
+    dev = hvd.device()
+    model = tfm.Transformer(tfm.TransformerConfig(**FLAGSHIP), device=dev)
+    names = [n for n, _ in model.named_parameters()]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    ws = [nd.array(p.detach().float()) for p in model.parameters()]
+    gs = [nd.array(torch.randn(p.shape, generator=gen, device=dev))
+          for p in model.parameters()]
+    del model
+    n_params = sum(w.size for w in ws)
+    if n_params != FLAGSHIP_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not the flagship's")
+    before = [w.asnumpy() for w in ws]
+    mx.broadcast_parameters(dict(zip(names, ws)), root_rank=0)
+    if any(not np.array_equal(w.asnumpy(), b) for w, b in zip(ws, before)):
+        raise AssertionError("broadcast_parameters changed a parameter")
+    grads = [g.asnumpy() for g in gs]
+    opt = mx.DistributedOptimizer(MxSGD(MX_LR))
+    index = list(range(len(ws)))
+    states = [None] * len(ws)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.update(index, ws, gs, states)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    lr = np.float32(MX_LR)
+    for w, b, g, name in zip(ws, before, grads, names):
+        if not np.array_equal(w.asnumpy(), b - lr * g):
+            raise AssertionError(f"update of {name} is not numpy's "
+                                 "w - lr * g")
+    for g, want in zip(gs, grads):
+        if not np.array_equal(g.asnumpy(), want):
+            raise AssertionError("the averaged gradient at n = 1 is not "
+                                 "the gradient")
+    times, sgd_times = [], []
+    for _ in range(MX_TIMED):
+        t0 = time.perf_counter()
+        opt.update(index, ws, gs, states)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(MX_TIMED):
+        t0 = time.perf_counter()
+        opt._optimizer.update(index, ws, gs, states)
+        torch.cuda.synchronize()
+        sgd_times.append((time.perf_counter() - t0) * 1e3)
+    nbytes = 3 * 4 * n_params
+    bound, _ = bound_ms(2 * n_params, nbytes, PEAK_FP32_FLOPS)
+    log(f"mxnet shim (phase 27) on {smi}: {n_checked} collectives over CUDA "
+        f"NDArrays (test_mxnet.py's dtypes x dims, in place, fused, "
+        f"64-bit) equal their inputs at n = 1; broadcast_parameters over "
+        f"{len(ws)} NDArrays of the flagship's {n_params:,} parameters "
+        "unchanged; DistributedOptimizer.update (SGD lr 0.1) equals "
+        "numpy's w - lr * g bit for bit")
+    log(f"  update (fused allreduce of {len(ws)} gradients + SGD), host "
+        f"clock to a synchronize: first {first_ms:.2f} ms, median of "
+        f"{MX_TIMED} {statistics.median(times):.2f} ms; the SGD alone "
+        f"{statistics.median(sgd_times):.2f} ms (two kernels a tensor: "
+        f"lr * g, then w -= it); bytes bound of the update's arithmetic "
+        f"(3 passes over {nbytes / 3 / 1e9:.3f} GB: read w and g, write "
+        f"w) {bound:.3f} ms")
+    del ws, gs
+    empty_cache(dev)
+    hvd.shutdown()
+    log(f"  phase 27: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -4535,13 +4938,16 @@ def main(argv=None) -> int:
     log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
     # 21. the flagship served on the card; 22. the fleet on its commit
+    # (its blackbox kept for phase 26)
     import shutil
     import tempfile
     ckpt = tempfile.mkdtemp(prefix="hvd_serve_")
+    fleet_bb = tempfile.mkdtemp(prefix="hvd_fleet_bb_")
+    atexit.register(shutil.rmtree, fleet_bb, True)
     try:
         serve_tok_s, serve_toks = serving_phase(tfm, fa, fbn, smi,
                                                 ckpt=ckpt)
-        fleet_phase(tfm, smi, ckpt, serve_tok_s)
+        fleet_run = fleet_phase(tfm, smi, ckpt, serve_tok_s, bb=fleet_bb)
         # 23. the launcher and the elastic driver; 23b. --serve
         launch_phase(smi, ckpt, serve_toks)
     finally:
@@ -4561,6 +4967,12 @@ def main(argv=None) -> int:
                                            lm_step_s).items():
         launches[name] += n
     log(f"  phase 25: {time.perf_counter() - t25:.1f} s")
+
+    # 26. the offline tools over the port's own files; 27. the mxnet shim
+    for name, n in tools_phase(hvd, tfm, fa, build_train_step, fleet_bb,
+                               fleet_run, smi).items():
+        launches[name] += n
+    mxnet_phase(hvd, tfm, smi)
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[base_of(name)],

@@ -23,7 +23,11 @@ telemetry and adaptation planes: the engine's, the optimizer's and the
 loaders' metric families in ``metrics_registry()`` (``metrics_snapshot()``,
 ``prometheus_text``), per-step telemetry with MFU and device memory
 (``StepMetrics``), and rank 0's adaptation policy
-(``HOROVOD_TPU_ADAPTATION=1``, ``adaptation``).
+(``HOROVOD_TPU_ADAPTATION=1``, ``adaptation``); the offline tools over
+their files (``python -m horovod_tpu_torch.tools.<name>``: postmortem,
+trace, health, slo) and the framework shims over the engine
+(``horovod_tpu_torch.mxnet``, ``.tensorflow``, ``.keras``, each imported
+on its own: this package imports neither keras nor tensorflow).
 
     import torch, horovod_tpu_torch as hvd
     hvd.init()                                   # CUDA; device="cpu" for gloo

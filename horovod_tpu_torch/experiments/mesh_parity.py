@@ -171,6 +171,26 @@ and the serving engine over tp ranks:
   rank 0: the device's busy share, and the host ops that take the most
   self CPU ms a step.
 
+and the offline tools and the framework shims over four ranks:
+
+- ``tools``: the dp step through the engine (``--layers`` deep, one
+  sequence a rank) for ``TOOLS_STEPS`` steps under ``StepMetrics`` with
+  the timeline armed (``timeline.{rank}.json``); ``python -m
+  horovod_tpu_torch.tools.trace merge`` of the four files must align
+  them on rank 0's clock (four rank rows, every clock synced, groups
+  scored, execute seconds > 0 on every rank: the ``NCCL_*`` spans).
+  Then a second run with the blackbox armed and rank 2 set to
+  ``crash_at`` the first enqueue of the step after step
+  ``TOOLS_ARM_STEP`` (its previous step ended on the host); the others
+  fail on the closed pairs (or are SIGTERMed 30 s after it). The port's
+  ``postmortem`` of the dumps must name rank 2 (``fault_crash``) and
+  the first divergent group, one past the last all ranks completed;
+- ``shims``: the mxnet shim's collectives over NDArrays on each rank's
+  card, from distinct per-rank inputs, in every dtype of its sweep
+  (uint8 ... float64): the sum, ``broadcast`` from root 3 and
+  ``allgather``'s rank order equal numpy's exactly, as do
+  ``allreduce_multi_``'s averages and ``broadcast_parameters``.
+
 and the pipelined flagship at its full depth (12 layers, whatever
 ``--layers`` says) on ``pp=4``, 8 x 2048 tokens as m = 8 microbatches of
 1, with NCCL sends and receives between the stages:
@@ -1636,9 +1656,234 @@ def _serve_tp(device, width):
     return line
 
 
+TOOLS_STEPS = 6         # tools: the clean run's steps
+TOOLS_ARM_STEP = 2      # the crash run arms crash_at before this step
+TOOLS_CRASH_RANK = 2
+TOOLS_TIMEOUT_S = 600
+SHIMS_ROOT = 3
+
+
+def _ops_total():
+    """Requests this rank's engine has taken (every op kind): the fault
+    injector's ticks."""
+    from ..observability import registry as reg
+    fam = reg.snapshot("hvdtpu_ops_total").get("hvdtpu_ops_total")
+    return sum(fam["values"].values()) if fam else 0.0
+
+
+def run_tools_rank(rank, port, layers, outdir, device, width, crash):
+    """One rank of ``tools``: the dp step through the engine under
+    ``StepMetrics``, with the timeline armed (the clean run) or the
+    blackbox (the crash run, in which rank ``TOOLS_CRASH_RANK`` is set
+    to crash at the first enqueue of step ``TOOLS_ARM_STEP + 1``: its
+    previous step ended on the host, so no collective of it is left on
+    the card)."""
+    os.environ.pop("HOROVOD_TPU_FAULT_SPEC", None)
+    if crash:
+        os.environ["HOROVOD_TPU_BLACKBOX"] = os.path.join(outdir, "bb")
+        os.environ["HOROVOD_TPU_BLACKBOX_INTERVAL"] = "1"
+    else:
+        os.environ["HOROVOD_TIMELINE"] = os.path.join(
+            outdir, "timeline.{rank}.json")
+    hvd, dev = _init_rank(rank, port, device)
+    from ..adaptation import faults as tfaults
+    from ..models import transformer as tfm
+    from ..ops import collective as coll
+    from ..parallel.train import build_train_step
+    tok = torch.randint(0, width["vocab"], (WORLD, width["max_seq"] + 1),
+                        generator=torch.Generator().manual_seed(5))
+    tokens, targets = tok[rank:rank + 1, :-1].to(dev), \
+        tok[rank:rank + 1, 1:].to(dev)
+    cfg = _config(tfm, width, layers)
+    step = build_train_step(cfg, _factory, device=dev)
+    model = step.make_model(
+        params=tfm.init_params(cfg, torch.Generator().manual_seed(0)))
+    opt = step.make_optimizer(model)
+    metrics = hvd.StepMetrics(batch_size=1, device=dev)
+    per_step, losses = 0.0, []
+    for k in range(TOOLS_STEPS):
+        if crash and k == TOOLS_ARM_STEP:
+            # Ticks count from the injector's creation: tick per_step is
+            # the first enqueue of the step after this one.
+            os.environ["HOROVOD_TPU_FAULT_SPEC"] = (
+                f"rank={TOOLS_CRASH_RANK}:crash_at={int(per_step)}")
+            tfaults.reset()
+            coll.engine()._faults_tried = False
+        before = _ops_total()
+        with metrics:
+            losses.append(float(step(model, opt, tokens, targets)))
+        per_step = _ops_total() - before
+    hvd.shutdown()
+    torch.save({"losses": losses, "ops_per_step": per_step},
+               os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _spawn_crash(target, args, timeout_s, crash_rank):
+    """``WORLD`` spawned ranks of ``target(rank, *args)`` of which
+    ``crash_rank`` dies; their exit codes. Once that rank has exited the
+    others get 30 s, then SIGTERM, as a launcher reaps survivors."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        procs[crash_rank].join(timeout_s)
+        deadline = time.monotonic() + 30
+        for p in procs:
+            p.join(max(0.1, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [p.exitcode for p in procs]
+
+
+def _tool(name, *argv):
+    """``tools.run``, its stderr's end written out on a failure: (exit
+    code, stdout, host seconds)."""
+    from ..tools import run as run_tool
+    rc, out, err, secs = run_tool(name, *argv)
+    if rc != 0:
+        sys.stderr.write(err[-4000:])
+    return rc, out, secs
+
+
+def _tools(layers, device, width):
+    """``tools``' line: ``trace merge`` of the clean run's four timelines
+    onto rank 0's clock, and the port's ``postmortem`` of the crash
+    run's dumps."""
+    line = {"steps": TOOLS_STEPS}
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_tools_rank, args=(_free_port(), layers, outdir, device,
+                                       width, False), nprocs=WORLD)
+        line["losses"] = torch.load(os.path.join(outdir, "rank0.pt"))[
+            "losses"]
+        tpl = os.path.join(outdir, "timeline.{rank}.json")
+        merged = os.path.join(outdir, "merged.json")
+        rep = os.path.join(outdir, "trace.json")
+        rc, _, secs = _tool("trace", "merge", tpl, "-o", merged,
+                            "--report", rep)
+        line["trace_merge_rc"], line["trace_merge_s"] = rc, secs
+        if rc == 0:
+            with open(rep) as f:
+                report = json.load(f)
+            with open(merged) as f:
+                rows = {e["pid"] for e in json.load(f)
+                        if e.get("name") == "process_name"}
+            line.update(
+                merged_ranks=sorted(rows),
+                groups_scored=report["groups_scored"],
+                clock_synced={r: c["synced"]
+                              for r, c in report["clock"].items()},
+                execute_mean_s={r: v["phase_mean_s"]["execute"]
+                                for r, v in report["per_rank"].items()},
+                top_straggler=(report["top_straggler"] or {}).get("rank"),
+                bound=report["bound"])
+        crash_dir = os.path.join(outdir, "crash")
+        os.makedirs(crash_dir)
+        line["crash_exit_codes"] = _spawn_crash(
+            run_tools_rank, (_free_port(), layers, crash_dir, device, width,
+                             True), TOOLS_TIMEOUT_S, TOOLS_CRASH_RANK)
+        pm = os.path.join(outdir, "pm.json")
+        rc, text, secs = _tool("postmortem", os.path.join(crash_dir, "bb"),
+                               "--json", pm)
+        line["postmortem_rc"], line["postmortem_s"] = rc, secs
+        if rc == 0:
+            with open(pm) as f:
+                report = json.load(f)
+            line.update(
+                died_first=report["died_first"],
+                ranks_dumped=report["ranks_dumped"],
+                reasons={r: v["reason"]
+                         for r, v in report["per_rank"].items()},
+                common_last_group_seq=report["common_last_group_seq"],
+                first_divergent_group_seq=report[
+                    "first_divergent_group_seq"])
+            print(text, file=sys.stderr, flush=True)
+    line["ok"] = (
+        line.get("merged_ranks") == list(range(WORLD))
+        and line.get("groups_scored", 0) > 0
+        and all(line.get("clock_synced", {}).values())
+        and all(v > 0 for v in line.get("execute_mean_s", {0: 0}).values())
+        and line.get("died_first", {}).get("rank") == TOOLS_CRASH_RANK
+        and line["died_first"].get("how") == "fault_crash"
+        and line.get("first_divergent_group_seq") is not None
+        and line["first_divergent_group_seq"]
+        == line["common_last_group_seq"] + 1)
+    return line
+
+
+def shims_inputs(rank, dtype, shape=(5, 3)):
+    """Rank ``rank``'s input to ``shims``: small integers, so every sum
+    is exact in every dtype."""
+    rs = np.random.RandomState(200 + rank)
+    return rs.randint(0, 10, size=shape).astype(dtype)
+
+
+SHIMS_DTYPES = ("uint8", "int8", "int32", "int64", "float16", "float32",
+                "float64")
+
+
+def run_shims_rank(rank, port, outdir, device):
+    """One rank of ``shims``: the mxnet shim's collectives over NDArrays
+    on this rank's card, each from this rank's own input."""
+    hvd, dev = _init_rank(rank, port, device)
+    from .. import mxnet as mx
+    from ..mxnet import nd
+    out = {}
+    for dt in SHIMS_DTYPES:
+        x = nd.array(shims_inputs(rank, dt), dtype=dt)
+        assert x.context == dev
+        out[f"sum.{dt}"] = mx.allreduce(x, average=False).data.cpu()
+        out[f"bcast.{dt}"] = mx.broadcast(x, SHIMS_ROOT).data.cpu()
+        out[f"gather.{dt}"] = mx.allgather(x).data.cpu()
+    ts = [nd.array(shims_inputs(rank, "float32") + i) for i in range(3)]
+    mx.allreduce_multi_(ts, average=True, name_prefix="shims")
+    out["multi_avg"] = [t.data.cpu() for t in ts]
+    params = {"a": nd.array(shims_inputs(rank, "float32"))}
+    mx.broadcast_parameters(params, root_rank=SHIMS_ROOT)
+    out["params"] = params["a"].data.cpu()
+    hvd.shutdown()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _shims(device):
+    """``shims``' line: every rank's results against numpy."""
+    with tempfile.TemporaryDirectory() as outdir:
+        mp.spawn(run_shims_rank, args=(_free_port(), outdir, device),
+                 nprocs=WORLD)
+        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+                 for r in range(WORLD)]
+    bad = []
+    for dt in SHIMS_DTYPES:
+        per = [shims_inputs(r, dt) for r in range(WORLD)]
+        want = {"sum": sum(per), "bcast": per[SHIMS_ROOT],
+                "gather": np.concatenate(per)}
+        for r, res in enumerate(ranks):
+            for k, v in want.items():
+                got = res[f"{k}.{dt}"].numpy()
+                if got.dtype != np.dtype(dt) or not np.array_equal(got, v):
+                    bad.append(f"rank {r} {k}.{dt}")
+    per = [shims_inputs(r, "float32") for r in range(WORLD)]
+    for r, res in enumerate(ranks):
+        for i, got in enumerate(res["multi_avg"]):
+            if not np.array_equal(got.numpy(), sum(per) / np.float32(WORLD) + i):
+                bad.append(f"rank {r} multi_avg.{i}")
+        if not np.array_equal(res["params"].numpy(), per[SHIMS_ROOT]):
+            bad.append(f"rank {r} broadcast_parameters")
+    return {"dtypes": list(SHIMS_DTYPES), "root": SHIMS_ROOT,
+            "mismatches": bad, "ok": not bad}
+
+
 # The variants that run their own spawned jobs.
 OWN_JOBS = ("hier_engine", "sync_bn", "ckpt_zero1", "decode_tp", "serve_tp",
-            "adapt", "numerics", "autotune")
+            "adapt", "numerics", "autotune", "tools", "shims")
 
 
 def _free_port():
@@ -1677,6 +1922,10 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         lines["numerics"] = _numerics(layers, device, width)
     if "autotune" in variants:
         lines["autotune"] = _autotune(layers, device, width)
+    if "tools" in variants:
+        lines["tools"] = _tools(layers, device, width)
+    if "shims" in variants:
+        lines["shims"] = _shims(device)
     for name in mesh_variants:
         line = dict(ranks[0][name])
         line["max_grad_rel_err"] = max(r[name]["max_grad_rel_err"]
@@ -1688,7 +1937,7 @@ def run(layers, device="cuda", width=FLAGSHIP, variants=None):
         lines[name] = line
     for name, line in lines.items():
         if name not in ("decode_tp", "serve_tp", "adapt", "numerics",
-                        "autotune"):
+                        "autotune", "tools", "shims"):
             line["loss_rel_err"] = (abs(line["loss"]
                                         - line["reference_loss"])
                                     / abs(line["reference_loss"]))
@@ -1720,7 +1969,7 @@ def main(argv=None) -> int:
                    and line["quiet_ok"] and line["same_wires_every_rank"]
                    and line["same_epochs_every_rank"]
                    and line["max_abs_diff_vs_explicit"] == 0.0)
-        elif name in ("numerics", "autotune"):
+        elif name in ("numerics", "autotune", "tools", "shims"):
             ok &= line["ok"]
         elif name != "decode_tp":
             ok &= (line["loss_rel_err"] <= LOSS_TOL

@@ -40,6 +40,18 @@ def clock_sidecar_path(trace_path: str) -> str:
     return trace_path + ".clock.json"
 
 
+def load_timeline(path: str) -> list:
+    """Read a Chrome trace array that may be unterminated (a writer
+    killed before ``PyTimeline.close``) or end in a trailing comma."""
+    with open(path) as f:
+        txt = f.read().strip()
+    if txt.endswith(","):
+        txt = txt[:-1]
+    if not txt.endswith("]"):
+        txt += "\n]"
+    return json.loads(txt)
+
+
 def write_clock_sidecar(trace_path: str, meta: dict) -> None:
     with open(clock_sidecar_path(trace_path), "w") as f:
         json.dump(meta, f, indent=1, sort_keys=True)

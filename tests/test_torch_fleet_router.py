@@ -600,6 +600,11 @@ class TestSessionAffinityRouting:
         backup = StubReplica(queue_depth=2, active=4)
         router = _router([flaky, backup])
         try:
+            # The first turn goes to the idle replica only once a scrape
+            # has shown both loads: before it the two tie.
+            self._wait_scraped(router, lambda vs: vs[0].ok and vs[1].ok
+                               and vs[1].queue_depth == 2
+                               and vs[1].active == 4)
             status, body = _post(router.port,
                                  {"tokens": [1, 2, 3, 4],
                                   "max_new_tokens": 8,
@@ -609,6 +614,12 @@ class TestSessionAffinityRouting:
             assert body["retries"] >= 1
             resume = backup.requests[-1]
             assert resume["session_id"] == "conv"
+            # The stub forms its lease after writing the done line the
+            # router answers on: wait for it, with a deadline.
+            deadline = time.monotonic() + 5.0
+            while backup.sessions != ["conv"] \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
             assert backup.sessions == ["conv"]        # lease re-formed
             flaky.die_after = None
             status, body = _post(router.port,

@@ -65,7 +65,28 @@ def test_scan_sees_the_package():
             "network.py", "safe_exec.py", "driver_service.py",
             "task_exec.py", "remote_bootstrap.py", "api.py",
             "discovery.py", "driver.py", "elastic_lm.py", "policy.py",
-            "step_metrics.py"} <= names
+            "step_metrics.py", "postmortem.py", "trace.py", "slo.py",
+            "ndarray.py", "mpi_ops.py", "callbacks.py"} <= names
+
+
+def test_port_and_chip_smoke_import_no_keras_or_tensorflow():
+    """The card's machine has neither keras nor tensorflow: importing the
+    package, its tools and the mxnet shim, and ``chip_smoke``, must not
+    import them (only the keras and tensorflow shims do, when imported
+    themselves)."""
+    import subprocess
+    import sys
+    code = ("import sys, horovod_tpu_torch, chip_smoke\n"
+            "import horovod_tpu_torch.tools.trace, "
+            "horovod_tpu_torch.tools.postmortem, "
+            "horovod_tpu_torch.tools.health, horovod_tpu_torch.tools.slo, "
+            "horovod_tpu_torch.mxnet\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('keras', 'tensorflow', 'tf_keras')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
