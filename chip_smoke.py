@@ -149,7 +149,8 @@ and prints no result line):
    finite and falling, step 1's within 1e-4 (fp16) and 1e-5 (fp32) of
    the same model on ``use_flash=False``, the dtype's K1, K2 and K3
    launched 12 times a step and no other form; tok/s and peak memory
-   beside phase 5's. Then 2 steps of the fp16 tp/sp mesh step (ring
+   beside phase 5's, and the fp32 step's ms beside its 464.77 on the
+   SIMT backward. Then 2 steps of the fp16 tp/sp mesh step (ring
    attention on the fp16 operands' fp32-output forms, 12 launches a
    step each);
 17. the engine's remainder at one card: phase 5's dp step again with
@@ -321,15 +322,17 @@ and prints no result line):
 No phase imports keras or tensorflow: the card's machine has neither.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
-each with its own and fp32 outputs, and fp32 operands on the SIMT
-kernels) against its plain version at head dims 8, 16, 48, 80, 112,
+each with its own and fp32 outputs, and fp32 operands: an fp32 FMA
+forward, a 3xTF32 tensor-core backward) against its plain version at head dims 8, 16, 48, 80, 112,
 160, 192 and 256 (8 padded to 16 by the wrapper; above 128 stored 256
 wide in two column chunks), causal and not, with ragged sq != sk:
 bf16 2e-2 of max |plain| (lse 1e-3), fp16 5e-3 (lse 1e-3), fp32 2e-5
 on O and lse and 1e-4 on dQ, dK and dV, every call repeated bit for
 bit; then the fp16 and fp32 forms timed at the flagship beside their
 plain versions, SDPA at the same dtype as a yardstick, with bounds at
-989 (fp16) and 67 (fp32) TFLOP/s; and each operand dtype's own form at
+989 (fp16) and 67 (the fp32 forward) TFLOP/s and, for the fp32
+backward, at a third of the 494.7 TFLOP/s TF32 peak with its
+``bound_fma_ms`` at 67 beside it; and each operand dtype's own form at
 D=256 (B=8, H=3, S=2048), logged.
 
 Phase 3c, after 3b: every form of K1-K3 at head dims 272, 320, 384 and
@@ -368,8 +371,9 @@ import torch
 
 from horovod_tpu_torch import experiments as px
 from horovod_tpu_torch.experiments import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
-                                           bound_ms, device_line,
-                                           flash_times, single_ms)
+                                           PEAK_TF32_FLOPS, bound_ms,
+                                           device_line, flash_times,
+                                           single_ms)
 
 FLASH_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
 # Each flash form's source, by its suffix (the bodies of the 16-bit
@@ -2327,6 +2331,9 @@ FORM_TOL = {torch.bfloat16: (REL_TOL, REL_TOL, LSE_TOL, False),
             torch.float32: (2e-5, 1e-4, 2e-5, True)}
 PEAK = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float16: PEAK_BF16_FLOPS,
         torch.float32: PEAK_FP32_FLOPS}
+# The fp32 backward's route: every product three TF32 passes.
+PEAK_3XTF32 = PEAK_TF32_FLOPS / 3
+FP32_LM_STEP_MS_SIMT = 464.77   # the fp32 LM's ms a step on the SIMT backward
 SWEEP_DIMS = (8, 16, 48, 80, 112, 160, 192, 256)
 SWEEP_SHAPES = ((True, 200, 200), (False, 130, 250), (True, 257, 70))
 DTYPE_STEPS = 3
@@ -2392,7 +2399,9 @@ def time_form(fa, sfx, b, h, s, d, causal=True):
     """One form of K1-K3 at [B*H, S, D]: checked, then timed
     back-to-back beside its plain versions and, for a form with the
     operands' own output dtype, PyTorch's SDPA at that dtype (a
-    yardstick only); bounds at the dtype's peak. Returns the rows."""
+    yardstick only); bounds at the dtype's peak, the fp32 backward's at
+    the 3xTF32 route's (a third of the TF32 peak) with ``bound_fma_ms``
+    at the fp32 FMA peak beside it. Returns the rows."""
     dtype, out = FORMS[sfx]
     bh = b * h
     absmax, _, (q, k, v, do, lse, delta) = check_form(
@@ -2424,11 +2433,16 @@ def time_form(fa, sfx, b, h, s, d, causal=True):
     rows = {}
     for kn, name in zip(("fwd", "dkv", "dq"), form_names(sfx)):
         ops, nbytes = work[kn]
-        b_ms, b_by = bound_ms(ops, nbytes, PEAK[dtype])
+        tf32 = dtype == torch.float32 and kn != "fwd"
+        b_ms, b_by = bound_ms(ops, nbytes,
+                              PEAK_3XTF32 if tf32 else PEAK[dtype])
         rows[name] = {"ms": b2b[kn], "plain_ms": plain[kn],
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library[kn], "max_abs_err": absmax[name],
                       "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+        if tf32:
+            rows[name]["bound_fma_ms"] = bound_ms(ops, nbytes,
+                                                  PEAK_FP32_FLOPS)[0]
         log(f"  B={b} H={h} S={s} D={d} {name}: {json.dumps(rows[name])}")
     return rows
 
@@ -2545,9 +2559,11 @@ def dtype_lm_phase(hvd, tfm, fa, build_train_step, create_mesh, lm_step_s):
         peak = torch.cuda.max_memory_allocated() / 2**30 - base
         steady = statistics.median(times[1:])
         rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        was = (f", beside {FP32_LM_STEP_MS_SIMT} ms on the SIMT backward"
+               if dtype == torch.float32 else "")
         log(f"flagship LM in {dtype} (auto flash): losses {losses}; step "
             f"seconds {times}; {b * s / steady:.1f} tok/s (median of steps "
-            f"2-{DTYPE_STEPS}, {steady * 1e3:.2f} ms/step) beside phase "
+            f"2-{DTYPE_STEPS}, {steady * 1e3:.2f} ms/step{was}) beside phase "
             f"5's bf16 {b * s / lm_step_s:.1f}; peak memory {peak:.2f} GiB "
             f"above the {base:.2f} GiB held before the model; "
             f"step 1 loss {losses[0]!r} against use_flash=False "
@@ -4979,7 +4995,8 @@ def main(argv=None) -> int:
                     launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    **{k: r[k] for k in ("bound_fma_ms",) if k in r})
                for name, r in rows.items()]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

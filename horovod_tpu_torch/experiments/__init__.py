@@ -32,6 +32,7 @@ from ..ops import probes
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32, outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12    # H100 SXM dense TF32 (a 3xTF32 product: a third)
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 REL_TOL = 1e-2                # matmul / nosoft: max |diff| / max |plain|
 SUM_TOL = 1e-4                # stats-like: |diff| / sum |terms|

@@ -24,7 +24,9 @@ bring ``CUTS`` along. Part 2 times each wgmma form of
 package's kernels): one CTA of two warpgroups per SM, each looping over
 a 64-deep product (4 k-steps of m64n128k16, or 8 of m64n64k16 at D=128)
 from fixed tiles, waiting after each batch; TFLOP/s against the 989 of
-the bf16 peak.
+the bf16 peak. Beside them, the fp32 backward's ``mma.sync m16n8k8
+.tf32`` alone (128 a warp from registers into 16 accumulators), against
+the 494.7 of the TF32 peak.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ import torch
 
 from ..ops import _build
 from ..ops import flash_attention as fa
-from . import PEAK_BF16_FLOPS, device_line, require_cuda, time_ms
+from . import (PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, device_line, require_cuda,
+               time_ms)
 
 S_PRODUCT = """    for (int kk = 0; kk < D / 16; ++kk) {
       wgmma_ss<kFwdCols, InT>(s, desc_kmajor<kFwdRows>(sQ, wg * 64, kk),
@@ -51,7 +54,20 @@ S_PRODUCT = """    for (int kk = 0; kk < D / 16; ++kk) {
 PV_PRODUCT = """    for (int c = 0; c < kFwdCols / 16; ++c) {
       wgmma_rs<D, InT>(acc, pa[c], desc_mnmajor<kFwdCols>(sV, c));
     }"""
-EXP2 = "float p = exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]));"
+# K1's exp2f, quoted down to the P -> A conversion that only K1 (not its
+# _wide form, whose softmax is the same text) writes with ``c``.
+EXP2 = """        float p = exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
+        if (edge && !valid_pair(row[e >> 1], k0 + j * 8 + t * 2 + (e & 1),
+                                sq, sk, causal)) {
+          p = 0.f;
+        }
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+    uint32_t pa[kFwdCols / 16][4];
+#pragma unroll
+    for (int c = 0; c < kFwdCols / 16; ++c) acc_to_a_as"""
 RING_WAIT = """    cp_async_wait<L::kStages - 2>();
     fence_proxy_async();
     __syncthreads();"""
@@ -59,14 +75,17 @@ CUTS = {
     "base": [],
     "no_qk": [(S_PRODUCT, "    {}")],
     "no_pv": [(PV_PRODUCT, "    {}")],
-    "no_exp2": [(EXP2, "float p = fmaf(s[j][e], kLog2e, -mb[e >> 1]);")],
+    "no_exp2": [(EXP2, EXP2.replace("exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]))",
+                                    "fmaf(s[j][e], kLog2e, -mb[e >> 1])"))],
     "no_ring_wait": [(RING_WAIT, "    __syncthreads();")],
 }
 
 RATE_MODES = ("RS m64n128k16, B MN-major (P V)",
               "RS m64n128k16, B K-major",
               "SS m64n64k16, B K-major (Qs K^T)",
-              "SS m64n128k16, B K-major")
+              "SS m64n128k16, B K-major",
+              "mma.sync m16n8k8 .tf32 (the fp32 backward's product)")
+TF32_MODE = 4   # its share is of the TF32 peak
 
 
 def cut_source(text: str, cut: str, cuts=CUTS) -> str:
@@ -185,10 +204,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for cut, r in split(Path(tmp)).items():
             print(json.dumps({"cut": cut, **r}), flush=True)
-    for name, tflops in rates().items():
+    for mode, (name, tflops) in enumerate(rates().items()):
+        peak = PEAK_TF32_FLOPS if mode == TF32_MODE else PEAK_BF16_FLOPS
         print(json.dumps({"wgmma": name, "tflops": tflops,
-                          "of_peak": tflops * 1e12 / PEAK_BF16_FLOPS}),
-              flush=True)
+                          "of_peak": tflops * 1e12 / peak}), flush=True)
     return 0
 
 

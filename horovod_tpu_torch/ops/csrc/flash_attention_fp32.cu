@@ -1,40 +1,53 @@
-// Flash attention on fp32 operands: forward, dK/dV and dQ kernels in
-// fp32 FMA (SIMT), the fp32 forms of K1-K3 (flash_attention.cuh has the
-// 16-bit forms, on wgmma).
+// Flash attention on fp32 operands, the fp32 forms of K1-K3
+// (flash_attention.cuh has the 16-bit forms, on wgmma): the forward in
+// fp32 FMA (SIMT), dK/dV and dQ on the tensor cores in split TF32.
 //
 // flash_fwd_fp32_kernel  replaces horovod_tpu/ops/flash_attention.py::_fwd_kernel
 // flash_dkv_fp32_kernel  replaces horovod_tpu/ops/flash_attention.py::_dkv_kernel
 // flash_dq_fp32_kernel   replaces horovod_tpu/ops/flash_attention.py::_dq_kernel
 //   on fp32 operands, where JAX's products are fp32 x fp32 with fp32
-//   accumulation (preferred_element_type=jnp.float32 on fp32 inputs). A
-//   single TF32 pass on the tensor cores keeps ~10 bits and cannot hold
-//   fp32's tolerance, so every product here is an fp32 FMA. Bound on an
-//   H100 SXM at the flagship shape (BH=48, S=2048, D=128, causal): 2
-//   causal products = 51.6 GFLOP / 67 TFLOP/s = 0.77 ms (K1); 4 and 3
-//   products (K2, K3). The design is the simplest that is right: no
-//   register blocking beyond a row per 8 threads, so shared-memory
-//   loads, not FMAs, set the pace.
+//   accumulation (preferred_element_type=jnp.float32 on fp32 inputs).
+//
+// The forward (flash_fwd_fp32_kernel and its _wide form) is the simplest
+// design that is right: every product an fp32 FMA, a row per 8 threads,
+// no register blocking beyond it, so shared-memory loads, not FMAs, set
+// its pace. Bound on an H100 SXM at the flagship shape (BH=48, S=2048,
+// D=128, causal): 2 causal products = 51.6 GFLOP / 67 TFLOP/s = 0.77 ms.
+//
+// The backward (section "The backward") runs its four (K2) and three
+// (K3) products on mma.sync m16n8k8 .tf32 in the split form (3xTF32):
+// each fp32 operand x is big, x rounded to TF32 as cvt.rna rounds, plus
+// small = x - big, which the tensor core reads rounded toward zero; each
+// product is small*big + big*small + big*big accumulated in fp32, which
+// keeps ~21 of fp32's 24 bits where a single TF32 pass keeps ~11. Bound
+// at the flagship: 103 GFLOP (K2) and 77 GFLOP (K3) at a third of the
+// 494.7 TFLOP/s TF32 peak = 0.63 and 0.47 ms (1.54 and 1.15 ms at the 67
+// TFLOP/s FMA peak). mma.sync itself peaks at ~61% of that TF32 rate on
+// an H100 (experiments/flash_fwd_split.py), so 1.03 and 0.77 ms is the
+// floor of this route.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, d] fp32, contiguous, d a
-// multiple of 4 up to W (the wrapper pads every head dim to a multiple
-// of 16, and above 256 to a multiple of 128); lse and delta are [BH, S]
-// fp32. W (64, 128 or 256) sizes the shared-memory rows and the
-// per-thread accumulators; d is a runtime argument, so one kernel serves
-// every head dim up to its W. Above 256 the _wide kernels take d in
-// 128-column chunks (the section "Head dims above 256").
+// multiple of 4 up to 256 (the wrapper pads every head dim to a multiple
+// of 16) or, above 256, a multiple of 128; lse and delta are [BH, S]
+// fp32. The numerics are JAX's on fp32: q * scale in fp32, masked scores
+// -1e30 (the backward sets their P to 0), exp(s - m) online (K1) or
+// exp(s - lse) (K2, K3: as the 16-bit forms take it, exp2f(fmaf(s,
+// log2 e, -lse log2 e))), lse = m + log(max(l, 1e-30)), dS = P (dP -
+// delta), dQ scaled once at the end. Each output has one owner CTA: no
+// atomics, and repeats are bit-identical. Heaviest causal blocks are
+// scheduled first. Kernels launch on the caller's stream, allocate
+// nothing and return cudaGetLastError().
 //
-// Each CTA of 256 threads owns 32 rows (q rows for K1 and K3, key rows
-// for K2), 8 threads a row, and loops over 32-row tiles of the other
-// operand, loaded whole into shared memory (rows padded by 4 floats: the
-// 8 threads of a row read 8 distinct 16-byte bank groups). A thread
-// holds 4 of its row's 32 scores (columns sub + 8 i) and the output
-// columns 4 (sub + 8 g) .. +3 of its row; a product's 32 terms reach the
-// row's 8 threads by shuffles. The numerics are JAX's on fp32: q * scale
-// in fp32, masked scores -1e30, exp(s - m) online (K1) or exp(s - lse)
-// (K2, K3), lse = m + log(max(l, 1e-30)), dQ scaled once at the end.
-// Each output has one owner CTA: no atomics, and repeats are
-// bit-identical. Kernels launch on the caller's stream, allocate nothing
-// and return cudaGetLastError().
+// Forward layout: each CTA of 256 threads owns 32 rows, 8 threads a row,
+// and loops over 32-row tiles of the other operand, loaded whole into
+// shared memory (rows padded by 4 floats: the 8 threads of a row read 8
+// distinct 16-byte bank groups). A thread holds 4 of its row's 32 scores
+// (columns sub + 8 i) and the output columns 4 (sub + 8 g) .. +3 of its
+// row; a product's 32 terms reach the row's 8 threads by shuffles. W
+// (64, 128 or 256) sizes the shared-memory rows and the per-thread
+// accumulators; d is a runtime argument, so one kernel serves every head
+// dim up to its W. Above 256 the _wide forward takes d in 128-column
+// chunks (the section "Head dims above 256").
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -226,145 +239,17 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int sq, int sk, int d,
-                      float qscale, int causal) {
-  using L = Simt<W>;
-  extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + L::kTile;
-  float* sQ = sV + L::kTile;
-  float* sO = sQ + L::kTile;
-  float* sLse = sO + L::kTile;   // [32] lse, then [32] delta
-  float* sDel = sLse + kCols;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kRows;
-  q += (size_t)bh * sq * d;
-  dout += (size_t)bh * sq * d;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  dk += (size_t)bh * sk * d;
-  dv += (size_t)bh * sk * d;
-  const int r = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
-  const int key = k0 + r;
-
-  load_rows<W, false>(sK, k, k0, sk, d, 1.f);
-  load_rows<W, false>(sV, v, k0, sk, d, 1.f);
-  float dka[W / 32][4], dva[W / 32][4];
-#pragma unroll
-  for (int g = 0; g < W / 32; ++g) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[g][e] = dva[g][e] = 0.f;
-  }
-  const int n_qt = (sq + kCols - 1) / kCols;
-  for (int qt = causal ? k0 / kCols : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kCols;
-    __syncthreads();  // the previous tile's reads are done
-    load_rows<W, true>(sQ, q, q0, sq, d, qscale);
-    load_rows<W, false>(sO, dout, q0, sq, d, 1.f);
-    if (threadIdx.x < 2 * kCols) {
-      const int qi = q0 + threadIdx.x % kCols;
-      const float* src = threadIdx.x < kCols ? lse : delta;
-      sLse[threadIdx.x] = qi < sq ? src[qi] : 0.f;
-    }
-    __syncthreads();
-    // S^T and dP^T of this key row against q rows sub + 8 i.
-    float st[kPer], dpt[kPer];
-    dots<W>(st, sK + r * L::kLd, sQ, sub, d);
-    dots<W>(dpt, sV + r * L::kLd, sO, sub, d);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int qc = sub + kLanes * i;
-      const float p = valid_pair(q0 + qc, key, sq, sk, causal)
-                          ? expf(st[i] - sLse[qc]) : 0.f;
-      st[i] = p;                        // P^T
-      dpt[i] = p * (dpt[i] - sDel[qc]);  // dS^T
-    }
-    accumulate<W>(dva, st, sO, sub);    // dV += P^T dO
-    accumulate<W>(dka, dpt, sQ, sub);   // dK += dS^T Qs
-  }
-  if (key < sk) {
-    store_row<W>(dk + (size_t)key * d, dka, sub, d, 1.f);
-    store_row<W>(dv + (size_t)key * d, dva, sub, d, 1.f);
-  }
-}
-
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
-                     int sq, int sk, int d, float qscale, float scale,
-                     int causal) {
-  using L = Simt<W>;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + L::kTile;
-  float* sK = sO + L::kTile;
-  float* sV = sK + L::kTile;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
-  q += (size_t)bh * sq * d;
-  dout += (size_t)bh * sq * d;
-  dq += (size_t)bh * sq * d;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  const int r = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
-  const int row = q0 + r;
-  const float lse_r = row < sq ? lse[row] : 0.f;
-  const float del_r = row < sq ? delta[row] : 0.f;
-
-  load_rows<W, true>(sQ, q, q0, sq, d, qscale);
-  load_rows<W, false>(sO, dout, q0, sq, d, 1.f);
-  float dqa[W / 32][4];
-#pragma unroll
-  for (int g = 0; g < W / 32; ++g) dqa[g][0] = dqa[g][1] = dqa[g][2] = dqa[g][3] = 0.f;
-  const int n_kt = key_tiles(q0, sq, sk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kCols;
-    __syncthreads();  // the previous tile's reads are done
-    load_rows<W, false>(sK, k, k0, sk, d, 1.f);
-    load_rows<W, false>(sV, v, k0, sk, d, 1.f);
-    __syncthreads();
-    float s[kPer], dp[kPer];
-    dots<W>(s, sQ + r * L::kLd, sK, sub, d);
-    dots<W>(dp, sO + r * L::kLd, sV, sub, d);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float p = valid_pair(row, k0 + sub + kLanes * i, sq, sk, causal)
-                          ? expf(s[i] - lse_r) : 0.f;
-      s[i] = p * (dp[i] - del_r);  // dS
-    }
-    accumulate<W>(dqa, s, sK, sub);   // dQ += dS K
-  }
-  if (row < sq) store_row<W>(dq + (size_t)row * d, dqa, sub, d, scale);
-}
-
 // ---------------------------------------------------------------------------
-// Head dims above 256: the _wide kernels
+// Head dims above 256: the _wide forward
 // ---------------------------------------------------------------------------
 //
 // d a runtime multiple of 128 (the wrapper zero-pads any other head dim
 // above 256 to one), nc = d / 128 chunks. Each CTA owns one 128-column
-// chunk c = blockIdx.z of its output; the dot products that sum over d
-// (Q K^T, and dO V^T in K2 and K3) stream d through shared memory one
-// 128-column chunk at a time, every tile 32 x 128 as at W = 128, and keep
-// adding to the same fp32 sums. K2 and K3 visit the chunks from c + 1
-// round to c, so the last chunk loaded is the one their accumulate reads
-// (dO and Qs in K2, K in K3); K1 loads V's chunk c with its last chunk.
-// Each CTA recomputes the scores over the whole d.
+// chunk c = blockIdx.z of its output; Q K^T streams d through shared
+// memory one 128-column chunk at a time, every tile 32 x 128 as at W =
+// 128, and keeps adding to the same fp32 sums; V's chunk c loads with the
+// last chunk. Each CTA recomputes the scores over the whole d. (The
+// backward's own chunking is in its section.)
 
 constexpr int kWide = 128;
 using Wide = Simt<kWide>;
@@ -488,139 +373,530 @@ flash_fwd_fp32_wide_kernel(const float* __restrict__ q,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_fp32_wide_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           const float* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           float* __restrict__ dk, float* __restrict__ dv,
-                           int sq, int sk, int d, float qscale, int causal) {
-  extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + Wide::kTile;
-  float* sQ = sV + Wide::kTile;
-  float* sO = sQ + Wide::kTile;
-  float* sLse = sO + Wide::kTile;   // [32] lse, then [32] delta
-  float* sDel = sLse + kCols;
-  const int nc = d / kWide, c = blockIdx.z;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kRows;
-  q += (size_t)bh * sq * d;
-  dout += (size_t)bh * sq * d;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  dk += (size_t)bh * sk * d + c * kWide;
-  dv += (size_t)bh * sk * d + c * kWide;
-  const int r = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
-  const int key = k0 + r;
+// ---------------------------------------------------------------------------
+// The backward: K2 (dK, dV) and K3 (dQ) on the tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+//
+// Why mma.sync and not wgmma: wgmma reads tf32 operands from shared
+// memory K-major only (the transpose bit exists for 16-bit types), so
+// dV += P^T dO, dK += dS^T Qs and dQ += dS K would need transposed
+// copies; mma.sync takes its fragments from registers, loaded in any
+// layout.
+//
+// One design for every head dim. A CTA of 8 warps owns 64 rows (keys in
+// K2, queries in K3) and one 128-column chunk c = blockIdx.z of its
+// output, and walks the tiles of BN rows of the other operand (BN = 64
+// for d <= 128, else 32), one step a tile per 128-column d chunk: a step
+// adds that chunk's columns to the two products over d, S = X1 Y1^T and
+// dP = X2 Y2^T (K2: X = K, V and Y = Qs, dO, so S^T and dP^T; K3: X =
+// Qs, dO and Y = K, V). The chunks are visited from c + 1 round to c, so
+// the last step of a tile holds Y's chunk c, which the second products
+// read. For d <= 128 (one chunk) X stays in shared memory for the whole
+// walk; above, X's chunk rides in the ring with Y's, and each CTA
+// recomputes S and dP over the whole d (1.5x the work at d = 256, 2.5-3x at
+// 512: recompute was chosen over 16 x d accumulators a warp, which do
+// not fit in registers above 128 columns).
+//
+// Warp roles. Warps 0-3 (group 0) compute S, warps 4-7 (group 1) dP, each
+// for 16 owned rows (warp & 3), so each product over d is computed once.
+// The two exchange their results through shared memory in fragment order
+// (a thread's values at [warp & 3][value][lane]: no bank conflicts):
+// K2: group 0 writes P^T and accumulates dV += P^T dO, group 1 reads P^T,
+// forms dS^T and accumulates dK += dS^T Qs (16 x 128 accumulators a
+// warp). K3: group 0 writes P, group 1 dP, each reads the other's and
+// forms the same dS bit for bit; group g accumulates dQ += dS K over
+// output columns 64g..64g+63.
+//
+// Fragments. In a product over d, a 16-column block gives each thread one
+// LDS.128 a row: k-step 0 takes columns 4t and 4t + 1 as its slots t and
+// t + 4, k-step 1 columns 4t + 2 and 4t + 3 (the same permutation for A
+// and B, so the sum is unchanged). A first product's accumulator holds
+// (row g, columns 2t, 2t + 1) of each 8-column n-tile: read as the A
+// fragment of the second product with slot t = streamed row 2t and slot
+// t + 4 = row 2t + 1, it needs no shuffle; B then loads rows 2t and 2t + 1
+// of the streamed tile, columns 4g..4g+3 of a 32-column block with one
+// LDS.128 each, and gives column 4g + j to n-tile j, so a thread's
+// accumulator holds columns 8t..8t+7 of each block: two float4 stores a
+// row. Tiles are [rows][128] fp32 with the 16-byte chunk ch of row r at
+// ch ^ swz(r) (low three bits): swz(r) = 2 ((r >> 1) & 3) ^ 4 (r & 1)
+// makes both read patterns (rows g = 2p, 2p + 1 at chunks t; rows 2t,
+// 2t + 1 at chunk g) conflict-free. Tiles land by cp.async in a two-stage
+// ring, the next step's copies under this step's products; columns past
+// d and rows past sq or sk land as zeros, and nothing past them is read
+// from global memory or written.
 
-  float dka[kWide / 32][4], dva[kWide / 32][4];
+constexpr int kChunk = 128;          // columns of a stored tile: one d chunk
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kOwn = 64;             // rows a backward CTA owns
+constexpr int kBwdThreads = 256;     // two groups of four warps
+
+// x = big + small. big is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
+// finite value (half an ulp of the 13 dropped bits added to the
+// magnitude, then those bits cleared: two integer operations, where
+// cvt.rna also tests for NaN and infinity); small = x - big is exact and
+// goes to the tensor core as it is, which reads a .tf32 register's top
+// 19 bits (small rounded toward zero).
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A B in three passes: small A big B, big A small B, big A big B.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma_tf32(c, as, bb[0], bb[1]);
+  mma_tf32(c, ab, bs[0], bs[1]);
+  mma_tf32(c, ab, bb[0], bb[1]);
+}
+
+__device__ __forceinline__ int swz(int r) {
+  return (((r >> 1) & 3) << 1) ^ ((r & 1) << 2);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Issue the copies of rows row0..row0+R-1, columns col0..col0+127 of a
+// [seq, d] matrix into a swizzled [R][128] tile; rows past seq and
+// columns past d land as zeros.
+template <int R>
+__device__ __forceinline__ void fetch_tile(float* tile, const float* src,
+                                           int row0, int seq, int d,
+                                           int col0) {
 #pragma unroll
-  for (int g = 0; g < kWide / 32; ++g) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[g][e] = dva[g][e] = 0.f;
-  }
-  const int n_qt = (sq + kCols - 1) / kCols;
-  for (int qt = causal ? k0 / kCols : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kCols;
-    float st[kPer], dpt[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) st[i] = dpt[i] = 0.f;
-    for (int j = 0; j < nc; ++j) {
-      const int col = ((c + 1 + j) % nc) * kWide;
-      __syncthreads();  // the previous chunk's reads are done
-      load_chunk<false>(sK, k, k0, sk, d, col, 1.f);
-      load_chunk<false>(sV, v, k0, sk, d, col, 1.f);
-      load_chunk<true>(sQ, q, q0, sq, d, col, qscale);
-      load_chunk<false>(sO, dout, q0, sq, d, col, 1.f);
-      if (j == nc - 1 && threadIdx.x < 2 * kCols) {
-        const int qi = q0 + threadIdx.x % kCols;
-        const float* src = threadIdx.x < kCols ? lse : delta;
-        sLse[threadIdx.x] = qi < sq ? src[qi] : 0.f;
-      }
-      __syncthreads();
-      dots_more(st, sK + r * Wide::kLd, sQ, sub);
-      dots_more(dpt, sV + r * Wide::kLd, sO, sub);
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int qc = sub + kLanes * i;
-      const float p = valid_pair(q0 + qc, key, sq, sk, causal)
-                          ? expf(st[i] - sLse[qc]) : 0.f;
-      st[i] = p;                        // P^T
-      dpt[i] = p * (dpt[i] - sDel[qc]);  // dS^T
-    }
-    accumulate<kWide>(dva, st, sO, sub);    // dV += P^T dO, chunk c
-    accumulate<kWide>(dka, dpt, sQ, sub);   // dK += dS^T Qs, chunk c
-  }
-  if (key < sk) {
-    store_row<kWide>(dk + (size_t)key * d, dka, sub, kWide, 1.f);
-    store_row<kWide>(dv + (size_t)key * d, dva, sub, kWide, 1.f);
+  for (int i = 0; i < R * 32 / kBwdThreads; ++i) {
+    const int p = threadIdx.x + i * kBwdThreads;
+    const int r = p >> 5, ch = p & 31, col = col0 + 4 * ch;
+    const bool ok = row0 + r < seq && col < d;
+    cp16(tile + r * kChunk + ((ch ^ swz(r)) << 2),
+         ok ? src + (size_t)(row0 + r) * d + col : src, ok);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_dq_fp32_wide_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          float* __restrict__ dq, int sq, int sk, int d,
-                          float qscale, float scale, int causal) {
+// lse then delta of rows row0..row0+BN-1 (zeros past seq) into dst[2 BN].
+template <int BN>
+__device__ __forceinline__ void fetch_stats(float* dst, const float* lse,
+                                            const float* delta, int row0,
+                                            int seq) {
+  const int i = threadIdx.x;
+  if (i < 2 * BN) {
+    const int r = row0 + i % BN;
+    const float* src = i < BN ? lse : delta;
+    cp4(dst + i, r < seq ? src + r : src, r < seq);
+  }
+}
+
+// acc[n] += (rows a0..a0+15 of tile A) . (rows 8n..8n+7 of tile B) over
+// nb 16-column blocks; A (SA) or B (SB) is multiplied by qscale first.
+template <int BN, bool SA, bool SB>
+__device__ __forceinline__ void rows_product(float (&acc)[BN / 8][4],
+                                             const float* sA, int a0,
+                                             const float* sB, float qscale,
+                                             int nb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int h = swz(g);
+  // chunk 4b + t of a row with swizzle h: block b's float offset is
+  // 32 (b / 2) plus off0 for an even b, off1 for an odd one
+  const int off0 = (t ^ h) << 2, off1 = ((4 + t) ^ h) << 2;
+  const float* pa = sA + (a0 + g) * kChunk;
+  const float* pb = sB + g * kChunk;
+#pragma unroll 1
+  for (int b = 0; b < nb; ++b) {
+    const int o = 32 * (b >> 1) + (b & 1 ? off1 : off0);
+    float4 x = lds4(pa + o), y = lds4(pa + 8 * kChunk + o);
+    if (SA) {
+      x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
+      y = make_float4(y.x * qscale, y.y * qscale, y.z * qscale, y.w * qscale);
+    }
+    uint32_t ab[2][4], as[2][4];
+    split(x.x, ab[0][0], as[0][0]);
+    split(y.x, ab[0][1], as[0][1]);
+    split(x.y, ab[0][2], as[0][2]);
+    split(y.y, ab[0][3], as[0][3]);
+    split(x.z, ab[1][0], as[1][0]);
+    split(y.z, ab[1][1], as[1][1]);
+    split(x.w, ab[1][2], as[1][2]);
+    split(y.w, ab[1][3], as[1][3]);
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      float4 z = lds4(pb + n * 8 * kChunk + o);
+      if (SB) {
+        z = make_float4(z.x * qscale, z.y * qscale, z.z * qscale,
+                        z.w * qscale);
+      }
+      uint32_t bb[2][2], bs[2][2];
+      split(z.x, bb[0][0], bs[0][0]);
+      split(z.y, bb[0][1], bs[0][1]);
+      split(z.z, bb[1][0], bs[1][0]);
+      split(z.w, bb[1][1], bs[1][1]);
+      mma3(acc[n], ab[0], as[0], bb[0], bs[0]);
+      mma3(acc[n], ab[1], as[1], bb[1], bs[1]);
+    }
+  }
+}
+
+// acc[m][j] += A (a first product's 16 x BN accumulator, as it stands)
+// times the BN rows of tile B (times qscale when SB), over the columns
+// of 32-column blocks m0 + m below nm; n-tile j of a block takes columns
+// 4g + j.
+template <int BN, int NM, bool SB>
+__device__ __forceinline__ void cols_product(float (&acc)[NM][4][4],
+                                             const float (&a)[BN / 8][4],
+                                             const float* sB, float qscale,
+                                             int m0, int nm) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // rows 2t and 2t + 1 (swizzles 2t and 2t ^ 4), chunk g of a block
+  const float* p0 = sB + 2 * t * kChunk + 32 * m0 + ((g ^ (2 * t)) << 2);
+  const float* p1 = sB + (2 * t + 1) * kChunk + 32 * m0 +
+                    ((g ^ (2 * t) ^ 4) << 2);
+#pragma unroll
+  for (int k = 0; k < BN / 8; ++k) {
+    uint32_t ab[4], as[4];
+    split(a[k][0], ab[0], as[0]);   // row g,     slot t:     column 2t
+    split(a[k][2], ab[1], as[1]);   // row g + 8, slot t
+    split(a[k][1], ab[2], as[2]);   // row g,     slot t + 4: column 2t + 1
+    split(a[k][3], ab[3], as[3]);   // row g + 8, slot t + 4
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      if (m0 + m >= nm) break;
+      float4 u = lds4(p0 + 8 * k * kChunk + 32 * m);
+      float4 w = lds4(p1 + 8 * k * kChunk + 32 * m);
+      if (SB) {
+        u = make_float4(u.x * qscale, u.y * qscale, u.z * qscale,
+                        u.w * qscale);
+        w = make_float4(w.x * qscale, w.y * qscale, w.z * qscale,
+                        w.w * qscale);
+      }
+      const float uu[4] = {u.x, u.y, u.z, u.w}, ww[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bb[2], bs[2];
+        split(uu[j], bb[0], bs[0]);
+        split(ww[j], bb[1], bs[1]);
+        mma3(acc[m][j], ab, as, bb, bs);
+      }
+    }
+  }
+}
+
+// Store rows row0 + g and row0 + g + 8 (those below seq) of the
+// columns of blocks m0 + m below nm and below dc, times mul: row g's c0
+// of n-tiles 0..3 are columns 8t..8t+3 of the block, its c1 8t+4..8t+7.
+template <int NM>
+__device__ __forceinline__ void store_cols(float* out, int ld, int row0,
+                                           int seq,
+                                           const float (&acc)[NM][4][4],
+                                           int m0, int nm, int dc,
+                                           float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    if (m0 + m >= nm) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      if (row >= seq) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 32 * (m0 + m) + 8 * t + 4 * e;
+        if (col >= dc) continue;
+        const int i = 2 * half + e;
+        *reinterpret_cast<float4*>(out + (size_t)row * ld + col) =
+            make_float4(acc[m][0][i] * mul, acc[m][1][i] * mul,
+                        acc[m][2][i] * mul, acc[m][3][i] * mul);
+      }
+    }
+  }
+}
+
+// Shared memory of the backward kernels, in floats: X (when it stays),
+// the two-stage ring ([X chunk when it rides] [Y1][Y2] [lse delta] for
+// K2), and the exchange (K2: P^T; K3: P and dP).
+template <bool DKV, int BN, bool RES>
+struct BwdSmem {
+  static constexpr int kX = kOwn * kChunk;
+  static constexpr int kY = BN * kChunk;
+  static constexpr int kStage = (RES ? 0 : 2 * kX) + 2 * kY + (DKV ? 2 * BN : 0);
+  static constexpr int kRing = (RES ? 2 * kX : 0);
+  static constexpr int kExchange = kRing + 2 * kStage;
+  static constexpr int kFloats = kExchange + (DKV ? 1 : 2) * kOwn * BN;
+  static constexpr int kBytes = kFloats * 4;
+  static_assert(kBytes <= 232448, "shared memory of one CTA");
+};
+
+template <int BN, bool RES>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int sq, int sk, int d,
+                      float qscale, int causal) {
+  using L = BwdSmem<true, BN, RES>;
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + Wide::kTile;
-  float* sK = sO + Wide::kTile;
-  float* sV = sK + Wide::kTile;
-  const int nc = d / kWide, c = blockIdx.z;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int nc = (d + kChunk - 1) / kChunk, c = blockIdx.z;
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  const int k0 = blockIdx.y * kOwn;   // heaviest first: low keys see most q
   q += (size_t)bh * sq * d;
   dout += (size_t)bh * sq * d;
-  dq += (size_t)bh * sq * d + c * kWide;
   lse += (size_t)bh * sq;
   delta += (size_t)bh * sq;
   k += (size_t)bh * sk * d;
   v += (size_t)bh * sk * d;
-  const int r = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
-  const int row = q0 + r;
-  const float lse_r = row < sq ? lse[row] : 0.f;
-  const float del_r = row < sq ? delta[row] : 0.f;
+  dk += (size_t)bh * sk * d + c * kChunk;
+  dv += (size_t)bh * sk * d + c * kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, grp = warp >> 2, w0 = (warp & 3) * 16;
+  const int qt0 = causal ? k0 / BN : 0;
+  const int n_steps = max(0, (sq + BN - 1) / BN - qt0) * nc;
+  float* const ring = smem + L::kRing;
+  float* const sP = smem + L::kExchange + (warp & 3) * (BN / 2) * 32 + lane;
 
-  float dqa[kWide / 32][4];
-#pragma unroll
-  for (int g = 0; g < kWide / 32; ++g) dqa[g][0] = dqa[g][1] = dqa[g][2] = dqa[g][3] = 0.f;
-  const int n_kt = key_tiles(q0, sq, sk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kCols;
-    float s[kPer], dp[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) s[i] = dp[i] = 0.f;
-    for (int j = 0; j < nc; ++j) {
-      const int col = ((c + 1 + j) % nc) * kWide;
-      __syncthreads();  // the previous chunk's reads are done
-      load_chunk<true>(sQ, q, q0, sq, d, col, qscale);
-      load_chunk<false>(sO, dout, q0, sq, d, col, 1.f);
-      load_chunk<false>(sK, k, k0, sk, d, col, 1.f);
-      load_chunk<false>(sV, v, k0, sk, d, col, 1.f);
-      __syncthreads();
-      dots_more(s, sQ + r * Wide::kLd, sK, sub);
-      dots_more(dp, sO + r * Wide::kLd, sV, sub);
+  auto issue = [&](int s) {
+    float* st = ring + (s & 1) * L::kStage;
+    const int col = ((c + 1 + s % nc) % nc) * kChunk;
+    const int q0 = (qt0 + s / nc) * BN;
+    if constexpr (!RES) {
+      fetch_tile<kOwn>(st, k, k0, sk, d, col);
+      fetch_tile<kOwn>(st + L::kX, v, k0, sk, d, col);
+      st += 2 * L::kX;
     }
+    fetch_tile<BN>(st, q, q0, sq, d, col);
+    fetch_tile<BN>(st + L::kY, dout, q0, sq, d, col);
+    fetch_stats<BN>(st + 2 * L::kY, lse, delta, q0, sq);
+  };
+
+  float acc[4][4][4];   // dV (group 0) or dK (group 1), chunk c
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float p = valid_pair(row, k0 + sub + kLanes * i, sq, sk, causal)
-                          ? expf(s[i] - lse_r) : 0.f;
-      s[i] = p * (dp[i] - del_r);  // dS
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  float sa[BN / 8][4];  // S^T (group 0) or dP^T (group 1), then P^T, dS^T
+  if (n_steps > 0) {
+    if constexpr (RES) {
+      fetch_tile<kOwn>(smem, k, k0, sk, d, 0);
+      fetch_tile<kOwn>(smem + L::kX, v, k0, sk, d, 0);
     }
-    accumulate<kWide>(dqa, s, sK, sub);   // dQ += dS K, chunk c
+    issue(0);
   }
-  if (row < sq) store_row<kWide>(dq + (size_t)row * d, dqa, sub, kWide, scale);
+  cp_commit();
+  const int dc = min(kChunk, d - c * kChunk), nm = (dc + 31) / 32;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_wait_all();
+    __syncthreads();   // step s landed; every thread is done with s - 1
+    if (s + 1 < n_steps) issue(s + 1);
+    cp_commit();
+    const int j = s % nc, col = ((c + 1 + j) % nc) * kChunk;
+    const float* st = ring + (s & 1) * L::kStage;
+    const float* sX = RES ? smem : st;
+    const float* sY = st + (RES ? 0 : 2 * L::kX);
+    if (j == 0) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[n][e] = 0.f;
+    }
+    const int nb = (min(kChunk, d - col) + 15) / 16;
+    if (grp == 0) {   // S^T = K Qs^T
+      rows_product<BN, false, true>(sa, sX, w0, sY, qscale, nb);
+    } else {          // dP^T = V dO^T
+      rows_product<BN, false, false>(sa, sX + L::kX, w0, sY + L::kY, 1.f, nb);
+    }
+    if (j != nc - 1) continue;
+    const int q0 = (qt0 + s / nc) * BN;
+    const float* sL = sY + 2 * L::kY;   // lse [BN], delta [BN]
+    if (grp == 0) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cq = 8 * n + 2 * t + (e & 1), qi = q0 + cq;
+          const int key = k0 + w0 + g + 8 * (e >> 1);
+          const bool ok = qi < sq && key < sk && (!causal || qi >= key);
+          const float p =
+              ok ? exp2f(fmaf(sa[n][e], kLog2e, -sL[cq] * kLog2e)) : 0.f;
+          sa[n][e] = p;   // P^T
+          sP[(4 * n + e) * 32] = p;
+        }
+    }
+    __syncthreads();   // P^T is in shared memory
+    if (grp == 1) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cq = 8 * n + 2 * t + (e & 1);
+          sa[n][e] = sP[(4 * n + e) * 32] * (sa[n][e] - sL[BN + cq]);  // dS^T
+        }
+    }
+    if (grp == 0) {   // dV += P^T dO (chunk c)
+      cols_product<BN, 4, false>(acc, sa, sY + L::kY, 1.f, 0, nm);
+    } else {          // dK += dS^T Qs
+      cols_product<BN, 4, true>(acc, sa, sY, qscale, 0, nm);
+    }
+  }
+  store_cols<4>(grp ? dk : dv, d, k0 + w0, sk, acc, 0, nm, dc, 1.f);
+}
+
+template <int BN, bool RES>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int sq, int sk, int d, float qscale, float scale,
+                     int causal) {
+  using L = BwdSmem<false, BN, RES>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int nc = (d + kChunk - 1) / kChunk, c = blockIdx.z;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;  // heaviest first
+  q += (size_t)bh * sq * d;
+  dout += (size_t)bh * sq * d;
+  dq += (size_t)bh * sq * d + c * kChunk;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, grp = warp >> 2, w0 = (warp & 3) * 16;
+  int n_kt = (sk + BN - 1) / BN;
+  if (causal) n_kt = min(n_kt, (min(q0 + kOwn, sq) - 1) / BN + 1);
+  const int n_steps = n_kt * nc;
+  const int r_lo = q0 + w0 + g, r_hi = r_lo + 8;
+  const float lse2[2] = {(r_lo < sq ? lse[r_lo] : 0.f) * kLog2e,
+                         (r_hi < sq ? lse[r_hi] : 0.f) * kLog2e};
+  const float del_r[2] = {r_lo < sq ? delta[r_lo] : 0.f,
+                          r_hi < sq ? delta[r_hi] : 0.f};
+  float* const ring = smem + L::kRing;
+  const int slot = (warp & 3) * (BN / 2) * 32 + lane;
+  float* const sP = smem + L::kExchange + slot;
+  float* const sDP = sP + kOwn * BN;
+
+  auto issue = [&](int s) {
+    float* st = ring + (s & 1) * L::kStage;
+    const int col = ((c + 1 + s % nc) % nc) * kChunk;
+    const int k0 = (s / nc) * BN;
+    if constexpr (!RES) {
+      fetch_tile<kOwn>(st, q, q0, sq, d, col);
+      fetch_tile<kOwn>(st + L::kX, dout, q0, sq, d, col);
+      st += 2 * L::kX;
+    }
+    fetch_tile<BN>(st, k, k0, sk, d, col);
+    fetch_tile<BN>(st + L::kY, v, k0, sk, d, col);
+  };
+
+  float acc[2][4][4];   // dQ, columns 64 grp .. 64 grp + 63 of chunk c
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  float sa[BN / 8][4];  // S (group 0) or dP (group 1), then dS
+  if (n_steps > 0) {
+    if constexpr (RES) {
+      fetch_tile<kOwn>(smem, q, q0, sq, d, 0);
+      fetch_tile<kOwn>(smem + L::kX, dout, q0, sq, d, 0);
+    }
+    issue(0);
+  }
+  cp_commit();
+  const int dc = min(kChunk, d - c * kChunk), nm = (dc + 31) / 32;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_wait_all();
+    __syncthreads();   // step s landed; every thread is done with s - 1
+    if (s + 1 < n_steps) issue(s + 1);
+    cp_commit();
+    const int j = s % nc, col = ((c + 1 + j) % nc) * kChunk;
+    const float* st = ring + (s & 1) * L::kStage;
+    const float* sX = RES ? smem : st;
+    const float* sY = st + (RES ? 0 : 2 * L::kX);
+    if (j == 0) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[n][e] = 0.f;
+    }
+    const int nb = (min(kChunk, d - col) + 15) / 16;
+    if (grp == 0) {   // S = Qs K^T
+      rows_product<BN, true, false>(sa, sX, w0, sY, qscale, nb);
+    } else {          // dP = dO V^T
+      rows_product<BN, false, false>(sa, sX + L::kX, w0, sY + L::kY, 1.f, nb);
+    }
+    if (j != nc - 1) continue;
+    const int k0 = (s / nc) * BN;
+    if (grp == 0) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int row = e >> 1 ? r_hi : r_lo;
+          const bool ok = row < sq && key < sk && (!causal || row >= key);
+          const float p =
+              ok ? exp2f(fmaf(sa[n][e], kLog2e, -lse2[e >> 1])) : 0.f;
+          sa[n][e] = p;
+          sP[(4 * n + e) * 32] = p;
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sDP[(4 * n + e) * 32] = sa[n][e];
+    }
+    __syncthreads();   // P and dP are in shared memory
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = grp ? sP[(4 * n + e) * 32] : sa[n][e];
+        const float dp = grp ? sa[n][e] : sDP[(4 * n + e) * 32];
+        sa[n][e] = p * (dp - del_r[e >> 1]);   // dS, the same in both groups
+      }
+    cols_product<BN, 2, false>(acc, sa, sY, 1.f, 2 * grp, nm);  // dQ += dS K
+  }
+  store_cols<2>(dq, d, q0 + w0, sq, acc, 2 * grp, nm, dc, scale);
 }
 
 template <typename K>
@@ -679,60 +955,42 @@ int hvd_flash_dkv_fp32(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int sq, int sk, int d,
                        float qscale, int causal, void* stream) {
-  if (d > 256) {
-    if (d % kWide) return cudaErrorInvalidValue;
-    constexpr int smem = (4 * Wide::kTile + 2 * kCols) * 4;
-    cudaError_t err = prepare(flash_dkv_fp32_wide_kernel, smem);
+  if (d < 4 || d % 4 || (d > 256 && d % kChunk)) return cudaErrorInvalidValue;
+  const dim3 grid(bh, (sk + kOwn - 1) / kOwn, (d + kChunk - 1) / kChunk);
+  auto run = [&](auto kernel, int smem) {
+    cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(bh, (sk + kRows - 1) / kRows, d / kWide);
-    flash_dkv_fp32_wide_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dk, (float*)dv, sq, sk, d, qscale, causal);
     return cudaGetLastError();
+  };
+  if (d <= kChunk) {
+    return run(flash_dkv_fp32_kernel<64, true>, BwdSmem<true, 64, true>::kBytes);
   }
-  return dispatch_w(d, [&](auto w) {
-    constexpr int W = decltype(w)::value;
-    constexpr int smem = (4 * Simt<W>::kTile + 2 * kCols) * 4;
-    cudaError_t err = prepare(flash_dkv_fp32_kernel<W>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(bh, (sk + kRows - 1) / kRows);
-    flash_dkv_fp32_kernel<W><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dk, (float*)dv, sq, sk, d, qscale, causal);
-    return cudaGetLastError();
-  });
+  return run(flash_dkv_fp32_kernel<32, false>, BwdSmem<true, 32, false>::kBytes);
 }
 
 int hvd_flash_dq_fp32(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int sq, int sk, int d, float qscale,
                       float scale, int causal, void* stream) {
-  if (d > 256) {
-    if (d % kWide) return cudaErrorInvalidValue;
-    constexpr int smem = 4 * Wide::kTile * 4;
-    cudaError_t err = prepare(flash_dq_fp32_wide_kernel, smem);
+  if (d < 4 || d % 4 || (d > 256 && d % kChunk)) return cudaErrorInvalidValue;
+  const dim3 grid(bh, (sq + kOwn - 1) / kOwn, (d + kChunk - 1) / kChunk);
+  auto run = [&](auto kernel, int smem) {
+    cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(bh, (sq + kRows - 1) / kRows, d / kWide);
-    flash_dq_fp32_wide_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq, sq, sk, d, qscale, scale, causal);
     return cudaGetLastError();
+  };
+  if (d <= kChunk) {
+    return run(flash_dq_fp32_kernel<64, true>, BwdSmem<false, 64, true>::kBytes);
   }
-  return dispatch_w(d, [&](auto w) {
-    constexpr int W = decltype(w)::value;
-    constexpr int smem = 4 * Simt<W>::kTile * 4;
-    cudaError_t err = prepare(flash_dq_fp32_kernel<W>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(bh, (sq + kRows - 1) / kRows);
-    flash_dq_fp32_kernel<W><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dq, sq, sk, d, qscale, scale, causal);
-    return cudaGetLastError();
-  });
+  return run(flash_dq_fp32_kernel<32, false>, BwdSmem<false, 32, false>::kBytes);
 }
 
 }  // extern "C"

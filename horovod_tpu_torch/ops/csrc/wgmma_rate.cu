@@ -9,7 +9,9 @@
 //   mode 0: RS m64n128k16, B MN-major (K1's O += P V), 4 k-steps;
 //   mode 1: RS m64n128k16, B K-major, 4 k-steps;
 //   mode 2: SS m64n64k16, B K-major (K1's S = Qs K^T at D=128), 8 k-steps;
-//   mode 3: SS m64n128k16, B K-major, 4 k-steps.
+//   mode 3: SS m64n128k16, B K-major, 4 k-steps;
+//   mode 4: mma.sync m16n8k8 .tf32 from registers (the fp32 backward's
+//     product, flash_attention_fp32.cu), 128 a warp into 16 accumulators.
 // Every mode does 2 * 64 * 128 * 64 flops per warpgroup and iteration.
 // The result (a sum of accumulator elements) is written to out only so
 // that the products are not optimised away.
@@ -53,10 +55,20 @@ __global__ void __launch_bounds__(kRateThreads)
       for (int kk = 0; kk < 8; ++kk)
         wgmma_ss_n64<0>(s, desc_kmajor<128>(sA, wg * 64, kk),
                         desc_kmajor<64>(sB, 0, kk), 1);
-    } else {
+    } else if (MODE == 3) {
       for (int c = 0; c < 4; ++c)
         wgmma_ss_n128<0>(acc, desc_kmajor<128>(sA, wg * 64, c),
                          desc_kmajor<128>(sB, 0, c), 1);
+    } else {
+      for (int r = 0; r < 8; ++r)
+        for (int i = 0; i < 16; ++i)
+          asm volatile(
+              "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+              : "+f"(acc[i][0]), "+f"(acc[i][1]), "+f"(acc[i][2]),
+                "+f"(acc[i][3])
+              : "r"(pa[r % 4][0]), "r"(pa[r % 4][1]), "r"(pa[r % 4][2]),
+                "r"(pa[r % 4][3]), "r"(pa[i % 4][0]), "r"(pa[i % 4][1]));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -74,16 +86,17 @@ __global__ void __launch_bounds__(kRateThreads)
 
 extern "C" {
 
-// mode 0-3 as above; out holds blocks * 256 floats. Returns a cudaError_t
+// mode 0-4 as above; out holds blocks * 256 floats. Returns a cudaError_t
 // (0 on success).
 int hvd_wgmma_rate(int mode, void* out, int iters, int blocks,
                    void* stream) {
-  if (mode < 0 || mode > 3 || iters < 1 || blocks < 1)
+  if (mode < 0 || mode > 4 || iters < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   void (*k)(float*, int) = mode == 0   ? wgmma_rate_kernel<0>
                            : mode == 1 ? wgmma_rate_kernel<1>
                            : mode == 2 ? wgmma_rate_kernel<2>
-                                       : wgmma_rate_kernel<3>;
+                           : mode == 3 ? wgmma_rate_kernel<3>
+                                       : wgmma_rate_kernel<4>;
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, kRateSmem);
   if (err != cudaSuccess) return (int)err;
