@@ -149,8 +149,8 @@ and prints no result line):
    finite and falling, step 1's within 1e-4 (fp16) and 1e-5 (fp32) of
    the same model on ``use_flash=False``, the dtype's K1, K2 and K3
    launched 12 times a step and no other form; tok/s and peak memory
-   beside phase 5's, and the fp32 step's ms beside its 464.77 on the
-   SIMT backward. Then 2 steps of the fp16 tp/sp mesh step (ring
+   beside phase 5's, and the fp32 step's ms beside its 351.25 on the
+   SIMT forward and 464.77 on the SIMT forward and backward. Then 2 steps of the fp16 tp/sp mesh step (ring
    attention on the fp16 operands' fp32-output forms, 12 launches a
    step each);
 17. the engine's remainder at one card: phase 5's dp step again with
@@ -322,18 +322,17 @@ and prints no result line):
 No phase imports keras or tensorflow: the card's machine has neither.
 
 Phase 3b, after phase 3: every form of K1-K3 (bf16 and fp16 operands,
-each with its own and fp32 outputs, and fp32 operands: an fp32 FMA
-forward, a 3xTF32 tensor-core backward) against its plain version at head dims 8, 16, 48, 80, 112,
+each with its own and fp32 outputs, and fp32 operands: K1-K3 on the
+tensor cores in three TF32 passes a product) against its plain version at head dims 8, 16, 48, 80, 112,
 160, 192 and 256 (8 padded to 16 by the wrapper; above 128 stored 256
 wide in two column chunks), causal and not, with ragged sq != sk:
 bf16 2e-2 of max |plain| (lse 1e-3), fp16 5e-3 (lse 1e-3), fp32 2e-5
 on O and lse and 1e-4 on dQ, dK and dV, every call repeated bit for
 bit; then the fp16 and fp32 forms timed at the flagship beside their
 plain versions, SDPA at the same dtype as a yardstick, with bounds at
-989 (fp16) and 67 (the fp32 forward) TFLOP/s and, for the fp32
-backward, at a third of the 494.7 TFLOP/s TF32 peak with its
-``bound_fma_ms`` at 67 beside it; and each operand dtype's own form at
-D=256 (B=8, H=3, S=2048), logged.
+989 TFLOP/s (fp16) and, for the fp32 forms, at a third of the 494.7
+TFLOP/s TF32 peak with their ``bound_fma_ms`` at 67 beside it; and each
+operand dtype's own form at D=256 (B=8, H=3, S=2048), logged.
 
 Phase 3c, after 3b: every form of K1-K3 at head dims 272, 320, 384 and
 512 (the ``_wide`` kernels: D zero-padded to a multiple of 128), causal
@@ -2331,9 +2330,12 @@ FORM_TOL = {torch.bfloat16: (REL_TOL, REL_TOL, LSE_TOL, False),
             torch.float32: (2e-5, 1e-4, 2e-5, True)}
 PEAK = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float16: PEAK_BF16_FLOPS,
         torch.float32: PEAK_FP32_FLOPS}
-# The fp32 backward's route: every product three TF32 passes.
+# The fp32 forms' route: every product three TF32 passes.
 PEAK_3XTF32 = PEAK_TF32_FLOPS / 3
-FP32_LM_STEP_MS_SIMT = 464.77   # the fp32 LM's ms a step on the SIMT backward
+# The fp32 LM's ms a step on the SIMT forward and backward, and on the
+# SIMT forward beside the 3xTF32 backward.
+FP32_LM_STEP_MS_SIMT = 464.77
+FP32_LM_STEP_MS_SIMT_FWD = 351.25
 SWEEP_DIMS = (8, 16, 48, 80, 112, 160, 192, 256)
 SWEEP_SHAPES = ((True, 200, 200), (False, 130, 250), (True, 257, 70))
 DTYPE_STEPS = 3
@@ -2399,9 +2401,9 @@ def time_form(fa, sfx, b, h, s, d, causal=True):
     """One form of K1-K3 at [B*H, S, D]: checked, then timed
     back-to-back beside its plain versions and, for a form with the
     operands' own output dtype, PyTorch's SDPA at that dtype (a
-    yardstick only); bounds at the dtype's peak, the fp32 backward's at
-    the 3xTF32 route's (a third of the TF32 peak) with ``bound_fma_ms``
-    at the fp32 FMA peak beside it. Returns the rows."""
+    yardstick only); bounds at the dtype's peak, the fp32 forms' at the
+    3xTF32 route's (a third of the TF32 peak) with ``bound_fma_ms`` at
+    the fp32 FMA peak beside it. Returns the rows."""
     dtype, out = FORMS[sfx]
     bh = b * h
     absmax, _, (q, k, v, do, lse, delta) = check_form(
@@ -2433,7 +2435,7 @@ def time_form(fa, sfx, b, h, s, d, causal=True):
     rows = {}
     for kn, name in zip(("fwd", "dkv", "dq"), form_names(sfx)):
         ops, nbytes = work[kn]
-        tf32 = dtype == torch.float32 and kn != "fwd"
+        tf32 = dtype == torch.float32
         b_ms, b_by = bound_ms(ops, nbytes,
                               PEAK_3XTF32 if tf32 else PEAK[dtype])
         rows[name] = {"ms": b2b[kn], "plain_ms": plain[kn],
@@ -2559,8 +2561,9 @@ def dtype_lm_phase(hvd, tfm, fa, build_train_step, create_mesh, lm_step_s):
         peak = torch.cuda.max_memory_allocated() / 2**30 - base
         steady = statistics.median(times[1:])
         rel = abs(losses[0] - ref_loss) / abs(ref_loss)
-        was = (f", beside {FP32_LM_STEP_MS_SIMT} ms on the SIMT backward"
-               if dtype == torch.float32 else "")
+        was = (f", beside {FP32_LM_STEP_MS_SIMT_FWD} ms on the SIMT "
+               f"forward and {FP32_LM_STEP_MS_SIMT} on the SIMT forward "
+               "and backward" if dtype == torch.float32 else "")
         log(f"flagship LM in {dtype} (auto flash): losses {losses}; step "
             f"seconds {times}; {b * s / steady:.1f} tok/s (median of steps "
             f"2-{DTYPE_STEPS}, {steady * 1e3:.2f} ms/step{was}) beside phase "

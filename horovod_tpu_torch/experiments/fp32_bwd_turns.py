@@ -1,17 +1,18 @@
-"""The fp32 flash backward of this checkout and another, timed in turns.
+"""The fp32 flash kernels of this checkout and another, timed in turns.
 
     python -m horovod_tpu_torch.experiments.fp32_bwd_turns --other TREE [--rounds 1]
 
-K2 and K3 on fp32 operands (``flash_dkv_cuda`` and ``flash_dq_cuda``
-with float32 ``[B*H, S, D]`` inputs, causal) at the flagship's attention
-(B=8, H=6, S=2048, D=128) and at D=256 and D=512 (B=8, H=3, S=2048),
-each timed back-to-back (``experiments.time_ms``). Each tree runs in a
-process of its own, in the order other, this, this, other (per round),
-and builds its own kernels from its own sources first (into its own
-``ops/_kernels``). Inputs are seeded N(0, 1); lse and delta come from
-the plain forward. Prints the card's ``nvidia-smi`` line, then one JSON
-line per run: the tree and {shape: {"dkv_ms", "dq_ms"}}. The code run in
-each tree calls only the public wrappers, so the other tree may be any
+K1, K2 and K3 on fp32 operands (``flash_fwd_cuda``, ``flash_dkv_cuda``
+and ``flash_dq_cuda`` with float32 ``[B*H, S, D]`` inputs, causal) at
+the flagship's attention (B=8, H=6, S=2048, D=128) and at D=256 and
+D=512 (B=8, H=3, S=2048), each timed back-to-back
+(``experiments.time_ms``). Each tree runs in a process of its own, in
+the order other, this, this, other (per round), and builds its own
+kernels from its own sources first (into its own ``ops/_kernels``).
+Inputs are seeded N(0, 1); lse and delta come from the plain forward.
+Prints the card's ``nvidia-smi`` line, then one JSON line per run: the
+tree and {shape: {"fwd_ms", "dkv_ms", "dq_ms"}}. The code run in each
+tree calls only the public wrappers, so the other tree may be any
 checkout of the port. Needs one card.
 """
 
@@ -44,6 +45,7 @@ for b, h, s, d in %r:
     delta = (do * o).sum(-1, keepdim=True)
     del o
     out[f"{b}x{h}x{s}x{d}"] = {
+        "fwd_ms": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, scale, True)),
         "dkv_ms": time_ms(lambda: fa.flash_dkv_cuda(
             q, k, v, do, lse, delta, scale, True)),
         "dq_ms": time_ms(lambda: fa.flash_dq_cuda(
@@ -60,7 +62,7 @@ def run_tree(tree: Path) -> dict:
     proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, env=env,
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"the fp32 backward of {tree} failed:\n"
+        raise RuntimeError(f"the fp32 kernels of {tree} failed:\n"
                            f"{proc.stderr[-3000:]}")
     line = [ln for ln in proc.stdout.splitlines()
             if ln.startswith("RESULT ")][-1]

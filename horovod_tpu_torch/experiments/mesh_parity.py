@@ -90,12 +90,21 @@ and rank 0's adaptation policy over the engine:
   ``fp8_blockwise``, or none) once the ladder is back at raw. Each rank
   runs one forward and backward before its optimizer exists and waits
   for the others at a barrier on the default group, so the kernels'
-  build and first launches put no skew into the lateness. Its line holds
-  the first and last step the fault delayed, the quiet run's steps,
-  median step ms and escalations, each transition's seconds since the first step (and the
-  step), the steps and median step ms on each tier on the way up
-  (``upN``) and down (``downN``), the decayed lateness by rank at the
-  end, and the worst difference.
+  build and first launches put no skew into the lateness; then it takes
+  ``ADAPT_SETTLE_STEPS`` steps with rank 0's policy paused, so the
+  optimizer's first steps stay out of what the policy reads and the
+  decayed lateness holds that many steps of samples before it does (on
+  a loaded host a few late announces among a run's first samples
+  carried the mean over the threshold and climbed the ladder without
+  the fault). The fault's window counts the measured run's enqueues,
+  and that run goes on until the ladder is back at raw or
+  ``ADAPT_DEADLINE_S`` has passed (the cooldowns are wall-clock, so a
+  fixed number of fast steps could end it before the unwinding). Its
+  line holds the first and last step the fault delayed, the quiet run's
+  steps, median step ms and escalations, each transition's seconds
+  since the first step (and the step), the steps and median step ms on
+  each tier on the way up (``upN``) and down (``downN``), the decayed
+  lateness by rank at the end, and the worst difference.
 
 and the numerics plane and the autotuners:
 
@@ -233,6 +242,7 @@ width; ``--variants`` (and ``run(..., variants=...)``) picks some.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import socket
@@ -280,8 +290,9 @@ ADAPT_KNOBS = {"ADAPTATION": "1", "ADAPT_THRESHOLD": "0.05",
                "ADAPT_INTERVAL": "0", "FAILURE_TIMEOUT": "0"}
 ADAPT_DELAY_MS = 100
 ADAPT_WINDOW = (40, 100)
-ADAPT_MAX_STEPS = 150
+ADAPT_DEADLINE_S = 120.0    # the run with the fault: until unwound or this
 ADAPT_QUIET_STEPS = 20      # the run without the fault
+ADAPT_SETTLE_STEPS = 8      # before the policy reads, in both runs
 ADAPT_LADDER = ["shrink", "bf16", "int8x256", "fp8x256"]
 HIER_TOL = 1e-2     # hier_engine's gradients against the flat run's
 ENGINE_TIMED = 3
@@ -583,9 +594,10 @@ def run_adapt_rank(rank, port, layers, outdir, device, width, world,
     for knob, value in ADAPT_KNOBS.items():
         os.environ["HOROVOD_TPU_" + knob] = value
     if fault:
+        # An empty window until the measured run starts (below).
         os.environ["HOROVOD_TPU_FAULT_SPEC"] = (
             f"rank={world - 1}:delay={ADAPT_DELAY_MS}ms:"
-            f"from_step={ADAPT_WINDOW[0]}:until_step={ADAPT_WINDOW[1]}")
+            "from_step=0:until_step=0")
     else:
         os.environ.pop("HOROVOD_TPU_FAULT_SPEC", None)
     if device == "cpu":
@@ -623,6 +635,18 @@ def run_adapt_rank(rank, port, layers, outdir, device, width, world,
     dist.barrier(**({"device_ids": [dev.index]} if dev.type == "cuda"
                     else {}))
     opt = step.make_optimizer(model)
+    # Rank 0's policy paused (an infinite evaluation interval, which the
+    # engine thread only reads) while the skew tracker takes the settle
+    # steps' samples.
+    policy = coll.engine()._coord._policy
+    if policy is not None:
+        interval, policy.config.interval_s = policy.config.interval_s, \
+            float("inf")
+    for _ in range(ADAPT_SETTLE_STEPS):
+        step(model, opt, tokens, targets)
+        _sync(dev)
+    if policy is not None:
+        policy.config.interval_s = interval
     fires = []          # this step's (name, input copy, handle)
     inner = opt._fire_buckets
 
@@ -636,12 +660,21 @@ def run_adapt_rank(rank, port, layers, outdir, device, width, world,
     groups, ms, tiers, events = [], [], [], []
     ticks = []          # the faulted rank's enqueue ticks at each step
     inj = tfaults.injector() if fault else None
+    if inj is not None:
+        # The fault's window counts from the measured run's first
+        # enqueue, whatever the settle steps took.
+        base = inj.tick
+        for c in inj.clauses:
+            c.from_step, c.until_step = (base + ADAPT_WINDOW[0],
+                                         base + ADAPT_WINDOW[1])
     t0 = time.monotonic()
     seen_t = t0
     done = torch.zeros(1, dtype=torch.int32, device=dev)
-    for k in range(ADAPT_MAX_STEPS if fault else ADAPT_QUIET_STEPS):
+    for k in itertools.count():
+        if not fault and k == ADAPT_QUIET_STEPS:
+            break
         fires.clear()
-        tick0 = inj.tick if inj is not None else None
+        tick0 = inj.tick - base if inj is not None else None
         _sync(dev)
         t = time.perf_counter()
         step(model, opt, tokens, targets)
@@ -668,13 +701,15 @@ def run_adapt_rank(rank, port, layers, outdir, device, width, world,
             climbed = [e for e in events if e[1] == "escalate"]
             done[0] = int(tier == 0 and len(climbed) >= len(ADAPT_LADDER))
             if done[0]:
-                # Disarm the policy: the replay below must run raw. (A
-                # wire epoch takes two more escalations, two sustain
-                # windows, so none can slip in after this read.)
-                coll.engine()._coord._policy = None
+                # Pause the policy for good: the replay below must run
+                # raw. (A wire epoch takes two more escalations, two
+                # sustain windows, so none can slip in after this read.)
+                policy.config.interval_s = float("inf")
+            elif fault and time.monotonic() - t0 > ADAPT_DEADLINE_S:
+                done[0] = 1   # not unwound in time: the checks say so
         hvd.broadcast_(done, 0, name=f"adapt.done.{k}")
         if inj is not None:
-            ticks.append((tick0, inj.tick))
+            ticks.append((tick0, inj.tick - base))
         if int(done[0]):
             break
     epochs = list(coll.engine()._wire_epochs)

@@ -38,8 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # The flash kernels' forms, the suffixes of their entry points: bf16
 # operands with bf16 and fp32 outputs, fp16 with fp16 and fp32, and fp32
-# operands (an fp32 FMA forward, a 3xTF32 tensor-core backward), each
-# with the same arguments.
+# operands (every product on the tensor cores in three TF32 passes),
+# each with the same arguments.
 FLASH_FORMS = ("", "_f32", "_f16", "_f16_f32", "_fp32")
 
 _lock = threading.Lock()

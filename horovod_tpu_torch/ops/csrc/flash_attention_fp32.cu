@@ -1,6 +1,6 @@
 // Flash attention on fp32 operands, the fp32 forms of K1-K3
-// (flash_attention.cuh has the 16-bit forms, on wgmma): the forward in
-// fp32 FMA (SIMT), dK/dV and dQ on the tensor cores in split TF32.
+// (flash_attention.cuh has the 16-bit forms, on wgmma): every product on
+// the tensor cores in split TF32.
 //
 // flash_fwd_fp32_kernel  replaces horovod_tpu/ops/flash_attention.py::_fwd_kernel
 // flash_dkv_fp32_kernel  replaces horovod_tpu/ops/flash_attention.py::_dkv_kernel
@@ -8,404 +8,55 @@
 //   on fp32 operands, where JAX's products are fp32 x fp32 with fp32
 //   accumulation (preferred_element_type=jnp.float32 on fp32 inputs).
 //
-// The forward (flash_fwd_fp32_kernel and its _wide form) is the simplest
-// design that is right: every product an fp32 FMA, a row per 8 threads,
-// no register blocking beyond it, so shared-memory loads, not FMAs, set
-// its pace. Bound on an H100 SXM at the flagship shape (BH=48, S=2048,
-// D=128, causal): 2 causal products = 51.6 GFLOP / 67 TFLOP/s = 0.77 ms.
+// Every product runs on mma.sync m16n8k8 .tf32 in the split form
+// (3xTF32): each fp32 operand x is big, x rounded to TF32 as cvt.rna
+// rounds, plus small = x - big, which the tensor core reads rounded
+// toward zero; each product is small*big + big*small + big*big
+// accumulated in fp32, which keeps ~21 of fp32's 24 bits where a single
+// TF32 pass keeps ~11.
 //
-// The backward (section "The backward") runs its four (K2) and three
-// (K3) products on mma.sync m16n8k8 .tf32 in the split form (3xTF32):
-// each fp32 operand x is big, x rounded to TF32 as cvt.rna rounds, plus
-// small = x - big, which the tensor core reads rounded toward zero; each
-// product is small*big + big*small + big*big accumulated in fp32, which
-// keeps ~21 of fp32's 24 bits where a single TF32 pass keeps ~11. Bound
-// at the flagship: 103 GFLOP (K2) and 77 GFLOP (K3) at a third of the
-// 494.7 TFLOP/s TF32 peak = 0.63 and 0.47 ms (1.54 and 1.15 ms at the 67
-// TFLOP/s FMA peak). mma.sync itself peaks at ~61% of that TF32 rate on
-// an H100 (experiments/flash_fwd_split.py), so 1.03 and 0.77 ms is the
-// floor of this route.
+// Bounds on an H100 SXM at the flagship's attention (BH=48, S=2048,
+// D=128, causal), at a third of the 494.7 TFLOP/s TF32 peak: the
+// forward's two products, 51.6 GFLOP, 0.313 ms; K2's 103 GFLOP, 0.63 ms;
+// K3's 77 GFLOP, 0.47 ms (0.77, 1.54 and 1.15 ms at the 67 TFLOP/s FMA
+// peak). mma.sync itself peaks at ~61% of that TF32 rate on an H100
+// (experiments/flash_fwd_split.py: 301-305 TFLOP/s), so 0.51, 1.03 and
+// 0.77 ms is the floor of this route. At D = 512 (BH = 24) the forward's
+// work doubles: bound 0.626 ms, floor 1.02 ms. What the route leaves on
+// the table: the three passes (a third of the TF32 rate), mma.sync's
+// ~61% of it (wgmma reads tf32 from shared memory K-major only: it fits
+// S = Qs K^T but P V would need V transposed), and the split itself, three
+// integer or float operations a value on the issue slots the products
+// need, which every warp repeats for the tiles it shares.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, d] fp32, contiguous, d a
 // multiple of 4 up to 256 (the wrapper pads every head dim to a multiple
 // of 16) or, above 256, a multiple of 128; lse and delta are [BH, S]
 // fp32. The numerics are JAX's on fp32: q * scale in fp32, masked scores
-// -1e30 (the backward sets their P to 0), exp(s - m) online (K1) or
-// exp(s - lse) (K2, K3: as the 16-bit forms take it, exp2f(fmaf(s,
-// log2 e, -lse log2 e))), lse = m + log(max(l, 1e-30)), dS = P (dP -
-// delta), dQ scaled once at the end. Each output has one owner CTA: no
-// atomics, and repeats are bit-identical. Heaviest causal blocks are
-// scheduled first. Kernels launch on the caller's stream, allocate
-// nothing and return cudaGetLastError().
-//
-// Forward layout: each CTA of 256 threads owns 32 rows, 8 threads a row,
-// and loops over 32-row tiles of the other operand, loaded whole into
-// shared memory (rows padded by 4 floats: the 8 threads of a row read 8
-// distinct 16-byte bank groups). A thread holds 4 of its row's 32 scores
-// (columns sub + 8 i) and the output columns 4 (sub + 8 g) .. +3 of its
-// row; a product's 32 terms reach the row's 8 threads by shuffles. W
-// (64, 128 or 256) sizes the shared-memory rows and the per-thread
-// accumulators; d is a runtime argument, so one kernel serves every head
-// dim up to its W. Above 256 the _wide forward takes d in 128-column
-// chunks (the section "Head dims above 256").
+// -1e30 with P = 0, the exponentials as exp2f(fmaf(s, log2 e, -x log2 e))
+// (x the running max m in K1, lse in K2 and K3, as the 16-bit forms take
+// it), lse = m + log(max(l, 1e-30)), dS = P (dP - delta), dQ scaled once
+// at the end. Each output has one owner CTA: no atomics, and repeats are
+// bit-identical. Heaviest causal blocks are scheduled first. Kernels
+// launch on the caller's stream, allocate nothing and return
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kRows = 32;    // rows a CTA owns
-constexpr int kCols = 32;    // rows of the streamed operand per tile
-constexpr int kLanes = 8;    // threads of one owned row
-constexpr int kThreads = kRows * kLanes;
-constexpr int kPer = kCols / kLanes;   // scores a thread holds per tile
-
-template <int W>
-struct Simt {
-  static constexpr int kLd = W + 4;       // floats per shared-memory row
-  static constexpr int kLd4 = kLd / 4;    // float4s per row
-  static constexpr int kTile = kRows * kLd;  // floats of one 32-row tile
-};
-
-// Rows row0..row0+31 of a [seq, d] matrix into a 32-row tile, times
-// `scale` when SCALED; rows past seq and columns past d are zeros.
-template <int W, bool SCALED>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int row0, int seq, int d,
-                                          float scale) {
-  constexpr int kPerRow = W / 4;
-  for (int idx = threadIdx.x; idx < kRows * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq && c < d) {
-      x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * d + c);
-      if (SCALED) {
-        x.x *= scale;
-        x.y *= scale;
-        x.z *= scale;
-        x.w *= scale;
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * Simt<W>::kLd + c) = x;
-  }
-}
-
-// out[i] (+)= a . b_i over d columns: a one row, b_i the rows sub + 8 i of
-// a tile (4 rows), both in shared memory.
-template <int W>
-__device__ __forceinline__ void dots(float (&out)[kPer], const float* a,
-                                     const float* tile, int sub, int d) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* t4 = reinterpret_cast<const float4*>(tile);
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) out[i] = 0.f;
-  for (int c = 0; c < d / 4; ++c) {
-    const float4 x = a4[c];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float4 y = t4[(sub + kLanes * i) * Simt<W>::kLd4 + c];
-      out[i] = fmaf(x.x, y.x, out[i]);
-      out[i] = fmaf(x.y, y.y, out[i]);
-      out[i] = fmaf(x.z, y.z, out[i]);
-      out[i] = fmaf(x.w, y.w, out[i]);
-    }
-  }
-}
-
-// acc[g] += sum over the tile's 32 rows j of w_j * tile[j][cols of g],
-// w_j held by thread (lane & ~7) + j % 8 of this row as its w[j / 8].
-template <int W>
-__device__ __forceinline__ void accumulate(float (&acc)[W / 32][4],
-                                           const float (&w)[kPer],
-                                           const float* tile, int sub) {
-  const float4* t4 = reinterpret_cast<const float4*>(tile);
-  const int base = (threadIdx.x % 32) & ~(kLanes - 1);
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    const float wj = __shfl_sync(0xffffffffu, w[j / kLanes],
-                                 base + j % kLanes);
-#pragma unroll
-    for (int g = 0; g < W / 32; ++g) {
-      const float4 y = t4[j * Simt<W>::kLd4 + sub + kLanes * g];
-      acc[g][0] = fmaf(wj, y.x, acc[g][0]);
-      acc[g][1] = fmaf(wj, y.y, acc[g][1]);
-      acc[g][2] = fmaf(wj, y.z, acc[g][2]);
-      acc[g][3] = fmaf(wj, y.w, acc[g][3]);
-    }
-  }
-}
-
-__device__ __forceinline__ bool valid_pair(int qrow, int kcol, int sq,
-                                           int sk, int causal) {
-  return qrow < sq && kcol < sk && (!causal || qrow >= kcol);
-}
-
-// Store a thread's output columns of one row (scaled by `mul`), those
-// inside d.
-template <int W>
-__device__ __forceinline__ void store_row(float* row, const float (&acc)[W / 32][4],
-                                          int sub, int d, float mul) {
-#pragma unroll
-  for (int g = 0; g < W / 32; ++g) {
-    const int c = 4 * (sub + kLanes * g);
-    if (c < d) {
-      *reinterpret_cast<float4*>(row + c) =
-          make_float4(acc[g][0] * mul, acc[g][1] * mul, acc[g][2] * mul,
-                      acc[g][3] * mul);
-    }
-  }
-}
-
-// Key tiles a q tile starting at q0 reaches.
-__device__ __forceinline__ int key_tiles(int q0, int sq, int sk, int causal) {
-  int n = (sk + kCols - 1) / kCols;
-  if (causal) n = min(n, (min(q0 + kRows, sq) - 1) / kCols + 1);
-  return n;
-}
-
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int sq, int sk, int d,
-                      float qscale, int causal) {
-  using L = Simt<W>;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + L::kTile;
-  float* sV = sK + L::kTile;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
-  q += (size_t)bh * sq * d;
-  o += (size_t)bh * sq * d;
-  lse += (size_t)bh * sq;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  const int r = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
-  const int row = q0 + r;
-
-  load_rows<W, true>(sQ, q, q0, sq, d, qscale);
-  float acc[W / 32][4];
-#pragma unroll
-  for (int g = 0; g < W / 32; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-  float m = kNegInf, l = 0.f;
-  const int n_kt = key_tiles(q0, sq, sk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kCols;
-    __syncthreads();  // the previous tile's reads are done
-    load_rows<W, false>(sK, k, k0, sk, d, 1.f);
-    load_rows<W, false>(sV, v, k0, sk, d, 1.f);
-    __syncthreads();
-    float s[kPer];
-    dots<W>(s, sQ + r * L::kLd, sK, sub, d);
-    float mx = m;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (!valid_pair(row, k0 + sub + kLanes * i, sq, sk, causal)) s[i] = kNegInf;
-      mx = fmaxf(mx, s[i]);
-    }
-#pragma unroll
-    for (int off = 1; off < kLanes; off *= 2) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    const float corr = expf(m - mx);
-    m = mx;
-    l *= corr;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float p = valid_pair(row, k0 + sub + kLanes * i, sq, sk, causal)
-                          ? expf(s[i] - mx) : 0.f;
-      s[i] = p;
-      l += p;
-    }
-#pragma unroll
-    for (int g = 0; g < W / 32; ++g) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] *= corr;
-    }
-    accumulate<W>(acc, s, sV, sub);
-  }
-#pragma unroll
-  for (int off = 1; off < kLanes; off *= 2) {
-    l += __shfl_xor_sync(0xffffffffu, l, off);
-  }
-  l = fmaxf(l, 1e-30f);
-  if (row < sq) {
-    store_row<W>(o + (size_t)row * d, acc, sub, d, 1.f / l);
-    if (sub == 0) lse[row] = m + logf(l);
-  }
-}
 
 // ---------------------------------------------------------------------------
-// Head dims above 256: the _wide forward
-// ---------------------------------------------------------------------------
-//
-// d a runtime multiple of 128 (the wrapper zero-pads any other head dim
-// above 256 to one), nc = d / 128 chunks. Each CTA owns one 128-column
-// chunk c = blockIdx.z of its output; Q K^T streams d through shared
-// memory one 128-column chunk at a time, every tile 32 x 128 as at W =
-// 128, and keeps adding to the same fp32 sums; V's chunk c loads with the
-// last chunk. Each CTA recomputes the scores over the whole d. (The
-// backward's own chunking is in its section.)
-
-constexpr int kWide = 128;
-using Wide = Simt<kWide>;
-
-// Rows row0..row0+31, columns col0..col0+127 of a [seq, ld] matrix into a
-// 32-row tile, times `scale` when SCALED; rows past seq are zeros.
-template <bool SCALED>
-__device__ __forceinline__ void load_chunk(float* dst, const float* src,
-                                           int row0, int seq, int ld,
-                                           int col0, float scale) {
-  constexpr int kPerRow = kWide / 4;
-  for (int idx = threadIdx.x; idx < kRows * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq) {
-      x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * ld +
-                                           col0 + c);
-      if (SCALED) {
-        x.x *= scale;
-        x.y *= scale;
-        x.z *= scale;
-        x.w *= scale;
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * Wide::kLd + c) = x;
-  }
-}
-
-// out[i] += a . b_i over one 128-column chunk (dots without the reset).
-__device__ __forceinline__ void dots_more(float (&out)[kPer], const float* a,
-                                          const float* tile, int sub) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* t4 = reinterpret_cast<const float4*>(tile);
-  for (int c = 0; c < kWide / 4; ++c) {
-    const float4 x = a4[c];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float4 y = t4[(sub + kLanes * i) * Wide::kLd4 + c];
-      out[i] = fmaf(x.x, y.x, out[i]);
-      out[i] = fmaf(x.y, y.y, out[i]);
-      out[i] = fmaf(x.z, y.z, out[i]);
-      out[i] = fmaf(x.w, y.w, out[i]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_fp32_wide_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse, int sq, int sk, int d,
-                           float qscale, int causal) {
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + Wide::kTile;
-  float* sV = sK + Wide::kTile;
-  const int nc = d / kWide, c = blockIdx.z;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
-  q += (size_t)bh * sq * d;
-  o += (size_t)bh * sq * d + c * kWide;
-  lse += (size_t)bh * sq;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  const int r = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
-  const int row = q0 + r;
-
-  float acc[kWide / 32][4];
-#pragma unroll
-  for (int g = 0; g < kWide / 32; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-  float m = kNegInf, l = 0.f;
-  const int n_kt = key_tiles(q0, sq, sk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kCols;
-    float s[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) s[i] = 0.f;
-    for (int dc = 0; dc < nc; ++dc) {
-      __syncthreads();  // the previous chunk's reads are done
-      load_chunk<true>(sQ, q, q0, sq, d, dc * kWide, qscale);
-      load_chunk<false>(sK, k, k0, sk, d, dc * kWide, 1.f);
-      if (dc == nc - 1) load_chunk<false>(sV, v, k0, sk, d, c * kWide, 1.f);
-      __syncthreads();
-      dots_more(s, sQ + r * Wide::kLd, sK, sub);
-    }
-    float mx = m;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (!valid_pair(row, k0 + sub + kLanes * i, sq, sk, causal)) s[i] = kNegInf;
-      mx = fmaxf(mx, s[i]);
-    }
-#pragma unroll
-    for (int off = 1; off < kLanes; off *= 2) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    const float corr = expf(m - mx);
-    m = mx;
-    l *= corr;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float p = valid_pair(row, k0 + sub + kLanes * i, sq, sk, causal)
-                          ? expf(s[i] - mx) : 0.f;
-      s[i] = p;
-      l += p;
-    }
-#pragma unroll
-    for (int g = 0; g < kWide / 32; ++g) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] *= corr;
-    }
-    accumulate<kWide>(acc, s, sV, sub);
-  }
-#pragma unroll
-  for (int off = 1; off < kLanes; off *= 2) {
-    l += __shfl_xor_sync(0xffffffffu, l, off);
-  }
-  l = fmaxf(l, 1e-30f);
-  if (row < sq) {
-    store_row<kWide>(o + (size_t)row * d, acc, sub, kWide, 1.f / l);
-    if (sub == 0 && c == 0) lse[row] = m + logf(l);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The backward: K2 (dK, dV) and K3 (dQ) on the tensor cores, 3xTF32
+// The split, the fragments and the ring (every kernel's)
 // ---------------------------------------------------------------------------
 //
 // Why mma.sync and not wgmma: wgmma reads tf32 operands from shared
 // memory K-major only (the transpose bit exists for 16-bit types), so
-// dV += P^T dO, dK += dS^T Qs and dQ += dS K would need transposed
-// copies; mma.sync takes its fragments from registers, loaded in any
-// layout.
-//
-// One design for every head dim. A CTA of 8 warps owns 64 rows (keys in
-// K2, queries in K3) and one 128-column chunk c = blockIdx.z of its
-// output, and walks the tiles of BN rows of the other operand (BN = 64
-// for d <= 128, else 32), one step a tile per 128-column d chunk: a step
-// adds that chunk's columns to the two products over d, S = X1 Y1^T and
-// dP = X2 Y2^T (K2: X = K, V and Y = Qs, dO, so S^T and dP^T; K3: X =
-// Qs, dO and Y = K, V). The chunks are visited from c + 1 round to c, so
-// the last step of a tile holds Y's chunk c, which the second products
-// read. For d <= 128 (one chunk) X stays in shared memory for the whole
-// walk; above, X's chunk rides in the ring with Y's, and each CTA
-// recomputes S and dP over the whole d (1.5x the work at d = 256, 2.5-3x at
-// 512: recompute was chosen over 16 x d accumulators a warp, which do
-// not fit in registers above 128 columns).
-//
-// Warp roles. Warps 0-3 (group 0) compute S, warps 4-7 (group 1) dP, each
-// for 16 owned rows (warp & 3), so each product over d is computed once.
-// The two exchange their results through shared memory in fragment order
-// (a thread's values at [warp & 3][value][lane]: no bank conflicts):
-// K2: group 0 writes P^T and accumulates dV += P^T dO, group 1 reads P^T,
-// forms dS^T and accumulates dK += dS^T Qs (16 x 128 accumulators a
-// warp). K3: group 0 writes P, group 1 dP, each reads the other's and
-// forms the same dS bit for bit; group g accumulates dQ += dS K over
-// output columns 64g..64g+63.
+// O += P V, dV += P^T dO, dK += dS^T Qs and dQ += dS K would need
+// transposed copies; mma.sync takes its fragments from registers, loaded
+// in any layout.
 //
 // Fragments. In a product over d, a 16-column block gives each thread one
 // LDS.128 a row: k-step 0 takes columns 4t and 4t + 1 as its slots t and
@@ -427,8 +78,7 @@ flash_fwd_fp32_wide_kernel(const float* __restrict__ q,
 
 constexpr int kChunk = 128;          // columns of a stored tile: one d chunk
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kOwn = 64;             // rows a backward CTA owns
-constexpr int kBwdThreads = 256;     // two groups of four warps
+constexpr int kThreads = 256;        // every CTA: two groups of four warps
 
 // x = big + small. big is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
 // finite value (half an ulp of the 13 dropped bits added to the
@@ -498,8 +148,8 @@ __device__ __forceinline__ void fetch_tile(float* tile, const float* src,
                                            int row0, int seq, int d,
                                            int col0) {
 #pragma unroll
-  for (int i = 0; i < R * 32 / kBwdThreads; ++i) {
-    const int p = threadIdx.x + i * kBwdThreads;
+  for (int i = 0; i < R * 32 / kThreads; ++i) {
+    const int p = threadIdx.x + i * kThreads;
     const int r = p >> 5, ch = p & 31, col = col0 + 4 * ch;
     const bool ok = row0 + r < seq && col < d;
     cp16(tile + r * kChunk + ((ch ^ swz(r)) << 2),
@@ -643,6 +293,349 @@ __device__ __forceinline__ void store_cols(float* out, int ld, int row0,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The forward: K1 on the tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+//
+// A CTA of 8 warps, 16 rows of q a warp, walks the key tiles of BN = 64
+// rows (the heaviest causal q tiles first), each tile's copies issued
+// under the previous tile's products. Per tile a warp adds S = Qs K^T over
+// d (Qs = q * qscale in fp32, formed as the fragments load), masks S only
+// where the tile crosses the diagonal or the key tail, moves its rows'
+// running max m and sum l in registers, and adds the tile's P V to its
+// rescaled O accumulator (16 rows x 128 columns), P read from S's
+// accumulator as the A fragment (no shuffle). The tensor core's sums
+// start from zero for each tile's P V and each d chunk's S and join the
+// running sums in fp32 (add_pv). A warp whose rows all lie before a
+// causal tile skips it. At the end O /= max(l, 1e-30) and lse = m +
+// log(max(l, 1e-30)).
+//
+// Head dims up to 128 (G = 1): a CTA owns 128 rows, 16 a warp. Qs's
+// 128 x 128 tile lands once and stays; each ring stage holds one key
+// tile's K and V.
+//
+// Above 128 (G = 2): a CTA owns 64 rows in two groups of four warps that
+// share them (warp & 3), and a pair of 128-column output chunks, 2z and
+// 2z + 1 (grid z), one a group. S is computed once a tile for both
+// groups: group g takes keys 32g..32g+31 of it, over the whole d, with
+// Q's and K's d chunks in the ring in turn (one step each) and then a
+// step holding the V chunks of the two output chunks. There the two
+// groups swap their rows' maxima, then their P in fragment order (a
+// thread's values at [warp][value][lane], as the backward's exchange),
+// through shared memory, and each adds P V over all 64 keys into its
+// chunk; their row sums are added at the end. Of the two ways to serve
+// more than one output chunk this takes the shared S (P through shared
+// memory: two __syncthreads a tile and 16 KB) over the backward's
+// recompute (each chunk's CTA computing S over the whole d: 1.5x the
+// products at d = 256, 2.5x at 512), since the forward has one product
+// over d where the backward has two and no room to keep both; with pairs
+// S is computed once at d <= 256 and once a pair above (1.5x at 512). A
+// warp keeps 16 x 128 accumulators at every d, and a d of any length
+// runs.
+
+// acc (O, 16 rows x 128 columns) = acc * corr (by row) + P V over one
+// key tile, 64 columns at a time. The tensor core's fp32 sums are not
+// rounded to nearest: they lean toward zero, and in one accumulator over
+// a whole key range (O += P V tile after tile) the lean grew with the
+// range, to 3.3e-5 of max |O| at 2048 keys not causal (limit 2e-5).
+// Each half's products therefore start from zero, and join O in one
+// fmaf a value.
+template <int BN>
+__device__ __forceinline__ void add_pv(float (&acc)[4][4][4],
+                                       const float (&corr)[2],
+                                       const float (&p)[BN / 8][4],
+                                       const float* sV, int nm) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (2 * half >= nm) break;
+    float pv[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[m][j][e] = 0.f;
+    cols_product<BN, 2, false>(pv, p, sV, 1.f, 2 * half, nm);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * half + m][j][e] =
+              fmaf(acc[2 * half + m][j][e], corr[e >> 1], pv[m][j][e]);
+        }
+  }
+}
+
+template <int G>
+struct FwdSmem {
+  static constexpr int kRows = 128 / G;        // q rows a CTA owns
+  static constexpr int kBN = 64;               // keys a tile
+  static constexpr int kKeys = kBN / G;        // keys of a warp's S
+  static constexpr int kT = kBN * kChunk;      // one K or V (chunk) tile
+  static constexpr int kRing = G == 1 ? kRows * kChunk : 0;   // Qs stays
+  static constexpr int kStage = 2 * kT;        // K, V; or Q and K chunks
+  static constexpr int kExchange = kRing + 2 * kStage;
+  static constexpr int kMax = kExchange + 8 * 16 * kKeys;     // after P
+  static constexpr int kSum = kMax + 2 * kRows;
+  static constexpr int kFloats = G == 1 ? kExchange : kSum + 2 * kRows;
+  static constexpr int kBytes = kFloats * 4;
+  static_assert(G == 1 || kRows * kChunk + kT <= kStage, "ring stage");
+  static_assert(kBytes <= 232448, "shared memory of one CTA");
+};
+
+template <int G>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int sq, int sk, int d,
+                      float qscale, int causal) {
+  using L = FwdSmem<G>;
+  constexpr int BN = L::kBN, NK = L::kKeys / 8;   // n-tiles of a warp's S
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int nc = (d + kChunk - 1) / kChunk;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;  // heaviest first
+  q += (size_t)bh * sq * d;
+  o += (size_t)bh * sq * d;
+  lse += (size_t)bh * sq;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = G == 1 ? 0 : warp >> 2;
+  const int w0 = (G == 1 ? warp : warp & 3) * 16;   // the warp's first row
+  const int oc = G == 1 ? 0 : 2 * blockIdx.z + grp; // its output chunk
+  const int key0 = grp * L::kKeys;                  // its keys of a tile
+  const int row_lo = q0 + w0 + g;                   // its rows: +0, +8
+  int n_kt = (sk + BN - 1) / BN;
+  if (causal) n_kt = min(n_kt, (min(q0 + L::kRows, sq) - 1) / BN + 1);
+  const int per_tile = G == 1 ? 1 : nc + 1;
+  const int n_steps = n_kt * per_tile;
+  float* const ring = smem + L::kRing;
+
+  auto issue = [&](int s) {
+    float* st = ring + (s & 1) * L::kStage;
+    const int k0 = (s / per_tile) * BN, j = s % per_tile;
+    if constexpr (G == 1) {
+      fetch_tile<BN>(st, k, k0, sk, d, 0);
+      fetch_tile<BN>(st + L::kT, v, k0, sk, d, 0);
+    } else if (j < nc) {
+      fetch_tile<L::kRows>(st, q, q0, sq, d, j * kChunk);
+      fetch_tile<BN>(st + L::kRows * kChunk, k, k0, sk, d, j * kChunk);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = (2 * blockIdx.z + c) * kChunk;
+        if (col < d) fetch_tile<BN>(st + c * L::kT, v, k0, sk, d, col);
+      }
+    }
+  };
+
+  float acc[4][4][4];   // O: rows row_lo, row_lo + 8, chunk oc
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
+  float sa[NK][4];      // S, then P, of the warp's keys of the tile
+  if (n_steps > 0) {
+    if constexpr (G == 1) fetch_tile<L::kRows>(smem, q, q0, sq, d, 0);
+    issue(0);
+  }
+  cp_commit();
+  const int dc = min(kChunk, d - oc * kChunk), nm = (dc + 31) / 32;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_wait_all();
+    __syncthreads();   // step s landed; every thread is done with s - 1
+    if (s + 1 < n_steps) issue(s + 1);
+    cp_commit();
+    const int k0 = (s / per_tile) * BN, j = s % per_tile;
+    const float* st = ring + (s & 1) * L::kStage;
+    const bool dead = causal && q0 + w0 + 15 < k0;  // no key of the tile
+    if constexpr (G == 1) {
+      if (dead) continue;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[n][e] = 0.f;
+      rows_product<BN, true, false>(sa, smem, w0, st, qscale, (d + 15) / 16);
+    } else if (j < nc) {
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sa[n][e] = 0.f;
+      }
+      // A chunk's products from zero, then one add; none where all the
+      // warp's keys lie past its rows.
+      if (!(causal && q0 + w0 + 15 < k0 + key0)) {
+        float sc[NK][4];
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+        rows_product<L::kKeys, true, false>(
+            sc, st, w0, st + (L::kRows + key0) * kChunk, qscale,
+            (min(kChunk, d - j * kChunk) + 15) / 16);
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sa[n][e] += sc[n][e];
+      }
+      continue;
+    }
+    // S is complete: mask, the rows' maxima (shared by the two groups
+    // when G == 2), P, l and O rescaled.
+    const bool edge = k0 + key0 + L::kKeys > sk ||
+                      (causal && k0 + key0 + L::kKeys - 1 > q0 + w0);
+    uint32_t ok = 0xffffffffu;
+    float mt[2] = {kNegInf, kNegInf};
+    if (!dead) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (edge) {
+            const int key = k0 + key0 + 8 * n + 2 * t + (e & 1);
+            const int row = row_lo + 8 * (e >> 1);
+            if (!(key < sk && (!causal || row >= key))) {
+              sa[n][e] = kNegInf;
+              ok &= ~(1u << (4 * n + e));
+            }
+          }
+          mt[e >> 1] = fmaxf(mt[e >> 1], sa[n][e]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      }
+    }
+    if constexpr (G == 2) {
+      float* const sMax = smem + L::kMax;
+      if (!dead && t == 0) {
+        sMax[grp * L::kRows + w0 + g] = mt[0];
+        sMax[grp * L::kRows + w0 + g + 8] = mt[1];
+      }
+      __syncthreads();   // both groups' maxima are in shared memory
+      if (!dead) {
+        mt[0] = fmaxf(mt[0], sMax[(grp ^ 1) * L::kRows + w0 + g]);
+        mt[1] = fmaxf(mt[1], sMax[(grp ^ 1) * L::kRows + w0 + g + 8]);
+      }
+    }
+    float* const sP = smem + L::kExchange + lane;
+    float corr[2];
+    if (!dead) {
+      float nml[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mx = fmaxf(mrow[h], mt[h]);
+        corr[h] = exp2f((mrow[h] - mx) * kLog2e);
+        nml[h] = -mx * kLog2e;
+        mrow[h] = mx;
+        lrow[h] *= corr[h];
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = (ok >> (4 * n + e)) & 1u
+                              ? exp2f(fmaf(sa[n][e], kLog2e, nml[e >> 1]))
+                              : 0.f;
+          sa[n][e] = p;
+          lrow[e >> 1] += p;
+          if (G == 2) sP[(warp * NK * 4 + 4 * n + e) * 32] = p;
+        }
+    }
+    if constexpr (G == 1) {
+      add_pv<BN>(acc, corr, sa, st + L::kT, nm);
+    } else {
+      __syncthreads();   // both groups' P are in shared memory
+      if (dead || oc >= nc) continue;
+      const float* const sPo = sP + (warp ^ 4) * NK * 4 * 32;
+      float pa[BN / 8][4];   // P of all the tile's keys
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[kk][e] = kk / NK == grp ? sa[kk % NK][e]
+                                     : sPo[(4 * (kk % NK) + e) * 32];
+        }
+      add_pv<BN>(acc, corr, pa, st + grp * L::kT, nm);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 1);
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 2);
+  }
+  if constexpr (G == 2) {   // each group summed P over its half of the keys
+    float* const sSum = smem + L::kSum;
+    if (t == 0) {
+      sSum[grp * L::kRows + w0 + g] = lrow[0];
+      sSum[grp * L::kRows + w0 + g + 8] = lrow[1];
+    }
+    __syncthreads();
+    lrow[0] += sSum[(grp ^ 1) * L::kRows + w0 + g];
+    lrow[1] += sSum[(grp ^ 1) * L::kRows + w0 + g + 8];
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lrow[h] = fmaxf(lrow[h], 1e-30f);
+    inv[h] = 1.f / lrow[h];
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][jj][e] *= inv[e >> 1];
+  if (oc < nc) store_cols<4>(o + oc * kChunk, d, q0 + w0, sq, acc, 0, nm, dc, 1.f);
+  if (t == 0 && oc == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + 8 * h;
+      if (row < sq) lse[row] = mrow[h] + logf(lrow[h]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward: K2 (dK, dV) and K3 (dQ)
+// ---------------------------------------------------------------------------
+//
+// One design for every head dim. A CTA of 8 warps owns 64 rows (keys in
+// K2, queries in K3) and one 128-column chunk c = blockIdx.z of its
+// output, and walks the tiles of BN rows of the other operand (BN = 64
+// for d <= 128, else 32), one step a tile per 128-column d chunk: a step
+// adds that chunk's columns to the two products over d, S = X1 Y1^T and
+// dP = X2 Y2^T (K2: X = K, V and Y = Qs, dO, so S^T and dP^T; K3: X =
+// Qs, dO and Y = K, V). The chunks are visited from c + 1 round to c, so
+// the last step of a tile holds Y's chunk c, which the second products
+// read. For d <= 128 (one chunk) X stays in shared memory for the whole
+// walk; above, X's chunk rides in the ring with Y's, and each CTA
+// recomputes S and dP over the whole d (1.5x the work at d = 256, 2.5-3x at
+// 512: recompute was chosen over 16 x d accumulators a warp, which do
+// not fit in registers above 128 columns).
+//
+// Warp roles. Warps 0-3 (group 0) compute S, warps 4-7 (group 1) dP, each
+// for 16 owned rows (warp & 3), so each product over d is computed once.
+// The two exchange their results through shared memory in fragment order
+// (a thread's values at [warp & 3][value][lane]: no bank conflicts):
+// K2: group 0 writes P^T and accumulates dV += P^T dO, group 1 reads P^T,
+// forms dS^T and accumulates dK += dS^T Qs (16 x 128 accumulators a
+// warp). K3: group 0 writes P, group 1 dP, each reads the other's and
+// forms the same dS bit for bit; group g accumulates dQ += dS K over
+// output columns 64g..64g+63.
+//
+constexpr int kOwn = 64;             // rows a backward CTA owns
+
 // Shared memory of the backward kernels, in floats: X (when it stays),
 // the two-stage ring ([X chunk when it rides] [Y1][Y2] [lse delta] for
 // K2), and the exchange (K2: P^T; K3: P and dP).
@@ -659,7 +652,7 @@ struct BwdSmem {
 };
 
 template <int BN, bool RES>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ dout,
@@ -777,7 +770,7 @@ flash_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int BN, bool RES>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
@@ -906,18 +899,6 @@ cudaError_t prepare(K kernel, int smem) {
                               smem);
 }
 
-// fn(std::integral_constant<int, W>) for the smallest W of 64, 128, 256
-// that holds d; cudaErrorInvalidValue past 256 or for a d not a
-// multiple of 4.
-template <typename F>
-cudaError_t dispatch_w(int d, F fn) {
-  if (d < 4 || d % 4) return cudaErrorInvalidValue;
-  if (d <= 64) return fn(std::integral_constant<int, 64>{});
-  if (d <= 128) return fn(std::integral_constant<int, 128>{});
-  if (d <= 256) return fn(std::integral_constant<int, 256>{});
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // Plain C entry points with the arguments of the 16-bit forms' (d is the
@@ -927,28 +908,22 @@ extern "C" {
 int hvd_flash_fwd_fp32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int sq, int sk, int d, float qscale,
                        int causal, void* stream) {
-  if (d > 256) {
-    if (d % kWide) return cudaErrorInvalidValue;
-    constexpr int smem = 3 * Wide::kTile * 4;
-    cudaError_t err = prepare(flash_fwd_fp32_wide_kernel, smem);
+  if (d < 4 || d % 4 || (d > 256 && d % kChunk)) return cudaErrorInvalidValue;
+  auto run = [&](auto kernel, int smem, int rows, int nz) {
+    cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(bh, (sq + kRows - 1) / kRows, d / kWide);
-    flash_fwd_fp32_wide_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    const dim3 grid(bh, (sq + rows - 1) / rows, nz);
+    kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         (float*)lse, sq, sk, d, qscale, causal);
     return cudaGetLastError();
+  };
+  if (d <= kChunk) {
+    return run(flash_fwd_fp32_kernel<1>, FwdSmem<1>::kBytes, FwdSmem<1>::kRows, 1);
   }
-  return dispatch_w(d, [&](auto w) {
-    constexpr int W = decltype(w)::value;
-    constexpr int smem = 3 * Simt<W>::kTile * 4;
-    cudaError_t err = prepare(flash_fwd_fp32_kernel<W>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(bh, (sq + kRows - 1) / kRows);
-    flash_fwd_fp32_kernel<W><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o,
-        (float*)lse, sq, sk, d, qscale, causal);
-    return cudaGetLastError();
-  });
+  const int nc = (d + kChunk - 1) / kChunk;
+  return run(flash_fwd_fp32_kernel<2>, FwdSmem<2>::kBytes, FwdSmem<2>::kRows,
+             (nc + 1) / 2);
 }
 
 int hvd_flash_dkv_fp32(const void* q, const void* k, const void* v,
@@ -960,7 +935,7 @@ int hvd_flash_dkv_fp32(const void* q, const void* k, const void* v,
   auto run = [&](auto kernel, int smem) {
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dk, (float*)dv, sq, sk, d, qscale, causal);
@@ -981,7 +956,7 @@ int hvd_flash_dq_fp32(const void* q, const void* k, const void* v,
   auto run = [&](auto kernel, int smem) {
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq, sq, sk, d, qscale, scale, causal);

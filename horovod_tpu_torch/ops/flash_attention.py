@@ -18,8 +18,8 @@ form (:func:`launch_counts`).
 The kernels take bf16, fp16 and fp32 operands, as JAX's kernels take the
 operands' dtype: bf16 and fp16 on the wgmma bodies of
 ``csrc/flash_attention.cuh``, fp32 in ``csrc/flash_attention_fp32.cu``
-(JAX's fp32 products: the forward in fp32 FMA, dK/dV and dQ on the
-tensor cores in three TF32 passes, ~22 bits a product). Every
+(JAX's fp32 products: every product on the tensor cores in three TF32
+passes, ~21 bits a product). Every
 head dim runs, as JAX's kernels take any: a multiple of 16 up to 256
 (``HEAD_DIMS``) on the kernels as it is, and above 256 a multiple of
 ``WIDE_CHUNK`` (128) on the ``_wide`` kernels, which take the head dim as

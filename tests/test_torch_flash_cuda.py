@@ -11,18 +11,22 @@ shapes cover the tilings' edges: a 128-row q tile with its diagonal
 across two 64-key tiles (S=384), one row past a tile (S=129), the
 second 64-row warpgroup of a q tile partly past the sequence (S=100)
 and, in the last q tile, wholly past it (S=192), ragged tails causal
-and not, and both head dims. Repeats are bit-identical (no
+and not, and both head dims, and head dim 264 (padded to 384 by the wrapper for
+the ``_wide`` kernels). Repeats are bit-identical (no
 atomics), and operands that are views into larger NaN-filled buffers
-give what clean copies give (nothing past the sequence is read).
+give what clean copies give (nothing past the sequence is read). The
+wrappers refuse head dims of q and k that differ, a head dim of 0 and
+float64 operands.
 
 The fp32-output forms (``out_dtype=torch.float32``, what ring attention
 launches) are held to their plain fp32 versions at the same shapes and
 tolerance, write fp32, repeat bit for bit, count apart from the bf16
 forms, and round to exactly the bf16 forms' outputs.
 
-The fp16 forms (fp16 and fp32 outputs) and the fp32 SIMT forms, and
-every form at head dims {8, 16, 48, 80, 112, 160, 192, 256} (8 padded to
-16 by the wrapper; 160-256 stored 256 wide, in two column chunks), are
+The fp16 forms (fp16 and fp32 outputs) and the fp32 forms, and
+every form at head dims {8, 16, 48, 80, 112, 160, 192, 256, 264, 512}
+(8 padded to 16 by the wrapper; 160-256 stored 256 wide, in two column
+chunks; 264 padded to 384 and 512 on the ``_wide`` kernels), are
 held to their plain versions causal and not, with ragged sq != sk:
 fp16 5e-3 of max |plain| (lse 1e-3 absolute), fp32 2e-5 of max |plain|
 on O and lse, 1e-4 on dQ, dK and dV; each repeats bit for bit, and the
@@ -52,6 +56,7 @@ SHAPES = [  # (bh, seq, head_dim, causal)
     (2, 130, 96, False),
     (2, 300, 80, True),
     (2, 130, 32, True),
+    (2, 130, 264, True),
 ]
 
 
@@ -154,8 +159,12 @@ def _counts(**launched):
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take(cuda_kernels):
-    q = torch.zeros(2, 64, 264, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros(2, 64, 32, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dims differ"):
+        fa.flash_fwd_cuda(q, k, k, 0.1, True)
+    q = torch.zeros(2, 64, 0, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head_dim must be positive"):
         fa.flash_fwd_cuda(q, q, q, 0.1, True)
     q = torch.zeros(2, 64, 64, dtype=torch.float64, device="cuda")
     with pytest.raises(TypeError):
@@ -228,7 +237,7 @@ FORMS = {
     "f16_f32": (torch.float16, torch.float32, 5e-3, 5e-3, 1e-3, False),
     "fp32": (torch.float32, None, 2e-5, 1e-4, 2e-5, True),
 }
-WIDE_DIMS = (8, 16, 48, 80, 112, 160, 192, 256)
+WIDE_DIMS = (8, 16, 48, 80, 112, 160, 192, 256, 264, 512)
 
 
 @pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200),
