@@ -334,11 +334,13 @@ plain versions, SDPA at the same dtype as a yardstick, with bounds at
 TFLOP/s TF32 peak with their ``bound_fma_ms`` at 67 beside it; and each
 operand dtype's own form at D=256 (B=8, H=3, S=2048), logged.
 
-Phase 3c, after 3b: every form of K1-K3 at head dims 272, 320, 384 and
-512 (the ``_wide`` kernels: D zero-padded to a multiple of 128), causal
-and not, ragged, at 3b's tolerances and repeat-exact; then each operand
-dtype's own form timed at B=8, H=3, S=2048, D=512 beside its plain
-version and SDPA (the ``kernels`` rows ``<kernel>_wide``: the flash
+Phase 3c, after 3b: every form of K1-K3 at head dims 272, 320, 384, 512
+and 640 (the ``_wide`` kernels: D zero-padded to a multiple of 128; the
+16-bit forward computes S once per q tile up to 512 and once per group
+of four output chunks above), causal and not, ragged, at 3b's
+tolerances and repeat-exact; then every form timed at B=8, H=3, S=2048,
+D=512 beside its plain version and, for the forms with the operands'
+own outputs, SDPA (the ``kernels`` rows ``<kernel>_wide``: the flash
 wrappers count the kernels above head dim 256 under those keys, and no
 main path launches one).
 
@@ -2485,16 +2487,16 @@ def flash_forms_phase(fa):
     return rows
 
 
-WIDE_DIMS = (272, 320, 384, 512)
+WIDE_DIMS = (272, 320, 384, 512, 640)
 WIDE_TIMED = (8, 3, 2048, 512)    # B, H, S, D of the timed wide forms
 
 
 def wide_forms_phase(fa):
     """Phase 3c: every form of K1-K3 at head dims above 256 (the _wide
     kernels, D zero-padded to a multiple of 128) against its plain
-    version, causal and not, ragged, repeat-exact; then each operand
-    dtype's own form timed at D=512. Returns those rows of the
-    ``kernels`` line, named by the kernels' launch keys
+    version, causal and not, ragged, repeat-exact; then every form timed
+    at D=512 (the fp32-output forms of the 16-bit operands too). Returns
+    those rows of the ``kernels`` line, named by the kernels' launch keys
     ``<kernel>_wide``."""
     log(f"flash forms vs plain at head dims {WIDE_DIMS} x (causal, sq, sk) "
         f"{SWEEP_SHAPES}, phase 3b's tolerances:")
@@ -2512,11 +2514,11 @@ def wide_forms_phase(fa):
             f"{json.dumps(worst)}; repeats bit-identical")
     log(f"  sweep {time.perf_counter() - t0:.1f} s")
     b, h, s, d = WIDE_TIMED
-    log(f"each dtype's own form at D={d} (B={b}, H={h}, S={s}, causal; "
-        "SDPA's flash backend stops at 256, so library_ms is whichever "
-        "backend PyTorch picks):")
+    log(f"every form at D={d} (B={b}, H={h}, S={s}, causal; SDPA's flash "
+        "backend stops at 256, so library_ms is whichever backend PyTorch "
+        "picks, and none for the fp32-output forms):")
     rows = {}
-    for sfx in ("", "_f16", "_fp32"):
+    for sfx in ("", "_f16", "_fp32", "_f32", "_f16_f32"):
         rows.update({f"{name}_wide": row for name, row in
                      time_form(fa, sfx, b, h, s, d).items()})
     return rows

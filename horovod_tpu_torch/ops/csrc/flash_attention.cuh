@@ -94,6 +94,9 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <dlfcn.h>
+
 #include <type_traits>
 
 #include "hopper_tile.cuh"
@@ -775,33 +778,134 @@ flash_dq_body(const InT* __restrict__ q, const InT* __restrict__ k,
 // ---------------------------------------------------------------------------
 //
 // d is a runtime multiple of 128 (the wrapper zero-pads any other head
-// dim above 256 to one) and nc = d / 128 its chunks. Each CTA owns one
-// 128-column chunk c = blockIdx.z of its output (O in K1, dK and dV in
-// K2, dQ in K3), as the 256-wide tiles above do. The products that sum
-// over d (Q K^T, and dO V^T in K2 and K3) stream d through the ring one
-// 128-column k-chunk at a time and accumulate S (and dP) in registers
-// across the chunks, so a stage holds what a D = 128 tile holds whatever
-// d is. One ring item is one k-chunk of one streamed tile: the owned
-// rows' chunk (Q, or K2's K and V) beside the streamed rows' chunk (K,
-// or Qs and dO, and V), re-read from L2 for every streamed tile. K2 and
-// K3 visit the chunks from c + 1 round to c, so the last item of a tile
-// holds the chunk c operand of its RS product (dO and Qs in K2, K in K3)
-// and no extra load is needed; K1 loads V's chunk c with its last item.
-// Three stages, one item ahead in flight; every product retires in the
-// item that issued it. The work grows as nc: each CTA recomputes S (and
-// dP) over the whole d. A correct first form, not a tuned one.
+// dim above 256 to one) and nc = d / 128 its chunks.
+//
+// K2 and K3 (flash_dkv_wide_body, flash_dq_wide_body). Each CTA owns one
+// 128-column chunk c = blockIdx.z of its output (dK and dV, or dQ), as
+// the 256-wide tiles above do. The products that sum over d (Q K^T and
+// dO V^T) stream d through the ring one 128-column k-chunk at a time and
+// accumulate S and dP in registers across the chunks, so a stage holds
+// what a D = 128 tile holds whatever d is. One ring item is one k-chunk
+// of one streamed tile: the owned rows' chunk (K and V, or Qs and dO)
+// beside the streamed rows' chunk, re-read from L2 for every streamed
+// tile. They visit the chunks from c + 1 round to c, so the last item of
+// a tile holds the chunk c operand of the RS product (dO and Qs in K2, K
+// in K3) and no extra load is needed. Three stages, one item ahead in
+// flight; every product retires in the item that issued it. The work
+// grows as nc: each CTA recomputes S and dP over the whole d. A correct
+// first form, not a tuned one.
+//
+// K1 (flash_fwd_wide_body). One CTA owns 64 q rows and up to G = 4
+// output chunks (512 columns; the CTAs of a row tile split nc into
+// ceil(nc / G) groups). Its 256 threads are two warpgroups, each the
+// producer of its own rings:
+//   - TMA copies, one a [64, 128] chunk (a box of 64 rows x 64 columns x
+//     2 column blocks of a 4-D view, 128-byte swizzled: the layout the
+//     wgmma descriptors read; rows past the sequence land as zeros,
+//     nothing past it is read), fill Q, loaded once, and for each
+//     warpgroup a K ring and a V ring of chunk slots, each slot with a
+//     "full" and an "empty" mbarrier. Thread 0 of a warpgroup fills its
+//     rings' first slots, and refills a slot with the item a ring's
+//     length later as soon as the four warps have let it go, so no ring
+//     waits on another. (A producer warp of its own would make 9 warps,
+//     three of them on one SM sub-partition, and cap every thread at 168
+//     registers, below what the warpgroups hold.)
+//   - warpgroup w computes the partial S = Qs K^T over the k-chunks c = w,
+//     w + 2, ... (split-K), each chunk an SS batch into one fp32
+//     accumulator, and owns its output chunks: the first half of the
+//     group (w = 0) or the rest (w = 1), so both do the same number of
+//     chunk products at nc = 3 and 4. The two partials meet in shared
+//     memory and each warpgroup adds the other's to its own: fp32 addition
+//     commutes, so both hold the same S bits and so the same m, l and P,
+//     with P in registers for the RS products O += P V of its chunks;
+//   - Q is loaded and scaled once (all 256 threads, in shared memory,
+//     then a named barrier). Each K and V chunk comes through L2
+//     once per 64-row q tile;
+//   - every ring has one reader, which waits on each slot in order, so no
+//     waiter runs a phase ahead. Within a tile a warpgroup issues P V of
+//     the previous tile, then the next tile's S chunk by chunk, keeping one
+//     batch in flight (wgmma_wait<1>) and letting each slot go the moment
+//     the batch that read it retires; every batch retires in the loop
+//     iteration that issued it. No __syncthreads after the set-up.
+// Arithmetic at the timed shape (B=8, H=3, S=2048, D=512, causal):
+//   - bound: 2 causal products = 103 GFLOP = 0.1043 ms at 989 TFLOP/s
+//     against 151 MB in and 50 MB out at 3.35 TB/s = 0.060 ms: compute-
+//     bound. S is computed once per q tile: the tensor work is the
+//     bound's (the form before computed S once per output chunk, 2.5x);
+//   - L2 to SM: 12,672 (q tile, key tile) pairs x 128 KB of K and V =
+//     1.66 GB, plus Q's 50 MB once: 1.71 GB (5.3 GB before: Q again per
+//     key tile and chunk, K per chunk). Block x runs the heads fastest and
+//     the q tiles heaviest first, so the causal work spreads evenly over
+//     the SMs: a head's q tiles first (its K and V shared in L2 by the
+//     CTAs in flight) took 1.13x as long, the last waves left uneven
+//     (experiments/wide_fwd_split.py, "head_major");
+//   - shared memory at nc = 4: Q 64 KB + the two partial S (64 x 64 fp32)
+//     32 KB + 8 ring slots of 16 KB (K and V, two each a warpgroup) 128
+//     KB + 256 B of mbarriers + 1 KB of alignment = 230,656 B of 232,448:
+//     one CTA an SM;
+//   - registers: at most 255 a thread (256 threads): O 2 x 64, S 32, P
+//     16, the rest addresses and the softmax's row state;
+//   - exchanged per 64-key tile: each warpgroup stores its 16 KB partial
+//     (8 float4 a thread, conflict-free) and loads the other's; one named
+//     barrier (id 1, 256 threads) orders the stores before the loads, and
+//     a bar.arrive by the reader that the writer's next bar.sync waits on
+//     (ids 2 and 3) frees the buffer. The mbarriers carry the rest: TMA's
+//     bytes into "full", the readers' release into "empty" (one arrival a
+//     warp, after its wgmma wait);
+//   - shared-memory traffic a tile: S's SS reads 128 KB (Q and K), P V's
+//     RS reads 64 KB (V), the exchange 64 KB, TMA's writes 128 KB: ~384
+//     KB, ~3,000 cycles at 128 B a cycle against 2,048 cycles of tensor
+//     work at peak.
+// What it still leaves on the table, measured at the timed shape on an
+// H100 SXM at 700 W by experiments/wide_fwd_split.py: 0.41 ms, 25% of
+// the bound. The rings alone (every product, the exchange and exp2 cut
+// out) take 0.30 ms, and 0.27 with half the bytes: the loads wait on
+// the copies' latency, not on bytes. Each ring holds one key tile (K's
+// and V's 128 KB are what Q and the exchange leave), so a slot is
+// refilled only once its product retires and every tile waits about one
+// TMA round trip; the products, the exchange and the softmax add the
+// rest (each cut saves 0.03-0.05 ms). A ring two tiles deep needs 256 KB
+// that d = 512 does not leave; TMA multicast between the q tiles of a
+// cluster would halve the bytes through L2, which half the bytes shows
+// buys little. The two warpgroups meet at the exchange every tile, so
+// both run their softmax while the tensor cores idle (no ping-pong).
+// Above d = 512 (nc > G): S is recomputed once per group, ceil(nc / 4)
+// times, and Q no longer fits beside the rings: its chunks ride the K
+// rings (four slots each), re-read from L2 every key tile and scaled by
+// the warpgroup that reads them behind a barrier of that warpgroup.
 
 constexpr int kWide = 128;         // columns of one chunk
-constexpr int kWideStages = 3;     // ring items
+constexpr int kWideStages = 3;     // ring items (K2, K3)
 constexpr int kWideRows = 64;      // rows a K2/K3 CTA owns: one warpgroup
 constexpr int kWideThreads = 128;
 constexpr int kChunkTile = 64 * kWide * 2;  // a [64, 128] 16-bit chunk
 
-struct FwdWideSmem {                     // byte offsets in one stage
-  static constexpr int kK = kFwdRows * kWide * 2;  // Q chunk [128, 128] at 0
-  static constexpr int kV = kK + kChunkTile;
-  static constexpr int kStage = kV + kChunkTile;
-  static constexpr int kBytes = kWideStages * kStage + 1024;
+constexpr int kFwdWideRows = 64;       // q rows a _wide K1 CTA owns
+constexpr int kFwdWideKeys = 64;       // keys per key tile
+constexpr int kFwdWideGroup = 4;       // G: output chunks a CTA owns
+constexpr int kFwdWideThreads = 256;   // two warpgroups
+constexpr int kFwdWideX = 2 * 64 * 64 * 4;  // both partial S, fp32
+
+// Shared memory of a _wide K1 CTA, byte offsets from the aligned base:
+// the resident Q chunks, the two partial S, warpgroup 0's K then V ring
+// slots, warpgroup 1's, then the mbarriers: Q's "full"; then per
+// warpgroup its K "full" and "empty" barriers, then its V ones.
+struct FwdWideSmem {
+  static constexpr int kRv = 2;  // V ring slots a warpgroup
+  int nq;                        // Q chunks resident: nc up to G, else 0
+  int rk;                        // K ring slots a warpgroup
+  __host__ __device__ explicit FwdWideSmem(int nc)
+      : nq(nc <= kFwdWideGroup ? nc : 0), rk(nc <= kFwdWideGroup ? 2 : 4) {}
+  __host__ __device__ int x() const { return nq * kChunkTile; }
+  __host__ __device__ int ring(int w) const {
+    return x() + kFwdWideX + w * (rk + kRv) * kChunkTile;
+  }
+  __host__ __device__ int bars() const { return ring(2); }
+  // Warpgroup w's barriers, from bars(): K full, K empty, V full, V empty.
+  __host__ __device__ int wg_bars(int w) const {
+    return 8 + w * 16 * (rk + kRv);
+  }
+  __host__ __device__ int bytes() const { return bars() + 256 + 1024; }
 };
 
 struct BwdWideSmem {                     // K2 and K3: four [64, 128] chunks
@@ -812,98 +916,242 @@ struct BwdWideSmem {                     // K2 and K3: four [64, 128] chunks
 
 template <typename InT, typename OutT>
 __device__ __forceinline__ void
-flash_fwd_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
-                    const InT* __restrict__ v, OutT* __restrict__ o,
-                    float* __restrict__ lse, int sq, int sk, int d,
-                    float qscale, int causal) {
-  using L = FwdWideSmem;
+flash_fwd_wide_body(const void* tq, const void* tk, const void* tv,
+                    OutT* __restrict__ o, float* __restrict__ lse, int n_bh,
+                    int sq, int sk, int d, float qscale, int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  const uint32_t sRing = smem_u32(smem);
+  const uint32_t base = smem_u32(smem);
+  const int nc = d / kWide;
+  const FwdWideSmem L(nc);
+  constexpr int kRv = FwdWideSmem::kRv;
+  const uint32_t bars = base + L.bars();  // Q's "full" first
 
-  const int nc = d / kWide, c = blockIdx.z;
-  const int bh = blockIdx.x;
-  // Heaviest (last) causal tiles first: they start while the grid fills.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
-  q += (size_t)bh * sq * d;
-  o += (size_t)bh * sq * d + c * kWide;
-  lse += (size_t)bh * sq;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-
-  const int wg = threadIdx.x / 128;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + wg * 64;  // this warpgroup's first q row
-  const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
-
-  int n_kt = (sk + kFwdCols - 1) / kFwdCols;
-  int n_mine = r0 < sq ? n_kt : 0;
+  // Block x: the heads fastest, then the q tiles, heaviest causal tile
+  // first, then the groups of G output chunks.
+  int blk = blockIdx.x;
+  const int n_qt = (sq + kFwdWideRows - 1) / kFwdWideRows;
+  const int bh = blk % n_bh;
+  blk /= n_bh;
+  const int q0 = (n_qt - 1 - blk % n_qt) * kFwdWideRows;
+  const int c0 = blk / n_qt * kFwdWideGroup;
+  const int ng = min(kFwdWideGroup, nc - c0);
+  int n_kt = (sk + kFwdWideKeys - 1) / kFwdWideKeys;
   if (causal) {
-    n_kt = min(n_kt, (min(q0 + kFwdRows, sq) - 1) / kFwdCols + 1);
-    if (r0 < sq) n_mine = min(n_kt, (min(r0 + 64, sq) - 1) / kFwdCols + 1);
+    n_kt = min(n_kt, (min(q0 + kFwdWideRows, sq) - 1) / kFwdWideKeys + 1);
   }
-  const int n_items = n_kt * nc;
+  const int per_chunk = L.nq ? 1 : 2;  // ring items an S chunk: K, or Q and K
 
-  // Item it = key tile it / nc, k-chunk it % nc: Q's and K's chunk, and
-  // V's chunk c with the tile's last chunk; one commit group per item.
-  auto issue = [&](int it) {
-    if (it < n_items) {
-      const int kt = it / nc, dc = it % nc;
-      const uint32_t st = sRing + (it % kWideStages) * L::kStage;
-      load_chunk_async<kFwdRows, kFwdThreads>(st, q, q0, sq, d, dc * kWide);
-      load_chunk_async<kFwdCols, kFwdThreads>(st + L::kK, k, kt * kFwdCols,
-                                              sk, d, dc * kWide);
-      if (dc == nc - 1) {
-        load_chunk_async<kFwdCols, kFwdThreads>(st + L::kV, v, kt * kFwdCols,
-                                                sk, d, c * kWide);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int w = 0; w < 2; ++w) {
+      const uint32_t b = bars + L.wg_bars(w);
+      for (int s = 0; s < L.rk; ++s) {
+        mbar_init(b + 8 * s, 1);
+        mbar_init(b + 8 * (L.rk + s), 4);
+      }
+      for (int s = 0; s < kRv; ++s) {
+        mbar_init(b + 8 * (2 * L.rk + s), 1);
+        mbar_init(b + 8 * (2 * L.rk + kRv + s), 4);
       }
     }
-    cp_async_commit();
-  };
-  issue(0);
-  issue(1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float acc[kWide / 8][4];
+  const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  // This warpgroup's S k-chunks w, w + 2, ... (n_s of them), and its
+  // output chunks first .. first + n_own - 1 of the group.
+  const int n_s = (nc - w + 1) / 2;
+  const int first = c0 + (w ? ng / 2 : 0), n_own = w ? ng - ng / 2 : ng / 2;
+  const uint32_t k_slots = base + L.ring(w);
+  const uint32_t v_slots = k_slots + L.rk * kChunkTile;
+  const uint32_t k_full = bars + L.wg_bars(w), k_empty = k_full + 8 * L.rk;
+  const uint32_t v_full = k_full + 16 * L.rk, v_empty = v_full + 8 * kRv;
+  const int k_items = n_kt * n_s * per_chunk, v_items = n_kt * n_own;
+
+  // A [64, 128] chunk: one box of its two 64-column blocks.
+  auto load = [&](uint32_t dst, const void* map, int c, int row0,
+                  uint32_t bar) {
+    tma_load_4d(dst, map, 0, row0, 2 * c, bh, bar);
+  };
+  // Item i of this warpgroup's K ring (key tile i / per, then its S
+  // chunks in order, each Q's chunk then K's when Q is streamed) and of
+  // its V ring (key tile i / n_own, then its output chunks), into slot s.
+  auto issue_k = [&](int i, int s) {
+    const int per = n_s * per_chunk, kt = i / per, p = i % per;
+    const uint32_t full = k_full + 8 * s, dst = k_slots + s * kChunkTile;
+    mbar_expect_tx(full, kChunkTile);
+    if (per_chunk == 2 && p % 2 == 0) {
+      load(dst, tq, w + p, q0, full);
+    } else {
+      load(dst, tk, w + 2 * (p / per_chunk), kt * kFwdWideKeys, full);
+    }
+  };
+  auto issue_v = [&](int i, int s) {
+    const uint32_t full = v_full + 8 * s;
+    mbar_expect_tx(full, kChunkTile);
+    load(v_slots + s * kChunkTile, tv, first + i % n_own,
+         i / n_own * kFwdWideKeys, full);
+  };
+  if (tid == 0) {
+    if (w == 0 && L.nq) {
+      mbar_expect_tx(bars, L.nq * kChunkTile);
+      for (int c = 0; c < L.nq; ++c) load(base + c * kChunkTile, tq, c, q0, bars);
+    }
+    for (int i = 0; i < min(L.rk, k_items); ++i) issue_k(i, i);
+    for (int i = 0; i < min(kRv, v_items); ++i) issue_v(i, i);
+  }
+
+  // Ring cursors: the next slot to read and its phase; the next slot to
+  // let go, its phase, and the item that refills it.
+  int k_rd = 0, k_ph = 0, v_rd = 0, v_ph = 0;
+  int k_rel = 0, k_rel_ph = 0, k_next = L.rk;
+  int v_rel = 0, v_rel_ph = 0, v_next = kRv;
+  auto next_k = [&]() {
+    mbar_wait(k_full + 8 * k_rd, k_ph);
+    const uint32_t a = k_slots + k_rd * kChunkTile;
+    if (++k_rd == L.rk) k_rd = 0, k_ph ^= 1;
+    return a;
+  };
+  auto next_v = [&]() {
+    mbar_wait(v_full + 8 * v_rd, v_ph);
+    const uint32_t a = v_slots + v_rd * kChunkTile;
+    if (++v_rd == kRv) v_rd = 0, v_ph ^= 1;
+    return a;
+  };
+  // Let the n oldest slots a ring holds go (one arrival a warp, after
+  // the warp's wgmma wait); thread 0 refills each once all four warps
+  // have let it go.
+  auto release_k = [&](int n) {
+    for (int i = 0; i < n; ++i) {
+      if (lane == 0) mbar_arrive(k_empty + 8 * k_rel);
+      if (tid == 0 && k_next < k_items) {
+        mbar_wait(k_empty + 8 * k_rel, k_rel_ph);
+        issue_k(k_next, k_rel);
+      }
+      ++k_next;
+      if (++k_rel == L.rk) k_rel = 0, k_rel_ph ^= 1;
+    }
+  };
+  auto release_v = [&](int n) {
+    for (int i = 0; i < n; ++i) {
+      if (lane == 0) mbar_arrive(v_empty + 8 * v_rel);
+      if (tid == 0 && v_next < v_items) {
+        mbar_wait(v_empty + 8 * v_rel, v_rel_ph);
+        issue_v(v_next, v_rel);
+      }
+      ++v_next;
+      if (++v_rel == kRv) v_rel = 0, v_rel_ph ^= 1;
+    }
+  };
+
+  if (L.nq) {  // Q has landed: scale it once, then publish it to wgmma
+    mbar_wait(bars, 0);
+    scale_words<InT>(smem, L.nq * kChunkTile / 16, threadIdx.x, 256, qscale);
+    fence_proxy_async();
+    bar_sync(1, 256);
+  }
+
+  float acc[2][kWide / 8][4];
 #pragma unroll
-  for (int i = 0; i < kWide / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float s[kFwdCols / 8][4];
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kWide / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+  float s[kFwdWideKeys / 8][4];
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
+  int v_held = 0;  // V slots the P V batch in flight reads
 
-  for (int it = 0; it < n_items; ++it) {
-    // Item it has landed; scale this thread's own Q copies, publish the
-    // stage to wgmma, and refill the stage item it-1 used.
-    const int st_off = (it % kWideStages) * L::kStage;
-    cp_async_wait<1>();
-    scale_tile<kWide, kFwdRows, kFwdThreads, InT>(smem + st_off, qscale);
-    fence_proxy_async();
-    __syncthreads();
-    issue(it + 2);
-    const int kt = it / nc, dc = it % nc;
-    if (kt >= n_mine) continue;  // wholly above this warpgroup's rows
-
-    // S (+)= Qs K^T over this k-chunk; the first chunk overwrites S.
-    const uint32_t sQ = sRing + st_off;
-    fence_acc(s);
+  // This warpgroup's partial S of the next key tile, a batch a k-chunk;
+  // the first overwrites S. Each wait leaves the newest batch running and
+  // lets go of what the one before it read (P V's V slots, then the
+  // previous chunk's); the last chunk's slots go after the caller's wait.
+  auto s_tile = [&]() {
+    for (int i = 0; i < n_s; ++i) {
+      const int c = w + 2 * i;
+      uint32_t qa = base + c * kChunkTile;
+      if (!L.nq) {  // Q's chunk rides the ring: scale it, then publish it
+        qa = next_k();
+        scale_words<InT>(smem + (qa - base), kChunkTile / 16, tid, 128, qscale);
+        fence_proxy_async();
+        bar_sync(4 + w, 128);
+      }
+      const uint32_t ka = next_k();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWide / 16; ++kk) {
+        wgmma_ss<kFwdWideKeys, InT>(s, desc_kmajor<64>(qa, 0, kk),
+                                    desc_kmajor<64>(ka, 0, kk), i | kk);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (i == 0) {
+        release_v(v_held);
+        v_held = 0;
+      } else {
+        release_k(per_chunk);
+      }
+    }
+  };
+  // O += P V over this warpgroup's n output chunks, one batch.
+  auto pv = [&](auto n, uint32_t (&pa)[kFwdWideKeys / 16][4]) {
+    uint32_t va[decltype(n)::value];
+#pragma unroll
+    for (int i = 0; i < decltype(n)::value; ++i) va[i] = next_v();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    fence_frag(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWide / 16; ++kk) {
-      wgmma_ss<kFwdCols, InT>(s, desc_kmajor<kFwdRows>(sQ, wg * 64, kk),
-                              desc_kmajor<kFwdCols>(sQ + L::kK, 0, kk),
-                              dc | kk);
+    for (int i = 0; i < decltype(n)::value; ++i) {
+#pragma unroll
+      for (int cc = 0; cc < kFwdWideKeys / 16; ++cc) {
+        wgmma_rs<kWide, InT>(acc[i], pa[cc], desc_mnmajor<kFwdWideKeys>(va[i], cc));
+      }
     }
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(s);
-    if (dc != nc - 1) continue;
+    v_held = decltype(n)::value;
+  };
 
-    // The online softmax and O += P V, as in flash_fwd_body.
-    const int k0 = kt * kFwdCols;
-    const bool edge = k0 + kFwdCols > sk || (causal && k0 + kFwdCols - 1 > r0);
+  fence_acc(s);
+  s_tile();
+  wgmma_wait<0>();
+  fence_acc(s);
+  release_k(per_chunk);
+  float4* x = reinterpret_cast<float4*>(smem + L.x());  // [2][8][128]
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // S = the two partials: store this warpgroup's once the other has
+    // read the last one, and add the other's to it.
+    if (kt > 0) bar_sync(2 + w, 256);
+#pragma unroll
+    for (int j = 0; j < kFwdWideKeys / 8; ++j) {
+      x[(w * 8 + j) * 128 + tid] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    }
+    bar_sync(1, 256);
+#pragma unroll
+    for (int j = 0; j < kFwdWideKeys / 8; ++j) {
+      const float4 y = x[((1 - w) * 8 + j) * 128 + tid];
+      s[j][0] += y.x;
+      s[j][1] += y.y;
+      s[j][2] += y.z;
+      s[j][3] += y.w;
+    }
+    if (kt + 1 < n_kt) bar_arrive(3 - w, 256);
+
+    // The online softmax, as in flash_fwd_body.
+    const int k0 = kt * kFwdWideKeys;
+    const bool edge = k0 + kFwdWideKeys > sk || (causal && k0 + kFwdWideKeys - 1 > q0);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < kFwdCols / 8; ++j) {
+      for (int j = 0; j < kFwdWideKeys / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + j * 8 + t * 2 + (e & 1);
@@ -913,7 +1161,7 @@ flash_fwd_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
     }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < kFwdCols / 8; ++j) {
+    for (int j = 0; j < kFwdWideKeys / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     }
@@ -928,7 +1176,7 @@ flash_fwd_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
       mb[r] = mx[r] * kLog2e;
     }
 #pragma unroll
-    for (int j = 0; j < kFwdCols / 8; ++j) {
+    for (int j = 0; j < kFwdWideKeys / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
@@ -940,29 +1188,36 @@ flash_fwd_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
         l[e >> 1] += p;
       }
     }
-    uint32_t pa[kFwdCols / 16][4];
+    uint32_t pa[kFwdWideKeys / 16][4];
 #pragma unroll
-    for (int cc = 0; cc < kFwdCols / 16; ++cc) acc_to_a_as<InT>(pa[cc], s[2 * cc], s[2 * cc + 1]);
+    for (int cc = 0; cc < kFwdWideKeys / 16; ++cc) acc_to_a_as<InT>(pa[cc], s[2 * cc], s[2 * cc + 1]);
 #pragma unroll
-    for (int i = 0; i < kWide / 8; ++i) {
-      acc[i][0] *= corr[0];
-      acc[i][1] *= corr[0];
-      acc[i][2] *= corr[1];
-      acc[i][3] *= corr[1];
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < kWide / 8; ++j) {
+        acc[i][j][0] *= corr[0];
+        acc[i][j][1] *= corr[0];
+        acc[i][j][2] *= corr[1];
+        acc[i][j][3] *= corr[1];
+      }
     }
-    fence_acc(acc);
-    fence_frag(pa);
-    wgmma_fence();
-#pragma unroll
-    for (int cc = 0; cc < kFwdCols / 16; ++cc) {
-      wgmma_rs<kWide, InT>(acc, pa[cc], desc_mnmajor<kFwdCols>(sQ + L::kV, cc));
+
+    // P V of this tile, then the next tile's S behind it; both retire here.
+    if (n_own == 2) {
+      pv(std::integral_constant<int, 2>{}, pa);
+    } else if (n_own == 1) {
+      pv(std::integral_constant<int, 1>{}, pa);
     }
-    wgmma_commit();
+    if (kt + 1 < n_kt) s_tile();
     wgmma_wait<0>();
-    fence_acc(acc);
+    fence_acc(s);
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
     fence_frag(pa);
+    release_v(v_held);
+    v_held = 0;
+    if (kt + 1 < n_kt) release_k(per_chunk);
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -974,13 +1229,17 @@ flash_fwd_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= sq) continue;
     const float inv = 1.f / l[r];
-    OutT* orow = o + (size_t)row[r] * d;
+    OutT* orow = o + ((size_t)bh * sq + row[r]) * d + first * kWide;
 #pragma unroll
-    for (int i = 0; i < kWide / 8; ++i) {
-      *reinterpret_cast<typename Pair<OutT>::T*>(orow + i * 8 + t * 2) =
-          Pair<OutT>::of(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+    for (int i = 0; i < 2; ++i) {
+      if (i >= n_own) break;
+#pragma unroll
+      for (int j = 0; j < kWide / 8; ++j) {
+        *reinterpret_cast<typename Pair<OutT>::T*>(orow + i * kWide + j * 8 + t * 2) =
+            Pair<OutT>::of(acc[i][j][2 * r] * inv, acc[i][j][2 * r + 1] * inv);
+      }
     }
-    if (t == 0 && c == 0) lse[row[r]] = m[r] + logf(l[r]);
+    if (t == 0 && w == 0 && c0 == 0) lse[(size_t)bh * sq + row[r]] = m[r] + logf(l[r]);
   }
 }
 
@@ -1331,14 +1590,15 @@ flash_dq_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
     flash_dq_body<D>(q, k, v, dout, lse, delta, dq, sq, sk, qscale, scale,    \
                      causal);                                                 \
   }                                                                           \
-  __global__ void __launch_bounds__(kFwdThreads)                             \
+  __global__ void __launch_bounds__(kFwdWideThreads)                         \
       flash_fwd##PREFIX##_wide_kernel(                                        \
-          const InT* __restrict__ q, const InT* __restrict__ k,               \
-          const InT* __restrict__ v, OutT* __restrict__ o,                    \
-          float* __restrict__ lse, int sq, int sk, int d, float qscale,       \
-          int causal) {                                                       \
-    flash_fwd_wide_body<InT, OutT>(q, k, v, o, lse, sq, sk, d, qscale,        \
-                                   causal);                                   \
+          const __grid_constant__ CUtensorMap tq,                             \
+          const __grid_constant__ CUtensorMap tk,                             \
+          const __grid_constant__ CUtensorMap tv, OutT* __restrict__ o,       \
+          float* __restrict__ lse, int bh, int sq, int sk, int d,             \
+          float qscale, int causal) {                                         \
+    flash_fwd_wide_body<InT, OutT>(&tq, &tk, &tv, o, lse, bh, sq, sk, d,      \
+                                   qscale, causal);                           \
   }                                                                           \
   __global__ void __launch_bounds__(kWideThreads)                            \
       flash_dkv##PREFIX##_wide_kernel(                                        \
@@ -1429,19 +1689,69 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Launchers of one form's _wide kernels: d a multiple of kWide above 256,
-// grid z its chunks.
+// cuTensorMapEncodeTiled, looked up in libcuda (which the CUDA runtime
+// has loaded) at first use, so the library links nothing more.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [n_bh, rows, d] 16-bit tensor seen as [n_bh, d / 64, rows, 64] (the
+// 64-column blocks outside the rows), in boxes of 64 rows x 64 columns x
+// 2 blocks, 128-byte swizzled: one box is a [64, 128] chunk in the
+// sw128 layout (block 0's 64 rows, then block 1's). Coordinates (column
+// in the block, row, block, head); box rows past `rows` land as zeros.
+// The copy moves 16-bit words, bf16 and fp16 alike. False if the
+// encoding is refused (a base not 16-byte aligned).
+inline bool chunk_map(CUtensorMap* map, const void* base, int n_bh, int rows,
+                      int d) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)rows, (cuuint64_t)d / 64,
+                              (cuuint64_t)n_bh};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, 128,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[4] = {64, 64, 2, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launchers of one form's _wide kernels: d a multiple of kWide above 256.
+// K1: one block per (64-row q tile, head, group of G chunks), in block x;
+// K2, K3: grid z the chunks.
 template <typename Ks, typename InT, typename OutT>
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int sq, int sk, int d,
                             float qscale, int causal, cudaStream_t stream) {
   const auto kernel = Ks::fwd_wide();
-  cudaError_t err = prepare(kernel, FwdWideSmem::kBytes);
+  const int smem = FwdWideSmem(d / kWide).bytes();
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (sq + kFwdRows - 1) / kFwdRows, d / kWide);
-  kernel<<<grid, kFwdThreads, FwdWideSmem::kBytes, stream>>>(
-      (const InT*)q, (const InT*)k, (const InT*)v, (OutT*)o, (float*)lse,
-      sq, sk, d, qscale, causal);
+  CUtensorMap tq, tk, tv;
+  if (!chunk_map(&tq, q, bh, sq, d) || !chunk_map(&tk, k, bh, sk, d) ||
+      !chunk_map(&tv, v, bh, sk, d)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long blocks =
+      (long long)((sq + kFwdWideRows - 1) / kFwdWideRows) * bh *
+      ((d / kWide + kFwdWideGroup - 1) / kFwdWideGroup);
+  if (blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, kFwdWideThreads, smem, stream>>>(
+      tq, tk, tv, (OutT*)o, (float*)lse, bh, sq, sk, d, qscale, causal);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 // Hopper building blocks of the flash kernels K1-K3
 // (flash_attention.cu): wgmma products on 128-byte-swizzled shared-memory
-// tiles, and an asynchronous cp.async tile ring that fills them.
+// tiles, and an asynchronous cp.async tile ring that fills them; for the
+// head dims above 256 of K1, TMA box copies into the same layout, and
+// the mbarriers and named barriers of a producer/consumer ring.
 //
 // Element types. Every tile and product here takes bf16 or fp16 (T, a
 // template parameter defaulting to bf16): the two have the same size and
@@ -415,6 +417,94 @@ __device__ __forceinline__ void scale_tile(unsigned char* tile,
     }
     *p = raw;
   }
+}
+
+// q * scale, as scale_tile, over the n16 16-byte words of a tile at p
+// that lie in this thread's share (word tid, tid + threads, ...). The
+// product is the same wherever the swizzle put a word, so a whole tile
+// or a run of tiles is scaled without knowing its layout.
+template <typename T>
+__device__ __forceinline__ void scale_words(unsigned char* p, int n16,
+                                            int tid, int threads,
+                                            float scale) {
+  for (int idx = tid; idx < n16; idx += threads) {
+    uint4* w = reinterpret_cast<uint4*>(p) + idx;
+    uint4 raw = *w;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (std::is_same<T, bf16>::value) {
+        e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+      } else {
+        e[j] = __float2half(__half2float(e[j]) * scale);
+      }
+    }
+    *w = raw;
+  }
+}
+
+// mbarriers (PTX ISA "mbarrier"): a ring slot's "full" barrier completes
+// a phase when the tensor copies into it have landed (one arrival, the
+// producer's expect_tx, and the bytes the copies report), its "empty"
+// barrier when its readers have let it go. A waiter names the phase by
+// its parity, so it must never run more than one phase ahead.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// One arrival that also expects `bytes` more of copies before the phase
+// completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// A wait that outlasts any tile by orders of magnitude is a fault of the
+// ring: it traps, so the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+// Named barriers over `threads` threads (a multiple of 32): bar_sync
+// waits for them all; bar_arrive counts this warp in and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One TMA box of a 4-D tensor map (coordinates innermost first) into
+// shared memory at dst; the bytes are reported to the mbarrier bar.
+// Box elements past the tensor's bounds land as zeros and are not read.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
 }
 
 }  // namespace

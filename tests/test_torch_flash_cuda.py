@@ -24,13 +24,17 @@ tolerance, write fp32, repeat bit for bit, count apart from the bf16
 forms, and round to exactly the bf16 forms' outputs.
 
 The fp16 forms (fp16 and fp32 outputs) and the fp32 forms, and
-every form at head dims {8, 16, 48, 80, 112, 160, 192, 256, 264, 512}
-(8 padded to 16 by the wrapper; 160-256 stored 256 wide, in two column
-chunks; 264 padded to 384 and 512 on the ``_wide`` kernels), are
+every form at head dims {8, 16, 48, 80, 112, 160, 192, 256, 264, 512,
+640, 1152} (8 padded to 16 by the wrapper; 160-256 stored 256 wide, in
+two column chunks; 264 padded to 384, 512, 640 and 1152 on the
+``_wide`` kernels: the 16-bit forward holds Q and computes S once per
+q tile up to 512, and above it once per group of four output chunks,
+with Q streamed), are
 held to their plain versions causal and not, with ragged sq != sk:
 fp16 5e-3 of max |plain| (lse 1e-3 absolute), fp32 2e-5 of max |plain|
 on O and lse, 1e-4 on dQ, dK and dV; each repeats bit for bit, and the
-fp16 form's fp32 outputs round to the fp16 form's bits.
+fp16 form's fp32 outputs round to the fp16 form's bits (at head dims 64,
+256 and 512, as the bf16 form's do at 96, 128 and 512).
 """
 
 import pytest
@@ -193,7 +197,13 @@ def test_fp32_forms_match_plain(cuda_kernels, bh, s, d, causal):
         assert _rel(got, ref) <= 2e-2
 
 
-@pytest.mark.parametrize("d", [96, 128])
+def _keys(d, **launched):
+    """_counts with each key under its ``_wide`` name above head dim 256."""
+    wide = "_wide" if d > fa.HEAD_DIMS[-1] else ""
+    return _counts(**{name + wide: n for name, n in launched.items()})
+
+
+@pytest.mark.parametrize("d", [96, 128, 512])
 def test_fp32_forms_round_to_the_bf16_forms(cuda_kernels, d):
     """The two epilogues differ only in the store: the fp32 values,
     rounded to bf16, are the bf16 form's bits; the forms count apart."""
@@ -217,8 +227,8 @@ def test_fp32_forms_round_to_the_bf16_forms(cuda_kernels, d):
         assert torch.equal(a, b)
     for a, b in zip(f32, bf):
         assert torch.equal(a.to(b.dtype), b)
-    assert fa.launch_counts() == _counts(
-        flash_fwd=1, flash_dkv=1, flash_dq=1, flash_fwd_f32=2,
+    assert fa.launch_counts() == _keys(
+        d, flash_fwd=1, flash_dkv=1, flash_dq=1, flash_fwd_f32=2,
         flash_dkv_f32=2, flash_dq_f32=2)
 
 
@@ -237,7 +247,7 @@ FORMS = {
     "f16_f32": (torch.float16, torch.float32, 5e-3, 5e-3, 1e-3, False),
     "fp32": (torch.float32, None, 2e-5, 1e-4, 2e-5, True),
 }
-WIDE_DIMS = (8, 16, 48, 80, 112, 160, 192, 256, 264, 512)
+WIDE_DIMS = (8, 16, 48, 80, 112, 160, 192, 256, 264, 512, 640, 1152)
 
 
 @pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200),
@@ -280,7 +290,7 @@ def test_every_form_and_head_dim_matches_plain(cuda_kernels, form, d,
         assert _rel(got, ref) <= gtol
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 256, 512])
 def test_fp16_fp32_outputs_round_to_the_fp16_forms(cuda_kernels, d):
     g = torch.Generator(device="cuda").manual_seed(d)
     q, k, v, do = (torch.randn(2, 300, d, generator=g, device="cuda")
@@ -299,6 +309,6 @@ def test_fp16_fp32_outputs_round_to_the_fp16_forms(cuda_kernels, d):
     torch.cuda.synchronize()
     for a, b in zip(f, h):
         assert torch.equal(a.to(b.dtype), b)
-    assert fa.launch_counts() == _counts(
-        flash_fwd_f16=1, flash_dkv_f16=1, flash_dq_f16=1,
+    assert fa.launch_counts() == _keys(
+        d, flash_fwd_f16=1, flash_dkv_f16=1, flash_dq_f16=1,
         flash_fwd_f16_f32=1, flash_dkv_f16_f32=1, flash_dq_f16_f32=1)
