@@ -54,7 +54,9 @@ and prints no result line):
    comparison;
 9. probes P1-P3: every probe kernel (copy, +1 map, stats-like reduce,
    the flash ablation's stream / matmul / nosoft) against its plain
-   version at small shapes; then the three probe scripts'
+   version at small shapes (copy and +1 also on special values: +-0,
+   +-inf, NaN payloads, subnormals, +-bf16 max); then the three probe
+   scripts'
    measurements at full size (P1's copy sweep over 411 MB, P2's sweep
    at [802816, 256], P3's four variants at the flagship shape, causal,
    64-row tiles), with every probe kernel launched at least once in
@@ -1134,14 +1136,16 @@ def randn_bf16(seed, *shape):
 
 def probe_phase(pr, shape_probe, mem_probe, ablate_probe, k1_ms):
     """Phase 9; returns (rows, launches of the probe scripts' run)."""
-    log("probe kernels P1-P3 vs plain (tolerance: copy and +1 exact; "
+    log("probe kernels P1-P3 vs plain (tolerance: copy bit for bit, +1 the "
+        "plain bits, NaN for NaN, through int16 views; "
         f"stats-like {px.SUM_TOL} of sum |terms|, repeats bit-identical; "
         f"ablation stream 1 bf16 ulp, matmul/nosoft rel {px.REL_TOL}):")
     for seed, (m, c, bm) in enumerate(((4096, 256, 512), (1024, 2048, 8),
                                        (128, 512, 32))):
-        x = randn_bf16(seed, m, c) * 8
-        px.check_copy(x, bm)
-        px.check_addone(x, bm)
+        for x in (randn_bf16(seed, m, c) * 8,
+                  px.special_bf16(m, c, seed, device="cuda")):
+            px.check_copy(x, bm)
+            px.check_addone(x, bm)
     for seed, (m, c, bm) in enumerate(((512, 256, 16), (512, 256, 64),
                                        (8192, 264, 1024))):
         px.check_stats_like(randn_bf16(10 + seed, m, c) + 0.5, bm)
@@ -1154,7 +1158,8 @@ def probe_phase(pr, shape_probe, mem_probe, ablate_probe, k1_ms):
                                for i in range(3))
                     unit = px.check_ablate(q, k, v, mode, causal, tile)[1]
                     worst[mode] = max(worst.get(mode, 0.0), unit)
-    log(f"  small shapes: copy and +1 exact at 3 shapes, stats-like at 3; "
+    log(f"  small shapes: copy and +1 bit for bit at 3 shapes on N(0, 64) "
+        f"and on special values, stats-like at 3; "
         f"ablation over causal x D {{64, 128}} x tiles {pr.CUDA_TILES}: "
         f"worst stream {worst['stream']:.3f} ulp, matmul rel "
         f"{worst['matmul']:.2e}, nosoft rel {worst['nosoft']:.2e}")

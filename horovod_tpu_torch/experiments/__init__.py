@@ -4,7 +4,9 @@
     python -m horovod_tpu_torch.experiments.mem_probe            # P2
     python -m horovod_tpu_torch.experiments.flash_ablate_probe   # P3
 
-They are the counterparts of the Pallas probes under ``experiments/`` and
+``probe_turns --other TREE`` runs P1 and P2 of this checkout and another
+in turns; ``probe_split`` times the copy and +1 kernel's variants. The
+probes are the counterparts of the Pallas probes under ``experiments/`` and
 run the probe kernels of ``horovod_tpu_torch.ops.probes``. Times are
 CUDA events around many back-to-back launches after a warm-up
 (``time_ms``; ``single_ms`` times single calls instead); bounds
@@ -13,11 +15,13 @@ card's ``nvidia-smi`` name and power limit first. Without a card they
 exit with an error: a measurement never falls back to the CPU.
 
 The ``check_*`` functions hold a probe kernel to its plain version on
-the card and raise past the tolerance: copy and +1 exact; stats-like
-within 1e-4 of sum |terms| per channel, two calls bit-identical; the
-flash ablation's stream within 1 bf16 ulp (the same fp32 adds in the
-same order), matmul and nosoft within 1e-2 of max |plain| (fp32 sums in
-another order, then one bf16 rounding).
+the card and raise past the tolerance: copy bit for bit and +1 to the
+plain version's bits (a NaN in gives a NaN out), both compared through
+``int16`` views (``special_bf16`` makes inputs with every special
+value); stats-like within 1e-4 of sum |terms| per channel, two calls
+bit-identical; the flash ablation's stream within 1 bf16 ulp (the same
+fp32 adds in the same order), matmul and nosoft within 1e-2 of max
+|plain| (fp32 sums in another order, then one bf16 rounding).
 """
 
 from __future__ import annotations
@@ -106,17 +110,61 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
+# bf16 bit patterns the map probes must carry: +-0, +-inf, NaNs with
+# payloads (quiet and signalling, both signs), subnormals, the smallest
+# normal, +-bf16 max, +-1, and values whose +1 is a tie (2^-8) or just
+# past one.
+SPECIAL_BF16 = (0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0, 0xFFC0, 0x7F81,
+                0xFFA5, 0x7FFF, 0x0001, 0x8001, 0x007F, 0x807F, 0x0080,
+                0x7F7F, 0xFF7F, 0x3F80, 0xBF80, 0x3B80, 0xBB80, 0x3B81,
+                0x3C00)
+
+
+def special_bf16(m: int, c: int, seed: int = 0,
+                 device="cpu") -> torch.Tensor:
+    """[m, c] bf16 of N(0, 8) values with the SPECIAL_BF16 patterns at a
+    seeded random half of the places; the first len(SPECIAL_BF16) places
+    hold each pattern once. Drawn on the CPU, so every device gets the
+    same bits."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(m * c, generator=gen) * 8).to(torch.bfloat16)
+    bits = x.view(torch.int16)
+    pats = torch.tensor([p - 65536 if p >= 32768 else p
+                         for p in SPECIAL_BF16], dtype=torch.int16)
+    pick = torch.randint(len(pats), (m * c,), generator=gen)
+    put = torch.rand(m * c, generator=gen) < 0.5
+    bits[put] = pats[pick[put]]
+    n = min(len(pats), m * c)
+    bits[:n] = pats[:n]
+    return x.view(m, c).to(device)
+
+
+def copy_matches(got, x2) -> bool:
+    """The copy: x's bits."""
+    return torch.equal(got.view(torch.int16), x2.view(torch.int16))
+
+
+def addone_matches(got, want, x2) -> bool:
+    """+1 against the plain version ``want``: the same bits, except that a
+    NaN in gives a NaN out, whatever its payload."""
+    nan = torch.isnan(x2)
+    return (torch.equal(torch.isnan(got), nan) and
+            torch.equal(got.view(torch.int16)[~nan],
+                        want.view(torch.int16)[~nan]))
+
+
 def check_copy(x2, bm) -> float:
-    if not torch.equal(probes.copy_cuda(x2, bm), x2):
-        raise AssertionError(f"probe copy {tuple(x2.shape)} bm={bm}: not x")
+    if not copy_matches(probes.copy_cuda(x2, bm), x2):
+        raise AssertionError(f"probe copy {tuple(x2.shape)} bm={bm}: not "
+                             "x's bits")
     return 0.0
 
 
 def check_addone(x2, bm) -> float:
-    if not torch.equal(probes.addone_cuda(x2, bm),
-                       probes.addone_reference(x2)):
+    if not addone_matches(probes.addone_cuda(x2, bm),
+                          probes.addone_reference(x2), x2):
         raise AssertionError(f"probe addone {tuple(x2.shape)} bm={bm}: not "
-                             "x + 1")
+                             "the bits of x + 1")
     return 0.0
 
 

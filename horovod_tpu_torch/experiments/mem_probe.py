@@ -5,7 +5,7 @@ kernels' shape, over row tiles.
 
 Counterpart of ``experiments/pallas_mem_probe.py``: ``[802816, 256]``
 bf16 (411 MB, the stage-1 activation of ResNet-50 at batch 256) through
-the probe kernels, one ``(bm, 256)`` row tile per CTA: the copy at bm in
+the probe kernels in ``(bm, 256)`` row tiles: the copy at bm in
 {256, 512, 1024, 2048} (2 passes: read + write), the stats-like reduce
 (one fp32 [1, 256] vector, sum(x) + sum(x^2); 1 pass) and the +1 map (2
 passes) at bm in {512, 1024, 2048}, beside ``torch.add(x, 1)`` and

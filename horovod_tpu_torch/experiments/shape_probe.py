@@ -4,7 +4,7 @@
 
 Counterpart of ``experiments/pallas_shape_probe.py``: the same 411 MB of
 bf16 (802816 x 256 elements) viewed as ``[TOTAL / c2, c2]`` and copied
-by the probe copy kernel one ``(bm, c2)`` tile per CTA, over the same
+by the probe copy kernel in ``(bm, c2)`` tiles, over the same
 ``(c2, bm)`` cases, beside ``torch.add(x, 1)`` and ``y.copy_(x)`` as
 yardsticks. Prints ms, GB/s (bytes read + written) and the share of the
 3.35 TB/s bound for each case.

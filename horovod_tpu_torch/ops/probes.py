@@ -5,7 +5,7 @@ versions.
 Counterparts of the three Pallas probes under ``experiments/``:
 
 - P1, ``pallas_shape_probe.py::make_copy``: ``tile_copy`` copies a
-  row-major ``[M, C]`` matrix one ``(bm, C)`` row tile per CTA;
+  row-major ``[M, C]`` matrix by ``(bm, C)`` row tiles;
 - P2, ``pallas_mem_probe.py::make_pallas_map``: ``tile_copy`` (its
   ``copy_kernel``), ``tile_addone`` (``addone_kernel``, y = x + 1 in
   bf16) and ``stats_like`` (``stats_like_kernel``: one fp32 ``[1, C]``
@@ -18,6 +18,11 @@ Counterparts of the three Pallas probes under ``experiments/``:
   ``kj*block_k <= (qi+1)*block_q - 1``) and masking nothing inside one;
   the output is bf16(acc). Its ``full`` variant is the flash forward
   kernel itself (``flash_attention.flash_fwd_cuda``).
+
+The copy and +1 kernels stream whole row tiles through a ring of
+shared-memory stages on persistent CTAs; ``map_grid`` and
+``map_schedule`` mirror which CTA takes which tile and what each stage
+moves, for the tests.
 
 Dispatch is by device: CPU tensors take the plain version, CUDA tensors
 launch the kernel or raise. Every entry point refuses what the probes
@@ -35,6 +40,11 @@ from ._build import library, ptr, raise_on, stream
 MODES = ("stream", "matmul", "nosoft")
 CUDA_TILES = (64, 128)     # square tiles of the ablation kernel
 _HEAD_DIMS = (64, 128)
+
+# The map kernels' ring, as ``csrc/probes.cu`` sets it (a test reads the
+# source): stage bytes, CTAs an SM may hold at most.
+STAGE_BYTES = 16384
+MAX_CTAS_PER_SM = 2
 
 _launches = {"probe_copy": 0, "probe_addone": 0, "probe_stats_like": 0,
              **{f"flash_ablate_{m}": 0 for m in MODES}}
@@ -102,6 +112,33 @@ def ablate_reference(q, k, v, mode: str, causal: bool, block_q: int,
 
 
 # --------------------------------------------------------------------------
+# The map kernels' work partition
+# --------------------------------------------------------------------------
+
+def map_grid(tiles: int, sms: int, per_sm: int) -> int:
+    """The persistent CTAs of a map launch: one per tile, at most
+    ``per_sm`` (capped at MAX_CTAS_PER_SM) on each of ``sms`` SMs."""
+    return min(tiles, sms * min(per_sm, MAX_CTAS_PER_SM))
+
+
+def map_schedule(m: int, c: int, bm: int, grid: int) -> list:
+    """What each CTA of a map launch moves, in its order: for CTA b, a
+    list of (tile, byte offset in x and y, bytes) stages. CTA b takes
+    tiles b, b + grid, ...; each tile is cut into STAGE_BYTES stages from
+    its first byte, the last one short."""
+    tile_bytes = bm * c * 2
+    out = []
+    for b in range(grid):
+        stages = []
+        for tile in range(b, m // bm, grid):
+            for off in range(0, tile_bytes, STAGE_BYTES):
+                stages.append((tile, tile * tile_bytes + off,
+                               min(STAGE_BYTES, tile_bytes - off)))
+        out.append(stages)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Argument checks (every device) and kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -163,7 +200,8 @@ def _map_cuda(name, x2, bm, addone):
 
 
 def copy_cuda(x2: torch.Tensor, bm: int) -> torch.Tensor:
-    """P1 / P2 copy kernel, one CTA per (bm, C) row tile."""
+    """P1 / P2 copy kernel: (bm, C) row tiles, each streamed whole by one
+    persistent CTA."""
     return _map_cuda("probe_copy", x2, bm, False)
 
 

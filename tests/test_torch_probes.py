@@ -118,6 +118,41 @@ def test_p2_stats_like_matches_jax(bm):
     assert float(((got - want).abs() / mag).max()) <= 1e-4
 
 
+def _bits_to_jax(x):
+    """A bf16 torch tensor as a bf16 JAX array with the same bits."""
+    return jnp.asarray(x.view(torch.int16).numpy()).view(jnp.bfloat16)
+
+
+def _bits_from_jax(a):
+    return torch.from_numpy(np.array(a.view(jnp.int16))).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("probe", ["p1_copy", "p2_copy", "p2_addone"])
+def test_map_special_values_match_jax_as_bits(probe):
+    """The plain copy and +1 against the Pallas probes, interpreted, on
+    +-0, +-inf, NaNs with payloads, subnormals, +-bf16 max and +1's ties,
+    compared as bits. The interpreter quiets a NaN's payload even in a
+    copy (0x7F81 comes out 0x7FC0; its sign stays), so there a NaN in
+    must give a NaN out; every other value keeps its bits, and the plain
+    copy keeps even the payloads."""
+    from horovod_tpu_torch.experiments import (addone_matches,
+                                               copy_matches, special_bf16)
+    x = special_bf16(64, 256, seed=5)
+    if probe == "p1_copy":
+        want = _bits_from_jax(_jax_copy(_bits_to_jax(x), 256, 16))
+        got = probes.tile_copy(x, 16)
+    else:
+        kernel = (mem_probe.copy_kernel if probe == "p2_copy"
+                  else mem_probe.addone_kernel)
+        want = _bits_from_jax(_jax_map(kernel, _bits_to_jax(x), 16))
+        got = (probes.tile_copy if probe == "p2_copy"
+               else probes.tile_addone)(x, 16)
+    assert int(torch.isnan(x).sum()) > 0
+    assert addone_matches(got, want, x)
+    if probe != "p2_addone":
+        assert copy_matches(got, x)
+
+
 # ---------------------------------------------------------------- P3
 
 def _jax_ablate(q, k, v, mode, causal, bq, bk):

@@ -5,8 +5,9 @@ On a machine with one (the repo's conftest imports JAX, so leave it out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_probes_cuda.py
 
-Tolerances: copy and addone exact; stats-like within 1e-4 of sum |terms|
-per channel, and two calls bit-identical; the flash ablation's stream
+Tolerances: copy bit for bit, addone the plain version's bits (a NaN in
+gives a NaN out), also on special values; stats-like within 1e-4 of sum
+|terms| per channel, and two calls bit-identical; the flash ablation's stream
 within 1 bf16 ulp, matmul and nosoft within 1e-2 of max |plain| (fp32
 sums in another order, then one bf16 rounding), and the non-causal
 matmul within 1e-2 of the library chain bmm(bmm(q, k^T), v).
@@ -15,7 +16,8 @@ matmul within 1e-2 of the library chain bmm(bmm(q, k^T), v).
 import pytest
 import torch
 
-from horovod_tpu_torch.experiments import bf16_ulp
+from horovod_tpu_torch.experiments import (addone_matches, bf16_ulp,
+                                           copy_matches, special_bf16)
 from horovod_tpu_torch.ops import probes
 
 pytestmark = pytest.mark.cuda
@@ -36,12 +38,38 @@ def _randn(seed, *shape):
                        dtype=torch.bfloat16)
 
 
-@pytest.mark.parametrize("m,c,bm", [(4096, 256, 512), (1024, 2048, 8),
-                                    (2048, 64, 2048), (96, 8, 32)])
+# The map kernel's edges (16 KB ring stages, 132 SMs, one CTA an SM):
+# one tile; a tile below one stage (512 B) and one of 1.29 stages;
+# 8 and 100 tiles (fewer than the SMs), 128, and 8192 (many times more);
+# a 4.26 MB tile.
+MAP_SHAPES = [(4096, 256, 512), (1024, 2048, 8), (2048, 64, 2048),
+              (96, 8, 32), (512, 256, 512), (12000, 264, 40),
+              (6400, 512, 64), (65536, 64, 8), (3120, 2048, 1040)]
+
+
+@pytest.mark.parametrize("m,c,bm", MAP_SHAPES)
 def test_copy_and_addone_are_exact(cuda_kernels, m, c, bm):
     x = _randn(m + c, m, c) * 8
     assert torch.equal(probes.copy_cuda(x, bm), x)
     assert torch.equal(probes.addone_cuda(x, bm), probes.addone_reference(x))
+
+
+@pytest.mark.parametrize("m,c,bm", MAP_SHAPES)
+def test_map_carries_special_values(cuda_kernels, m, c, bm):
+    """Copy: x's bits through an int16 view (+-0, +-inf, NaN payloads,
+    subnormals, +-bf16 max). +1: the plain version's bits, except that a
+    NaN in gives a NaN out."""
+    x = special_bf16(m, c, seed=m + bm, device="cuda")
+    assert copy_matches(probes.copy_cuda(x, bm), x)
+    assert addone_matches(probes.addone_cuda(x, bm),
+                          probes.addone_reference(x), x)
+
+
+def test_map_repeats_bit_for_bit(cuda_kernels):
+    x = special_bf16(6400, 512, seed=1, device="cuda")
+    for fn in (probes.copy_cuda, probes.addone_cuda):
+        a, b = fn(x, 64), fn(x, 64)
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("m,c,bm", [(8192, 256, 1024), (4096, 256, 16),
