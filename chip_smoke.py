@@ -339,12 +339,17 @@ operand dtype's own form at D=256 (B=8, H=3, S=2048), logged.
 Phase 3c, after 3b: every form of K1-K3 at head dims 272, 320, 384, 512
 and 640 (the ``_wide`` kernels: D zero-padded to a multiple of 128; the
 16-bit forward computes S once per q tile up to 512 and once per group
-of four output chunks above), causal and not, ragged, at 3b's
+of four output chunks above, the 16-bit dQ kernel S and dP once per
+tile pair up to 512, the dK/dV kernel at 512 S^T and dP^T once per pair
+of output chunks), causal and not, ragged, at 3b's
 tolerances and repeat-exact; then every form timed at B=8, H=3, S=2048,
 D=512 beside its plain version and, for the forms with the operands'
 own outputs, SDPA (the ``kernels`` rows ``<kernel>_wide``: the flash
 wrappers count the kernels above head dim 256 under those keys, and no
-main path launches one).
+main path launches one); and the 16-bit forms timed at D=384, where the
+dK/dV kernel runs its one-chunk-a-CTA form, as every head dim above 256
+but 512 does (rows ``flash_dkv<form>_chunk_wide``, launches read from
+the same ``_wide`` key).
 
 The card's ``nvidia-smi`` name and power limit are printed on a line of
 their own after phase 1, and the run's seconds before the last lines. The line before the last is ``{"kernels":
@@ -2494,15 +2499,18 @@ def flash_forms_phase(fa):
 
 WIDE_DIMS = (272, 320, 384, 512, 640)
 WIDE_TIMED = (8, 3, 2048, 512)    # B, H, S, D of the timed wide forms
+WIDE_CHUNK_D = 384    # D at which K2's one-chunk form is timed as well
 
 
 def wide_forms_phase(fa):
     """Phase 3c: every form of K1-K3 at head dims above 256 (the _wide
     kernels, D zero-padded to a multiple of 128) against its plain
     version, causal and not, ragged, repeat-exact; then every form timed
-    at D=512 (the fp32-output forms of the 16-bit operands too). Returns
-    those rows of the ``kernels`` line, named by the kernels' launch keys
-    ``<kernel>_wide``."""
+    at D=512 (the fp32-output forms of the 16-bit operands too), and the
+    16-bit forms at D=384, where K2 runs its one-chunk form (every _wide
+    head dim but 512). Returns those rows of the ``kernels`` line, named
+    by the kernels' launch keys ``<kernel>_wide``, K2's one-chunk form
+    ``<kernel>_chunk_wide``."""
     log(f"flash forms vs plain at head dims {WIDE_DIMS} x (causal, sq, sk) "
         f"{SWEEP_SHAPES}, phase 3b's tolerances:")
     t0 = time.perf_counter()
@@ -2526,6 +2534,13 @@ def wide_forms_phase(fa):
     for sfx in ("", "_f16", "_fp32", "_f32", "_f16_f32"):
         rows.update({f"{name}_wide": row for name, row in
                      time_form(fa, sfx, b, h, s, d).items()})
+    log(f"the 16-bit forms at D={WIDE_CHUNK_D} (B={b}, H={h}, S={s}, "
+        "causal), where K2 runs its one-chunk form (rows "
+        "<kernel>_chunk_wide):")
+    for sfx in ("", "_f16", "_f32", "_f16_f32"):
+        dkv = form_names(sfx)[1]
+        rows[f"{dkv}_chunk_wide"] = time_form(fa, sfx, b, h, s,
+                                              WIDE_CHUNK_D)[dkv]
     return rows
 
 
@@ -2731,8 +2746,16 @@ def engine_remainder_phase(hvd, tfm, fa, fbn, build_train_step, lm_losses,
 
 def base_of(name):
     """A row's kernel form: ``flash_fwd_f16_wide`` (phase 3c's kernel
-    above head dim 256) is ``flash_fwd_f16``."""
-    return name.removesuffix("_wide")
+    above head dim 256) and ``flash_dkv_f16_chunk_wide`` (K2's one-chunk
+    form there) are ``flash_fwd_f16`` and ``flash_dkv_f16``."""
+    return name.removesuffix("_wide").removesuffix("_chunk")
+
+
+def launch_key(name):
+    """The launch count a row reads: K2's one-chunk form counts under
+    its form's ``_wide`` key, as the wrapper launches both K2 bodies
+    above head dim 256 under it."""
+    return name.replace("_chunk_wide", "_wide")
 
 
 # ---------------------------------------------------------------------------
@@ -5002,7 +5025,7 @@ def main(argv=None) -> int:
 
     kernels = [dict(name=name, route="cuda", source=source_of(name),
                     replaces=REPLACES[base_of(name)],
-                    launches=launches[name],
+                    launches=launches[launch_key(name)],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -71,7 +71,7 @@ EXP2 = """        float p = exp2f(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
       }
     }
     uint32_t pa[kFwdWideKeys / 16][4];"""
-BOX = "const cuuint32_t box[4] = {64, 64, 2, 1}"
+BOX = "const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 2, 1};"
 EXPECT_K = """    const uint32_t full = k_full + 8 * s, dst = k_slots + s * kChunkTile;
     mbar_expect_tx(full, kChunkTile);"""
 EXPECT_V = """    const uint32_t full = v_full + 8 * s;

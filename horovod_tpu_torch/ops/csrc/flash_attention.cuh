@@ -780,21 +780,6 @@ flash_dq_body(const InT* __restrict__ q, const InT* __restrict__ k,
 // d is a runtime multiple of 128 (the wrapper zero-pads any other head
 // dim above 256 to one) and nc = d / 128 its chunks.
 //
-// K2 and K3 (flash_dkv_wide_body, flash_dq_wide_body). Each CTA owns one
-// 128-column chunk c = blockIdx.z of its output (dK and dV, or dQ), as
-// the 256-wide tiles above do. The products that sum over d (Q K^T and
-// dO V^T) stream d through the ring one 128-column k-chunk at a time and
-// accumulate S and dP in registers across the chunks, so a stage holds
-// what a D = 128 tile holds whatever d is. One ring item is one k-chunk
-// of one streamed tile: the owned rows' chunk (K and V, or Qs and dO)
-// beside the streamed rows' chunk, re-read from L2 for every streamed
-// tile. They visit the chunks from c + 1 round to c, so the last item of
-// a tile holds the chunk c operand of the RS product (dO and Qs in K2, K
-// in K3) and no extra load is needed. Three stages, one item ahead in
-// flight; every product retires in the item that issued it. The work
-// grows as nc: each CTA recomputes S and dP over the whole d. A correct
-// first form, not a tuned one.
-//
 // K1 (flash_fwd_wide_body). One CTA owns 64 q rows and up to G = 4
 // output chunks (512 columns; the CTAs of a row tile split nc into
 // ceil(nc / G) groups). Its 256 threads are two warpgroups, each the
@@ -873,18 +858,135 @@ flash_dq_body(const InT* __restrict__ q, const InT* __restrict__ k,
 // times, and Q no longer fits beside the rings: its chunks ride the K
 // rings (four slots each), re-read from L2 every key tile and scaled by
 // the warpgroup that reads them behind a barrier of that warpgroup.
+//
+// K2 and K3 (flash_bwd_wide_body, as flash_dkv_wide_body and
+// flash_dq_wide_body). A CTA of 256 threads owns 64 rows (K3: q rows, K2:
+// key rows) and a group of output chunks: K3 up to G = 4 chunks of dQ,
+// warpgroup w those of its own parity (c0 + w, c0 + w + 2: two 64 x 128
+// fp32 accumulators, 128 registers a thread); K2 a pair, warpgroup w
+// chunk c0 + w of dK and of dV (128 registers). (A pair is what the
+// register file allows: dK and dV of 64 rows at d = 512 would take all
+// 65,536 registers of an SM.) The other side streams in tiles of 32 rows
+// (K3: the keys up to the diagonal; K2: the q rows from it on):
+//   - per streamed tile, warpgroup w computes its partials of S and dP
+//     (K2: S^T = K Qs^T and dP^T = V dO^T) over its parity chunks, one SS
+//     m64n32k16 batch a chunk: the own rows' chunk is A, the tile's chunk
+//     B, both K-major. The partials meet as K1's do (below); then P =
+//     exp2(S log2 e - lse log2 e), masked to 0 on the tiles that cross the
+//     diagonal or a sequence's end, and dS = P (dP - delta), each rounded
+//     to the operand type as an RS A fragment: K3 dQ_o += dS K_o over its
+//     owned chunks o, K2 dV_o += P^T dO_o, then dK_o += dS^T Qs_o, the
+//     tile's chunk read MN-major from the slot its partial read K-major;
+//   - so K3 computes S and dP once per (q tile, key tile) pair up to nc =
+//     4 (one group), ceil(nc / 4) times above; K2 computes S^T and dP^T
+//     once per pair of output chunks, ceil(nc / 2) times. The launcher
+//     runs this K2 at nc = 4 only, and refuses it at any other nc (above
+//     4 nothing is resident, which its RS products read): at nc = 3 and 5
+//     it took longer than K2's one-chunk form (flash_dkv_chunk_body,
+//     below), which serves every other nc (PERF.md §6;
+//     experiments/wide_bwd_split.py, cut k2_wide_everywhere);
+//   - up to nc = 4 the own rows' operands are resident (K3: Qs, scaled
+//     once in shared memory by all 256 threads, and dO; K2: K and V), 16
+//     KB a chunk, landed by one TMA barrier. Each warpgroup has two rings
+//     of [32, 128] slots (8 KB): ring 0 the tile's chunks of the operand
+//     its RS product reads (K3: K; K2: Qs, which the warpgroup scales as
+//     it lands, then a named barrier of the warpgroup) and ring 1 the
+//     other's (K3: V; K2: dO), its parity chunks in order, K2's owned one
+//     last. A slot an RS product reads goes when that product retires,
+//     the others when their partial's batch does. Above nc = 4 (K3 only)
+//     nothing is resident: the own rows' chunk of a partial rides the ring
+//     just before the tile's (16 KB slots; Qs chunks are scaled as they
+//     land), every slot goes when its batch retires, and the K chunks the
+//     dQ product reads are loaded once more after the partials';
+//   - thread 0 of each warpgroup fills its rings' first slots and refills
+//     a slot with the item a ring's length later as soon as the four
+//     warps have let it go; every ring has one reader, which waits on each
+//     slot in order. With the operands resident one batch stays in flight
+//     (wgmma_wait<1>) and a batch's slots go once the next batch has
+//     issued; above nc = 4 each batch is waited for (a ring's three slots
+//     cannot hold two batches' four). Within a tile a warpgroup issues
+//     the RS products of the tile in hand, then the next tile's partials:
+//     K3 the dP chunks first, since the K slots that S reads come free
+//     only when the dQ product retires, so dP covers their copies; K2 S^T
+//     then dP^T chunk by chunk, the owned chunk last for the same reason.
+//     Every batch retires in the loop iteration that issued it. No
+//     __syncthreads after the set-up;
+//   - exchanged per tile: each warpgroup stores its partial S and dP (8
+//     float4 a thread, 2 x 8 KB), one named barrier (id 1) orders the
+//     stores before the other's loads, and a bar.arrive (ids 2, 3) frees
+//     the buffer for the next tile, as in K1. K2 stages the q tile's lse
+//     (times log2 e) and delta in shared memory before the exchange
+//     (threads 0-63, a buffer per tile parity); K3 holds its rows' in
+//     registers;
+//   - block x runs the heads fastest, then the 64-row tiles heaviest
+//     causal first (K3 the last q tiles, K2 the first key tiles), then
+//     the groups.
+// Arithmetic at the timed shape (B=8, H=3, S=2048, D=512, causal):
+//   - bound: K2 4 causal products = 206 GFLOP = 0.2086 ms, K3 3 = 155
+//     GFLOP = 0.1564 ms at 989 TFLOP/s, against 0.06-0.09 ms of bytes at
+//     3.35 TB/s: compute-bound. Tensor work (at the 32-row granularity of
+//     the causal tiles, 3% over the triangle): K3 the bound's 3 full-d
+//     products (before: 9 at nc = 4), K2 2 x 2 + 2 = 6, 1.5x the bound's
+//     (before: 10);
+//   - L2 to SM: K3 25,344 (q tile, 32-key tile) pairs x 64 KB of K and V
+//     = 1.66 GB, plus Qs and dO once, 0.10 GB; K2 2 groups x 25,344 x 64
+//     KB of Qs and dO = 3.32 GB, plus K and V once a group, 0.20 GB (13.3
+//     GB each before);
+//   - shared memory at nc = 4: the resident 128 KB + the partials 32 KB +
+//     2 warpgroups x 2 rings x 2 slots x 8 KB = 64 KB + lse and delta 512
+//     B + 136 B of mbarriers + 1 KB of alignment = 231,048 B of 232,448:
+//     one CTA an SM (nc = 3: 96 KB resident and 3 slots a ring; above 4:
+//     3 slots of 16 KB a ring);
+//   - registers: at most 255 a thread (256 threads): K3 dQ 2 x 64, S 16,
+//     dP 16, dS 8; K2 dK 64, dV 64, S^T 16, dP^T 16, P^T 8, dS^T 8; the
+//     rest addresses, ring cursors, masks;
+//   - shared-memory traffic a 32-row tile (K3; K2 alike): the partials'
+//     SS batches read 192 KB (each 64-row A chunk again for every 32-row
+//     B), the RS products 32 KB, TMA writes 64 KB, the exchange 64 KB:
+//     ~352 KB, ~2,800 cycles at 128 B a cycle against ~1,540 cycles of
+//     tensor work at peak.
+// What binds it, measured at the timed shape on an H100 SXM at 700 W by
+// experiments/wide_bwd_split.py (ptxas: 243 and 245 registers, no
+// spills): K3 0.92 ms (17% of the bound; 2.42 before), K2 1.99 ms (10%;
+// 2.57 before). Not bytes: half the bytes through L2 saves 1-2%. The
+// rings alone (every product, the exchange and exp2 cut out) take 0.51
+// and 1.20 ms, most of it the loop's own barriers, mbarrier round trips,
+// wgmma commits and (K2) q-scale passes, paid per 32-row tile (the cut
+// no_copies), and one TMA round trip a tile where a ring holds a single
+// tile (K3's K slots wait for the dQ product, K2's owned Qs and dO slots
+// for dK and dV). Each product and the exchange add 0.05-0.2 ms on top,
+// in series: with the operands resident at nc = 4, 32-row tiles and
+// one-tile rings are what shared memory leaves, and the two warpgroups
+// meet at the exchange every tile.
+//
+// K2 at nc != 4 (flash_dkv_chunk_body, the first _wide form): one CTA of one
+// warpgroup owns 64 key rows and one 128-column chunk c = blockIdx.z of
+// dK and dV. The products that sum over d (K Qs^T and V dO^T) stream d
+// through a three-stage cp.async ring one k-chunk at a time (the owned
+// rows' chunk and the 64-row q tile's chunk of each operand, 64 KB an
+// item), so each CTA recomputes S^T and dP^T over the whole d: nc times
+// a pair. Its work grows as nc^2, the redesign's as ceil(nc / 2) times
+// a per-tile cost that hardly depends on nc, and only at nc = 4 did the
+// redesign come out ahead.
 
 constexpr int kWide = 128;         // columns of one chunk
-constexpr int kWideStages = 3;     // ring items (K2, K3)
-constexpr int kWideRows = 64;      // rows a K2/K3 CTA owns: one warpgroup
-constexpr int kWideThreads = 128;
 constexpr int kChunkTile = 64 * kWide * 2;  // a [64, 128] 16-bit chunk
+constexpr int kWideStages = 3;     // ring items (K2 at nc != 4)
+constexpr int kWideRows = 64;      // rows a K2 CTA owns at nc != 4
+constexpr int kWideThreads = 128;
 
 constexpr int kFwdWideRows = 64;       // q rows a _wide K1 CTA owns
 constexpr int kFwdWideKeys = 64;       // keys per key tile
 constexpr int kFwdWideGroup = 4;       // G: output chunks a CTA owns
 constexpr int kFwdWideThreads = 256;   // two warpgroups
 constexpr int kFwdWideX = 2 * 64 * 64 * 4;  // both partial S, fp32
+
+constexpr int kBwdWideRows = 64;       // rows a _wide K2/K3 CTA owns
+constexpr int kBwdWideCols = 32;       // rows of a streamed tile
+constexpr int kBwdWideThreads = 256;   // two warpgroups
+constexpr int kBwdHalfTile = kBwdWideCols * kWide * 2;  // a [32, 128] chunk
+constexpr int kBwdWideX = 2 * 2 * 64 * kBwdWideCols * 4;  // partial S, dP
+constexpr int kSmemPerBlock = 232448;  // an H100's most a CTA may take
 
 // Shared memory of a _wide K1 CTA, byte offsets from the aligned base:
 // the resident Q chunks, the two partial S, warpgroup 0's K then V ring
@@ -908,10 +1010,39 @@ struct FwdWideSmem {
   __host__ __device__ int bytes() const { return bars() + 256 + 1024; }
 };
 
-struct BwdWideSmem {                     // K2 and K3: four [64, 128] chunks
+struct BwdChunkSmem {                  // K2 at nc != 4: four [64, 128] chunks
   static constexpr int kStage = 4 * kChunkTile;
-  static constexpr int kStats = kWideStages * kStage;  // K2: lse, delta
+  static constexpr int kStats = kWideStages * kStage;  // lse, delta
   static constexpr int kBytes = kStats + kWideStages * 512 + 1024;
+};
+
+// Shared memory of a _wide K2/K3 CTA, byte offsets from the aligned base:
+// the resident chunks of X1 then X2 (up to nc = 4), the two warpgroups'
+// partial S and dP, warpgroup 0's rings 0 and 1 then warpgroup 1's, K2's
+// lse and delta, then the mbarriers: the resident operands' "full"; then
+// per warpgroup and ring its r "full" and r "empty" barriers. A ring
+// takes as many slots as the rest leaves: 2 at nc = 4, 3 at nc = 3 and
+// above nc = 4.
+struct BwdWideSmem {
+  int nr;    // resident chunks of each own-row operand: nc up to 4, else 0
+  int slot;  // bytes of a ring slot: a [32, 128] chunk, or [64, 128]
+  int r;     // slots of a ring
+  __host__ __device__ explicit BwdWideSmem(int nc)
+      : nr(nc <= 4 ? nc : 0),
+        slot(nc <= 4 ? kBwdHalfTile : kChunkTile),
+        r((kSmemPerBlock - 1024 - 512 - 8 - 2 * nr * kChunkTile - kBwdWideX) /
+          (4 * slot + 64)) {}
+  __host__ __device__ int x() const { return 2 * nr * kChunkTile; }
+  __host__ __device__ int ring(int w, int j) const {
+    return x() + kBwdWideX + (2 * w + j) * r * slot;
+  }
+  __host__ __device__ int stats() const { return ring(2, 0); }
+  __host__ __device__ int bars() const { return stats() + 512; }
+  // Ring j of warpgroup w's barriers, from bars(): r "full", r "empty".
+  __host__ __device__ int ring_bars(int w, int j) const {
+    return 8 + (2 * w + j) * 16 * r;
+  }
+  __host__ __device__ int bytes() const { return bars() + 8 + 64 * r + 1024; }
 };
 
 template <typename InT, typename OutT>
@@ -1245,13 +1376,13 @@ flash_fwd_wide_body(const void* tq, const void* tk, const void* tv,
 
 template <typename InT, typename OutT>
 __device__ __forceinline__ void
-flash_dkv_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
+flash_dkv_chunk_body(const InT* __restrict__ q, const InT* __restrict__ k,
                     const InT* __restrict__ v, const InT* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, OutT* __restrict__ dk,
                     OutT* __restrict__ dv, int sq, int sk, int d,
                     float qscale, int causal) {
-  using L = BwdWideSmem;
+  using L = BwdChunkSmem;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sRing = smem_u32(smem);
@@ -1416,145 +1547,467 @@ flash_dkv_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
   }
 }
 
-template <typename InT, typename OutT>
+// One ring of a _wide K2/K3 warpgroup (j 0 or 1, m items a tile): its
+// slots and barriers; the next slot to read and its phase; the next slot
+// to let go, its phase, and the item that refills it.
+struct BwdRing {
+  uint32_t slots, full, empty;
+  int j, m, items;
+  int rd, ph, rel, rel_ph, next;
+};
+
+template <bool DKV, typename InT, typename OutT>
 __device__ __forceinline__ void
-flash_dq_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
-                   const InT* __restrict__ v, const InT* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, OutT* __restrict__ dq,
-                   int sq, int sk, int d, float qscale, float scale,
-                   int causal) {
-  using L = BwdWideSmem;
+flash_bwd_wide_body(const void* tx1, const void* tx2, const void* ty1,
+                    const void* ty2, const float* __restrict__ lse,
+                    const float* __restrict__ delta, OutT* __restrict__ out1,
+                    OutT* __restrict__ out2, int n_bh, int sq, int sk, int d,
+                    float qscale, float scale, int causal) {
+  // X1, X2: the own rows' operands of S and dP (K3: Qs, dO; K2: K, V);
+  // Y1, Y2: the streamed tile's (K3: K, V; K2: Qs, dO). out1 is dQ (K3)
+  // or dK (K2), out2 dV.
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  const uint32_t sRing = smem_u32(smem);
+  const uint32_t base = smem_u32(smem);
+  const int nc = d / kWide;
+  const BwdWideSmem L(nc);
+  const uint32_t bars = base + L.bars();  // the resident operands' "full" first
+  constexpr int kG = DKV ? 2 : 4;         // output chunks a CTA owns
+  constexpr int kT = kBwdWideCols;        // rows of a streamed tile
 
-  const int nc = d / kWide, c = blockIdx.z;
-  const int bh = blockIdx.x;
-  // Heaviest (last) causal tiles first: they start while the grid fills.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideRows;
-  q += (size_t)bh * sq * d;
-  dout += (size_t)bh * sq * d;
-  dq += (size_t)bh * sq * d + c * kWide;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse2[2], del[2];  // lse in base 2, and delta, of this thread's rows
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse2[r] = row[r] < sq ? lse[row[r]] * kLog2e : 0.f;
-    del[r] = row[r] < sq ? delta[row[r]] : 0.f;
+  // Block x: the heads fastest, then the 64-row tiles, heaviest causal
+  // tile first, then the groups of kG output chunks.
+  int blk = blockIdx.x;
+  const int n_rt = ((DKV ? sk : sq) + kBwdWideRows - 1) / kBwdWideRows;
+  const int bh = blk % n_bh;
+  blk /= n_bh;
+  const int r0 = (DKV ? blk % n_rt : n_rt - 1 - blk % n_rt) * kBwdWideRows;
+  const int c0 = blk / n_rt * kG;
+  const int ng = min(kG, nc - c0);
+  // Streamed tiles t0 .. t_end - 1: K2 the q tiles from the diagonal on,
+  // K3 the key tiles up to it.
+  int t0 = 0, t_end = ((DKV ? sq : sk) + kT - 1) / kT;
+  if (causal) {
+    if (DKV) {
+      t0 = r0 / kT;
+    } else {
+      t_end = min(t_end, (min(r0 + kBwdWideRows, sq) - 1) / kT + 1);
+    }
   }
+  const int n_tiles = max(t_end - t0, 0);
+  const int per = L.nr ? 1 : 2;  // ring items a partial chunk: Y, or X and Y
 
-  int n_kt = (sk + kDqCols - 1) / kDqCols;
-  if (causal) n_kt = min(n_kt, (min(q0 + kWideRows, sq) - 1) / kDqCols + 1);
-  const int n_items = n_kt * nc;
-
-  // Item it = key tile it / nc, k-chunk (c + 1 + it % nc) % nc: Qs's,
-  // dO's, K's and V's chunks in a stage at 0, 1, 2, 3 chunk tiles.
-  auto issue = [&](int it) {
-    if (it < n_items) {
-      const int kt = it / nc;
-      const int col = ((c + 1 + it % nc) % nc) * kWide;
-      const uint32_t st = sRing + (it % kWideStages) * L::kStage;
-      load_chunk_async<kWideRows, kWideThreads>(st, q, q0, sq, d, col);
-      load_chunk_async<kWideRows, kWideThreads>(st + kChunkTile, dout, q0, sq,
-                                                d, col);
-      load_chunk_async<kDqCols, kWideThreads>(st + 2 * kChunkTile, k,
-                                              kt * kDqCols, sk, d, col);
-      load_chunk_async<kDqCols, kWideThreads>(st + 3 * kChunkTile, v,
-                                              kt * kDqCols, sk, d, col);
-    }
-    cp_async_commit();
-  };
-  issue(0);
-  issue(1);
-
-  float dqa[kWide / 8][4];
-#pragma unroll
-  for (int i = 0; i < kWide / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
-  float s[kDqCols / 8][4], dp[kDqCols / 8][4];
-
-  for (int it = 0; it < n_items; ++it) {
-    const int st_off = (it % kWideStages) * L::kStage;
-    cp_async_wait<1>();
-    scale_tile<kWide, kWideRows, kWideThreads, InT>(smem + st_off, qscale);
-    fence_proxy_async();
-    __syncthreads();
-    issue(it + 2);
-    const int kt = it / nc, j = it % nc;
-    const uint32_t sQ = sRing + st_off;
-    const uint32_t sO = sQ + kChunkTile;
-    const uint32_t sK = sQ + 2 * kChunkTile;
-    const uint32_t sV = sQ + 3 * kChunkTile;
-
-    // S (+)= Qs K^T and dP (+)= dO V^T over this k-chunk.
-    fence_acc(s);
-    fence_acc(dp);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kWide / 16; ++kk) {
-      wgmma_ss<kDqCols, InT>(s, desc_kmajor<kWideRows>(sQ, 0, kk),
-                             desc_kmajor<kDqCols>(sK, 0, kk), j | kk);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kWide / 16; ++kk) {
-      wgmma_ss<kDqCols, InT>(dp, desc_kmajor<kWideRows>(sO, 0, kk),
-                             desc_kmajor<kDqCols>(sV, 0, kk), j | kk);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(s);
-    fence_acc(dp);
-    if (j != nc - 1) continue;
-
-    // The stage holds chunk c of K: dS and dQ += dS K as in flash_dq_body.
-    const int k0 = kt * kDqCols;
-    const bool edge = k0 + kDqCols > sk || (causal && k0 + kDqCols - 1 > q0);
-#pragma unroll
-    for (int jj = 0; jj < kDqCols / 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[jj][e], kLog2e, -lse2[e >> 1]));
-        if (edge && !valid_pair(row[e >> 1], k0 + jj * 8 + t * 2 + (e & 1),
-                                sq, sk, causal)) {
-          p = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int ww = 0; ww < 2; ++ww) {
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t b = bars + L.ring_bars(ww, j);
+        for (int s = 0; s < L.r; ++s) {
+          mbar_init(b + 8 * s, 1);
+          mbar_init(b + 8 * (L.r + s), 4);
         }
-        s[jj][e] = p * (dp[jj][e] - del[e >> 1]);
       }
     }
-    uint32_t dsa[kDqCols / 16][4];
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+  // This warpgroup's partial chunks w, w + 2, ... (n_s of them), and its
+  // output chunks own0, own0 + 2, ... of the group (n_own; K2 at most 1).
+  const int n_s = (nc - w + 1) / 2;
+  const int own0 = c0 + w;
+  const int n_own = w < ng ? (ng - w + 1) / 2 : 0;
+  // Partial chunk i, in ring order: the parity chunks ascending, K2's
+  // owned one moved last while resident; and whether the RS products
+  // read its Y slot in ring j (held until they retire: K3's K, K2's
+  // owned Qs and dO).
+  const int io = (own0 - w) / 2;
+  auto chunk = [&](int i) {
+    if (DKV && n_own && i >= io) {
+      return i == n_s - 1 ? own0 : w + 2 * (i + 1);
+    }
+    return w + 2 * i;
+  };
+  auto held = [&](int j, int i) {
+    return L.nr && n_own && (DKV ? i == n_s - 1 : j == 0);
+  };
+
+  auto make_ring = [&](int j, int m) {
+    BwdRing R;
+    R.slots = base + L.ring(w, j);
+    R.full = bars + L.ring_bars(w, j);
+    R.empty = R.full + 8 * L.r;
+    R.j = j;
+    R.m = m;
+    R.items = n_tiles * m;
+    R.rd = R.ph = R.rel = R.rel_ph = 0;
+    R.next = L.r;
+    return R;
+  };
+  // Ring 0 feeds S and (K3 above nc = 4) the reloads of dQ's K chunks,
+  // ring 1 dP. K2 runs with its operands resident (the launcher's nc = 4).
+  BwdRing rg0 = make_ring(0, n_s * per + (L.nr ? 0 : n_own));
+  BwdRing rg1 = make_ring(1, n_s * per);
+
+  // Rows row0.. of chunk c: a box of 64 rows (X) or kT (Y).
+  auto load = [&](uint32_t dst, const void* map, int c, int row0,
+                  uint32_t bar) {
+    tma_load_4d(dst, map, 0, row0, 2 * c, bh, bar);
+  };
+  // Item i of ring R into slot s: tile t0 + i / m; per partial chunk the
+  // X chunk when it rides the ring, then the tile's Y chunk; then the
+  // reloads of the owned Y chunks.
+  auto issue = [&](BwdRing& R, int i, int s) {
+    const int tile = t0 + i / R.m, p = i % R.m;
+    const uint32_t full = R.full + 8 * s, dst = R.slots + s * L.slot;
+    if (per == 2 && p < 2 * n_s && p % 2 == 0) {
+      mbar_expect_tx(full, kChunkTile);
+      load(dst, R.j ? tx2 : tx1, chunk(p / 2), r0, full);
+    } else {
+      const int c = p < n_s * per ? chunk(p / per) : own0 + 2 * (p - n_s * per);
+      mbar_expect_tx(full, kBwdHalfTile);
+      load(dst, R.j ? ty2 : ty1, c, tile * kT, full);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    if (w == 0 && L.nr) {
+      mbar_expect_tx(bars, 2 * L.nr * kChunkTile);
+      for (int c = 0; c < L.nr; ++c) {
+        load(base + c * kChunkTile, tx1, c, r0, bars);
+        load(base + (L.nr + c) * kChunkTile, tx2, c, r0, bars);
+      }
+    }
+    for (int i = 0; i < min(L.r, rg0.items); ++i) issue(rg0, i, i);
+    for (int i = 0; i < min(L.r, rg1.items); ++i) issue(rg1, i, i);
+  }
+
+  auto acquire = [&](BwdRing& R) {
+    mbar_wait(R.full + 8 * R.rd, R.ph);
+    const uint32_t a = R.slots + R.rd * L.slot;
+    if (++R.rd == L.r) R.rd = 0, R.ph ^= 1;
+    return a;
+  };
+  // Let the n oldest slots a ring holds go (one arrival a warp, after the
+  // warp's wgmma wait); thread 0 refills each once all four warps have.
+  auto release = [&](BwdRing& R, int n) {
+    for (int i = 0; i < n; ++i) {
+      if (lane == 0) mbar_arrive(R.empty + 8 * R.rel);
+      if (tid == 0 && R.next < R.items) {
+        mbar_wait(R.empty + 8 * R.rel, R.rel_ph);
+        issue(R, R.next, R.rel);
+      }
+      ++R.next;
+      if (++R.rel == L.r) R.rel = 0, R.rel_ph ^= 1;
+    }
+  };
+  // Slots to let go once the batches that read them retire: those of the
+  // batches before the newest, and the newest's.
+  int pend0 = 0, pend1 = 0, new0 = 0, new1 = 0;
+  auto committed = [&](int n0, int n1) {
+    wgmma_commit();
+    pend0 += new0;
+    pend1 += new1;
+    new0 = n0;
+    new1 = n1;
+  };
+  auto retire = [&](bool all) {
+    if (all) {
+      wgmma_wait<0>();
+      pend0 += new0;
+      pend1 += new1;
+      new0 = new1 = 0;
+    } else {
+      wgmma_wait<1>();
+    }
+    release(rg0, pend0);
+    release(rg1, pend1);
+    pend0 = pend1 = 0;
+  };
+  // q * scale in place over a slot this warpgroup has taken, then
+  // published to wgmma.
+  auto scale_slot = [&](uint32_t a, int bytes) {
+    scale_words<InT>(smem + (a - base), bytes / 16, tid, 128, qscale);
+    fence_proxy_async();
+    bar_sync(4 + w, 128);
+  };
+
+  if (L.nr && n_tiles > 0) {
+    mbar_wait(bars, 0);
+    if (!DKV) {  // K3's Qs: scale it once, then publish it to wgmma
+      scale_words<InT>(smem, L.nr * kChunkTile / 16, threadIdx.x, 256, qscale);
+      fence_proxy_async();
+      bar_sync(1, 256);
+    }
+  }
+  float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};  // K3: this thread's rows
+  if (!DKV) {
 #pragma unroll
-    for (int cc = 0; cc < kDqCols / 16; ++cc) acc_to_a_as<InT>(dsa[cc], s[2 * cc], s[2 * cc + 1]);
-    fence_acc(dqa);
-    fence_frag(dsa);
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] < sq) {
+        lse2[r] = lse[(size_t)bh * sq + row[r]] * kLog2e;
+        del[r] = delta[(size_t)bh * sq + row[r]];
+      }
+    }
+  }
+  // K2: the q tile's lse * log2 e, then delta, a buffer per tile parity.
+  float* stats = reinterpret_cast<float*>(smem + L.stats());
+
+  float acc[2][kWide / 8][4];  // K3: dQ of own0, own0 + 2; K2: dK, dV of own0
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kWide / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+  float s[kT / 8][4], dp[kT / 8][4];
+  // K3's dS, apart from S: written over S, it made ptxas serialize every
+  // wgmma of the kernel (its note C7515).
+  float ds[kT / 8][4];
+  uint32_t fa[kT / 16][4], fb[kT / 16][4];  // K3: dS; K2: P^T, dS^T
+  uint32_t ya0 = 0, ya1 = 0, yb = 0;        // the slots the RS products read
+
+  // One k-chunk batch of a partial from ring R: a (+)= X_c Y_c^T over
+  // chunk(i)'s 128 columns (ring 0: S, ring 1: dP). Returns Y_c's slot.
+  auto partial = [&](BwdRing& R, float (&a)[kT / 8][4], int i) {
+    const int c = chunk(i);
+    uint32_t xa = base + (R.j * L.nr + c) * kChunkTile;
+    if (!L.nr) {
+      xa = acquire(R);
+      if (!DKV && R.j == 0) scale_slot(xa, kChunkTile);
+    }
+    const uint32_t ya = acquire(R);
+    if (DKV && R.j == 0) scale_slot(ya, kBwdHalfTile);
     wgmma_fence();
 #pragma unroll
-    for (int cc = 0; cc < kDqCols / 16; ++cc) {
-      wgmma_rs<kWide, InT>(dqa, dsa[cc], desc_mnmajor<kDqCols>(sK, cc));
+    for (int kk = 0; kk < kWide / 16; ++kk) {
+      wgmma_ss<kT, InT>(a, desc_kmajor<64>(xa, 0, kk),
+                        desc_kmajor<kT>(ya, 0, kk), i | kk);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(dqa);
-    fence_frag(dsa);
+    const int n = L.nr ? (held(R.j, i) ? 0 : 1) : 2;
+    committed(R.j ? 0 : n, R.j ? n : 0);
+    retire(!L.nr);
+    return ya;
+  };
+  // The partials of tile it (K2 first stages its lse and delta).
+  auto partials = [&](int it) {
+    if (DKV && threadIdx.x < 2 * kT) {
+      const int q = (t0 + it) * kT + threadIdx.x % kT;
+      float v = 0.f;
+      if (q < sq) {
+        v = threadIdx.x < kT ? lse[(size_t)bh * sq + q] * kLog2e
+                             : delta[(size_t)bh * sq + q];
+      }
+      stats[(it & 1) * 2 * kT + threadIdx.x] = v;
+    }
+    fence_acc(s);
+    fence_acc(dp);
+    if (DKV) {
+      for (int i = 0; i < n_s; ++i) {
+        const uint32_t a = partial(rg0, s, i);
+        const uint32_t b = partial(rg1, dp, i);
+        if (held(0, i)) ya0 = a, yb = b;
+      }
+    } else {
+      for (int i = 0; i < n_s; ++i) partial(rg1, dp, i);
+      for (int i = 0; i < n_s; ++i) {
+        const uint32_t a = partial(rg0, s, i);
+        if (held(0, i)) {
+          if (i == 0) {
+            ya0 = a;
+          } else {
+            ya1 = a;
+          }
+        }
+      }
+    }
+  };
+  // K3: dQ += dS K over this warpgroup's n owned chunks, one batch.
+  auto dq_product = [&](auto n) {
+    if (!L.nr) {  // the reloads of K's owned chunks
+      ya0 = acquire(rg0);
+      if (decltype(n)::value == 2) ya1 = acquire(rg0);
+    }
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    fence_frag(fa);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < decltype(n)::value; ++i) {
+#pragma unroll
+      for (int cc = 0; cc < kT / 16; ++cc) {
+        wgmma_rs<kWide, InT>(acc[i], fa[cc],
+                             desc_mnmajor<kT>(i ? ya1 : ya0, cc));
+      }
+    }
+    committed(decltype(n)::value, 0);
+  };
+
+  float4* x = reinterpret_cast<float4*>(smem + L.x());  // [w][S, dP][4][128]
+  if (n_tiles > 0) {
+    partials(0);
+    retire(true);
+    fence_acc(s);
+    fence_acc(dp);
   }
-  cp_async_wait<0>();
+  for (int it = 0; it < n_tiles; ++it) {
+    // S and dP = the two partials: store this warpgroup's once the other
+    // has read the last ones, and add the other's to them.
+    if (it > 0) bar_sync(2 + w, 256);
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      x[((w * 2) * 4 + j) * 128 + tid] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      x[((w * 2 + 1) * 4 + j) * 128 + tid] = make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+    }
+    bar_sync(1, 256);
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      const float4 y = x[(((1 - w) * 2) * 4 + j) * 128 + tid];
+      s[j][0] += y.x;
+      s[j][1] += y.y;
+      s[j][2] += y.z;
+      s[j][3] += y.w;
+      const float4 z = x[(((1 - w) * 2 + 1) * 4 + j) * 128 + tid];
+      dp[j][0] += z.x;
+      dp[j][1] += z.y;
+      dp[j][2] += z.z;
+      dp[j][3] += z.w;
+    }
+    if (it + 1 < n_tiles) bar_arrive(3 - w, 256);
+
+    const int k0 = (t0 + it) * kT;  // the tile's first streamed row
+    if (!DKV && n_own) {
+      // dS = P (dP - delta), P = exp(S - lse), masked to 0 on the tiles
+      // that cross the diagonal or the key tail (rows past sq are not
+      // stored, and each row of dQ takes only its own row of dS).
+      const bool edge = k0 + kT > sk || (causal && k0 + kT - 1 > r0);
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[j][e], kLog2e, -lse2[e >> 1]));
+          if (edge && !valid_pair(row[e >> 1], k0 + j * 8 + t * 2 + (e & 1),
+                                  sq, sk, causal)) {
+            p = 0.f;
+          }
+          ds[j][e] = p * (dp[j][e] - del[e >> 1]);
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < kT / 16; ++cc) acc_to_a_as<InT>(fa[cc], ds[2 * cc], ds[2 * cc + 1]);
+      if (n_own == 2) {
+        dq_product(std::integral_constant<int, 2>{});
+      } else {
+        dq_product(std::integral_constant<int, 1>{});
+      }
+    }
+    if (DKV && n_own) {
+      // P^T = exp(S^T - lse), masked to 0 on the edge tiles (keys past sk
+      // reach only their own, unstored, rows of dK and dV); dV += P^T dO;
+      // dS^T = P^T (dP^T - delta); dK += dS^T Qs.
+      const float* st = stats + (it & 1) * 2 * kT;
+      const bool edge = k0 + kT > sq || (causal && k0 < r0 + kBwdWideRows - 1);
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + t * 2 + (e & 1);
+          float p = exp2f(fmaf(s[j][e], kLog2e, -st[qc]));
+          if (edge && !valid_pair(k0 + qc, row[e >> 1], sq, sk, causal)) p = 0.f;
+          s[j][e] = p;
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < kT / 16; ++cc) acc_to_a_as<InT>(fa[cc], s[2 * cc], s[2 * cc + 1]);
+      fence_acc(acc[1]);
+      fence_frag(fa);
+      wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < kT / 16; ++cc) {
+        wgmma_rs<kWide, InT>(acc[1], fa[cc], desc_mnmajor<kT>(yb, cc));
+      }
+      committed(0, 1);
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= dp[j][e] - st[kT + j * 8 + t * 2 + (e & 1)];
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < kT / 16; ++cc) acc_to_a_as<InT>(fb[cc], s[2 * cc], s[2 * cc + 1]);
+      fence_acc(acc[0]);
+      fence_frag(fb);
+      wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < kT / 16; ++cc) {
+        wgmma_rs<kWide, InT>(acc[0], fb[cc], desc_mnmajor<kT>(ya0, cc));
+      }
+      committed(1, 0);
+    }
+
+    // The next tile's partials behind the RS products; all retire here.
+    if (it + 1 < n_tiles) partials(it + 1);
+    retire(true);
+    fence_acc(s);
+    fence_acc(dp);
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    fence_frag(fa);
+    fence_frag(fb);
+  }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= sq) continue;
-    OutT* dqr = dq + (size_t)row[r] * d;
+    if (row[r] >= (DKV ? sk : sq)) continue;
+    const size_t at = ((size_t)bh * (DKV ? sk : sq) + row[r]) * d + own0 * kWide;
 #pragma unroll
-    for (int i = 0; i < kWide / 8; ++i) {
-      *reinterpret_cast<typename Pair<OutT>::T*>(dqr + i * 8 + t * 2) =
-          Pair<OutT>::of(dqa[i][2 * r] * scale, dqa[i][2 * r + 1] * scale);
+    for (int i = 0; i < 2; ++i) {
+      if (i >= n_own || (DKV && i > 0)) break;
+#pragma unroll
+      for (int j = 0; j < kWide / 8; ++j) {
+        const int col = i * 2 * kWide + j * 8 + t * 2;
+        if (DKV) {
+          *reinterpret_cast<typename Pair<OutT>::T*>(out1 + at + col) =
+              Pair<OutT>::of(acc[0][j][2 * r], acc[0][j][2 * r + 1]);
+          *reinterpret_cast<typename Pair<OutT>::T*>(out2 + at + col) =
+              Pair<OutT>::of(acc[1][j][2 * r], acc[1][j][2 * r + 1]);
+        } else {
+          *reinterpret_cast<typename Pair<OutT>::T*>(out1 + at + col) =
+              Pair<OutT>::of(acc[i][j][2 * r] * scale,
+                             acc[i][j][2 * r + 1] * scale);
+        }
+      }
     }
   }
+}
+
+template <typename InT, typename OutT>
+__device__ __forceinline__ void
+flash_dkv_wide_body(const void* tk, const void* tv, const void* tq,
+                    const void* tdo, const float* __restrict__ lse,
+                    const float* __restrict__ delta, OutT* __restrict__ dk,
+                    OutT* __restrict__ dv, int n_bh, int sq, int sk, int d,
+                    float qscale, int causal) {
+  flash_bwd_wide_body<true, InT, OutT>(tk, tv, tq, tdo, lse, delta, dk, dv,
+                                       n_bh, sq, sk, d, qscale, 1.f, causal);
+}
+
+template <typename InT, typename OutT>
+__device__ __forceinline__ void
+flash_dq_wide_body(const void* tq, const void* tdo, const void* tk,
+                   const void* tv, const float* __restrict__ lse,
+                   const float* __restrict__ delta, OutT* __restrict__ dq,
+                   int n_bh, int sq, int sk, int d, float qscale, float scale,
+                   int causal) {
+  flash_bwd_wide_body<false, InT, OutT>(tq, tdo, tk, tv, lse, delta, dq,
+                                        nullptr, n_bh, sq, sk, d, qscale,
+                                        scale, causal);
 }
 
 // The kernels of one form: flash_{fwd,dkv,dq}<PREFIX>_kernel<D> for
@@ -1600,25 +2053,39 @@ flash_dq_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
     flash_fwd_wide_body<InT, OutT>(&tq, &tk, &tv, o, lse, bh, sq, sk, d,      \
                                    qscale, causal);                           \
   }                                                                           \
-  __global__ void __launch_bounds__(kWideThreads)                            \
+  __global__ void __launch_bounds__(kBwdWideThreads)                         \
       flash_dkv##PREFIX##_wide_kernel(                                        \
+          const __grid_constant__ CUtensorMap tk,                             \
+          const __grid_constant__ CUtensorMap tv,                             \
+          const __grid_constant__ CUtensorMap tq,                             \
+          const __grid_constant__ CUtensorMap tdo,                            \
+          const float* __restrict__ lse, const float* __restrict__ delta,     \
+          OutT* __restrict__ dk, OutT* __restrict__ dv, int bh, int sq,       \
+          int sk, int d, float qscale, int causal) {                          \
+    flash_dkv_wide_body<InT, OutT>(&tk, &tv, &tq, &tdo, lse, delta, dk, dv,   \
+                                   bh, sq, sk, d, qscale, causal);            \
+  }                                                                           \
+  __global__ void __launch_bounds__(kWideThreads)                            \
+      flash_dkv##PREFIX##_chunk_kernel(                                       \
           const InT* __restrict__ q, const InT* __restrict__ k,               \
           const InT* __restrict__ v, const InT* __restrict__ dout,            \
           const float* __restrict__ lse, const float* __restrict__ delta,     \
           OutT* __restrict__ dk, OutT* __restrict__ dv, int sq, int sk,       \
           int d, float qscale, int causal) {                                  \
-    flash_dkv_wide_body<InT, OutT>(q, k, v, dout, lse, delta, dk, dv, sq, sk, \
-                                   d, qscale, causal);                        \
+    flash_dkv_chunk_body<InT, OutT>(q, k, v, dout, lse, delta, dk, dv, sq,    \
+                                    sk, d, qscale, causal);                   \
   }                                                                           \
-  __global__ void __launch_bounds__(kWideThreads)                            \
+  __global__ void __launch_bounds__(kBwdWideThreads)                         \
       flash_dq##PREFIX##_wide_kernel(                                         \
-          const InT* __restrict__ q, const InT* __restrict__ k,               \
-          const InT* __restrict__ v, const InT* __restrict__ dout,            \
+          const __grid_constant__ CUtensorMap tq,                             \
+          const __grid_constant__ CUtensorMap tdo,                            \
+          const __grid_constant__ CUtensorMap tk,                             \
+          const __grid_constant__ CUtensorMap tv,                             \
           const float* __restrict__ lse, const float* __restrict__ delta,     \
-          OutT* __restrict__ dq, int sq, int sk, int d, float qscale,         \
+          OutT* __restrict__ dq, int bh, int sq, int sk, int d, float qscale, \
           float scale, int causal) {                                          \
-    flash_dq_wide_body<InT, OutT>(q, k, v, dout, lse, delta, dq, sq, sk, d,   \
-                                  qscale, scale, causal);                     \
+    flash_dq_wide_body<InT, OutT>(&tq, &tdo, &tk, &tv, lse, delta, dq, bh,    \
+                                  sq, sk, d, qscale, scale, causal);          \
   }                                                                           \
   struct FlashKernels##PREFIX {                                               \
     template <int D>                                                          \
@@ -1629,6 +2096,7 @@ flash_dq_wide_body(const InT* __restrict__ q, const InT* __restrict__ k,
     static auto dq() { return flash_dq##PREFIX##_kernel<D>; }                 \
     static auto fwd_wide() { return flash_fwd##PREFIX##_wide_kernel; }        \
     static auto dkv_wide() { return flash_dkv##PREFIX##_wide_kernel; }        \
+    static auto dkv_chunk() { return flash_dkv##PREFIX##_chunk_kernel; }      \
     static auto dq_wide() { return flash_dq##PREFIX##_wide_kernel; }          \
   };
 
@@ -1708,21 +2176,22 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A [n_bh, rows, d] 16-bit tensor seen as [n_bh, d / 64, rows, 64] (the
-// 64-column blocks outside the rows), in boxes of 64 rows x 64 columns x
-// 2 blocks, 128-byte swizzled: one box is a [64, 128] chunk in the
-// sw128 layout (block 0's 64 rows, then block 1's). Coordinates (column
-// in the block, row, block, head); box rows past `rows` land as zeros.
-// The copy moves 16-bit words, bf16 and fp16 alike. False if the
-// encoding is refused (a base not 16-byte aligned).
+// 64-column blocks outside the rows), in boxes of box_rows rows x 64
+// columns x 2 blocks, 128-byte swizzled: one box is a [box_rows, 128]
+// chunk in the sw128 layout (block 0's rows, then block 1's).
+// Coordinates (column in the block, row, block, head); box rows past
+// `rows` land as zeros. The copy moves 16-bit words, bf16 and fp16
+// alike. False if the encoding is refused (a base not 16-byte aligned).
 inline bool chunk_map(CUtensorMap* map, const void* base, int n_bh, int rows,
-                      int d) {
+                      int d, int box_rows = 64) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {64, (cuuint64_t)rows, (cuuint64_t)d / 64,
                               (cuuint64_t)n_bh};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, 128,
                                  (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[4] = {64, 64, 2, 1}, unit[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1731,8 +2200,7 @@ inline bool chunk_map(CUtensorMap* map, const void* base, int n_bh, int rows,
 }
 
 // Launchers of one form's _wide kernels: d a multiple of kWide above 256.
-// K1: one block per (64-row q tile, head, group of G chunks), in block x;
-// K2, K3: grid z the chunks.
+// K1: one block per (64-row q tile, head, group of G chunks), in block x.
 template <typename Ks, typename InT, typename OutT>
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int sq, int sk, int d,
@@ -1755,21 +2223,64 @@ cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K2 (DKV) or K3: one block per (64-row tile, head, group of chunks), in
+// block x; the own rows' maps in 64-row boxes, the streamed ones' in
+// kBwdWideCols-row boxes.
+template <bool DKV, typename K, typename OutT>
+cudaError_t launch_bwd_wide(K kernel, const void* q, const void* k,
+                            const void* v, const void* dout, const void* lse,
+                            const void* delta, void* out1, void* out2, int bh,
+                            int sq, int sk, int d, float qscale, float scale,
+                            int causal, cudaStream_t stream) {
+  // K2's pairs of output chunks read their operands resident: d = 512.
+  if (DKV && d != 4 * kWide) return cudaErrorInvalidValue;
+  const int smem = BwdWideSmem(d / kWide).bytes();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int own = DKV ? sk : sq, str = DKV ? sq : sk;
+  CUtensorMap x1, x2, y1, y2;
+  if (!chunk_map(&x1, DKV ? k : q, bh, own, d, kBwdWideRows) ||
+      !chunk_map(&x2, DKV ? v : dout, bh, own, d, kBwdWideRows) ||
+      !chunk_map(&y1, DKV ? q : k, bh, str, d, kBwdWideCols) ||
+      !chunk_map(&y2, DKV ? dout : v, bh, str, d, kBwdWideCols)) {
+    return cudaErrorInvalidValue;
+  }
+  const int group = DKV ? 2 : 4;
+  const long long blocks = (long long)((own + kBwdWideRows - 1) / kBwdWideRows) *
+                           bh * ((d / kWide + group - 1) / group);
+  if (blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  if constexpr (DKV) {
+    kernel<<<(unsigned)blocks, kBwdWideThreads, smem, stream>>>(
+        x1, x2, y1, y2, (const float*)lse, (const float*)delta, (OutT*)out1,
+        (OutT*)out2, bh, sq, sk, d, qscale, causal);
+  } else {
+    kernel<<<(unsigned)blocks, kBwdWideThreads, smem, stream>>>(
+        x1, x2, y1, y2, (const float*)lse, (const float*)delta, (OutT*)out1,
+        bh, sq, sk, d, qscale, scale, causal);
+  }
+  return cudaGetLastError();
+}
+
 template <typename Ks, typename InT, typename OutT>
 cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int bh,
                             int sq, int sk, int d, float qscale, int causal,
                             cudaStream_t stream) {
-  const auto kernel = Ks::dkv_wide();
-  cudaError_t err = prepare(kernel, BwdWideSmem::kBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, (sk + kWideRows - 1) / kWideRows, d / kWide);
-  kernel<<<grid, kWideThreads, BwdWideSmem::kBytes, stream>>>(
-      (const InT*)q, (const InT*)k, (const InT*)v, (const InT*)dout,
-      (const float*)lse, (const float*)delta, (OutT*)dk, (OutT*)dv, sq, sk,
-      d, qscale, causal);
-  return cudaGetLastError();
+  if (d != 4 * kWide) {  // one chunk a CTA, grid z the chunks
+    const auto kernel = Ks::dkv_chunk();
+    cudaError_t err = prepare(kernel, BwdChunkSmem::kBytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, (sk + kWideRows - 1) / kWideRows, d / kWide);
+    kernel<<<grid, kWideThreads, BwdChunkSmem::kBytes, stream>>>(
+        (const InT*)q, (const InT*)k, (const InT*)v, (const InT*)dout,
+        (const float*)lse, (const float*)delta, (OutT*)dk, (OutT*)dv, sq, sk,
+        d, qscale, causal);
+    return cudaGetLastError();
+  }
+  return launch_bwd_wide<true, decltype(Ks::dkv_wide()), OutT>(
+      Ks::dkv_wide(), q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
+      qscale, 1.f, causal, stream);
 }
 
 template <typename Ks, typename InT, typename OutT>
@@ -1778,15 +2289,9 @@ cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
                            const void* delta, void* dq, int bh, int sq,
                            int sk, int d, float qscale, float scale,
                            int causal, cudaStream_t stream) {
-  const auto kernel = Ks::dq_wide();
-  cudaError_t err = prepare(kernel, BwdWideSmem::kBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, (sq + kWideRows - 1) / kWideRows, d / kWide);
-  kernel<<<grid, kWideThreads, BwdWideSmem::kBytes, stream>>>(
-      (const InT*)q, (const InT*)k, (const InT*)v, (const InT*)dout,
-      (const float*)lse, (const float*)delta, (OutT*)dq, sq, sk, d, qscale,
-      scale, causal);
-  return cudaGetLastError();
+  return launch_bwd_wide<false, decltype(Ks::dq_wide()), OutT>(
+      Ks::dq_wide(), q, k, v, dout, lse, delta, dq, nullptr, bh, sq, sk, d,
+      qscale, scale, causal, stream);
 }
 
 // The head dims the library is built for; flash_attention.py's HEAD_DIMS

@@ -1,7 +1,7 @@
 // Hopper building blocks of the flash kernels K1-K3
 // (flash_attention.cu): wgmma products on 128-byte-swizzled shared-memory
 // tiles, and an asynchronous cp.async tile ring that fills them; for the
-// head dims above 256 of K1, TMA box copies into the same layout, and
+// head dims above 256 (K1-K3), TMA box copies into the same layout, and
 // the mbarriers and named barriers of a producer/consumer ring.
 //
 // Element types. Every tile and product here takes bf16 or fp16 (T, a
@@ -139,6 +139,29 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 // B from shared memory; RS: A from registers. TRANS_B 0 reads B K-major,
 // 1 MN-major. accumulate 0 overwrites d. Each body is a macro over the
 // PTX type name, so the bf16 and fp16 forms are one text.
+#define HVD_WGMMA_SS_N32(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+  "%16, %17, p, 1, 1, 0, %19;\n}\n" \
+  : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]) \
+  : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B))
+
+template <int TRANS_B, typename T = bf16>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    HVD_WGMMA_SS_N32("bf16");
+  } else {
+    static_assert(std::is_same<T, half>::value, "T is bf16 or half");
+    HVD_WGMMA_SS_N32("f16");
+  }
+}
+
 #define HVD_WGMMA_SS_N64(TY) \
   asm volatile( \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
@@ -265,12 +288,14 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
   }
 }
 
-// SS product with a K-major B of N = 64 or 128 rows.
+// SS product with a K-major B of N = 32, 64 or 128 rows.
 template <int N, typename T = bf16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4],
                                          uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32<0, T>(d, desc_a, desc_b, accumulate);
+  } else if constexpr (N == 64) {
     wgmma_ss_n64<0, T>(d, desc_a, desc_b, accumulate);
   } else {
     static_assert(N == 128, "N is 64 or 128");

@@ -35,6 +35,22 @@ fp16 5e-3 of max |plain| (lse 1e-3 absolute), fp32 2e-5 of max |plain|
 on O and lse, 1e-4 on dQ, dK and dV; each repeats bit for bit, and the
 fp16 form's fp32 outputs round to the fp16 form's bits (at head dims 64,
 256 and 512, as the bf16 form's do at 96, 128 and 512).
+
+The 16-bit ``_wide`` backward (K2 and K3 above head dim 256: K3 owns 64
+q rows and up to four output chunks, S and dP split between two
+warpgroups by chunk parity, 32-key tiles through TMA rings; K2 the same
+at head dim 512 and one output chunk a CTA at the others) at its edges:
+head dims 264 (padded to 384: three chunks, one warpgroup's parity one
+chunk short), 512 and 640 (two groups of K3); sequences of 100, 150 and
+192 (a 32-row tile partly and wholly past the end, a 64-row tile partly
+past it), causal and not, ragged sq != sk; every 16-bit form against its
+plain version at the tolerances above, repeats bit for bit; and views
+into NaN-filled buffers at those head dims give what clean copies give.
+Its schedule's own claims, bit for bit: K3 at 640 (two groups, operands
+streamed) on operands zero past column 512 gives K3 at 512 (one group,
+operands resident) on the rest; and with column chunk 1 of every operand
+a copy of chunk 0, chunks 0 and 1 of dQ, dK and dV (warpgroups 0 and 1)
+are equal.
 """
 
 import pytest
@@ -125,7 +141,9 @@ def test_repeats_are_bit_identical(cuda_kernels, d):
 
 
 @pytest.mark.parametrize("s,d,causal", [(129, 128, True), (200, 64, False),
-                                        (64, 128, True), (1, 64, True)])
+                                        (64, 128, True), (1, 64, True),
+                                        (100, 512, True), (150, 640, False),
+                                        (192, 264, True)])
 def test_nothing_past_the_sequence_is_read(cuda_kernels, s, d, causal):
     """bh = 1 operands that are views buf[:s] of buffers whose rows past
     s are NaN give the results of clean copies, bit for bit."""
@@ -312,3 +330,89 @@ def test_fp16_fp32_outputs_round_to_the_fp16_forms(cuda_kernels, d):
     assert fa.launch_counts() == _keys(
         d, flash_fwd_f16=1, flash_dkv_f16=1, flash_dq_f16=1,
         flash_fwd_f16_f32=1, flash_dkv_f16_f32=1, flash_dq_f16_f32=1)
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(True, 100, 100), (False, 150, 100),
+                                          (True, 192, 150), (False, 100, 192)])
+@pytest.mark.parametrize("d", [264, 512, 640])
+@pytest.mark.parametrize("form", ["bf16", "bf16_f32", "f16", "f16_f32"])
+def test_wide_backward_edges_match_plain(cuda_kernels, form, d, causal, sq,
+                                         sk):
+    dtype, out, _, gtol, _, _ = FORMS[form]
+    g = torch.Generator(device="cuda").manual_seed(3 * d + sq + sk)
+    q, do = (torch.randn(2, sq, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, sk, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = d ** -0.5
+    o_ref, lse = fa.flash_fwd_reference(q, k, v, scale, causal, out)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    want = fa.flash_bwd_reference(q, k, v, do, lse, delta, scale, causal, out)
+    runs = [(fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, causal, out),
+             *fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale, causal, out))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for got, ref in zip(runs[0], want):
+        assert got.dtype == ref.dtype
+        assert _rel(got, ref) <= gtol
+
+
+def _wide_operands(form, d, sq, sk, seed):
+    dtype = FORMS[form][0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(2, sq, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, sk, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(True, 150, 150),
+                                          (False, 100, 192)])
+@pytest.mark.parametrize("form", ["bf16", "bf16_f32", "f16", "f16_f32"])
+def test_wide_dq_groups_do_not_change_the_bits(cuda_kernels, form, causal,
+                                               sq, sk):
+    """K3 at D = 640 (two groups of output chunks, S and dP computed
+    anew in each, every operand streamed) on operands whose last 128
+    columns are zero gives, bit for bit, K3 at D = 512 (one group, the
+    own rows' operands resident) on the first 512 columns, and zeros in
+    the last chunk; both take the same lse, delta and scale."""
+    out = FORMS[form][1]
+    q, k, v, do = _wide_operands(form, 640, sq, sk, 7 * sq + sk)
+    for x in (q, k, v, do):
+        x[..., 512:] = 0
+    narrow = [x[..., :512].contiguous() for x in (q, k, v, do)]
+    scale = 512 ** -0.5
+    lse, delta = _stats(*narrow, causal)
+    wide = fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, causal, out)
+    dq = fa.flash_dq_cuda(*narrow, lse, delta, scale, causal, out)
+    torch.cuda.synchronize()
+    assert torch.equal(wide[..., :512], dq)
+    assert not wide[..., 512:].any()
+
+
+@pytest.mark.parametrize("d", [512, 640])
+@pytest.mark.parametrize("form", ["bf16", "bf16_f32", "f16", "f16_f32"])
+def test_both_warpgroups_hold_the_same_scores(cuda_kernels, form, d):
+    """Output chunks 0 and 1 belong to warpgroups 0 and 1 (K3's dQ at
+    both head dims, K2's pair at 512), each of which adds the other's
+    partial S and dP to its own. With column chunk 1 of every operand a
+    copy of chunk 0, the two chunks of those outputs come out bit for bit
+    equal only if both warpgroups hold the same P and dS. (At 640 K2
+    runs its one-chunk form, whose CTA for chunk c sums S^T over the
+    k-chunks from c + 1 on, so its chunks' bits may differ.)"""
+    out = FORMS[form][1]
+    q, k, v, do = _wide_operands(form, d, 150, 150, d)
+    for x in (q, k, v, do):
+        x[..., 128:256] = x[..., :128]
+    lse, delta = _stats(q, k, v, do, True)
+    scale = d ** -0.5
+    dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, scale, True, out)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, scale, True, out)
+    torch.cuda.synchronize()
+    grads = {"dq": dq, "dk": dk, "dv": dv} if d == 512 else {"dq": dq}
+    for name, g in grads.items():
+        assert g[..., :128].abs().max() > 0, name
+        assert torch.equal(g[..., :128], g[..., 128:256]), name
